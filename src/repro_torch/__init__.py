@@ -1,0 +1,7 @@
+"""PyTorch/CUDA port of the ``repro`` serving stack for NVIDIA Hopper.
+
+The JAX package (``src/repro``) is the reference; this package keeps its
+module layout so each module's counterpart is easy to find, and imports
+``torch`` only — never ``jax`` and nothing of ``repro``.  Entry points
+run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""

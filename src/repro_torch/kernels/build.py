@@ -1,0 +1,85 @@
+"""Builds the port's CUDA kernels and loads them through ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles with
+``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared
+library, ``build/kernels/<name>-<hash>.so`` at the root of the checkout
+(git-ignored).  The hash covers the source and the flags, so an edited
+source rebuilds on its next use.  ``build_all`` compiles every stale
+source at once, one ``nvcc`` process each.  Nothing happens at import:
+the CPU tests import this module on machines without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+CUDA_NVCC = "/usr/local/cuda/bin/nvcc"     # used when nvcc is not on PATH
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> Dict[str, Path]:
+    return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
+
+
+def _lib_path(src: Path) -> Path:
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.path.exists(CUDA_NVCC):
+        return CUDA_NVCC
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+    """Compile every stale source (or the ones named), all ``nvcc``
+    processes started together.  Returns {name: ptxas report} for what
+    was compiled; raises with the compiler's output on a failure."""
+    srcs = sources()
+    todo = {n: srcs[n] for n in (names or srcs)
+            if not _lib_path(srcs[n]).exists()}
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name, src in todo.items():
+        tmp = _lib_path(src).with_suffix(f".tmp{os.getpid()}")
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    reports, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        reports[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{out}")
+            continue
+        os.replace(tmp, _lib_path(todo[name]))
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return reports
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu``, built if stale."""
+    if name not in _loaded:
+        build_all([name])
+        _loaded[name] = ctypes.CDLL(str(_lib_path(sources()[name])))
+    return _loaded[name]

@@ -1,0 +1,203 @@
+"""Paged decode attention: the CUDA kernel's wrapper and its plain twin.
+
+``flash_attention_decode_paged`` is the port of the TPU kernel
+``src/repro/kernels/flash_attention.py::flash_attention_decode_paged``
+(its ``pallas_call`` at line 523).  On CUDA tensors it launches the
+hand-written Hopper kernel ``csrc/flash_decode_paged.cu`` (built with
+nvcc for sm_90a at first use, see ``kernels/build.py``) or raises; on
+CPU tensors it runs ``flash_attention_decode_paged_plain``, the same
+function in plain PyTorch, which the CPU tests hold against the JAX
+kernel and ``chip_smoke.py`` holds the CUDA kernel against on the card.
+
+The kernel is bound by bytes: the live K/V pages it must read once over
+the card's HBM bandwidth.  ``csrc/flash_decode_paged.cu`` says how its
+design meets that and what is left for later.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+NEG_INF = -1e30
+F32 = torch.float32
+
+
+def flash_attention_decode_paged_plain(
+        q, k_pages, v_pages, block_tab, pos, window: Optional[int] = None,
+        page_base=None, k_scale_pages=None, v_scale_pages=None,
+        scale: Optional[float] = None):
+    """Plain PyTorch version of the kernel: same inputs, same skipping,
+    masking (NEG_INF), empty-row (0) and output-dtype rules, computed in
+    fp32 as one masked softmax per row instead of the kernel's
+    page-by-page online softmax."""
+    b, hq, sq, d = q.shape
+    n_pages, hkv, page, _ = k_pages.shape
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    if (k_scale_pages is None) != (v_scale_pages is None):
+        raise ValueError("k/v scale pages must be passed together")
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / np.sqrt(d)
+    n_blocks = block_tab.shape[1]
+    dev = q.device
+    bt = block_tab.to(torch.int64).clamp(0, n_pages - 1)
+    kd = k_pages[bt].to(F32)                          # (b, nb, hkv, page, d)
+    vd = v_pages[bt].to(F32)
+    if k_scale_pages is not None:
+        kd = kd * k_scale_pages[bt].to(F32)
+        vd = vd * v_scale_pages[bt].to(F32)
+    S = n_blocks * page
+    kd = kd.transpose(1, 2).reshape(b, hkv, S, d)
+    vd = vd.transpose(1, 2).reshape(b, hkv, S, d)
+    qg = q.reshape(b, hkv, group, sq, d).to(F32) * scale
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kd)     # (b, hkv, g, sq, S)
+
+    pos = pos.to(torch.int64).reshape(-1).expand(b)
+    start = (page_base.to(torch.int64) if page_base is not None else
+             (torch.arange(n_blocks, device=dev) * page).expand(b, n_blocks))
+    # page-level skipping, exactly as the kernel decides it.
+    active = start <= (pos + sq - 1)[:, None]
+    if page_base is not None:
+        active &= start >= 0
+    if window is not None:
+        active &= start + page - 1 > (pos - window)[:, None]
+    kpos = (start[:, :, None] + torch.arange(page, device=dev)).reshape(b, S)
+    qpos = pos[:, None] + torch.arange(sq, device=dev)           # (b, sq)
+    valid = (kpos[:, None, :] <= qpos[:, :, None]) \
+        & active.repeat_interleave(page, dim=1)[:, None, :]
+    if page_base is not None:
+        valid &= (kpos >= 0)[:, None, :]
+    if window is not None:
+        valid &= kpos[:, None, :] > qpos[:, :, None] - window
+    valid = valid[:, None, None]                      # (b, 1, 1, sq, S)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, vd)
+    o = o / torch.where(l == 0, torch.ones_like(l), l)   # empty row -> 0
+    return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    from . import build
+    lib = build.library("flash_decode_paged")
+    fn = lib.flash_decode_paged
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"flash_attention_decode_paged: {msg}")
+
+
+def flash_attention_decode_paged(
+        q, k_pages, v_pages, block_tab, pos, window: Optional[int] = None,
+        page_base=None, k_scale_pages=None, v_scale_pages=None,
+        scale: Optional[float] = None):
+    """Decode attention over a *paged* KV cache.
+
+    q: (b, hq, sq, d) — sq == 1 is the plain decode step, sq > 1 a verify
+    span whose rows sit at pos..pos+sq-1, each with its own causal band;
+    k_pages/v_pages: (n_pages, hkv, page, d) shared pools; block_tab:
+    (b, n_blocks) int32 physical page per logical page (entries outside
+    [0, n_pages) are clamped — they are skipped or masked); pos: (b,)
+    int32 position of the first query row.  ``window`` applies the
+    per-row (qpos - window, qpos] band; ``page_base`` (b, n_blocks) int32
+    gives ring-of-pages base positions (negative = never written);
+    ``k_scale_pages``/``v_scale_pages`` (n_pages, hkv, page, 1) bf16
+    dequantize int8 pools.  Returns (b, hq, sq, d) in q's dtype.
+
+    CPU tensors run the plain version.  CUDA tensors launch the kernel
+    (q f32 or bf16; pools bf16, or int8 with bf16 scales; all contiguous,
+    int32 tables) on the current stream, or raise.  Each launch adds one
+    to ``flash_attention_decode_paged.launches``.
+    """
+    tensors = [t for t in (q, k_pages, v_pages, block_tab, pos, page_base,
+                           k_scale_pages, v_scale_pages) if t is not None]
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        return flash_attention_decode_paged_plain(
+            q, k_pages, v_pages, block_tab, pos, window=window,
+            page_base=page_base, k_scale_pages=k_scale_pages,
+            v_scale_pages=v_scale_pages, scale=scale)
+    _require(len(devices) == 1 and q.device.type == "cuda",
+             f"all tensors must be on one CUDA device (got {devices})")
+
+    _require(q.dim() == 4, f"q must be (b, hq, sq, d), got {tuple(q.shape)}")
+    b, hq, sq, d = q.shape
+    _require(k_pages.dim() == 4 and k_pages.shape == v_pages.shape,
+             "k/v pools must share a (n_pages, hkv, page, d) shape")
+    n_pages, hkv, page, dk = k_pages.shape
+    _require(dk == d, f"head dim {dk} of the pools != q's {d}")
+    _require(hq % hkv == 0, f"q heads {hq} not a multiple of kv heads {hkv}")
+    _require(q.dtype in (torch.float32, torch.bfloat16),
+             f"q dtype {q.dtype} (kernel takes float32 or bfloat16)")
+    quantized = k_scale_pages is not None
+    _require((v_scale_pages is not None) == quantized,
+             "k/v scale pages must be passed together")
+    if quantized:
+        _require(k_pages.dtype == torch.int8 and v_pages.dtype == torch.int8,
+                 "scale pages need int8 pools")
+        for sc in (k_scale_pages, v_scale_pages):
+            _require(sc.dtype == torch.bfloat16
+                     and tuple(sc.shape) == (n_pages, hkv, page, 1)
+                     and sc.is_contiguous(),
+                     "scale pages must be contiguous bf16 (n_pages, hkv, "
+                     "page, 1)")
+    else:
+        _require(k_pages.dtype == torch.bfloat16
+                 and v_pages.dtype == torch.bfloat16,
+                 f"pool dtype {k_pages.dtype} (kernel takes bf16, or int8 "
+                 "with scale pages)")
+    _require(block_tab.dim() == 2 and block_tab.shape[0] == b
+             and block_tab.dtype == torch.int32, "block_tab must be (b, "
+             "n_blocks) int32")
+    n_blocks = block_tab.shape[1]
+    _require(pos.dtype == torch.int32 and tuple(pos.shape) == (b,),
+             "pos must be (b,) int32")
+    if page_base is not None:
+        _require(page_base.dtype == torch.int32
+                 and tuple(page_base.shape) == (b, n_blocks)
+                 and page_base.is_contiguous(),
+                 "page_base must be contiguous (b, n_blocks) int32")
+    _require(window is None or int(window) > 0, "window must be positive")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("block_tab", block_tab), ("pos", pos)):
+        _require(t.is_contiguous(), f"{name} must be contiguous")
+    vec = 16 // k_pages.element_size()     # the kernel loads 16-byte vectors
+    _require(d % vec == 0, f"head dim {d} must be a multiple of {vec}")
+    _require(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
+             "pools must be 16-byte aligned")
+
+    fn = _kernel()
+    scale = scale if scale is not None else 1.0 / np.sqrt(d)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             k_scale_pages.data_ptr() if quantized else None,
+             v_scale_pages.data_ptr() if quantized else None,
+             block_tab.data_ptr(), pos.data_ptr(),
+             page_base.data_ptr() if page_base is not None else None,
+             out.data_ptr(), b, hq, hkv, sq, d, n_pages, page, n_blocks,
+             int(window) if window is not None else 0, float(scale),
+             int(q.dtype == torch.bfloat16), int(quantized), stream)
+    if err != 0:      # e.g. more shared memory than a block may have
+        raise RuntimeError(
+            f"flash_attention_decode_paged: launch failed with CUDA error "
+            f"{err}")
+    flash_attention_decode_paged.launches += 1
+    return out
+
+
+flash_attention_decode_paged.launches = 0

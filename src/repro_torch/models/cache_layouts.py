@@ -1,0 +1,135 @@
+"""Paged-KV cache layouts (port of ``models/cache_layouts.py``, flat layout).
+
+A ``CacheLayout`` says how one attention family's KV state maps onto
+shared device page pools: its page groups (independently allocated
+page-id spaces), the per-layer pool declarations, the page accounting
+the batcher's allocator and lazy decode growth consult, and the
+spill/restore primitives slot preemption uses to park a sequence's KV
+on the host and resume it bit-identically.
+
+This slice ports the flat layout: one ``kv`` group of bf16 {k, v} pools,
+(n_layers, n_pages, hkv, page, hd) per leaf, for dense and GQA configs.
+gemma3's local/global ring-of-pages layout, MLA's latent pages and the
+int8 pools with scale pages come with the cache-layouts slice, and
+``copy_pages`` (copy-on-write) with the prefix-cache slice.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from . import layers as L
+from .params import stack_decls as _stack_decls, tree_map
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class PageGroup:
+    """One independently allocated page-id space of a layout."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+
+class CacheLayout:
+    """Single flat bf16 {k, v} group (dense / GQA caches)."""
+
+    def __init__(self, cfg, page_size: int):
+        self.cfg = cfg
+        self.page = int(page_size)
+
+    # -- page groups / accounting --------------------------------------------------
+
+    @property
+    def groups(self) -> Tuple[PageGroup, ...]:
+        return (PageGroup("kv"),)
+
+    def n_blocks(self, name: str, max_seq: int) -> int:
+        """Block-table width of a group: pages covering ``max_seq``."""
+        return _ceil_div(max_seq, self.page)
+
+    def blocks_for(self, name: str, n_tokens: int, max_seq: int) -> int:
+        """Pages a sequence holding ``n_tokens`` positions needs."""
+        return min(_ceil_div(max(n_tokens, 0), self.page),
+                   self.n_blocks(name, max_seq))
+
+    # -- pool declarations -----------------------------------------------------------
+
+    def pool_decls(self, n_pages: Dict[str, int]):
+        """{group: per-layer pool decl tree, stacked over layers}."""
+        return {"kv": _stack_decls(
+            L.attention_paged_cache_decl(self.cfg, n_pages["kv"], self.page),
+            self.cfg.n_layers)}
+
+    def page_axis(self, name: str) -> int:
+        """Index of the page axis in every pool leaf of the group."""
+        return 1
+
+    # -- spill / restore (slot preemption) ----------------------------------------------
+
+    def gather_pages(self, pools, name: str, pages: Sequence[int]):
+        """Device-side gather of the given physical pages (every layer,
+        every leaf), one ``index_select`` per pool leaf."""
+        ax = self.page_axis(name)
+
+        def take(_, a):
+            idx = torch.as_tensor(list(pages), dtype=torch.int64,
+                                  device=a.device)
+            return a.index_select(ax, idx)
+
+        return tree_map(take, pools[name])
+
+    def restore_pages(self, pools, name: str, data, pages: Sequence[int]):
+        """Scatter page payloads into (possibly different) physical pages,
+        in place; returns the pools dict.  Payload dtypes must match the
+        pool exactly: a silent cast would corrupt the pages, so a
+        mismatch raises."""
+        ax = self.page_axis(name)
+        for leaf, a in pools[name].items():
+            d = data[leaf]
+            if d.dtype != a.dtype:
+                raise TypeError(
+                    f"restore_pages({name!r}): payload dtype {d.dtype} != "
+                    f"pool dtype {a.dtype} — spilled pages must round-trip "
+                    f"bit-identically; refusing the silent cast")
+            idx = torch.as_tensor(list(pages), dtype=torch.int64,
+                                  device=a.device)
+            a.index_copy_(ax, idx, d.to(a.device))
+        return pools
+
+    def spill(self, pools, name: str, pages: Sequence[int]):
+        """Copy the given physical pages (every layer) to host tensors,
+        keeping each leaf's dtype."""
+        return tree_map(lambda _, a: a.cpu(),
+                        self.gather_pages(pools, name, pages))
+
+    def restore(self, pools, name: str, data, pages: Sequence[int]):
+        """Scatter spilled page data back into (possibly different)
+        physical pages; returns the pools dict."""
+        return self.restore_pages(pools, name, data, pages)
+
+
+@functools.lru_cache(maxsize=64)
+def get_layout(cfg, page_size: int) -> Optional[CacheLayout]:
+    """The layout registry.  ``None`` = the family has no pageable cache
+    in the reference either (recurrent state, and the vlm/audio stubs);
+    layouts of later slices raise."""
+    if cfg.family not in ("dense", "moe"):
+        return None
+    if cfg.mla:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA latent pages come with the MLA slice")
+    if cfg.local_global_pattern:
+        raise NotImplementedError(
+            f"{cfg.name}: the local/global ring-of-pages layout comes with "
+            "the cache-layouts slice")
+    if cfg.kv_cache_dtype != "bfloat16":
+        raise NotImplementedError(
+            f"{cfg.name}: int8 pages with scale pages come with the "
+            "cache-layouts slice")
+    return CacheLayout(cfg, page_size)

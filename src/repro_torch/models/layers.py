@@ -1,0 +1,462 @@
+"""Transformer layers, dense subset (port of ``models/layers.py``).
+
+Plain functions on tensors: ``*_decls`` builds the declarative parameter
+tree (``models/params.py``), ``*_apply`` consumes the concrete dict.
+Stacked leading dims (one per layer) are threaded via ``stack``, as in
+the JAX package, so both packages' trees line up leaf for leaf.
+
+Caches update in place where the JAX package returns a new array from a
+donated one (its jitted serve steps donate their caches and pools): the
+dense cache and the page pools passed in are the ones written.
+
+Not in this slice: ring-of-pages paging and int8 KV (the cache-layouts
+slice), MLA attention (the MLA slice), MoE (the MoE slice), verify spans
+(the speculative-decode slice).  Their parameter declarations are here,
+so every architecture's parameter tree can be built.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .params import Decl
+
+F32 = torch.float32
+
+
+# --- primitives -----------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    xf = x.to(F32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return ((xf * torch.rsqrt(var + eps)) * (1.0 + w.to(F32))).to(x.dtype)
+
+
+def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., s, h, d) or (..., s, d); pos: (s,) or (b, s).  Rotates
+    the two halves of the head dim (not interleaved pairs)."""
+    return _rotate(x, *_rope_angles(pos, x.shape[-1], theta, x.device))
+
+
+def _rope_angles(pos, d: int, theta: float, device):
+    """(cos, sin) of the rotary angles; q and k of a layer share them."""
+    half = d // 2
+    # a host scalar base (no tensor from a Python number: on CUDA that
+    # would be a blocking copy inside every layer).
+    freqs = float(theta) ** (-torch.arange(half, dtype=F32, device=device)
+                             / half)
+    ang = pos[..., None].to(F32) * freqs              # (..., s, half)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def _rotate(x, cos, sin):
+    half = x.shape[-1] // 2
+    if x.dim() - cos.dim() == 2:                      # head axis present
+        cos, sin = cos[..., None, :], sin[..., None, :]
+    x1, x2 = x[..., :half].to(F32), x[..., half:].to(F32)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate.to(F32)).to(gate.dtype) * up
+
+
+# --- attention ------------------------------------------------------------------
+
+
+def attention_xla(q, k, v, causal=True, window=None, scale=None):
+    """Forward attention: the reference's blocked online-softmax XLA path
+    as one plain masked softmax (equal up to rounding).
+
+    q: (b, hq, sq, d); k: (b, hkv, sk, d); v: (b, hkv, sk, dv).  Query i
+    sits at position ``sk - sq + i``."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, dv = v.shape
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / np.sqrt(d)
+    qg = q.reshape(b, hkv, g, sq, d).to(F32) * scale
+    s = torch.einsum("bhgqd,bhcd->bhgqc", qg, k.to(F32))
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqc,bhcv->bhgqv", p, v.to(F32))
+    return o.reshape(b, hq, sq, dv).to(q.dtype)
+
+
+def attention_decode(q, k, v, kv_valid, scale: Optional[float] = None):
+    """Single-step decode attention over a cache.
+
+    q: (b, hq, 1, d); k: (b, hkv, S, d); v: (b, hkv, S, dv);
+    kv_valid: (b, S) bool or (S,) — which cache slots hold real keys.
+    """
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / np.sqrt(d)
+    qg = q.reshape(b, hkv, g, sq, d).to(F32) * scale
+    s = torch.einsum("bhgqd,bhcd->bhgqc", qg, k.to(F32))
+    if kv_valid.dim() == 1:
+        mask = kv_valid[None, None, None, None, :]
+    else:
+        mask = kv_valid[:, None, None, None, :]
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqc,bhcv->bhgqv", p, v.to(F32))
+    return o.reshape(b, hq, sq, -1).to(q.dtype)
+
+
+def attention_masked(q, k, v, mask, scale: Optional[float] = None):
+    """Multi-query attention over a cache with an explicit per-row mask.
+
+    q: (b, hq, sq, d); k, v: (b, hkv, S, dv); mask: (b, sq, S) bool.
+    """
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / np.sqrt(d)
+    qg = q.reshape(b, hkv, g, sq, d).to(F32) * scale
+    s = torch.einsum("bhgqd,bhcd->bhgqc", qg, k.to(F32))
+    s = s.masked_fill(~mask[:, None, None], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqc,bhcv->bhgqv", p, v.to(F32))
+    return o.reshape(b, hq, sq, -1).to(q.dtype)
+
+
+# --- GQA attention block -----------------------------------------------------------
+
+
+def attention_decls(cfg, stack: Tuple[int, ...] = ()) -> Dict[str, Decl]:
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ax = ("stack",) * len(stack)
+    decls = {
+        "norm": Decl(stack + (d,), ax + ("embed",), init="zeros"),
+        "wo": Decl(stack + (hq * hd, d), ax + ("heads", "embed")),
+    }
+    if cfg.fuse_qkv and hq == hkv:
+        decls["wqkv"] = Decl(stack + (d, 3 * hq * hd), ax + ("embed", "heads"))
+        if cfg.qkv_bias:
+            decls["bqkv"] = Decl(stack + (3 * hq * hd,), ax + ("heads",),
+                                 init="zeros")
+    else:
+        decls["wq"] = Decl(stack + (d, hq * hd), ax + ("embed", "heads"))
+        decls["wk"] = Decl(stack + (d, hkv * hd), ax + ("embed", "kv_heads"))
+        decls["wv"] = Decl(stack + (d, hkv * hd), ax + ("embed", "kv_heads"))
+        if cfg.qkv_bias:
+            decls["bq"] = Decl(stack + (hq * hd,), ax + ("heads",), init="zeros")
+            decls["bk"] = Decl(stack + (hkv * hd,), ax + ("kv_heads",),
+                               init="zeros")
+            decls["bv"] = Decl(stack + (hkv * hd,), ax + ("kv_heads",),
+                               init="zeros")
+    if cfg.qk_norm:
+        decls["q_norm"] = Decl(stack + (hd,), ax + (None,), init="zeros")
+        decls["k_norm"] = Decl(stack + (hd,), ax + (None,), init="zeros")
+    return decls
+
+
+def _qkv(cfg, p, x):
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if "wqkv" in p:
+        qkv = x @ p["wqkv"]
+        if "bqkv" in p:
+            qkv = qkv + p["bqkv"]
+        q, k, v = torch.chunk(qkv, 3, dim=-1)
+    else:
+        q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+        if "bq" in p:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, hq, hd)
+    k = k.reshape(b, s, hkv, hd)
+    v = v.reshape(b, s, hkv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    return q, k, v
+
+
+def _bf16_only(cfg):
+    if cfg.kv_cache_dtype != "bfloat16":
+        raise NotImplementedError(
+            f"kv_cache_dtype={cfg.kv_cache_dtype!r}: int8 KV comes with the "
+            "cache-layouts slice (kernel B2)")
+
+
+def attention_apply(cfg, p, x, *, window: Optional[int] = None,
+                    theta: Optional[float] = None,
+                    cache: Optional[Dict[str, torch.Tensor]] = None,
+                    pos=None):
+    """Pre-norm attention with residual.  Train/prefill when cache is
+    None; single-token decode otherwise (cache dict: k, v of shape
+    (b, hkv, S, hd), written in place at ``pos``, a host int).  A cache
+    of exactly ``window`` slots is the rolling ring buffer.  Returns
+    (y, cache)."""
+    theta = theta if theta is not None else cfg.rope_theta
+    b, s, d = x.shape
+    h = rmsnorm(x, p["norm"])
+    q, k, v = _qkv(cfg, p, h)
+    if cache is None:
+        cs = _rope_angles(torch.arange(s, device=x.device), cfg.head_dim,
+                          theta, x.device)
+        q, k = _rotate(q, *cs), _rotate(k, *cs)
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        o = attention_xla(q, k, v, causal=True, window=window)
+        new_cache = None
+    else:
+        _bf16_only(cfg)
+        if cfg.decode_flash:
+            raise NotImplementedError(
+                "decode_flash on dense slot caches (kernel B3, "
+                "flash_attention_decode) comes with the cache-layouts slice")
+        pos = int(pos)
+        cs = _rope_angles(torch.full((1,), pos, dtype=torch.int64,
+                                     device=x.device), cfg.head_dim, theta,
+                          x.device)
+        q = _rotate(q, *cs).transpose(1, 2)          # (b, hq, 1, hd)
+        k = _rotate(k, *cs).transpose(1, 2)          # (b, hkv, 1, hd)
+        v = v.transpose(1, 2)
+        ck, cv = cache["k"], cache["v"]
+        S = ck.shape[2]
+        idx = torch.arange(S, device=x.device)
+        if window is not None and S == window:
+            slot = pos % window                      # rolling ring cache
+            valid = (idx < pos + 1) | (pos >= window)
+        else:
+            slot = pos
+            valid = idx <= pos
+        # the reference's dynamic_update_slice clamps its start index.
+        slot = min(slot, S - 1)
+        ck[:, :, slot] = k[:, :, 0].to(ck.dtype)
+        cv[:, :, slot] = v[:, :, 0].to(cv.dtype)
+        o = attention_decode(q, ck.to(q.dtype), cv.to(q.dtype), valid)
+        new_cache = cache
+    y = o.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
+    return x + y, new_cache
+
+
+def paged_write_index(block_tab: torch.Tensor, pos: torch.Tensor, s: int,
+                      page: int, n_pages: int,
+                      last_idx: Optional[torch.Tensor] = None,
+                      cache_offset: Optional[torch.Tensor] = None):
+    """Where a chunk's K/V rows land in a flat paged pool.
+
+    Returns ``(rows_b, rows_s, page_ids, offsets)`` for the KEPT rows
+    only.  The reference scatters every row and lets ``mode="drop"``
+    discard the invalid page id ``n_pages``; torch indexing would raise
+    (CPU) or device-assert (CUDA) instead, so rows are masked out before
+    the scatter: positions past the table, padded chunk tails
+    (``last_idx``), read-only prefix positions (``cache_offset``) and
+    unallocated table entries (ids outside ``[0, n_pages)``, e.g. the
+    rows of inactive slots).  The mask is the same for every layer, so
+    callers compute it once per forward."""
+    b = block_tab.shape[0]
+    n_blocks = block_tab.shape[1]
+    ar = torch.arange(s, device=block_tab.device)
+    positions = pos.to(torch.int64)[:, None] + ar            # (b, s)
+    logical = positions // page
+    keep = logical < n_blocks
+    if last_idx is not None:
+        keep &= ar[None, :] <= last_idx.to(torch.int64)[:, None]
+    if cache_offset is not None:
+        keep &= positions >= cache_offset.to(torch.int64)[:, None]
+    wp = torch.gather(block_tab.to(torch.int64), 1,
+                      logical.clamp(max=n_blocks - 1))
+    keep &= (wp >= 0) & (wp < n_pages)
+    rows_b, rows_s = keep.nonzero(as_tuple=True)
+    return rows_b, rows_s, wp[rows_b, rows_s], (positions % page)[rows_b,
+                                                                   rows_s]
+
+
+def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
+                          theta: Optional[float] = None,
+                          pages: Dict[str, torch.Tensor],
+                          block_tab: torch.Tensor, pos: torch.Tensor,
+                          ring: bool = False,
+                          last_idx: Optional[torch.Tensor] = None,
+                          cache_offset: Optional[torch.Tensor] = None,
+                          verify: bool = False, write_idx=None):
+    """Pre-norm attention against a flat *paged* bf16 KV cache.
+
+    x: (b, s, d) — s == 1 is a decode step, s > 1 a prefill chunk at
+    positions pos..pos+s-1.  ``pages``: this layer's pools {"k", "v"} of
+    shape (n_pages, hkv, page, hd), written in place.  ``block_tab``:
+    (b, n_blocks) int32; entries >= n_pages are unallocated (writes
+    through them are dropped, reads clamped and masked).  ``pos``: (b,)
+    start position per row.  ``last_idx``/``cache_offset`` mask writes
+    as in ``paged_write_index``; ``write_idx`` is that function's result
+    when the caller computed it already.
+
+    Reads mirror the dense path's rounding exactly.  Without the kernel,
+    the PRE-write pool is gathered and the chunk's own K/V overlaid: a
+    prefill chunk attends its own positions at full precision, a decode
+    step the pool-rounded values.  With ``cfg.decode_flash`` a decode
+    step writes first and then reads through the block-table kernel
+    (``kernels.flash_attention.flash_attention_decode_paged``), which
+    sees the same pool-rounded values.  Returns (y, pages).
+    """
+    if ring:
+        raise NotImplementedError(
+            "ring-of-pages paging (gemma3 local layers) comes with the "
+            "cache-layouts slice")
+    if verify:
+        raise NotImplementedError(
+            "verify spans come with the speculative-decode slice")
+    _bf16_only(cfg)
+    theta = theta if theta is not None else cfg.rope_theta
+    b, s, d = x.shape
+    h = rmsnorm(x, p["norm"])
+    q, kc, vc = _qkv(cfg, p, h)                       # (b, s, h*, hd)
+    positions = pos.to(torch.int64)[:, None] + torch.arange(
+        s, device=x.device)                           # (b, s)
+    cs = _rope_angles(positions[:, :, None], cfg.head_dim, theta, x.device)
+    q = _rotate(q, *cs).transpose(1, 2)               # (b, hq, s, hd)
+    kc = _rotate(kc, *cs)                             # (b, s, hkv, hd)
+    pk, pv = pages["k"], pages["v"]
+    n_pages, hkv, page, hd = pk.shape
+    n_blocks = block_tab.shape[1]
+    if write_idx is None:
+        write_idx = paged_write_index(block_tab, pos, s, page, n_pages,
+                                      last_idx, cache_offset)
+    rows_b, rows_s, wp, wo = write_idx
+
+    flash = cfg.decode_flash and s == 1 and cache_offset is None
+    if not flash:
+        # gather the PRE-write pool state + overlay the chunk's own K/V.
+        bt = block_tab.to(torch.int64).clamp(0, n_pages - 1)
+        S = n_blocks * page
+
+        def gather(pool):
+            g = pool[bt]                              # (b, nb, hkv, page, X)
+            return g.transpose(1, 2).reshape(b, hkv, S, -1)
+
+        kd = gather(pk).to(q.dtype)
+        vd = gather(pv).to(q.dtype)
+        k, v = kc.transpose(1, 2), vc.transpose(1, 2)  # (b, hkv, s, hd)
+        if s == 1:                                    # pool-rounded own k/v
+            kl = k.to(pk.dtype).to(q.dtype)
+            vl = v.to(pv.dtype).to(q.dtype)
+        else:
+            kl, vl = k, v
+        kpos = torch.arange(S, device=x.device).expand(b, S)
+        K = torch.cat([kd, kl], dim=2)                # (b, hkv, S + s, hd)
+        V = torch.cat([vd, vl], dim=2)
+        kpos_cat = torch.cat([kpos, positions], dim=1)  # (b, S + s)
+        # gathered entries are only valid STRICTLY before the chunk;
+        # own entries cover [pos, pos + s).
+        pre_ok = torch.cat(
+            [kpos < positions[:, :1],
+             torch.ones((b, s), dtype=torch.bool, device=x.device)], dim=1)
+        mask = (kpos_cat[:, None, :] <= positions[:, :, None]) \
+            & pre_ok[:, None, :]
+        if window is not None:
+            mask &= kpos_cat[:, None, :] > positions[:, :, None] - window
+        o = attention_masked(q, K, V, mask)
+
+    # append: scatter the kept rows of the chunk's K/V into the pools.
+    pk[wp, :, wo] = kc[rows_b, rows_s].to(pk.dtype)
+    pv[wp, :, wo] = vc[rows_b, rows_s].to(pv.dtype)
+
+    if flash:
+        from ..kernels.flash_attention import flash_attention_decode_paged
+        o = flash_attention_decode_paged(q.contiguous(), pk, pv, block_tab,
+                                         pos, window=window)
+    y = o.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
+    return x + y, pages
+
+
+def attention_paged_cache_decl(cfg, n_pages: int, page_size: int
+                               ) -> Dict[str, Decl]:
+    """One attention layer's shared bf16 page pool: (n_pages, hkv, page,
+    hd).  The pool has no batch/slot axis — slots own *pages*, not rows."""
+    _bf16_only(cfg)
+    shp = (n_pages, cfg.n_kv_heads, page_size, cfg.head_dim)
+    ax = (None, "kv_heads", None, None)
+    return {"k": Decl(shp, ax, torch.bfloat16, init="zeros"),
+            "v": Decl(shp, ax, torch.bfloat16, init="zeros")}
+
+
+def attention_cache_decl(cfg, batch: int, max_seq: int,
+                         window: Optional[int] = None) -> Dict[str, Decl]:
+    _bf16_only(cfg)
+    S = min(max_seq, window) if window else max_seq
+    shp = (batch, cfg.n_kv_heads, S, cfg.head_dim)
+    ax = ("batch", "kv_heads", None, None)
+    return {"k": Decl(shp, ax, torch.bfloat16, init="zeros"),
+            "v": Decl(shp, ax, torch.bfloat16, init="zeros")}
+
+
+# --- MLA (deepseek-v2): declarations only in this slice -----------------------------
+
+
+def mla_decls(cfg, stack: Tuple[int, ...] = ()) -> Dict[str, Decl]:
+    d, hq = cfg.d_model, cfg.n_heads
+    nope, rp, lora, vd = (cfg.qk_nope_dim, cfg.qk_rope_dim,
+                          cfg.kv_lora_rank, cfg.v_head_dim)
+    ax = ("stack",) * len(stack)
+    return {
+        "norm": Decl(stack + (d,), ax + ("embed",), init="zeros"),
+        "wq": Decl(stack + (d, hq * (nope + rp)), ax + ("embed", "heads")),
+        "w_dkv": Decl(stack + (d, lora + rp), ax + ("embed", "lora")),
+        "kv_norm": Decl(stack + (lora,), ax + ("lora",), init="zeros"),
+        "w_uk": Decl(stack + (lora, hq * nope), ax + ("lora", "heads")),
+        "w_uv": Decl(stack + (lora, hq * vd), ax + ("lora", "heads")),
+        "wo": Decl(stack + (hq * vd, d), ax + ("heads", "embed")),
+    }
+
+
+# --- MLP / MoE ------------------------------------------------------------------------
+
+
+def mlp_decls(cfg, stack: Tuple[int, ...] = (), d_ff: Optional[int] = None
+              ) -> Dict[str, Decl]:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    ax = ("stack",) * len(stack)
+    decls = {
+        "norm": Decl(stack + (d,), ax + ("embed",), init="zeros"),
+        "w_up": Decl(stack + (d, f), ax + ("embed", "ff")),
+        "w_down": Decl(stack + (f, d), ax + ("ff", "embed")),
+    }
+    if cfg.mlp_gated:
+        decls["w_gate"] = Decl(stack + (d, f), ax + ("embed", "ff"))
+    return decls
+
+
+def mlp_apply(cfg, p, x):
+    h = rmsnorm(x, p["norm"])
+    if "w_gate" in p:
+        hh = swiglu(h @ p["w_gate"], h @ p["w_up"])
+    else:   # jax.nn.gelu's default is the tanh approximation
+        hh = F.gelu((h @ p["w_up"]).to(F32), approximate="tanh").to(h.dtype)
+    return x + hh @ p["w_down"]
+
+
+def moe_decls(cfg, stack: Tuple[int, ...] = ()) -> Dict[str, Decl]:
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    ax = ("stack",) * len(stack)
+    decls = {
+        "norm": Decl(stack + (d,), ax + ("embed",), init="zeros"),
+        "router": Decl(stack + (d, E), ax + ("embed", None), std=0.02),
+        "w_gate": Decl(stack + (E, d, f), ax + ("experts", "embed", "ff")),
+        "w_up": Decl(stack + (E, d, f), ax + ("experts", "embed", "ff")),
+        "w_down": Decl(stack + (E, f, d), ax + ("experts", "ff", "embed")),
+    }
+    if cfg.n_shared_experts:
+        fs = cfg.n_shared_experts * f
+        decls.update({
+            "sh_gate": Decl(stack + (d, fs), ax + ("embed", "ff")),
+            "sh_up": Decl(stack + (d, fs), ax + ("embed", "ff")),
+            "sh_down": Decl(stack + (fs, d), ax + ("ff", "embed")),
+        })
+    return decls

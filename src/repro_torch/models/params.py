@@ -1,0 +1,138 @@
+"""Declarative parameter trees (port of ``models/params.py``).
+
+Model code declares each tensor once as a ``Decl`` (shape + logical axes
++ init); ``init_params`` turns a tree of them into tensors.  Trees are
+plain nested dicts, as in the JAX package, so a parameter tree of either
+package has the same paths and the same shapes.
+
+``params_from_numpy`` carries weights across: it takes the JAX package's
+parameters as nested dicts of numpy arrays (``np.asarray`` of each leaf)
+and returns the port's tensors, bit for bit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Decl:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    dtype: torch.dtype = torch.float32
+    init: str = "normal"       # normal | zeros | ones
+    std: Optional[float] = None  # override stddev for normal
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} / axes {self.axes} rank "
+                             "mismatch")
+
+
+def stack_one(d: Decl, n: int) -> Decl:
+    """Prepend a length-n "stack" axis (the per-layer leading axis)."""
+    return Decl((n,) + d.shape, ("stack",) + d.axes, d.dtype, d.init, d.std)
+
+
+def tree_map(fn, tree, path: Tuple[str, ...] = ()):
+    """Map ``fn(path, leaf)`` over a nested dict, keeping its structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, path + (str(k),)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def stack_decls(tree, n: int):
+    return tree_map(lambda _, d: stack_one(d, n), tree)
+
+
+def _fan_in(shape: Tuple[int, ...]) -> int:
+    if len(shape) >= 2:
+        return shape[-2]
+    return shape[-1]
+
+
+def init_params(decls, seed: int = 0, *, device="cuda",
+                dtype: Optional[torch.dtype] = None):
+    """Deterministic init: every leaf's generator is seeded from its tree
+    path (the reference's sha256 rule), so adding or removing parameters
+    never reshuffles the others.  Values are drawn directly on ``device``
+    in the leaf's dtype — or in ``dtype``, which overrides every floating
+    leaf (full-width bf16 weights never pass through an fp32 copy).
+
+    The draws are torch's, not JAX's: the two packages give different
+    weights from one seed; tests carry JAX weights over with
+    ``params_from_numpy`` instead."""
+
+    def leaf(path, d: Decl):
+        dt = dtype if (dtype is not None and d.dtype.is_floating_point) \
+            else d.dtype
+        if d.init == "zeros":
+            return torch.zeros(d.shape, dtype=dt, device=device)
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=dt, device=device)
+        h = int.from_bytes(
+            hashlib.sha256(f"{seed}:{'/'.join(path)}".encode()).digest()[:8],
+            "little")
+        gen = torch.Generator(device=device)
+        gen.manual_seed(h % (2 ** 63))
+        std = d.std if d.std is not None else 1.0 / np.sqrt(_fan_in(d.shape))
+        x = torch.randn(d.shape, generator=gen, dtype=dt, device=device)
+        return x.mul_(std)
+
+    return tree_map(leaf, decls)
+
+
+def param_count(decls) -> int:
+    return sum(int(np.prod(d.shape)) for d in tree_leaves(decls))
+
+
+def cast_tree(params, dtype: torch.dtype):
+    return tree_map(
+        lambda _, p: p.to(dtype) if p.dtype.is_floating_point else p, params)
+
+
+_NUMPY_TO_TORCH = {
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.float16): torch.float16,
+    np.dtype(np.float64): torch.float64,
+    np.dtype(np.int8): torch.int8,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.int64): torch.int64,
+    np.dtype(np.bool_): torch.bool,
+}
+
+
+def _leaf_from_numpy(a, device, dtype):
+    a = np.ascontiguousarray(np.asarray(a))
+    if not a.flags.writeable:          # e.g. a view of a JAX buffer
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16 has no torch counterpart in numpy's eyes:
+        # carry the bits (uint16 -> int16) and view them as bfloat16.
+        t = torch.from_numpy(a.view(np.uint16).view(np.int16)).view(
+            torch.bfloat16)
+    elif a.dtype in _NUMPY_TO_TORCH:
+        t = torch.from_numpy(a)
+    else:
+        raise TypeError(f"params_from_numpy: unsupported dtype {a.dtype}")
+    t = t.to(device)
+    if dtype is not None and t.dtype.is_floating_point:
+        t = t.to(dtype)
+    return t
+
+
+def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
+    """Nested dicts of numpy arrays -> the same tree of tensors on
+    ``device``.  ``dtype`` (optional) recasts every floating leaf."""
+    return tree_map(lambda _, a: _leaf_from_numpy(a, device, dtype), tree)

@@ -1,0 +1,140 @@
+"""Serving steps (port of ``serve/serve_loop.py``).
+
+* ``make_sampling_serve_steps`` — greedy prefill/decode over dense slot
+  caches, returning int32 token ids; ``greedy_generate`` drives it and is
+  the port's dense oracle for the paged batcher.
+* ``make_paged_decode_step`` — ONE batched call advances every slot of
+  the continuous batcher over the page pools.
+* ``make_chunk_prefill_step`` — one prompt chunk for one slot against the
+  page pools; the final chunk installs the slot's decode state.
+
+The JAX steps are jitted with their pools donated; here they run eagerly
+and update the pools and slot-state tensors in place.  Pools and block
+tables are dicts keyed by the layout's page groups ({"kv"}).  Decoding
+is greedy; sampling at a temperature above 0 comes with a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..models import registry
+from ..models.cache_layouts import get_layout
+
+
+def make_sampling_serve_steps(cfg: ModelConfig, max_seq: int):
+    """Greedy (temperature 0) step functions over dense slot caches:
+
+    * ``prefill(params, batch_in, last_pos)`` -> (tokens, cache)
+    * ``decode(params, cache, tokens, pos)``  -> (tokens, cache)
+
+    Both return int32 token ids of shape (b,).  ``decode`` writes the
+    cache in place; ``pos`` is a host int."""
+
+    def prefill(params, batch_in, last_pos):
+        logits, cache = registry.forward(cfg, params, batch_in,
+                                         mode="prefill", cache_len=max_seq,
+                                         last_pos=last_pos)
+        return torch.argmax(logits[:, -1], -1).to(torch.int32), cache
+
+    def decode(params, cache, tokens, pos):
+        logits, cache = registry.forward(cfg, params, dict(tokens),
+                                         mode="decode", cache=cache, pos=pos)
+        return torch.argmax(logits[:, -1], -1).to(torch.int32), cache
+
+    return prefill, decode
+
+
+def make_paged_decode_step(cfg: ModelConfig, max_seq: int, page_size: int):
+    """Batched decode over paged KV: advances all slots at once.
+
+    ``step(params, pools, block_tab, last_tok, pos, remaining, active)``
+    returns ``(pools, last_tok, pos, remaining, active, out)`` with
+    ``out`` the (2, n_slots) int32 [next token, finished] rows.  Inactive
+    slots read through a table row of the invalid page id, so their
+    writes are masked out and cannot touch pages that were freed and
+    handed to another request."""
+    layout = get_layout(cfg, page_size)
+
+    def step(params, pools, block_tab, last_tok, pos, remaining, active):
+        bt = {}
+        for g in layout.groups:
+            n_pages = pools[g.name]["k"].shape[layout.page_axis(g.name)]
+            bt[g.name] = torch.where(active[:, None], block_tab[g.name],
+                                     n_pages)
+        cache = {"pages": pools, "block_tab": bt}
+        logits, pools = registry.forward(
+            cfg, params, {"tokens": last_tok[:, None].long()}, mode="decode",
+            cache=cache, pos=pos)
+        nxt = torch.argmax(logits[:, -1], -1).to(torch.int32)
+        nxt = torch.where(active, nxt, last_tok)
+        pos = torch.where(active, pos + 1, pos)
+        remaining = torch.where(active, remaining - 1, remaining)
+        finished = active & ((remaining <= 0) | (pos >= max_seq - 1))
+        active = active & ~finished
+        out = torch.stack([nxt, finished.to(torch.int32)])   # (2, n_slots)
+        return pools, nxt, pos, remaining, active, out
+
+    return step
+
+
+def make_chunk_prefill_step(cfg: ModelConfig, chunk: int, max_seq: int,
+                            page_size: int):
+    """Single-request prefill chunk against the paged cache.
+
+    ``fn(params, pools, block_tab, last_tok, pos, remaining, active,
+    tokens, pos0, last_in_chunk, slot_idx, is_final, plen, max_new,
+    cache_offset)``: ``tokens`` is (1, chunk), ``pos0``/``last_in_chunk``
+    are (1,) tensors, the rest host scalars.  Returns ``(pools, last_tok,
+    pos, remaining, active, tok0)`` with ``tok0`` the greedy token after
+    the chunk's last true position.  Only the final chunk writes the
+    slot's decode state (the reference scatters every chunk and drops
+    the non-final ones through the invalid slot id)."""
+    layout = get_layout(cfg, page_size)
+
+    def fn(params, pools, block_tab, last_tok, pos, remaining, active,
+           tokens, pos0, last_in_chunk, slot_idx, is_final, plen, max_new,
+           cache_offset):
+        bt_row = {g.name: block_tab[g.name][slot_idx:slot_idx + 1]
+                  for g in layout.groups}
+        cache = {"pages": pools, "block_tab": bt_row}
+        off = torch.full((1,), int(cache_offset), dtype=torch.int32,
+                         device=tokens.device)
+        logits, pools = registry.forward(
+            cfg, params, {"tokens": tokens.long()}, mode="chunk",
+            cache=cache, pos=pos0, last_pos=last_in_chunk, cache_offset=off)
+        tok0 = torch.argmax(logits[0, -1], -1).to(torch.int32)
+        if is_final:
+            last_tok[slot_idx] = tok0
+            pos[slot_idx] = plen
+            remaining[slot_idx] = max_new - 1
+            active[slot_idx] = bool(max_new > 1 and plen < max_seq - 1)
+        return pools, last_tok, pos, remaining, active, tok0
+
+    return fn
+
+
+def greedy_generate(cfg: ModelConfig, params, prompt_batch: Dict,
+                    steps: int, max_seq: int, *, device="cuda"):
+    """Greedy generation over dense slot caches (the port's dense
+    oracle): prefill the prompt batch, then ``steps`` decode steps.
+    Returns an (b, steps) int32 numpy array."""
+    tok = torch.as_tensor(np.asarray(prompt_batch["tokens"]),
+                          device=device).long()
+    b, prompt_len = tok.shape
+    pre, dec = make_sampling_serve_steps(cfg, max_seq)
+    last_pos = torch.full((b,), prompt_len - 1, dtype=torch.int64,
+                          device=device)
+    nxt, cache = pre(params, {"tokens": tok}, last_pos)
+    out = []
+    pos = prompt_len
+    for _ in range(steps):
+        tokens = nxt.reshape(b, 1)
+        out.append(tokens.cpu().numpy())
+        nxt, cache = dec(params, cache, {"tokens": tokens.long()}, pos)
+        pos += 1
+    return np.concatenate(out, axis=1)
