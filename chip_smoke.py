@@ -6,15 +6,23 @@
 Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. device and build — the card's name and power limit, the CUDA kernels
-   built from ``src/repro_torch/csrc`` with nvcc, TF32 off;
-2. kernel vs plain — ``flash_attention_decode_paged`` against its plain
-   PyTorch twin at the main path's shapes, a long-context shape and every
-   option, with timings beside the bound and a library yardstick;
-3. exactness at smoke width — the paged batcher through the kernel gives
-   the dense greedy oracle's tokens, with and without preemption;
+   built from ``src/repro_torch/csrc`` with nvcc (one process per source,
+   all started together), TF32 off;
+2. kernels vs plain — every kernel against its plain PyTorch twin on the
+   card: ``flash_attention_decode_paged`` (B1) and
+   ``flash_attention_decode`` (B3) at the main path's shapes, a long
+   shape and every option, ``kv_quantize``/``kv_dequantize`` (B2) bit for
+   bit at decode, prefill and full-cache shapes, with timings beside the
+   bound and a library yardstick;
+3. exactness at smoke width — the paged batcher through B1 and the
+   dense-slot batcher through B3 (bf16, the sliding-window ring, int8
+   through B2) give the dense greedy oracle's tokens; the int8 paged
+   batcher gives the int8 dense-slot batcher's, with preemption;
 4. full-width serve — minitron-4b at full width, random bf16 weights
    from the seed, 16 requests through ``ContinuousBatcher`` under
-   ``DataflowContext``, every decode step through the kernel.
+   ``DataflowContext``: paged through B1, then dense slots through B3 with
+   a bf16 and with an int8 cache (B2); each with one decode step's logits
+   through the kernels vs the plain path, and a decode step's time split.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -35,12 +43,27 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
-KERNEL_SOURCE = "src/repro_torch/csrc/flash_decode_paged.cu"
-KERNEL_REPLACES = "src/repro/kernels/flash_attention.py:523"
+# every kernel of the port: its source and the TPU kernel it replaces.
+KERNELS = {
+    "flash_attention_decode_paged": (
+        "src/repro_torch/csrc/flash_decode_paged.cu",
+        "src/repro/kernels/flash_attention.py:523"),
+    "flash_attention_decode": (
+        "src/repro_torch/csrc/flash_decode.cu",
+        "src/repro/kernels/flash_attention.py:322"),
+    "kv_quantize": ("src/repro_torch/csrc/kv_quant.cu",
+                    "src/repro/kernels/kv_quant.py:55"),
+    "kv_dequantize": ("src/repro_torch/csrc/kv_quant.cu",
+                      "src/repro/kernels/kv_quant.py:76"),
+}
 # bf16 outputs: kernel and plain both accumulate in fp32 and round once,
-# so they differ by a few bf16 ulps at |out| < 1.  fp32 outputs differ
-# only by summation order over <= 4096 keys.
-TOL_BF16 = 1e-2
+# so an output may round to the neighbouring bf16 value: each element is
+# held to TOL_BF16_ULPS ulps of the plain output plus TOL_BF16_FLOOR,
+# which covers fp32 summation order (the f32 q cases differ by < 1e-6)
+# where |out| is near 0.  fp32 outputs differ only by summation order
+# over <= 4096 keys.
+TOL_BF16_ULPS = 2
+TOL_BF16_FLOOR = 1e-5
 TOL_F32 = 1e-4
 # full-width logits (bf16 compute, 32 layers): one decode step through
 # the kernel vs through the plain path, relative to the largest logit.
@@ -65,6 +88,12 @@ def hbm_rate(name: str) -> float:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp (8 significant bits) at |x|, elementwise."""
+    ax = x.float().abs().clamp(min=1e-30)
+    return torch.exp2(torch.floor(torch.log2(ax)) - 7)
 
 
 def time_ms(fn, flush, reps: int = 25, warmup: int = 3) -> float:
@@ -171,7 +200,51 @@ def sdpa_inputs(c):
     return K, V, mask
 
 
+def hold_attention(tag, kernel, plain, make, cases, yardstick, bound,
+                   flush):
+    """Hold a decode-attention kernel against its plain twin for every
+    case; time the "main" and "long" cases beside their bound and one
+    SDPA call, the library yardstick (the port never calls it).
+    ``yardstick(c)`` -> (args, kwargs, note) of that call, its inputs
+    prepared beforehand and not timed; ``bound(c)`` -> dict."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    results = {}
+    for name, kw in cases.items():
+        c = make(**kw)
+        out = kernel(**c)
+        torch.cuda.synchronize()
+        ref = plain(**c)
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        if c["q"].dtype == torch.float32:
+            tol, limit = TOL_F32, torch.full_like(diff, TOL_F32)
+        else:
+            tol = f"{TOL_BF16_ULPS} bf16 ulp of |plain| + {TOL_BF16_FLOOR}"
+            limit = TOL_BF16_ULPS * bf16_ulp(ref) + TOL_BF16_FLOOR
+        ratio = (diff / limit).max().item()
+        check(ratio <= 1.0, f"{tag} vs plain [{name}]: max abs err {err}, "
+              f"{ratio:.3g}x the tolerance ({tol})")
+        row = {"max_abs_err": err, "tol": tol, "err_over_tol": ratio}
+        if name.startswith(("main", "long")):
+            row["ms"] = time_ms(lambda: kernel(**c), flush)
+            row["plain_ms"] = time_ms(lambda: plain(**c), flush)
+            args, kwargs, row["library"] = yardstick(c)
+            lib = sdpa(*args, **kwargs)
+            lib_err = (lib.float() - ref.float()).abs().max().item()
+            check(lib_err <= TOL_LIBRARY,
+                  f"{tag} library yardstick disagrees [{name}]: {lib_err}")
+            row["library_ms"] = time_ms(lambda: sdpa(*args, **kwargs), flush)
+            row.update(bound(c))
+            del args, kwargs, lib
+        results[name] = row
+        print(f"{tag} vs plain [{name}]: " + json.dumps(row))
+        del c, out, ref
+    torch.cuda.empty_cache()
+    return results
+
+
 def phase_kernel(gen, card, flush):
+    """B1 vs its plain twin; timings at the main and long shapes."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_decode_paged as kernel,
         flash_attention_decode_paged_plain as plain)
@@ -188,42 +261,204 @@ def phase_kernel(gen, card, flush):
         "f32 q": dict(main, q_dtype=torch.float32),
         "table entries >= n_pages": dict(main, unallocated=True),
     }
+
+    def yardstick(c):
+        K, V, mask = sdpa_inputs(c)
+        return ((c["q"], K, V), dict(attn_mask=mask, enable_gqa=True),
+                "sdpa on pre-gathered K/V, gather excluded")
+
+    def bound(c):
+        ms, by = bound_ms(c, card)
+        return {"bound_ms": ms, "bound_by": by, "live_pages": live_pages(c)}
+
+    return hold_attention("B1", kernel, plain, lambda **kw: make_case(
+        gen, **kw), cases, yardstick, bound, flush)
+
+
+def make_dense_case(gen, *, b=8, hq=24, hkv=8, d=128, S=1024, pos=None,
+                    max_pos=1024, q_dtype=torch.bfloat16, window=None,
+                    ring=False):
+    """Inputs of the dense-slot kernel: caches in q's dtype (the layer
+    casts the cache to q's dtype first), positions drawn in
+    [max_pos // 8, max_pos) unless given."""
+    dev = DEVICE
+    q = torch.randn((b, hq, 1, d), generator=gen, device=dev).to(q_dtype)
+    k, v = (torch.randn((b, hkv, S, d), generator=gen, device=dev).to(q_dtype)
+            for _ in range(2))
+    if pos is None:
+        pos = torch.randint(max_pos // 8, max_pos, (b,), generator=gen,
+                            device=dev)
+    else:
+        pos = torch.as_tensor(pos, device=dev)
+    return dict(q=q, k=k, v=v, pos=pos.int().contiguous(), window=window,
+                ring=ring)
+
+
+def dense_valid(c):
+    """(b, S) keys the kernel must attend (the reference's rule)."""
+    S = c["k"].shape[2]
+    kpos = torch.arange(S, device=DEVICE)[None, :]
+    p = c["pos"].long()[:, None]
+    if c["ring"]:
+        return (kpos <= p) | (p >= c["window"])
+    valid = kpos <= p
+    if c["window"] is not None:
+        valid &= kpos > p - c["window"]
+    return valid
+
+
+def dense_bound_ms(c, card: str):
+    """Least time: the live K/V rows read once, q read, out written."""
+    q, k = c["q"], c["k"]
+    b, hq, _, d = q.shape
+    hkv = k.shape[1]
+    live = int(dense_valid(c).sum())          # live keys over sequences
+    nbytes = (live * hkv * d * k.element_size() * 2
+              + 2 * q.numel() * q.element_size() + b * 4)
+    ops = 4.0 * (hq // hkv) * d * live * hkv
+    t_bytes = nbytes / hbm_rate(card) * 1e3
+    t_ops = ops / PEAK_BF16 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_dense_kernel(gen, card, flush):
+    """B3 vs its plain twin; timings at the main and long shapes."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_decode as kernel,
+        flash_attention_decode_plain as plain)
+    ring_pos = [10, 100, 255, 256, 300, 1000, 4000, 200]
+    cases = {
+        "main (8 slots x 1024, pos 128-1023, bf16)": {},
+        "long (32 slots x 4096, bf16)": dict(b=32, S=4096, max_pos=4096),
+        "f32 q": dict(q_dtype=torch.float32),
+        "band window=256": dict(window=256),
+        "ring S=window=256": dict(S=256, window=256, ring=True,
+                                  pos=ring_pos),
+        "per-row positions": dict(pos=[0, 1, 63, 64, 65, 511, 1022, 1023]),
+    }
+
+    def yardstick(c):
+        g = c["q"].shape[1] // c["k"].shape[1]
+        K = c["k"].repeat_interleave(g, dim=1)
+        V = c["v"].repeat_interleave(g, dim=1)
+        return ((c["q"], K, V), dict(attn_mask=dense_valid(c)[:, None, None]),
+                "sdpa on K/V expanded to hq heads, not timed")
+
+    def bound(c):
+        ms, by = dense_bound_ms(c, card)
+        return {"bound_ms": ms, "bound_by": by,
+                "live_keys": int(dense_valid(c).sum())}
+
+    return hold_attention("B3", kernel, plain, lambda **kw: make_dense_case(
+        gen, **kw), cases, yardstick, bound, flush)
+
+
+def quant_bound_ms(rows: int, d: int, in_bytes: int, out_bytes: int,
+                   card: str):
+    """Least time of a quantize (in x, out int8 + bf16 scale) or
+    dequantize (in int8 + scale, out x): bytes over the HBM rate."""
+    return (rows * d * (in_bytes + out_bytes) + rows * 2) / hbm_rate(
+        card) * 1e3, "bytes"
+
+
+def phase_quant_kernel(gen, card, flush):
+    """B2 vs its plain twins, bit for bit; timings at the main path's
+    shapes: decode rows (one new K or V row per slot and kv head), a
+    prefill chunk, and the full slot cache (read back every step)."""
+    from repro_torch.kernels.kv_quant import (
+        kv_dequantize, kv_dequantize_plain, kv_quantize, kv_quantize_plain)
+    d = 128
+    ties = torch.tensor([2.5, -3.5, 0.5, 1.5, -0.5, 127.0, 4.5, -126.5]
+                        * (d // 8), device=DEVICE)
+    cases = {
+        "decode rows (8*8*1 x 128, bf16)": (8 * 8, torch.bfloat16),
+        "decode rows (8*8*1 x 128, f32)": (8 * 8, torch.float32),
+        "prefill chunk (8*128*8 x 128, bf16)": (8 * 128 * 8, torch.bfloat16),
+        "full cache (8*8*1024 x 128, bf16)": (8 * 8 * 1024, torch.bfloat16),
+        "zero rows (64 x 128, bf16)": (64, torch.bfloat16),
+        "exact .5 quotients (64 x 128, f32)": (64, torch.float32),
+    }
     results = {}
-    for name, kw in cases.items():
-        c = make_case(gen, **kw)
-        out = kernel(**c)
+    for name, (rows, dt) in cases.items():
+        x = (torch.randn((rows, d), generator=gen, device=DEVICE)
+             * torch.rand((rows, 1), generator=gen, device=DEVICE) * 8)
+        if name.startswith("zero"):
+            x.zero_()
+        if name.startswith("exact"):
+            x[:] = ties                      # amax 127: scale exactly 1
+        x = x.to(dt)
+        q, s = kv_quantize(x)
         torch.cuda.synchronize()
-        ref = plain(**c)
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = TOL_F32 if c["q"].dtype == torch.float32 else TOL_BF16
-        check(err <= tol, f"kernel vs plain [{name}]: {err} > {tol}")
-        row = {"max_abs_err": err, "tol": tol}
-        if name.startswith(("main", "long")):
-            row["ms"] = time_ms(lambda: kernel(**c), flush)
-            row["plain_ms"] = time_ms(lambda: plain(**c), flush)
-            K, V, mask = sdpa_inputs(c)
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            lib = sdpa(c["q"], K, V, attn_mask=mask, enable_gqa=True)
-            lib_err = (lib.float() - ref.float()).abs().max().item()
-            check(lib_err <= TOL_LIBRARY,
-                  f"library yardstick disagrees [{name}]: {lib_err}")
-            # yardstick only (the port never calls it): SDPA over K/V
-            # gathered beforehand, so its time excludes the gather.
-            row["library_ms"] = time_ms(
-                lambda: sdpa(c["q"], K, V, attn_mask=mask, enable_gqa=True),
-                flush)
-            row["library"] = "sdpa on pre-gathered K/V, gather excluded"
-            row["bound_ms"], row["bound_by"] = bound_ms(c, card)
-            row["live_pages"] = live_pages(c)
-            del K, V, mask
+        pq, ps = kv_quantize_plain(x)
+        errs = [(q.int() - pq.int()).abs().max().item(),
+                (s.float() - ps.float()).abs().max().item()]
+        check(torch.equal(q, pq) and torch.equal(s, ps),
+              f"B2 quantize vs plain [{name}]: not bit-equal "
+              f"({int((q != pq).sum())} values, {int((s != ps).sum())} "
+              f"scales differ)")
+        if name.startswith("exact"):
+            check(q[0, :8].tolist() == [2, -4, 0, 2, 0, 127, 4, -126],
+                  f"B2 rounding is not half-to-even: {q[0, :8].tolist()}")
+        for out_dt in (torch.bfloat16, torch.float32):
+            o = kv_dequantize(q, s, out_dt)
+            torch.cuda.synchronize()
+            po = kv_dequantize_plain(q, s, out_dt)
+            errs.append((o.float() - po.float()).abs().max().item())
+            check(torch.equal(o, po), f"B2 dequantize vs plain [{name}, "
+                  f"{out_dt}]: not bit-equal")
+        row = {"max_abs_err": max(errs), "tol": "bit-exact"}
+        if "zero" not in name and "exact" not in name:
+            row["quantize_ms"] = time_ms(lambda: kv_quantize(x), flush)
+            row["quantize_plain_ms"] = time_ms(lambda: kv_quantize_plain(x),
+                                               flush)
+            row["quantize_bound_ms"], row["bound_by"] = quant_bound_ms(
+                rows, d, x.element_size(), 1, card)
+            row["dequantize_ms"] = time_ms(
+                lambda: kv_dequantize(q, s, dt), flush)
+            row["dequantize_plain_ms"] = time_ms(
+                lambda: kv_dequantize_plain(q, s, dt), flush)
+            row["dequantize_bound_ms"], _ = quant_bound_ms(
+                rows, d, 1, x.element_size(), card)
+            row["quantize_library"] = "no single PyTorch call"
+            if dt == torch.bfloat16:
+                # one call computes the bf16 dequantize: int8 * bf16
+                # promotes to bf16, multiplies in fp32 and rounds once.
+                lib = q * s
+                check(lib.dtype == torch.bfloat16 and torch.equal(
+                    lib, kv_dequantize_plain(q, s, dt)),
+                    f"B2 dequantize library yardstick q * s [{name}] is "
+                    "not bit-equal to the plain version")
+                row["dequantize_library"] = "q * s, bf16 out (never " \
+                    "called by the port)"
+                row["dequantize_library_ms"] = time_ms(lambda: q * s, flush)
+                del lib
         results[name] = row
-        print(f"kernel vs plain [{name}]: " + json.dumps(row))
-        del c, out, ref
+        print(f"B2 vs plain [{name}]: " + json.dumps(row))
     torch.cuda.empty_cache()
     return results
 
 
 # --- phase 3: exactness at smoke width ------------------------------------------------
+
+
+def kernel_counts():
+    """{name: wrapper} for every kernel of the port; each wrapper counts
+    its own launches in ``.launches``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import kv_quant as kq
+    return {"flash_attention_decode_paged": fa.flash_attention_decode_paged,
+            "flash_attention_decode": fa.flash_attention_decode,
+            "kv_quantize": kq.kv_quantize,
+            "kv_dequantize": kq.kv_dequantize}
+
+
+def reset_counts(counts):
+    for fn in counts.values():
+        fn.launches = 0
+
+
+def read_counts(counts):
+    return {name: fn.launches for name, fn in counts.items()}
 
 
 def run_batcher(cfg, params, prompts, max_news, **kw):
@@ -271,8 +506,60 @@ def phase_exactness(seed):
           f"with a 5-page pool too ({bat.preemptions} preemptions, "
           f"{bat.resumes} resumes)")
 
+    # dense slots through B3 (and B2 for int8) vs the dense greedy oracle,
+    # whose decode reads through the plain attention path.
+    counts = kernel_counts()
+    dense_int8 = None
+    for label, kw in (("bf16", {}), ("sliding_window=16 ring",
+                                     {"sliding_window": 16}),
+                      ("int8", {"kv_cache_dtype": "int8"})):
+        c = dataclasses.replace(base, **kw)
+        gold = [list(greedy_generate(c, params, {"tokens": p[None]},
+                                     steps=m, max_seq=48, device=DEVICE)[0])
+                for p, m in zip(prompts, max_news)]
+        reset_counts(counts)
+        got, bat = run_batcher(dataclasses.replace(c, decode_flash=True),
+                               params, prompts, max_news, n_slots=3,
+                               max_seq=48)
+        n = read_counts(counts)
+        check(not bat.paged, "dense-slot batcher ran paged")
+        check(got == gold, f"dense-slot+B3 [{label}] {got} != greedy {gold}")
+        check(n["flash_attention_decode"] == bat.steps * c.n_layers,
+              f"dense-slot [{label}] did not decode through B3: {n}")
+        if kw.get("kv_cache_dtype") == "int8":
+            check(n["kv_quantize"] > 0 and n["kv_dequantize"] > 0,
+                  f"int8 dense-slot did not run B2: {n}")
+            dense_int8 = got
+        print(f"smoke exactness: dense-slot [{label}] through the kernels "
+              f"token-identical to dense greedy ({bat.steps} steps, "
+              f"launches {json.dumps(n)})")
+
+    # int8 pages (B1's int8 branch + B2) vs the int8 dense slots.
+    c = dataclasses.replace(base, kv_cache_dtype="int8", decode_flash=True,
+                            kv_page_size=8)
+    reset_counts(counts)
+    got, bat = run_batcher(c, params, prompts, max_news, n_slots=3,
+                           max_seq=48, prefill_chunk=32, n_pages=5)
+    n = read_counts(counts)
+    check(bat.paged and bat.preemptions > 0,
+          "int8 paged run did not preempt")
+    check(got == dense_int8, f"int8 paged {got} != int8 dense {dense_int8}")
+    check(bat.total_used_pages() == 0, "pages leaked")
+    check(n["flash_attention_decode_paged"] == bat.steps * c.n_layers
+          and n["kv_quantize"] > 0, f"int8 paged skipped a kernel: {n}")
+    print(f"smoke exactness: int8 paged with a 5-page pool "
+          f"({bat.preemptions} preemptions) token-identical to int8 dense "
+          f"slots (launches {json.dumps(n)})")
+
 
 # --- phase 4: full-width serve --------------------------------------------------------
+
+
+# device kernel names (demangled, as the profiler reports them) by class.
+SPLIT = (("B1_flash_decode_paged", ("flash_decode_paged_kernel",)),
+         ("B3_flash_decode", ("flash_decode_kernel",)),
+         ("B2_kv_quant", ("quantize_kernel",)),
+         ("matmul", ("gemm", "nvjet", "cublas", "cutlass", "splitKreduce")))
 
 
 def profile_window(fn, n: int):
@@ -280,7 +567,7 @@ def profile_window(fn, n: int):
     copy) over ``n`` unprofiled calls, then device busy time per call from
     a ``torch.profiler`` trace of ``n`` more: the sum of the card's kernel
     and copy intervals (one stream, so they do not overlap), split into
-    the paged decode kernel, matrix products and everything else."""
+    the port's kernels, matrix products and everything else."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
@@ -291,19 +578,14 @@ def profile_window(fn, n: int):
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
-    split = {"flash_decode_paged": 0.0, "matmul": 0.0, "other": 0.0}
+    split = {key: 0.0 for key, _ in SPLIT}
+    split["other"] = 0.0
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
             continue
-        us = ev.time_range.elapsed_us()
-        name = ev.name
-        if "flash_decode_paged" in name:
-            split["flash_decode_paged"] += us
-        elif any(k in name for k in ("gemm", "nvjet", "cublas", "cutlass",
-                                     "splitKreduce")):
-            split["matmul"] += us
-        else:
-            split["other"] += us
+        key = next((k for k, pats in SPLIT
+                    if any(pat in ev.name for pat in pats)), "other")
+        split[key] += ev.time_range.elapsed_us()
     busy = sum(split.values()) / n / 1e3
     out = {"wall_ms": wall * 1e3,
            "device_busy_ms": busy if busy else "not measured"}
@@ -313,23 +595,11 @@ def profile_window(fn, n: int):
     return out
 
 
-
-def phase_full_width(seed):
-    from repro_torch.configs import get
-    from repro_torch.core.dataflow import DataflowContext
+def stamped_stream():
+    """A response stream that notes when its first token arrives."""
     from repro_torch.core.stream import Stream
-    from repro_torch.kernels.flash_attention import (
-        flash_attention_decode_paged as kernel)
-    from repro_torch.models import params as PP
-    from repro_torch.models import registry
-    from repro_torch.serve.batching import ContinuousBatcher, Request, drain
-    from repro_torch.serve.serve_loop import (make_chunk_prefill_step,
-                                              make_paged_decode_step as
-                                              make_decode_step)
 
-    class StampedStream(Stream):
-        """Response stream that notes when its first token arrives."""
-
+    class Stamped(Stream):
         def __init__(self):
             super().__init__(depth=4096, name="resp")
             self.first_at = None
@@ -339,21 +609,26 @@ def phase_full_width(seed):
                 self.first_at = time.perf_counter()
             super().Push(value, timeout)
 
-    n_slots, n_req, max_new, max_seq, page, chunk = 8, 16, 64, 1024, 16, 128
-    cfg = dataclasses.replace(get("minitron-4b"), kv_page_size=page,
-                              decode_flash=True, prefill_chunk=chunk)
-    torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    params = registry.init(cfg, seed, device=DEVICE, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in PP.tree_leaves(params))
-    print(f"full width: minitron-4b, {n_params} bf16 parameters drawn on the "
-          f"card in {time.perf_counter() - t:.2f}s")
+    return Stamped()
+
+
+# the full-width traffic: 8 slots, 16 requests, prompts 256-512,
+# 64 new tokens, max_seq 1024; paged runs use page 16 and chunk 128.
+N_SLOTS, N_REQ, MAX_NEW, MAX_SEQ, PAGE, CHUNK = 8, 16, 64, 1024, 16, 128
+
+
+def serve_full_width(cfg, params, seed, counts):
+    """The traffic above through ``ContinuousBatcher`` under
+    ``DataflowContext``; kernel counts are set to 0 just before and read
+    just after.  Returns (summary, launches, batcher)."""
+    from repro_torch.core.dataflow import DataflowContext
+    from repro_torch.serve.batching import ContinuousBatcher, Request, drain
     rng = np.random.default_rng(seed)
     reqs = [Request(rid=i, prompt=rng.integers(
         0, cfg.vocab_size, int(rng.integers(256, 513))).astype(np.int32),
-        max_new=max_new, out=StampedStream()) for i in range(n_req)]
-    bat = ContinuousBatcher(cfg, params, n_slots=n_slots, max_seq=max_seq,
+        max_new=MAX_NEW, out=stamped_stream()) for i in range(N_REQ)]
+    torch.cuda.reset_peak_memory_stats()
+    bat = ContinuousBatcher(cfg, params, n_slots=N_SLOTS, max_seq=MAX_SEQ,
                             device=DEVICE)
     step_s = []
     inner_step = bat.step
@@ -372,36 +647,92 @@ def phase_full_width(seed):
             submitted[r.rid] = time.perf_counter()
             bat.submit(r)
 
-    kernel.launches = 0
+    reset_counts(counts)
     t0 = time.perf_counter()
     with DataflowContext() as df:
         df.function(producer, name="producer")
         df.function(bat.run, len(reqs), name="batcher")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernel.launches
+    launches = read_counts(counts)
 
     outs = [drain(r) for r in reqs]
-    check(all(len(o) == max_new for o in outs),
-          f"token counts {[len(o) for o in outs]} != {max_new}")
+    check(all(len(o) == MAX_NEW for o in outs),
+          f"token counts {[len(o) for o in outs]} != {MAX_NEW}")
     check(all(0 <= t < cfg.padded_vocab for o in outs for t in o),
           "token id out of range")
     check(bat.total_used_pages() == 0, "pages leaked")
-    check(launches == bat.steps * cfg.n_layers,
-          f"kernel launches {launches} != steps {bat.steps} x layers "
-          f"{cfg.n_layers}")
     tokens = sum(len(o) for o in outs)
     ttft = [r.out.first_at - submitted[r.rid] for r in reqs]
     summary = {
-        "requests": n_req, "tokens": tokens, "wall_s": wall,
+        "mode": "paged" if bat.paged else "dense",
+        "kv_cache_dtype": cfg.kv_cache_dtype,
+        "requests": N_REQ, "tokens": tokens, "wall_s": wall,
         "tokens_per_s": tokens / wall, "decode_steps": bat.steps,
         "prefill_chunks": bat.prefill_chunks,
         "median_step_ms": statistics.median(step_s) * 1e3,
         "ttft_median_s": statistics.median(ttft), "ttft_max_s": max(ttft),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "kernel_launches": launches,
+        "launches": launches,
     }
-    print("full-width serve: " + json.dumps(summary))
+    return summary, launches, bat
+
+
+def compare_logits(cfg, params, cache, tokens, pos, label):
+    """One decode step's logits through the kernels vs the plain path
+    (``decode_flash`` off), on the same cache (both write the same K/V
+    row in place)."""
+    from repro_torch.models import registry
+    logits = {}
+    for flash in (True, False):
+        c = dataclasses.replace(cfg, decode_flash=flash)
+        logits[flash], _ = registry.forward(
+            c, params, {"tokens": tokens[:, None].long()}, mode="decode",
+            cache=cache, pos=pos)
+    a, b = logits[True].float(), logits[False].float()
+    err = (a - b).abs().max().item()
+    scale = b.abs().max().item()
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    print(f"full-width decode logits [{label}], kernels vs plain: max_abs_err "
+          f"{err:.4g} (max |logit| {scale:.4g}, rel tol {TOL_LOGITS_REL}), "
+          f"argmax agreement {agree:.3f}")
+    check(torch.isfinite(a).all().item(), f"non-finite logits [{label}]")
+    check(err <= TOL_LOGITS_REL * scale, f"full-width logits disagree "
+          f"[{label}]")
+
+
+def phase_full_width(seed):
+    """Full-width serves: paged through B1, then dense slots through B3
+    with a bf16 and an int8 (B2) cache.  Returns {path: launches}."""
+    from repro_torch.configs import get
+    from repro_torch.models import params as PP
+    from repro_torch.models import registry
+    from repro_torch.serve.batching import ContinuousBatcher, Request
+    from repro_torch.serve.serve_loop import (make_chunk_prefill_step,
+                                              make_paged_decode_step as
+                                              make_decode_step)
+
+    base = dataclasses.replace(get("minitron-4b"), decode_flash=True)
+    t = time.perf_counter()
+    params = registry.init(base, seed, device=DEVICE, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in PP.tree_leaves(params))
+    print(f"full width: minitron-4b, {n_params} bf16 parameters drawn on the "
+          f"card in {time.perf_counter() - t:.2f}s")
+    counts = kernel_counts()
+    paths = {}
+
+    # --- paged, bf16, through B1 ---
+    n_slots, max_seq, page, chunk = N_SLOTS, MAX_SEQ, PAGE, CHUNK
+    cfg = dataclasses.replace(base, kv_page_size=page, prefill_chunk=chunk)
+    summary, launches, bat = serve_full_width(cfg, params, seed, counts)
+    check(launches["flash_attention_decode_paged"]
+          == bat.steps * cfg.n_layers,
+          f"B1 launches {launches} != steps {bat.steps} x layers "
+          f"{cfg.n_layers}")
+    print("full-width serve [paged bf16]: " + json.dumps(summary))
+    paths["paged bf16"] = launches
+    rng = np.random.default_rng(seed)
 
     # one decode step's logits, kernel vs plain, on prefilled pools.
     nb = max_seq // page
@@ -415,34 +746,21 @@ def phase_full_width(seed):
     plens = rng.integers(100, 900, n_slots)
     for s, plen in enumerate(plens):
         prompt = rng.integers(0, cfg.vocab_size, int(plen))
-        for base in range(0, int(plen), chunk):
+        for base_pos in range(0, int(plen), chunk):
             seg = np.zeros((1, chunk), np.int64)
-            part = prompt[base:base + chunk]
+            part = prompt[base_pos:base_pos + chunk]
             seg[0, :len(part)] = part
-            final = base + chunk >= plen
-            last = (plen - 1 - base) if final else chunk - 1
+            final = base_pos + chunk >= plen
+            last = (plen - 1 - base_pos) if final else chunk - 1
             pools, *state, _ = fn(
                 params, pools, {"kv": bt}, *state,
                 torch.from_numpy(seg).to(DEVICE),
-                torch.full((1,), base, dtype=torch.int32, device=DEVICE),
+                torch.full((1,), base_pos, dtype=torch.int32, device=DEVICE),
                 torch.full((1,), int(last), dtype=torch.int32, device=DEVICE),
                 s, final, int(plen), 4, 0)
     last_tok, pos = state[0], state[1]
-    logits = {}
-    for flash in (True, False):
-        c = dataclasses.replace(cfg, decode_flash=flash)
-        logits[flash], _ = registry.forward(
-            c, params, {"tokens": last_tok[:, None].long()}, mode="decode",
-            cache={"pages": pools, "block_tab": {"kv": bt}}, pos=pos)
-    a, b = logits[True].float(), logits[False].float()
-    err = (a - b).abs().max().item()
-    scale = b.abs().max().item()
-    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
-    print(f"full-width decode logits, kernel vs plain: max_abs_err {err:.4g} "
-          f"(max |logit| {scale:.4g}, rel tol {TOL_LOGITS_REL}), argmax "
-          f"agreement {agree:.3f}")
-    check(torch.isfinite(a).all().item(), "non-finite logits")
-    check(err <= TOL_LOGITS_REL * scale, "full-width logits disagree")
+    compare_logits(cfg, params, {"pages": pools, "block_tab": {"kv": bt}},
+                   last_tok, pos, "paged bf16")
 
     # where a decode step's and a prefill chunk's time goes.
     step = make_decode_step(cfg, max_seq, page)
@@ -468,8 +786,54 @@ def phase_full_width(seed):
         f()
     prof = {"decode_step": profile_window(decode_once, 5),
             "prefill_chunk_128": profile_window(chunk_once, 3)}
-    print("time split (8 slots at ~100-900 positions): " + json.dumps(prof))
-    return summary, launches
+    print("time split [paged bf16] (8 slots at ~100-900 positions): "
+          + json.dumps(prof))
+    del pools, step, fn, state
+    torch.cuda.empty_cache()
+
+    # --- dense slots through B3, bf16 and int8 (B2) caches ---
+    for dt in ("bfloat16", "int8"):
+        label = f"dense {dt}"
+        cfg = dataclasses.replace(base, kv_cache_dtype=dt)
+        summary, launches, bat = serve_full_width(cfg, params, seed, counts)
+        check(not bat.paged, f"[{label}] ran paged")
+        check(launches["flash_attention_decode"] == bat.steps * cfg.n_layers,
+              f"[{label}] B3 launches {launches} != steps {bat.steps} x "
+              f"layers {cfg.n_layers}")
+        if dt == "int8":
+            check(launches["kv_dequantize"] == 2 * bat.steps * cfg.n_layers
+                  and launches["kv_quantize"] > 2 * bat.steps * cfg.n_layers,
+                  f"[{label}] B2 launches {launches}")
+        print(f"full-width serve [{label}]: " + json.dumps(summary))
+        paths[label] = launches
+        del bat
+        torch.cuda.empty_cache()
+
+        # 8 slots admitted at ~100-900 positions: logits and time split.
+        bat = ContinuousBatcher(cfg, params, n_slots=n_slots,
+                                max_seq=max_seq, device=DEVICE)
+        for i, plen in enumerate(rng.integers(100, 900, n_slots)):
+            bat.requests.Push(Request(rid=i, prompt=rng.integers(
+                0, cfg.vocab_size, int(plen)).astype(np.int32), max_new=4))
+        bat.admit()
+        check(all(r is not None for r in bat._slot_req), "slots not filled")
+        compare_logits(cfg, params, bat.cache, bat.last_tok, bat.pos, label)
+        pos = bat.pos.clone()
+        remaining = bat.remaining + 1000
+
+        def dense_once():
+            nonlocal pos
+            _, _, pos, _, _, out = bat._step(params, bat.cache, bat.last_tok,
+                                             pos, remaining, active)
+            out.cpu()
+
+        dense_once()
+        prof = profile_window(dense_once, 5)
+        print(f"time split [{label}] (decode step, 8 slots at ~100-900 "
+              "positions): " + json.dumps(prof))
+        del bat
+        torch.cuda.empty_cache()
+    return paths
 
 
 def main():
@@ -500,18 +864,45 @@ def main():
 
     gen = torch.Generator(device=DEVICE).manual_seed(args.seed)
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
-    kres = phase_kernel(gen, card, flush)
+    b1 = phase_kernel(gen, card, flush)["main (8 seqs, pos <= 1k, bf16)"]
+    b3 = phase_dense_kernel(gen, card, flush)[
+        "main (8 slots x 1024, pos 128-1023, bf16)"]
+    b2 = phase_quant_kernel(gen, card, flush)
     del flush
     phase_exactness(args.seed)
-    _, launches = phase_full_width(args.seed)
+    paths = phase_full_width(args.seed)
 
-    m = kres["main (8 seqs, pos <= 1k, bf16)"]
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_decode_paged", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches, "max_abs_err": m["max_abs_err"],
-        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-        "bound_by": m["bound_by"], "library_ms": m["library_ms"]}]}))
+    # each kernel's row: its launches on the full-width path that runs it,
+    # its numbers at that path's shapes (B2: quantize at the decode rows
+    # of each step, dequantize at the full slot cache it reads back).
+    q_rows = b2["decode rows (8*8*1 x 128, bf16)"]
+    d_rows = b2["full cache (8*8*1024 x 128, bf16)"]
+    rows = {
+        "flash_attention_decode_paged": (paths["paged bf16"], b1),
+        "flash_attention_decode": (paths["dense bfloat16"], b3),
+        "kv_quantize": (paths["dense int8"], {
+            "max_abs_err": q_rows["max_abs_err"], "ms": q_rows["quantize_ms"],
+            "plain_ms": q_rows["quantize_plain_ms"],
+            "bound_ms": q_rows["quantize_bound_ms"], "bound_by": "bytes",
+            "library_ms": None}),
+        "kv_dequantize": (paths["dense int8"], {
+            "max_abs_err": d_rows["max_abs_err"],
+            "ms": d_rows["dequantize_ms"],
+            "plain_ms": d_rows["dequantize_plain_ms"],
+            "bound_ms": d_rows["dequantize_bound_ms"], "bound_by": "bytes",
+            "library_ms": d_rows["dequantize_library_ms"]}),
+    }
+    kernels = []
+    for name, (launches, m) in rows.items():
+        check(launches[name] > 0, f"{name} never launched on its path")
+        src, replaces = KERNELS[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))

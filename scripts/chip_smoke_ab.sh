@@ -1,0 +1,36 @@
+#!/usr/bin/env bash
+# Run two trees' chip_smoke.py on one CUDA card in the order parent,
+# change, change, parent, so that host drift between runs shows as a
+# spread and not as a difference between the sides.
+#
+# Unpack each side into a git-ignored directory first, from the repo root:
+#
+#   mkdir -p build/ab/parent build/ab/change
+#   git archive <parent-commit> | tar -x -C build/ab/parent
+#   git add -A && git archive "$(git write-tree)" | tar -x -C build/ab/change
+#
+# then run, on the machine with the card, from the repo root:
+#
+#   bash scripts/chip_smoke_ab.sh build/ab/parent build/ab/change [LOGDIR]
+#
+# Each run's whole output goes to LOGDIR/ab_{p1,c1,c2,p2}.log (LOGDIR
+# defaults to build/ab); its card line, main-shape kernel lines,
+# full-width serve and time-split lines are printed.  Exits non-zero if
+# any run did.
+set -u
+parent=$1
+change=$2
+out=$(realpath -m "${3:-build/ab}")
+mkdir -p "$out"
+status=0
+for run in "p1:$parent" "c1:$change" "c2:$change" "p2:$parent"; do
+  tag=${run%%:*}
+  dir=${run#*:}
+  (cd "$dir" && python3 chip_smoke.py) > "$out/ab_$tag.log" 2>&1
+  rc=$?
+  echo "== $tag ($dir) rc=$rc"
+  grep -E '^(card:|kernel vs plain \[main|B[13] vs plain \[main|full-width serve|time split|\{"ok")' \
+    "$out/ab_$tag.log"
+  [ "$rc" -eq 0 ] || status=$rc
+done
+exit "$status"

@@ -1,4 +1,5 @@
-"""Builds the port's CUDA kernels and loads them through ctypes.
+"""Builds the port's CUDA kernels, loads them through ctypes, and holds
+the rule every kernel wrapper dispatches by.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared
@@ -7,6 +8,10 @@ library, ``build/kernels/<name>-<hash>.so`` at the root of the checkout
 source rebuilds on its next use.  ``build_all`` compiles every stale
 source at once, one ``nvcc`` process each.  Nothing happens at import:
 the CPU tests import this module on machines without ``nvcc``.
+
+The dispatch rule (``on_cpu``): tensors that all lie on the CPU run the
+wrapper's plain twin; tensors on one CUDA device launch the kernel or
+raise.  There is no fallback from the card to the twin.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -83,3 +90,29 @@ def library(name: str) -> ctypes.CDLL:
         build_all([name])
         _loaded[name] = ctypes.CDLL(str(_lib_path(sources()[name])))
     return _loaded[name]
+
+
+def require(fn: str, cond: bool, msg: str) -> None:
+    """A wrapper's input check: ``ValueError`` naming the wrapper."""
+    if not cond:
+        raise ValueError(f"{fn}: {msg}")
+
+
+def on_cpu(fn: str, *tensors) -> bool:
+    """True when every tensor lies on the CPU (run the plain twin); False
+    when all lie on one CUDA device (launch the kernel); raises
+    otherwise."""
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        return True
+    require(fn, len(devices) == 1 and tensors[0].device.type == "cuda",
+            f"all tensors must be on one CUDA device (got {devices})")
+    return False
+
+
+def check_launch(fn: str, err: int) -> None:
+    """Raise on a refused launch (the C entry points return
+    ``cudaGetLastError()``), e.g. more shared memory than a block may
+    have."""
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")

@@ -1,17 +1,23 @@
-"""Paged decode attention: the CUDA kernel's wrapper and its plain twin.
+"""Decode attention: the CUDA kernels' wrappers and their plain twins.
 
-``flash_attention_decode_paged`` is the port of the TPU kernel
-``src/repro/kernels/flash_attention.py::flash_attention_decode_paged``
-(its ``pallas_call`` at line 523).  On CUDA tensors it launches the
-hand-written Hopper kernel ``csrc/flash_decode_paged.cu`` (built with
-nvcc for sm_90a at first use, see ``kernels/build.py``) or raises; on
-CPU tensors it runs ``flash_attention_decode_paged_plain``, the same
-function in plain PyTorch, which the CPU tests hold against the JAX
-kernel and ``chip_smoke.py`` holds the CUDA kernel against on the card.
+* ``flash_attention_decode_paged`` is the port of the TPU kernel
+  ``src/repro/kernels/flash_attention.py::flash_attention_decode_paged``
+  (its ``pallas_call`` at line 523): decode over a paged KV cache,
+  launching ``csrc/flash_decode_paged.cu``.
+* ``flash_attention_decode`` is the port of
+  ``flash_attention.py::flash_attention_decode`` (its ``pallas_call`` at
+  line 322): decode over dense slot caches, launching
+  ``csrc/flash_decode.cu``.
 
-The kernel is bound by bytes: the live K/V pages it must read once over
-the card's HBM bandwidth.  ``csrc/flash_decode_paged.cu`` says how its
-design meets that and what is left for later.
+On CUDA tensors each wrapper launches its hand-written Hopper kernel
+(built with nvcc for sm_90a at first use, see ``kernels/build.py``) or
+raises; on CPU tensors it runs its ``*_plain`` twin, the same function in
+plain PyTorch, which the CPU tests hold against the JAX kernel and
+``chip_smoke.py`` holds the CUDA kernel against on the card.
+
+Both kernels are bound by bytes: the live K/V they must read once over
+the card's HBM bandwidth.  Each source says how its design meets that
+and what is left for later.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from .build import check_launch, library, on_cpu, require
 
 NEG_INF = -1e30
 F32 = torch.float32
@@ -86,9 +94,7 @@ def flash_attention_decode_paged_plain(
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    from . import build
-    lib = build.library("flash_decode_paged")
-    fn = lib.flash_decode_paged
+    fn = library("flash_decode_paged").flash_decode_paged
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
@@ -96,9 +102,7 @@ def _kernel():
     return fn
 
 
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(f"flash_attention_decode_paged: {msg}")
+_require = functools.partial(require, "flash_attention_decode_paged")
 
 
 def flash_attention_decode_paged(
@@ -125,14 +129,11 @@ def flash_attention_decode_paged(
     """
     tensors = [t for t in (q, k_pages, v_pages, block_tab, pos, page_base,
                            k_scale_pages, v_scale_pages) if t is not None]
-    devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
+    if on_cpu("flash_attention_decode_paged", *tensors):
         return flash_attention_decode_paged_plain(
             q, k_pages, v_pages, block_tab, pos, window=window,
             page_base=page_base, k_scale_pages=k_scale_pages,
             v_scale_pages=v_scale_pages, scale=scale)
-    _require(len(devices) == 1 and q.device.type == "cuda",
-             f"all tensors must be on one CUDA device (got {devices})")
 
     _require(q.dim() == 4, f"q must be (b, hq, sq, d), got {tuple(q.shape)}")
     b, hq, sq, d = q.shape
@@ -192,12 +193,123 @@ def flash_attention_decode_paged(
              out.data_ptr(), b, hq, hkv, sq, d, n_pages, page, n_blocks,
              int(window) if window is not None else 0, float(scale),
              int(q.dtype == torch.bfloat16), int(quantized), stream)
-    if err != 0:      # e.g. more shared memory than a block may have
-        raise RuntimeError(
-            f"flash_attention_decode_paged: launch failed with CUDA error "
-            f"{err}")
+    check_launch("flash_attention_decode_paged", err)
     flash_attention_decode_paged.launches += 1
     return out
 
 
 flash_attention_decode_paged.launches = 0
+
+
+# --- dense slot caches (kernel B3) ------------------------------------------------------
+
+
+def _check_decode(q, k, window, ring) -> None:
+    """The reference's argument checks (``ValueError`` as it raises)."""
+    sq, hq, hkv = q.shape[2], q.shape[1], k.shape[1]
+    if sq != 1:
+        raise ValueError(f"decode fast path requires sq == 1, got {sq}")
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    if ring and window is None:
+        raise ValueError("ring layout requires a window size")
+
+
+def flash_attention_decode_plain(q, k, v, pos, window: Optional[int] = None,
+                                 ring: bool = False,
+                                 scale: Optional[float] = None):
+    """Plain PyTorch version of the kernel: same validity rule (ring: all
+    slots once pos >= window; else keys <= pos, inside the optional band),
+    NEG_INF masking, empty-row (0) and output-dtype rules, computed in
+    fp32 as one masked softmax per row instead of the kernel's tile-by-
+    tile online softmax."""
+    _check_decode(q, k, window, ring)
+    b, hq, _, d = q.shape
+    pos = torch.as_tensor(pos, device=q.device).to(torch.int64).reshape(
+        -1).expand(b)
+    _, hkv, S, _ = k.shape
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / np.sqrt(d)
+    qg = q.reshape(b, hkv, group, d).to(F32) * scale
+    s = torch.einsum("bhgd,bhkd->bhgk", qg, k.to(F32))   # (b, hkv, g, S)
+    kpos = torch.arange(S, device=q.device)[None, :]
+    p = pos[:, None]
+    if ring:
+        valid = (kpos <= p) | (p >= window)
+    else:
+        valid = kpos <= p
+        if window is not None:
+            valid &= kpos > p - window
+    valid = valid[:, None, None, :]                       # (b, 1, 1, S)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+    l = e.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgk,bhkd->bhgd", e, v.to(F32))
+    o = o / torch.where(l == 0, torch.ones_like(l), l)    # empty row -> 0
+    return o.reshape(b, hq, 1, d).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_kernel():
+    fn = library("flash_decode").flash_decode
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_decode(q, k, v, pos, window: Optional[int] = None,
+                           ring: bool = False, scale: Optional[float] = None):
+    """Single-step (sq == 1) decode attention over dense slot caches.
+
+    q: (b, hq, 1, d); k, v: (b, hkv, S, d); pos: (b,) int32, the position
+    each sequence decodes (cache entries <= pos are live).  ``ring=True``:
+    k/v are the rolled sliding-window cache (slot = position % window,
+    S == window), every slot valid once pos >= window.  ``ring=False`` with
+    ``window`` applies the (pos - window, pos] band.  Returns (b, hq, 1, d)
+    in q's dtype.
+
+    CPU tensors run the plain version.  CUDA tensors launch the kernel (q,
+    k, v all float32 or all bfloat16, contiguous; pos (b,) int32) on the
+    current stream, or raise.  Each launch adds one to
+    ``flash_attention_decode.launches``."""
+    tensors = [q, k, v] + ([pos] if torch.is_tensor(pos) else [])
+    if on_cpu("flash_attention_decode", *tensors):
+        return flash_attention_decode_plain(q, k, v, pos, window=window,
+                                            ring=ring, scale=scale)
+    req = functools.partial(require, "flash_attention_decode")
+    req(q.dim() == 4, f"q must be (b, hq, 1, d), got {tuple(q.shape)}")
+    _check_decode(q, k, window, ring)
+    b, hq, _, d = q.shape
+    req(k.dim() == 4 and k.shape == v.shape and k.shape[0] == b
+        and k.shape[3] == d, "k/v must share a (b, hkv, S, d) shape")
+    hkv, S = k.shape[1], k.shape[2]
+    req(q.dtype in (torch.float32, torch.bfloat16)
+        and k.dtype == q.dtype and v.dtype == q.dtype,
+        f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype} (kernel takes all "
+        "float32 or all bfloat16)")
+    req(torch.is_tensor(pos) and pos.dtype == torch.int32
+        and tuple(pos.shape) == (b,) and pos.is_contiguous(),
+        "pos must be a contiguous (b,) int32 tensor")
+    req(window is None or int(window) > 0, "window must be positive")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        req(t.is_contiguous() and t.data_ptr() % 16 == 0,
+            f"{name} must be contiguous and 16-byte aligned")
+    req(d % (16 // q.element_size()) == 0,
+        f"head dim {d} must fill whole 16-byte vectors")
+
+    fn = _dense_kernel()
+    scale = scale if scale is not None else 1.0 / np.sqrt(d)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+             out.data_ptr(), b, hq, hkv, S, d,
+             int(window) if window is not None else 0, int(ring),
+             float(scale), int(q.dtype == torch.bfloat16), stream)
+    check_launch("flash_attention_decode", err)
+    flash_attention_decode.launches += 1
+    return out
+
+
+flash_attention_decode.launches = 0

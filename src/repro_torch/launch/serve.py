@@ -1,13 +1,16 @@
-"""Batched serving entry point: paged continuous batching over Streams.
+"""Batched serving entry point: continuous batching over Streams.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b \
-        --smoke --device cpu --page-size 8 --decode-flash \
+        --smoke --device cpu --decode-flash --kv-cache-dtype int8 \
         --requests 8 --slots 4 --prompt-len 8 --max-new 16
 
-Runs on ``--device cuda`` by default.  Weights are random, drawn from
-``--seed`` on the device.  ``--decode-flash`` sets the config's
-``decode_flash`` field, routing paged decode attention through
-``kernels.flash_attention.flash_attention_decode_paged``.
+Serves dense slots by default; ``--page-size N`` serves paged KV with
+chunked prefill instead.  Runs on ``--device cuda`` by default.  Weights
+are random, drawn from ``--seed`` on the device.  ``--decode-flash`` and
+``--kv-cache-dtype`` set the config's fields of the same names: decode
+attention through ``kernels.flash_attention`` (``flash_attention_decode``
+on dense slots, ``flash_attention_decode_paged`` on pages), and an int8
+KV cache quantized through ``kernels.kv_quant``.
 """
 
 import argparse
@@ -35,25 +38,28 @@ def main(argv=None):
     ap.add_argument("--max-seq", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--page-size", type=int, default=0,
-                    help="KV page size; this port serves paged only, so a "
-                         "size (or the config's kv_page_size) is required")
+                    help="KV page size; > 0 enables the paged batcher "
+                         "(page pools + chunked prefill), 0 serves dense "
+                         "slots")
     ap.add_argument("--pages", type=int, default=0,
                     help="page pool size (default: dense-equivalent)")
     ap.add_argument("--device", default="cuda",
                     help="torch device for weights, pools and slot state")
     ap.add_argument("--decode-flash", action="store_true",
-                    help="paged decode attention through the CUDA kernel "
-                         "(its plain twin on the CPU)")
+                    help="decode attention through the CUDA kernels (their "
+                         "plain twins on the CPU)")
+    ap.add_argument("--kv-cache-dtype", choices=("bfloat16", "int8"),
+                    default="bfloat16",
+                    help="KV cache storage: bf16, or int8 with per-row bf16 "
+                         "scales")
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
-    page = args.page_size or cfg.kv_page_size
-    if not page:
-        ap.error("dense-slot serving is not ported yet: pass --page-size")
-    cfg = dataclasses.replace(cfg, kv_page_size=page,
-                              decode_flash=args.decode_flash)
+    cfg = dataclasses.replace(
+        cfg, kv_page_size=args.page_size or cfg.kv_page_size,
+        decode_flash=args.decode_flash, kv_cache_dtype=args.kv_cache_dtype)
     # bf16 weights are drawn in bf16 directly; forward casts to cfg.dtype.
     params = registry.init(cfg, args.seed, device=args.device,
                            dtype=torch_dtype(cfg.dtype))
@@ -88,12 +94,15 @@ def main(argv=None):
             continue
         total_tokens += len(out)
         print(f"req {r.rid}: {out[:12]}{'...' if len(out) > 12 else ''}")
-    st = batcher.stats()
-    pool = ",".join(f"{k}:{v}" for k, v in sorted(batcher.n_pages.items()))
-    mode = (f"paged(page={batcher.page_size},pool={pool},"
-            f"chunks={batcher.prefill_chunks},"
-            f"preempt={batcher.preemptions})")
-    print(f"pages: pools {st['pools']}")
+    if batcher.paged:
+        pool = ",".join(f"{k}:{v}"
+                        for k, v in sorted(batcher.n_pages.items()))
+        mode = (f"paged(page={batcher.page_size},pool={pool},"
+                f"chunks={batcher.prefill_chunks},"
+                f"preempt={batcher.preemptions})")
+        print(f"pages: pools {batcher.stats()['pools']}")
+    else:
+        mode = "dense"
     print(f"{len(reqs)} requests, {total_tokens} tokens in {dt:.2f}s "
           f"({total_tokens/dt:.1f} tok/s, {batcher.steps} decode steps, "
           f"{mode}, "

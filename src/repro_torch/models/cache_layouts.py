@@ -7,11 +7,14 @@ the batcher's allocator and lazy decode growth consult, and the
 spill/restore primitives slot preemption uses to park a sequence's KV
 on the host and resume it bit-identically.
 
-This slice ports the flat layout: one ``kv`` group of bf16 {k, v} pools,
-(n_layers, n_pages, hkv, page, hd) per leaf, for dense and GQA configs.
-gemma3's local/global ring-of-pages layout, MLA's latent pages and the
-int8 pools with scale pages come with the cache-layouts slice, and
-``copy_pages`` (copy-on-write) with the prefix-cache slice.
+This slice ports the flat layout: one ``kv`` group of {k, v} pools,
+(n_layers, n_pages, hkv, page, hd) per leaf, for dense and GQA configs —
+bf16, or int8 with bf16 {k_scale, v_scale} pages of (n_layers, n_pages,
+hkv, page, 1) when ``cfg.kv_cache_dtype == "int8"``.  Every primitive
+below walks all leaves of the group, so scale pages move with their
+pages.  gemma3's local/global ring-of-pages layout and MLA's latent
+pages come with later slices, and ``copy_pages`` (copy-on-write) with
+the prefix-cache slice.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ class PageGroup:
 
 
 class CacheLayout:
-    """Single flat bf16 {k, v} group (dense / GQA caches)."""
+    """Single flat {k, v} group (dense / GQA caches; bf16, or int8 with
+    scale pages)."""
 
     def __init__(self, cfg, page_size: int):
         self.cfg = cfg
@@ -103,8 +107,9 @@ class CacheLayout:
         return pools
 
     def spill(self, pools, name: str, pages: Sequence[int]):
-        """Copy the given physical pages (every layer) to host tensors,
-        keeping each leaf's dtype."""
+        """Copy the given physical pages (every layer, scale pages
+        included) to host tensors, keeping each leaf's dtype (int8 pages
+        stay int8, their scales bf16)."""
         return tree_map(lambda _, a: a.cpu(),
                         self.gather_pages(pools, name, pages))
 
@@ -127,9 +132,5 @@ def get_layout(cfg, page_size: int) -> Optional[CacheLayout]:
     if cfg.local_global_pattern:
         raise NotImplementedError(
             f"{cfg.name}: the local/global ring-of-pages layout comes with "
-            "the cache-layouts slice")
-    if cfg.kv_cache_dtype != "bfloat16":
-        raise NotImplementedError(
-            f"{cfg.name}: int8 pages with scale pages come with the "
-            "cache-layouts slice")
+            "a later port slice")
     return CacheLayout(cfg, page_size)

@@ -9,10 +9,14 @@ Caches update in place where the JAX package returns a new array from a
 donated one (its jitted serve steps donate their caches and pools): the
 dense cache and the page pools passed in are the ones written.
 
-Not in this slice: ring-of-pages paging and int8 KV (the cache-layouts
-slice), MLA attention (the MLA slice), MoE (the MoE slice), verify spans
-(the speculative-decode slice).  Their parameter declarations are here,
-so every architecture's parameter tree can be built.
+int8 KV caches (``cfg.kv_cache_dtype == "int8"``) quantize through
+``kernels.kv_quant`` (kernel B2), one bf16 scale per (head, position)
+row, in the dense cache and in the page pools alike.
+
+Not in this slice: ring-of-pages paging (gemma3's local/global layout),
+MLA attention (the MLA slice), MoE (the MoE slice), verify spans (the
+speculative-decode slice).  Their parameter declarations are here, so
+every architecture's parameter tree can be built.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels.kv_quant import kv_dequantize, kv_quantize
 from .params import Decl
 
 F32 = torch.float32
@@ -187,22 +192,19 @@ def _qkv(cfg, p, x):
     return q, k, v
 
 
-def _bf16_only(cfg):
-    if cfg.kv_cache_dtype != "bfloat16":
-        raise NotImplementedError(
-            f"kv_cache_dtype={cfg.kv_cache_dtype!r}: int8 KV comes with the "
-            "cache-layouts slice (kernel B2)")
-
-
 def attention_apply(cfg, p, x, *, window: Optional[int] = None,
                     theta: Optional[float] = None,
                     cache: Optional[Dict[str, torch.Tensor]] = None,
                     pos=None):
     """Pre-norm attention with residual.  Train/prefill when cache is
-    None; single-token decode otherwise (cache dict: k, v of shape
-    (b, hkv, S, hd), written in place at ``pos``, a host int).  A cache
-    of exactly ``window`` slots is the rolling ring buffer.  Returns
-    (y, cache)."""
+    None; single-token decode otherwise: ``cache`` holds k, v of shape
+    (b, hkv, S, hd) (int8 caches also k_scale, v_scale of (b, hkv, S,
+    1)), written in place, and ``pos`` is a (b,) tensor (or a host int
+    for every row) — each row decodes at its own position, as the
+    reference's vmap over slots does.  A cache of exactly ``window``
+    slots is the rolling ring buffer.  With ``cfg.decode_flash`` the read
+    goes through ``kernels.flash_attention.flash_attention_decode``.
+    Returns (y, cache)."""
     theta = theta if theta is not None else cfg.rope_theta
     b, s, d = x.shape
     h = rmsnorm(x, p["norm"])
@@ -215,32 +217,35 @@ def attention_apply(cfg, p, x, *, window: Optional[int] = None,
         o = attention_xla(q, k, v, causal=True, window=window)
         new_cache = None
     else:
-        _bf16_only(cfg)
-        if cfg.decode_flash:
-            raise NotImplementedError(
-                "decode_flash on dense slot caches (kernel B3, "
-                "flash_attention_decode) comes with the cache-layouts slice")
-        pos = int(pos)
-        cs = _rope_angles(torch.full((1,), pos, dtype=torch.int64,
-                                     device=x.device), cfg.head_dim, theta,
-                          x.device)
+        pos = torch.as_tensor(pos, device=x.device).to(torch.int64).reshape(
+            -1).expand(b)
+        cs = _rope_angles(pos[:, None, None], cfg.head_dim, theta, x.device)
         q = _rotate(q, *cs).transpose(1, 2)          # (b, hq, 1, hd)
         k = _rotate(k, *cs).transpose(1, 2)          # (b, hkv, 1, hd)
         v = v.transpose(1, 2)
-        ck, cv = cache["k"], cache["v"]
-        S = ck.shape[2]
-        idx = torch.arange(S, device=x.device)
-        if window is not None and S == window:
-            slot = pos % window                      # rolling ring cache
-            valid = (idx < pos + 1) | (pos >= window)
+        S = cache["k"].shape[2]
+        ring = window is not None and S == window
+        # rolling ring cache: slot = pos % window.  The reference's
+        # dynamic_update_slice clamps its start index, hence the clamp.
+        slot = (pos % window if ring else pos).clamp(max=S - 1)
+        rows = torch.arange(b, device=x.device)
+        new = _to_cache(cfg, {"k": k[:, :, 0], "v": v[:, :, 0]},
+                        cache["k"].dtype)
+        for name, t in new.items():
+            cache[name][rows, :, slot] = t
+        full = _from_cache(cache, q.dtype)            # (b, hkv, S, hd)
+        if cfg.decode_flash:
+            from ..kernels.flash_attention import flash_attention_decode
+            o = flash_attention_decode(
+                q.contiguous(), full["k"], full["v"],
+                pos.to(torch.int32).contiguous(),
+                window=window if ring else None, ring=ring)
         else:
-            slot = pos
-            valid = idx <= pos
-        # the reference's dynamic_update_slice clamps its start index.
-        slot = min(slot, S - 1)
-        ck[:, :, slot] = k[:, :, 0].to(ck.dtype)
-        cv[:, :, slot] = v[:, :, 0].to(cv.dtype)
-        o = attention_decode(q, ck.to(q.dtype), cv.to(q.dtype), valid)
+            idx = torch.arange(S, device=x.device)[None, :]
+            valid = idx <= pos[:, None]
+            if ring:
+                valid |= (pos >= window)[:, None]
+            o = attention_decode(q, full["k"], full["v"], valid)
         new_cache = cache
     y = o.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
     return x + y, new_cache
@@ -287,16 +292,18 @@ def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
                           last_idx: Optional[torch.Tensor] = None,
                           cache_offset: Optional[torch.Tensor] = None,
                           verify: bool = False, write_idx=None):
-    """Pre-norm attention against a flat *paged* bf16 KV cache.
+    """Pre-norm attention against a flat *paged* KV cache.
 
     x: (b, s, d) — s == 1 is a decode step, s > 1 a prefill chunk at
     positions pos..pos+s-1.  ``pages``: this layer's pools {"k", "v"} of
-    shape (n_pages, hkv, page, hd), written in place.  ``block_tab``:
-    (b, n_blocks) int32; entries >= n_pages are unallocated (writes
-    through them are dropped, reads clamped and masked).  ``pos``: (b,)
-    start position per row.  ``last_idx``/``cache_offset`` mask writes
-    as in ``paged_write_index``; ``write_idx`` is that function's result
-    when the caller computed it already.
+    shape (n_pages, hkv, page, hd), plus {"k_scale", "v_scale"} (n_pages,
+    hkv, page, 1) bf16 when ``cfg.kv_cache_dtype == "int8"``, written in
+    place.  ``block_tab``: (b, n_blocks) int32; entries >= n_pages are
+    unallocated (writes through them are dropped, reads clamped and
+    masked).  ``pos``: (b,) start position per row.  ``last_idx``/
+    ``cache_offset`` mask writes as in ``paged_write_index``;
+    ``write_idx`` is that function's result when the caller computed it
+    already.
 
     Reads mirror the dense path's rounding exactly.  Without the kernel,
     the PRE-write pool is gathered and the chunk's own K/V overlaid: a
@@ -309,11 +316,10 @@ def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
     if ring:
         raise NotImplementedError(
             "ring-of-pages paging (gemma3 local layers) comes with the "
-            "cache-layouts slice")
+            "local/global layout slice")
     if verify:
         raise NotImplementedError(
             "verify spans come with the speculative-decode slice")
-    _bf16_only(cfg)
     theta = theta if theta is not None else cfg.rope_theta
     b, s, d = x.shape
     h = rmsnorm(x, p["norm"])
@@ -330,6 +336,7 @@ def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
         write_idx = paged_write_index(block_tab, pos, s, page, n_pages,
                                       last_idx, cache_offset)
     rows_b, rows_s, wp, wo = write_idx
+    new = _to_cache(cfg, {"k": kc, "v": vc}, pk.dtype)   # (b, s, hkv, X)
 
     flash = cfg.decode_flash and s == 1 and cache_offset is None
     if not flash:
@@ -341,17 +348,12 @@ def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
             g = pool[bt]                              # (b, nb, hkv, page, X)
             return g.transpose(1, 2).reshape(b, hkv, S, -1)
 
-        kd = gather(pk).to(q.dtype)
-        vd = gather(pv).to(q.dtype)
-        k, v = kc.transpose(1, 2), vc.transpose(1, 2)  # (b, hkv, s, hd)
-        if s == 1:                                    # pool-rounded own k/v
-            kl = k.to(pk.dtype).to(q.dtype)
-            vl = v.to(pv.dtype).to(q.dtype)
-        else:
-            kl, vl = k, v
+        pre = _from_cache({n: gather(a) for n, a in pages.items()}, q.dtype)
+        # a decode step attends its own k/v pool-rounded, a chunk exactly.
+        own = _from_cache(new, q.dtype) if s == 1 else {"k": kc, "v": vc}
         kpos = torch.arange(S, device=x.device).expand(b, S)
-        K = torch.cat([kd, kl], dim=2)                # (b, hkv, S + s, hd)
-        V = torch.cat([vd, vl], dim=2)
+        K = torch.cat([pre["k"], own["k"].transpose(1, 2)], dim=2)
+        V = torch.cat([pre["v"], own["v"].transpose(1, 2)], dim=2)
         kpos_cat = torch.cat([kpos, positions], dim=1)  # (b, S + s)
         # gathered entries are only valid STRICTLY before the chunk;
         # own entries cover [pos, pos + s).
@@ -365,36 +367,81 @@ def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
         o = attention_masked(q, K, V, mask)
 
     # append: scatter the kept rows of the chunk's K/V into the pools.
-    pk[wp, :, wo] = kc[rows_b, rows_s].to(pk.dtype)
-    pv[wp, :, wo] = vc[rows_b, rows_s].to(pv.dtype)
+    for name, t in new.items():
+        pages[name][wp, :, wo] = t[rows_b, rows_s]
 
     if flash:
         from ..kernels.flash_attention import flash_attention_decode_paged
-        o = flash_attention_decode_paged(q.contiguous(), pk, pv, block_tab,
-                                         pos, window=window)
+        o = flash_attention_decode_paged(
+            q.contiguous(), pk, pv, block_tab, pos, window=window,
+            k_scale_pages=pages.get("k_scale"),
+            v_scale_pages=pages.get("v_scale"))
     y = o.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
     return x + y, pages
 
 
-def attention_paged_cache_decl(cfg, n_pages: int, page_size: int
-                               ) -> Dict[str, Decl]:
-    """One attention layer's shared bf16 page pool: (n_pages, hkv, page,
-    hd).  The pool has no batch/slot axis — slots own *pages*, not rows."""
-    _bf16_only(cfg)
-    shp = (n_pages, cfg.n_kv_heads, page_size, cfg.head_dim)
-    ax = (None, "kv_heads", None, None)
+def _kv_leaves(cfg, shp, ax) -> Dict[str, Decl]:
+    """k/v cache leaves of shape ``shp``: bf16, or int8 plus per-row bf16
+    scales (``shp`` with a trailing 1) for ``kv_cache_dtype == "int8"``."""
+    if cfg.kv_cache_dtype == "int8":
+        sshp = shp[:-1] + (1,)
+        return {"k": Decl(shp, ax, torch.int8, init="zeros"),
+                "v": Decl(shp, ax, torch.int8, init="zeros"),
+                "k_scale": Decl(sshp, ax, torch.bfloat16, init="zeros"),
+                "v_scale": Decl(sshp, ax, torch.bfloat16, init="zeros")}
     return {"k": Decl(shp, ax, torch.bfloat16, init="zeros"),
             "v": Decl(shp, ax, torch.bfloat16, init="zeros")}
+
+
+def attention_paged_cache_decl(cfg, n_pages: int, page_size: int
+                               ) -> Dict[str, Decl]:
+    """One attention layer's shared page pool: (n_pages, hkv, page, hd).
+    The pool has no batch/slot axis — slots own *pages*, not rows.  int8
+    pools also carry per-position bf16 scale pages."""
+    return _kv_leaves(cfg, (n_pages, cfg.n_kv_heads, page_size,
+                            cfg.head_dim), (None, "kv_heads", None, None))
 
 
 def attention_cache_decl(cfg, batch: int, max_seq: int,
                          window: Optional[int] = None) -> Dict[str, Decl]:
-    _bf16_only(cfg)
     S = min(max_seq, window) if window else max_seq
-    shp = (batch, cfg.n_kv_heads, S, cfg.head_dim)
-    ax = ("batch", "kv_heads", None, None)
-    return {"k": Decl(shp, ax, torch.bfloat16, init="zeros"),
-            "v": Decl(shp, ax, torch.bfloat16, init="zeros")}
+    return _kv_leaves(cfg, (batch, cfg.n_kv_heads, S, cfg.head_dim),
+                      ("batch", "kv_heads", None, None))
+
+
+def _kv_quantize(t: torch.Tensor):
+    """Per-(head, position) max-abs int8 quantization of (..., hd) through
+    kernel B2: int8 (..., hd) and bf16 scales (..., 1)."""
+    q, s = kv_quantize(t.reshape(-1, t.shape[-1]).contiguous())
+    return q.reshape(t.shape), s.reshape(t.shape[:-1] + (1,))
+
+
+def _kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype):
+    """q (..., hd) int8 times scale (..., 1) -> ``dtype``, through B2."""
+    out = kv_dequantize(q.reshape(-1, q.shape[-1]).contiguous(),
+                        scale.reshape(-1, 1).contiguous(), dtype)
+    return out.reshape(q.shape)
+
+
+def _to_cache(cfg, kv: Dict[str, torch.Tensor], dtype=torch.bfloat16
+              ) -> Dict[str, torch.Tensor]:
+    """K/V rows {"k", "v"} of (..., hd) in the cache's storage form, the
+    leaves of ``_kv_leaves``: cast to ``dtype``, or for an int8 cache
+    quantized through B2, with "k_scale"/"v_scale" of (..., 1)."""
+    if cfg.kv_cache_dtype != "int8":
+        return {n: t.to(dtype) for n, t in kv.items()}
+    qs = {n: _kv_quantize(t) for n, t in kv.items()}
+    return {**{n: q for n, (q, _) in qs.items()},
+            **{n + "_scale": s for n, (_, s) in qs.items()}}
+
+
+def _from_cache(leaves: Dict[str, torch.Tensor], dtype
+                ) -> Dict[str, torch.Tensor]:
+    """The inverse of ``_to_cache``: {"k", "v"} in ``dtype``, dequantized
+    through B2 where the leaves carry scales."""
+    return {n: _kv_dequantize(leaves[n], leaves[n + "_scale"], dtype)
+            if n + "_scale" in leaves else leaves[n].to(dtype)
+            for n in ("k", "v")}
 
 
 # --- MLA (deepseek-v2): declarations only in this slice -----------------------------

@@ -10,7 +10,7 @@ layer reading its slice of the stacked parameters.
 * ``prefill`` — same compute; every layer also emits its K/V (a ring,
   rolled mask-aware, for sliding-window caches); returns (last-position
   logits, cache).
-* ``decode``  — one token in; a dense cache or the page pools are
+* ``decode``  — one token in; a dense slot cache or the page pools are
   written in place.
 * ``chunk``   — a multi-token prefill chunk against the paged cache.
 
@@ -120,7 +120,9 @@ def _check_forward_family(cfg) -> None:
 
 
 def cache_decls(cfg, batch: int, max_seq: int):
-    """Dense slot caches: {"k", "v"} of (n_layers, batch, hkv, S, hd)."""
+    """Dense slot caches: {"k", "v"} of (n_layers, batch, hkv, S, hd),
+    bf16, or int8 plus bf16 {"k_scale", "v_scale"} of (n_layers, batch,
+    hkv, S, 1) when ``cfg.kv_cache_dtype == "int8"``."""
     _check_forward_family(cfg)
     base = L.attention_cache_decl(cfg, batch, max_seq, cfg.sliding_window)
     return stack_decls(base, cfg.n_layers)
@@ -180,7 +182,7 @@ def _prefill_kv(cfg, p, x, window, theta, cache_len, last_pos):
     elif Sc > s:
         pad = (0, 0, 0, Sc - s)
         k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
-    return {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+    return L._to_cache(cfg, {"k": k, "v": v})
 
 
 def forward(cfg, params, batch, mode: str = "train",
@@ -194,11 +196,11 @@ def forward(cfg, params, batch, mode: str = "train",
     ``last_pos`` (prefill/chunk): (b,) index of the true last token; the
     returned logits are gathered there.  Paged serving: pass
     ``cache={"pages": pools, "block_tab": bt}`` with pools and tables
-    keyed by page group ({"kv"}); ``pos`` is then a (b,) position
-    tensor.  Dense decode takes ``pos`` as a host int.  ``cache_offset``
-    (chunk mode): (b,) position below which the cache is read-only.
-    The pools or the dense cache passed in are updated in place and
-    returned."""
+    keyed by page group ({"kv"}).  ``pos`` (decode/chunk) is a (b,)
+    position tensor, one position per row; dense decode also takes a host
+    int for every row.  ``cache_offset`` (chunk mode): (b,) position
+    below which the cache is read-only.  The pools or the dense cache
+    passed in are updated in place and returned."""
     if mode not in ("train", "prefill", "decode", "chunk"):
         raise NotImplementedError(
             f"mode {mode!r} comes with the speculative-decode slice")
@@ -231,7 +233,7 @@ def forward(cfg, params, batch, mode: str = "train",
         if block_tab is not None and mode in ("decode", "chunk"):
             x, _ = L.attention_apply_paged(
                 cfg, p["attn"], x, window=w, theta=theta,
-                pages={"k": pools["k"][i], "v": pools["v"][i]},
+                pages={n: a[i] for n, a in pools.items()},
                 block_tab=block_tab, pos=pos,
                 last_idx=last_pos if mode == "chunk" else None,
                 cache_offset=cache_offset if mode == "chunk" else None,
@@ -239,7 +241,7 @@ def forward(cfg, params, batch, mode: str = "train",
         elif mode == "decode":
             x, _ = L.attention_apply(
                 cfg, p["attn"], x, window=w, theta=theta,
-                cache={"k": cache["k"][i], "v": cache["v"][i]}, pos=pos)
+                cache={n: c[i] for n, c in cache.items()}, pos=pos)
         else:
             x_in = x
             x, _ = L.attention_apply(cfg, p["attn"], x, window=w, theta=theta)
@@ -260,8 +262,8 @@ def forward(cfg, params, batch, mode: str = "train",
     if mode == "train":
         return logits
     if mode == "prefill":
-        return logits, {"k": torch.stack([c["k"] for c in emitted]),
-                        "v": torch.stack([c["v"] for c in emitted])}
+        return logits, {n: torch.stack([c[n] for c in emitted])
+                        for n in emitted[0]}
     if block_tab is not None:
         return logits, {"kv": pools}
     return logits, cache

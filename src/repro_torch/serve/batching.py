@@ -1,4 +1,5 @@
-"""Continuous batching over paged KV (port of ``serve/batching.py``).
+"""Continuous batching over dense slots or paged KV (port of
+``serve/batching.py``).
 
 Requests arrive on a bounded ``Stream``; the batcher packs them into
 fixed slots, decodes all active slots together with one batched step,
@@ -8,7 +9,14 @@ position, remaining budget, active mask) lives in device tensors; the
 only per-step device-to-host transfer is the (2, n_slots) int32 array of
 next tokens and finished flags.
 
-Paged KV cache: every attention layer owns a shared device page pool
+Dense-slot mode (``kv_page_size == 0``, the CLI's default, or a family
+with no pageable layout): every slot owns a full ``max_seq`` row of the
+dense cache.  Admission pads each prompt to a power-of-two bucket (at
+least ``_MIN_BUCKET``) and prefills at ``n_slots`` rows per bucket, the
+placed rows scattered into their slots; the decode step runs every slot
+at its own position in one batched forward.
+
+Paged mode: every attention layer owns a shared device page pool
 (the flat ``CacheLayout``), a host ``PageAllocator`` hands pages to
 requests, and a per-slot block table maps logical page j to a physical
 page.  Prompts are admitted in chunks (chunked prefill), interleaved
@@ -21,10 +29,11 @@ host, freed, and restored bit-identically — possibly into another slot
 the head of the FIFO; one that could not fit even an empty pool is
 rejected.
 
-This slice runs the paged mode with FIFO admission and the blocking
-overload policy.  The prefix cache, host tiers, speculative decode, SLA
-scheduling, fault injection, telemetry, mesh sharding and dense-slot
-mode come with later slices; the constructor raises if asked for them.
+This slice runs both modes with FIFO admission and the blocking
+overload policy, bf16 or int8 KV.  The prefix cache, host tiers,
+speculative decode, SLA scheduling, fault injection, telemetry and mesh
+sharding come with later slices; the constructor raises if asked for
+them.
 """
 
 from __future__ import annotations
@@ -42,8 +51,10 @@ from ..models import params as PP
 from ..models import registry
 from ..models.cache_layouts import get_layout
 from .prefix_cache import PageAllocator
-from .serve_loop import make_chunk_prefill_step, make_paged_decode_step
+from .serve_loop import (advance_slots, make_chunk_prefill_step,
+                         make_paged_decode_step)
 
+_MIN_BUCKET = 8            # smallest prefill bucket (pad-to-power-of-two)
 _MIN_CHUNK = 16            # smallest auto-selected prefill chunk
 
 # constructor keywords of the reference that belong to later slices.
@@ -58,8 +69,62 @@ _LATER_KWARGS = {
 }
 
 
+def _next_pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length() if n > 1 else 1
+
+
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+# --- step factories (dense-slot mode) --------------------------------------------------
+
+
+def _make_step_fn(cfg: ModelConfig, max_seq: int):
+    """Decode step over all dense slots: one batched forward in which
+    every slot decodes at its own position (the reference vmaps a
+    single-slot forward).  ``step(params, cache, last_tok, pos, remaining,
+    active)`` returns ``(cache, last_tok, pos, remaining, active, out)``,
+    the cache written in place.  Inactive slots run too; what they write
+    is replaced when the slot is next admitted."""
+
+    def step_fn(params, cache, last_tok, pos, remaining, active):
+        logits, cache = registry.forward(
+            cfg, params, {"tokens": last_tok[:, None].long()}, mode="decode",
+            cache=cache, pos=pos)
+        return (cache,) + advance_slots(logits, last_tok, pos, remaining,
+                                        active, max_seq)
+
+    return step_fn
+
+
+def _make_admit_fn(cfg: ModelConfig, max_seq: int):
+    """Batched padded prefill + scatter into the slots.
+
+    ``admit(params, cache, last_tok, pos, remaining, active, prompts,
+    lens, rows, slots, max_new)``: ``prompts`` (n_rows, bucket) and
+    ``lens``/``max_new`` (n_rows,) on the device; prefill row
+    ``rows[j]`` lands in slot ``slots[j]``.  The reference scatters every
+    row and drops the unplaced ones through the slot id ``n_slots``; here
+    only the placed rows are written (a masked write, no drop-mode
+    scatter).  Returns the updated state and ``tok0`` (n_rows,) int32."""
+
+    def admit_fn(params, cache, last_tok, pos, remaining, active, prompts,
+                 lens, rows, slots, max_new):
+        logits, cache1 = registry.forward(
+            cfg, params, {"tokens": prompts.long()}, mode="prefill",
+            cache_len=max_seq, last_pos=lens - 1)
+        tok0 = torch.argmax(logits[:, -1], -1).to(torch.int32)
+        for name, c in cache.items():
+            c[:, slots] = cache1[name][:, rows]
+        lens, max_new = lens[rows], max_new[rows]
+        last_tok[slots] = tok0[rows]
+        pos[slots] = lens
+        remaining[slots] = max_new - 1
+        active[slots] = (max_new > 1) & (lens < max_seq - 1)
+        return cache, last_tok, pos, remaining, active, tok0
+
+    return admit_fn
 
 
 class RequestFailed(RuntimeError):
@@ -107,9 +172,12 @@ class _Preempted:
 
 
 class ContinuousBatcher:
-    """Fixed-slot continuous batcher over paged KV with device-resident
-    slot state.  ``device`` is where the pools and slot state live; the
-    parameters must already be there."""
+    """Fixed-slot continuous batcher over dense slots or paged KV, with
+    device-resident slot state.  ``paged`` says which mode runs: paged
+    when a page size is given (or the config's ``kv_page_size``) and the
+    family has a pageable layout, dense slots otherwise.  ``device`` is
+    where the caches and slot state live; the parameters must already be
+    there."""
 
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int,
                  max_seq: int, n_pages=None,
@@ -124,8 +192,7 @@ class ContinuousBatcher:
                 raise NotImplementedError(
                     f"{k}= comes with the {_LATER_KWARGS[k]} slice")
         psz = int(page_size or cfg.kv_page_size)
-        for on, what in ((not psz, "dense-slot mode (kv_page_size=0)"),
-                         (cfg.prefix_cache or cfg.prefill_exact,
+        for on, what in ((cfg.prefix_cache or cfg.prefill_exact,
                           "the prefix cache"),
                          (cfg.kv_host_tier_bytes or cfg.kv_tier_snapshot,
                           "tiered KV memory"),
@@ -138,11 +205,8 @@ class ContinuousBatcher:
             if on:
                 raise NotImplementedError(
                     f"{what} comes with a later port slice")
-        self.layout = get_layout(cfg, psz)
-        if self.layout is None:
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}) has no paged layout; dense-slot "
-                "serving comes with a later port slice")
+        self.layout = get_layout(cfg, psz) if psz else None
+        self.paged = self.layout is not None
         self.cfg, self.params = cfg, params
         self.n_slots = n_slots
         self.max_seq = max_seq
@@ -162,6 +226,10 @@ class ContinuousBatcher:
         self._slot_req: List[Optional[Request]] = [None] * n_slots
         # requests popped from the FIFO but not yet placed (backpressure).
         self._pending: Deque[Request] = collections.deque()
+        # paged-only scheduling state; stays empty in dense-slot mode.
+        self._alloc: Dict[str, PageAllocator] = {}
+        self._admitting: Deque[_Admission] = collections.deque()
+        self._preempted: List[_Preempted] = []
 
         # device-resident slot state.
         i32 = torch.int32
@@ -171,7 +239,19 @@ class ContinuousBatcher:
                                      device=self.device)
         self.active = torch.zeros((n_slots,), dtype=torch.bool,
                                   device=self.device)
+        # host mirrors of per-slot decode state (drive lazy growth and
+        # preemption without device readbacks).
+        self._host_pos = [0] * n_slots
+        self._host_last_tok = [0] * n_slots
+        self._host_remaining = [0] * n_slots
 
+        if not self.paged:
+            self.cache = PP.init_params(
+                registry.cache_decls(cfg, n_slots, max_seq),
+                device=self.device)
+            self._step = _make_step_fn(cfg, max_seq)
+            self._admit_fn = _make_admit_fn(cfg, max_seq)
+            return
         self.page_size = psz
         self.n_blocks = {g.name: self.layout.n_blocks(g.name, max_seq)
                          for g in self.layout.groups}
@@ -193,8 +273,6 @@ class ContinuousBatcher:
                        for name, n in self.n_pages.items()}
         self._slot_pages: Dict[str, List[List[int]]] = {
             name: [[] for _ in range(n_slots)] for name in self.n_pages}
-        self._admitting: Deque[_Admission] = collections.deque()
-        self._preempted: List[_Preempted] = []
         self.pools = PP.init_params(
             registry.paged_cache_decls(cfg, self.n_pages, self.page_size),
             device=self.device)
@@ -205,11 +283,6 @@ class ContinuousBatcher:
                              self.n_pages[name], dtype=i32,
                              device=self.device)
             for name in self.n_pages}
-        # host mirrors of per-slot decode state (drive lazy growth and
-        # preemption without device readbacks).
-        self._host_pos = [0] * n_slots
-        self._host_last_tok = [0] * n_slots
-        self._host_remaining = [0] * n_slots
         self._slot_seq = [0] * n_slots
         self._admit_seq = 0
         self._step = make_paged_decode_step(cfg, max_seq, self.page_size)
@@ -241,15 +314,65 @@ class ContinuousBatcher:
         return sum(a.used_pages for a in self._alloc.values())
 
     def stats(self) -> Dict[str, Any]:
-        return {
+        """Scheduling counters; paged mode adds per-group pool occupancy."""
+        s: Dict[str, Any] = {
+            "paged": self.paged,
             "steps": self.steps, "retired": self.retired,
             "preemptions": self.preemptions, "resumes": self.resumes,
             "prefill_chunks": self.prefill_chunks,
             "peak_pages": self.peak_pages,
             "rejections": dict(self.rejections),
-            "pools": {name: {"free": a.free_pages, "used": a.used_pages}
-                      for name, a in self._alloc.items()},
         }
+        if self.paged:
+            s["pools"] = {name: {"free": a.free_pages, "used": a.used_pages}
+                          for name, a in self._alloc.items()}
+        return s
+
+    # -- dense bucketed admission -------------------------------------------------------
+
+    def _bucket_for(self, plen: int) -> int:
+        """Pad-to-power-of-two bucket for a prompt length (at least
+        ``_MIN_BUCKET``, at most ``max_seq``).  Attention caches are safe
+        for any bucket: padded positions are masked, or (sliding window)
+        kept out of the ring by the mask-aware emission."""
+        return min(max(_MIN_BUCKET, _next_pow2(plen)), self.max_seq)
+
+    def _admit_batch(self, pairs) -> None:
+        """Admit (slot, request) pairs: one padded prefill per bucket, at
+        ``n_slots`` rows (unused rows are zero prompts that are never
+        written), as the reference does."""
+        groups: Dict[int, list] = {}
+        for slot, r in pairs:
+            if len(r.prompt) >= self.max_seq:
+                self._reject(r)    # bypassed submit() validation
+                continue
+            groups.setdefault(self._bucket_for(len(r.prompt)),
+                              []).append((slot, r))
+        dev = self.device
+        for bucket, grp in groups.items():
+            prompts = np.zeros((self.n_slots, bucket), np.int32)
+            lens = np.ones((self.n_slots,), np.int32)
+            max_new = np.ones((self.n_slots,), np.int32)
+            for row, (slot, r) in enumerate(grp):
+                prompts[row, :len(r.prompt)] = r.prompt
+                lens[row] = len(r.prompt)
+                max_new[row] = r.max_new
+            rows = torch.arange(len(grp), device=dev)
+            slots = torch.as_tensor([slot for slot, _ in grp], device=dev)
+            (self.cache, self.last_tok, self.pos, self.remaining,
+             self.active, tok0) = self._admit_fn(
+                self.params, self.cache, self.last_tok, self.pos,
+                self.remaining, self.active, torch.from_numpy(prompts).to(dev),
+                torch.from_numpy(lens).to(dev), rows, slots,
+                torch.from_numpy(max_new).to(dev))
+            tok0 = tok0.cpu().numpy()
+            for row, (slot, r) in enumerate(grp):
+                r.out.Push(int(tok0[row]))
+                if r.max_new > 1 and len(r.prompt) < self.max_seq - 1:
+                    self._slot_req[slot] = r
+                else:                          # retired at admission
+                    r.out.close()
+                    self.retired += 1
 
     # -- paged admission (chunked prefill) --------------------------------------------
 
@@ -464,10 +587,22 @@ class ContinuousBatcher:
         return True
 
     def admit(self) -> int:
-        """Fill free slots: resume preempted requests first, then pop the
-        request stream.  Each placed request reserves its prompt pages (or
-        waits at the FIFO head — admission backpressure) and enters
-        chunked prefill."""
+        """Fill free slots.  Dense: pop the request stream and run one
+        batched padded prefill per bucket.  Paged: resume preempted
+        requests first, then pop the request stream; each placed request
+        reserves its prompt pages (or waits at the FIFO head — admission
+        backpressure) and enters chunked prefill."""
+        if not self.paged:
+            free = [i for i, r in enumerate(self._slot_req) if r is None]
+            pairs = []
+            while len(pairs) < len(free):
+                r = self._next_request()
+                if r is None:
+                    break
+                pairs.append((free[len(pairs)], r))
+            if pairs:
+                self._admit_batch(pairs)
+            return len(pairs)
         admitted = self._try_resume()
         busy = {a.slot for a in self._admitting}
         free = [i for i, r in enumerate(self._slot_req)
@@ -493,17 +628,24 @@ class ContinuousBatcher:
 
     def step(self) -> int:
         """One batched decode step; returns the number of sequences
-        retired.  Every decoding slot's block table first grows to cover
-        its next write position (preempting if the pool is dry)."""
-        for slot in range(self.n_slots):
-            if self._slot_req[slot] is not None:
-                self._grow_slot(slot)
+        retired.  Paged: every decoding slot's block table first grows to
+        cover its next write position (preempting if the pool is dry)."""
+        if self.paged:
+            for slot in range(self.n_slots):
+                if self._slot_req[slot] is not None:
+                    self._grow_slot(slot)
         if all(r is None for r in self._slot_req):
             return 0
-        (self.pools, self.last_tok, self.pos, self.remaining, self.active,
-         out) = self._step(self.params, self.pools, self.block_tab,
-                           self.last_tok, self.pos, self.remaining,
-                           self.active)
+        if self.paged:
+            (self.pools, self.last_tok, self.pos, self.remaining,
+             self.active, out) = self._step(
+                self.params, self.pools, self.block_tab, self.last_tok,
+                self.pos, self.remaining, self.active)
+        else:
+            (self.cache, self.last_tok, self.pos, self.remaining,
+             self.active, out) = self._step(
+                self.params, self.cache, self.last_tok, self.pos,
+                self.remaining, self.active)
         out = out.cpu().numpy()                # the ONLY per-step transfer
         toks, finished = out[0], out[1]
         done = 0
@@ -517,7 +659,8 @@ class ContinuousBatcher:
             if finished[i]:
                 r.out.close()
                 self._slot_req[i] = None
-                self._release_slot(i)
+                if self.paged:
+                    self._release_slot(i)
                 done += 1
         self.steps += 1
         self.retired += done

@@ -2,7 +2,7 @@
 
 * ``make_sampling_serve_steps`` — greedy prefill/decode over dense slot
   caches, returning int32 token ids; ``greedy_generate`` drives it and is
-  the port's dense oracle for the paged batcher.
+  the port's dense oracle for both batcher modes.
 * ``make_paged_decode_step`` — ONE batched call advances every slot of
   the continuous batcher over the page pools.
 * ``make_chunk_prefill_step`` — one prompt chunk for one slot against the
@@ -33,7 +33,8 @@ def make_sampling_serve_steps(cfg: ModelConfig, max_seq: int):
     * ``decode(params, cache, tokens, pos)``  -> (tokens, cache)
 
     Both return int32 token ids of shape (b,).  ``decode`` writes the
-    cache in place; ``pos`` is a host int."""
+    cache in place; ``pos`` is a (b,) position tensor (or a host int for
+    every row)."""
 
     def prefill(params, batch_in, last_pos):
         logits, cache = registry.forward(cfg, params, batch_in,
@@ -47,6 +48,22 @@ def make_sampling_serve_steps(cfg: ModelConfig, max_seq: int):
         return torch.argmax(logits[:, -1], -1).to(torch.int32), cache
 
     return prefill, decode
+
+
+def advance_slots(logits, last_tok, pos, remaining, active, max_seq: int):
+    """The decode step's slot-state update, shared by both batcher modes:
+    greedy next token for active slots, positions and budgets advanced,
+    ``finished`` = out of budget or at ``max_seq - 1``.  Returns
+    ``(last_tok, pos, remaining, active, out)`` with ``out`` the
+    (2, n_slots) int32 [next token, finished] rows."""
+    nxt = torch.argmax(logits[:, -1], -1).to(torch.int32)
+    nxt = torch.where(active, nxt, last_tok)
+    pos = torch.where(active, pos + 1, pos)
+    remaining = torch.where(active, remaining - 1, remaining)
+    finished = active & ((remaining <= 0) | (pos >= max_seq - 1))
+    active = active & ~finished
+    out = torch.stack([nxt, finished.to(torch.int32)])   # (2, n_slots)
+    return nxt, pos, remaining, active, out
 
 
 def make_paged_decode_step(cfg: ModelConfig, max_seq: int, page_size: int):
@@ -70,14 +87,8 @@ def make_paged_decode_step(cfg: ModelConfig, max_seq: int, page_size: int):
         logits, pools = registry.forward(
             cfg, params, {"tokens": last_tok[:, None].long()}, mode="decode",
             cache=cache, pos=pos)
-        nxt = torch.argmax(logits[:, -1], -1).to(torch.int32)
-        nxt = torch.where(active, nxt, last_tok)
-        pos = torch.where(active, pos + 1, pos)
-        remaining = torch.where(active, remaining - 1, remaining)
-        finished = active & ((remaining <= 0) | (pos >= max_seq - 1))
-        active = active & ~finished
-        out = torch.stack([nxt, finished.to(torch.int32)])   # (2, n_slots)
-        return pools, nxt, pos, remaining, active, out
+        return (pools,) + advance_slots(logits, last_tok, pos, remaining,
+                                        active, max_seq)
 
     return step
 
@@ -131,10 +142,10 @@ def greedy_generate(cfg: ModelConfig, params, prompt_batch: Dict,
                           device=device)
     nxt, cache = pre(params, {"tokens": tok}, last_pos)
     out = []
-    pos = prompt_len
+    pos = torch.full((b,), prompt_len, dtype=torch.int32, device=device)
     for _ in range(steps):
         tokens = nxt.reshape(b, 1)
         out.append(tokens.cpu().numpy())
         nxt, cache = dec(params, cache, {"tokens": tokens.long()}, pos)
-        pos += 1
+        pos = pos + 1
     return np.concatenate(out, axis=1)

@@ -201,13 +201,13 @@ def test_greedy_generate_tokens_identical(model, window, plens):
 
 def test_later_slices_raise(model):
     _, tcfg, _, tp = model
-    with pytest.raises(NotImplementedError, match="B3"):
-        tgreedy(dataclasses.replace(tcfg, decode_flash=True), tp,
-                {"tokens": _tokens((1, 4), 0)}, steps=2, max_seq=16,
-                device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        tregistry.paged_cache_decls(
-            dataclasses.replace(tcfg, kv_cache_dtype="int8"), 4, 8)
+    with pytest.raises(NotImplementedError, match="ring-of-pages"):
+        tlayers.attention_apply_paged(
+            tcfg, {}, torch.zeros(1, 1, tcfg.d_model), pages={},
+            block_tab=torch.zeros(1, 1, dtype=torch.int32),
+            pos=torch.zeros(1, dtype=torch.int32), ring=True)
+    with pytest.raises(NotImplementedError, match="local/global"):
+        tregistry.paged_cache_decls(tsmoke(tconfigs.get("gemma3-12b")), 4, 8)
     with pytest.raises(NotImplementedError, match="verify"):
         tregistry.forward(tcfg, tp, {"tokens": torch.zeros(1, 2).long()},
                           mode="verify")

@@ -70,21 +70,22 @@ def _serve(*extra):
         env=_env(), capture_output=True, text=True, timeout=120, cwd=ROOT)
 
 
-@pytest.mark.parametrize("extra", [("--page-size", "8", "--decode-flash"),
-                                   ("--page-size", "8", "--pages", "3")])
+@pytest.mark.parametrize("extra", [
+    ("--page-size", "8", "--decode-flash"),
+    ("--page-size", "8", "--pages", "3"),
+    (),                                       # dense slots, the default
+    ("--decode-flash",),
+    ("--kv-cache-dtype", "int8"),
+    ("--kv-cache-dtype", "int8", "--page-size", "8", "--decode-flash"),
+])
 def test_serve_cli_runs_and_prints_summary(extra):
     out = _serve(*extra)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.splitlines()
     assert sum(line.startswith("req ") for line in lines) == 4
     assert "4 requests, 20 tokens in" in lines[-1]
-    assert "paged(page=8," in lines[-1]
-
-
-def test_serve_cli_refuses_dense_slot_mode():
-    out = _serve()
-    assert out.returncode != 0
-    assert "--page-size" in out.stderr
+    mode = "paged(page=8," if "--page-size" in extra else ", dense,"
+    assert mode in lines[-1]
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
