@@ -18,11 +18,22 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    dense-slot batcher through B3 (bf16, the sliding-window ring, int8
    through B2) give the dense greedy oracle's tokens; the int8 paged
    batcher gives the int8 dense-slot batcher's, with preemption;
+   then the hlslib kernels against their twins with the same timings:
+   ``stencil2d`` (B8) and ``tree_row_reduce`` (B7) bit for bit,
+   ``rmsnorm`` (B4) and ``flash_attention`` (B5) within tolerance, at
+   their main shapes, long shapes and options;
 4. full-width serve — minitron-4b at full width, random bf16 weights
    from the seed, 16 requests through ``ContinuousBatcher`` under
    ``DataflowContext``: paged through B1, then dense slots through B3 with
    a bf16 and with an int8 cache (B2); each with one decode step's logits
-   through the kernels vs the plain path, and a decode step's time split.
+   through the kernels vs the plain path, and a decode step's time split;
+5. the hlslib ops path at full size — the package example's eager
+   ``ShiftReg`` stage at 64 x 128 on the host against the kernel's sweep,
+   then its kernel stages (``ops.stencil(use_pallas=True)`` and 64 sweeps
+   of ``stencil2d_iterated``) on a 16384 x 16384 fp32 grid, and
+   ``ops.row_reduce``, ``ops.fused_rmsnorm`` and ``ops.attention`` at
+   their main shapes, all with ``use_pallas=True``; outputs against the
+   plain twins on the card (the stencil's 64 sweeps bit for bit).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -33,6 +44,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -55,6 +67,14 @@ KERNELS = {
                     "src/repro/kernels/kv_quant.py:55"),
     "kv_dequantize": ("src/repro_torch/csrc/kv_quant.cu",
                       "src/repro/kernels/kv_quant.py:76"),
+    "stencil2d": ("src/repro_torch/csrc/stencil.cu",
+                  "src/repro/kernels/stencil.py:68"),
+    "tree_row_reduce": ("src/repro_torch/csrc/treereduce.cu",
+                        "src/repro/kernels/treereduce_kernel.py:57"),
+    "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm_kernel.py:37"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:153"),
 }
 # bf16 outputs: kernel and plain both accumulate in fp32 and round once,
 # so an output may round to the neighbouring bf16 value: each element is
@@ -65,6 +85,8 @@ KERNELS = {
 TOL_BF16_ULPS = 2
 TOL_BF16_FLOOR = 1e-5
 TOL_F32 = 1e-4
+# fp32 RMSNorm: the sum of squares in another order than torch.mean.
+TOL_RMS_F32 = 1e-5
 # full-width logits (bf16 compute, 32 layers): one decode step through
 # the kernel vs through the plain path, relative to the largest logit.
 TOL_LOGITS_REL = 5e-2
@@ -76,6 +98,9 @@ TOL_LIBRARY = 5e-2
 # computed for.
 HBM_RATE = {"PCIe": 2.0e12, "NVL": 3.9e12, "": 3.35e12}
 PEAK_BF16 = 989e12
+# fp32 outside the tensor cores (the stencil's, reduction's and norm's
+# adds and multiplies, and fp32 attention).
+PEAK_F32 = 67e12
 
 
 def hbm_rate(name: str) -> float:
@@ -200,6 +225,31 @@ def sdpa_inputs(c):
     return K, V, mask
 
 
+def hold(tag, name, out, ref, rule):
+    """A kernel's output against its plain twin's: ``rule`` is "bit" (bit
+    for bit), "bf16" (TOL_BF16_ULPS ulps of |plain| + TOL_BF16_FLOOR per
+    element) or an absolute tolerance.  Returns the row's error fields."""
+    check(out.shape == ref.shape and out.dtype == ref.dtype,
+          f"{tag} [{name}]: {tuple(out.shape)} {out.dtype} != plain's "
+          f"{tuple(ref.shape)} {ref.dtype}")
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    if rule == "bit":
+        check(torch.equal(out, ref), f"{tag} vs plain [{name}]: not "
+              f"bit-equal ({int((out != ref).sum())} values differ, max abs "
+              f"err {err})")
+        return {"max_abs_err": err, "tol": "bit-exact"}
+    if rule == "bf16":
+        tol = f"{TOL_BF16_ULPS} bf16 ulp of |plain| + {TOL_BF16_FLOOR}"
+        limit = TOL_BF16_ULPS * bf16_ulp(ref) + TOL_BF16_FLOOR
+    else:
+        tol, limit = rule, torch.full_like(diff, rule)
+    ratio = (diff / limit).max().item()
+    check(ratio <= 1.0, f"{tag} vs plain [{name}]: max abs err {err}, "
+          f"{ratio:.3g}x the tolerance ({tol})")
+    return {"max_abs_err": err, "tol": tol, "err_over_tol": ratio}
+
+
 def hold_attention(tag, kernel, plain, make, cases, yardstick, bound,
                    flush):
     """Hold a decode-attention kernel against its plain twin for every
@@ -214,17 +264,8 @@ def hold_attention(tag, kernel, plain, make, cases, yardstick, bound,
         out = kernel(**c)
         torch.cuda.synchronize()
         ref = plain(**c)
-        diff = (out.float() - ref.float()).abs()
-        err = diff.max().item()
-        if c["q"].dtype == torch.float32:
-            tol, limit = TOL_F32, torch.full_like(diff, TOL_F32)
-        else:
-            tol = f"{TOL_BF16_ULPS} bf16 ulp of |plain| + {TOL_BF16_FLOOR}"
-            limit = TOL_BF16_ULPS * bf16_ulp(ref) + TOL_BF16_FLOOR
-        ratio = (diff / limit).max().item()
-        check(ratio <= 1.0, f"{tag} vs plain [{name}]: max abs err {err}, "
-              f"{ratio:.3g}x the tolerance ({tol})")
-        row = {"max_abs_err": err, "tol": tol, "err_over_tol": ratio}
+        row = hold(tag, name, out, ref,
+                   TOL_F32 if c["q"].dtype == torch.float32 else "bf16")
         if name.startswith(("main", "long")):
             row["ms"] = time_ms(lambda: kernel(**c), flush)
             row["plain_ms"] = time_ms(lambda: plain(**c), flush)
@@ -438,6 +479,207 @@ def phase_quant_kernel(gen, card, flush):
     return results
 
 
+# --- phase 2, continued: the hlslib kernels (B8, B7, B4, B5) ---------------------------
+
+
+def run_case(tag, name, kernel, plain, rule, flush, bound=None,
+             library=None):
+    """Hold ``kernel()`` against ``plain()``; with ``bound`` (a dict of
+    bound_ms and bound_by) also time both beside it and beside
+    ``library`` = (call, note), one PyTorch call held loosely to the
+    plain output and never called by the port."""
+    out = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    row = hold(tag, name, out, ref, rule)
+    if bound is not None:
+        row["ms"] = time_ms(kernel, flush)
+        row["plain_ms"] = time_ms(plain, flush)
+        row.update(bound)
+        row["library_ms"] = None
+        if library is not None:
+            call, row["library"] = library
+            lib = call()
+            lib_err = (lib.float() - ref.float()).abs().max().item()
+            check(lib_err <= TOL_LIBRARY, f"{tag} library yardstick "
+                  f"disagrees [{name}]: {lib_err}")
+            row["library_err"] = lib_err
+            row["library_ms"] = time_ms(call, flush)
+            del lib
+    print(f"{tag} vs plain [{name}]: " + json.dumps(row))
+    del out, ref
+    return row
+
+
+def bound_of(nbytes: float, ops: float, peak: float, card: str):
+    """{bound_ms, bound_by}: the larger of bytes over the HBM rate and
+    operations over ``peak``."""
+    t_bytes = nbytes / hbm_rate(card) * 1e3
+    t_ops = ops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def attention_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask keeps, per (batch, q head)."""
+    qpos = torch.arange(sq, dtype=torch.int64) + (sk - sq)
+    hi = qpos.clamp(max=sk - 1) if causal else torch.full_like(qpos, sk - 1)
+    lo = (qpos - window + 1).clamp(min=0) if window else torch.zeros_like(qpos)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def make_attention(gen, *, b=8, hq=24, hkv=8, sq=512, sk=512, d=128,
+                   dtype=torch.bfloat16):
+    return [torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+            for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+
+
+def attention_bound(q, k, causal, window, card):
+    b, hq, sq, d = q.shape
+    sk = k.shape[2]
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    ops = 4.0 * d * attention_pairs(sq, sk, causal, window) * b * hq
+    peak = PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_F32
+    return bound_of(nbytes, ops, peak, card)
+
+
+def phase_hlslib_kernels(gen, card, flush):
+    """B8, B7, B4 and B5 against their plain twins on the card; timings at
+    the main and long shapes.  Returns {kernel: {case: row}}."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm_kernel as rk
+    from repro_torch.kernels import stencil as st
+    from repro_torch.kernels import treereduce_kernel as tk
+    F = torch.nn.functional
+    res = {"stencil2d": {}, "tree_row_reduce": {}, "rmsnorm": {},
+           "flash_attention": {}}
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+    # B8: one sweep, bit for bit; library = the 3x3 cross as a conv2d.
+    for name, (H, W, dt, timed) in {
+            "main (16384 x 16384 fp32)": (16384, 16384, torch.float32, True),
+            "4096 x 4096 bf16": (4096, 4096, torch.bfloat16, False),
+            "W % 4 != 0 (999 x 1001 fp32)": (999, 1001, torch.float32, False),
+            "33 x 128 fp32": (33, 128, torch.float32, False),
+            "one row (1 x 7 fp32)": (1, 7, torch.float32, False)}.items():
+        x = randn(H, W, dtype=dt)
+        bound = library = None
+        if timed:
+            n = x.numel()
+            bound = bound_of(2 * n * x.element_size(), 4 * n, PEAK_F32, card)
+            cross = torch.tensor([[0, .25, 0], [.25, 0, .25], [0, .25, 0]],
+                                 device=DEVICE).reshape(1, 1, 3, 3)
+            library = (lambda: F.conv2d(x[None, None], cross, padding=1)[0, 0],
+                       "F.conv2d, 3x3 cross, padding 1, TF32 off")
+        res["stencil2d"][name] = run_case(
+            "B8", name, lambda: st.stencil2d(x), lambda: st.stencil2d_plain(x),
+            "bit", flush, bound, library)
+        del x, library
+    torch.cuda.empty_cache()
+
+    # B7: bit for bit; library = torch.sum / torch.amax over the rows.
+    for name, (op, rows, n, dt, timed) in {
+            "main add (32768 x 4096 fp32)":
+                ("add", 32768, 4096, torch.float32, True),
+            "main max (32768 x 4096 fp32)":
+                ("max", 32768, 4096, torch.float32, True),
+            "long add (16 x 256000 fp32, vocab-wide logit rows)":
+                ("add", 16, 256000, torch.float32, True),
+            "long max (16 x 256000 fp32, vocab-wide logit rows)":
+                ("max", 16, 256000, torch.float32, True),
+            "add (7 x 1000 bf16)": ("add", 7, 1000, torch.bfloat16, False),
+            "max (100 x 300 fp32)": ("max", 100, 300, torch.float32, False),
+            "add (3 x 5 fp32)": ("add", 3, 5, torch.float32, False),
+            "max (5 x 1 fp32)": ("max", 5, 1, torch.float32, False)}.items():
+        x = randn(rows, n, dtype=dt)
+        bound = library = None
+        if timed:
+            bound = bound_of((x.numel() + rows) * x.element_size(), x.numel(),
+                             PEAK_F32, card)
+            if op == "max":
+                check(torch.equal(torch.amax(x, -1),
+                                  tk.tree_row_reduce_plain(x, op)),
+                      f"B7 [{name}]: torch.amax is not bit-equal to plain")
+                library = (lambda: torch.amax(x, -1),
+                           "torch.amax (bit-equal to plain)")
+            else:
+                library = (lambda: torch.sum(x, -1), "torch.sum")
+        res["tree_row_reduce"][name] = run_case(
+            "B7", name, lambda: tk.tree_row_reduce(x, op),
+            lambda: tk.tree_row_reduce_plain(x, op), "bit", flush, bound,
+            library)
+        del x, library
+    torch.cuda.empty_cache()
+
+    # B4: library = F.rms_norm with the (1 + w) gains formed beforehand.
+    for name, (rows, d, dt, timed) in {
+            "main (4096 x 3072 bf16, 8 prompts x 512 tokens)":
+                (4096, 3072, torch.bfloat16, True),
+            "decode rows (8 x 3072 bf16)": (8, 3072, torch.bfloat16, True),
+            "fp32 (4096 x 3072)": (4096, 3072, torch.float32, False),
+            "d % 4 != 0 (5 x 100 fp32)": (5, 100, torch.float32, False)
+            }.items():
+        x = randn(rows, d, dtype=dt)
+        w = (randn(d) * 0.1).to(dt)
+        bound = library = None
+        if timed:
+            bound = bound_of((2 * x.numel() + d) * x.element_size(),
+                             4 * x.numel(), PEAK_F32, card)
+            w1 = (1.0 + w.float()).to(dt)
+            library = (lambda: F.rms_norm(x, (d,), weight=w1, eps=1e-6),
+                       "F.rms_norm, weight 1 + w formed beforehand")
+        res["rmsnorm"][name] = run_case(
+            "B4", name, lambda: rk.rmsnorm(x, w), lambda: rk.rmsnorm_plain(x, w),
+            "bf16" if dt == torch.bfloat16 else TOL_RMS_F32, flush, bound,
+            library)
+        del x, w, library
+    torch.cuda.empty_cache()
+
+    # B5: library = SDPA (its is_causal aligns top-left, so only sq == sk
+    # without a window may use it; other masks are bottom-right aligned).
+    sdpa = F.scaled_dot_product_attention
+    for name, (kw, causal, window, timed) in {
+            "main (8 x 512, hq 24 / hkv 8, d 128, bf16, causal)":
+                ({}, True, None, True),
+            "long (1 x 8192, bf16, causal)": (dict(b=1, sq=8192, sk=8192),
+                                              True, None, True),
+            "gemma3 widths (hq 16 / hkv 8, d 256, window 1024, 4096)":
+                (dict(b=1, hq=16, sq=4096, sk=4096, d=256), True, 1024,
+                 False),
+            "chunk-aligned sq 128 / sk 1024": (dict(b=2, sq=128, sk=1024),
+                                               True, None, False),
+            "sq = sk = 500 (tails)": (dict(b=2, sq=500, sk=500), True, None,
+                                      False),
+            "not causal, sq 200 / sk 300": (dict(b=2, sq=200, sk=300), False,
+                                            None, False),
+            "sq 300 > sk 200 (leading rows see no key)":
+                (dict(b=2, sq=300, sk=200), True, None, False),
+            "f32 (2 x 512)": (dict(b=2, dtype=torch.float32), True, None,
+                              False),
+            "f32, d 64, window 100, sq 200 / sk 700":
+                (dict(b=1, hq=8, hkv=2, sq=200, sk=700, d=64,
+                      dtype=torch.float32), True, 100, False)}.items():
+        q, k, v = make_attention(gen, **kw)
+        bound = library = None
+        if timed:
+            bound = attention_bound(q, k, causal, window, card)
+            library = (lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+                       "F.scaled_dot_product_attention, is_causal, "
+                       "enable_gqa")
+        res["flash_attention"][name] = run_case(
+            "B5", name,
+            lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
+            lambda: fa.flash_attention_plain(q, k, v, causal=causal,
+                                             window=window),
+            "bf16" if q.dtype == torch.bfloat16 else TOL_F32, flush, bound,
+            library)
+        del q, k, v, library
+        torch.cuda.empty_cache()
+    return res
+
+
 # --- phase 3: exactness at smoke width ------------------------------------------------
 
 
@@ -446,10 +688,17 @@ def kernel_counts():
     its own launches in ``.launches``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import kv_quant as kq
+    from repro_torch.kernels import rmsnorm_kernel as rk
+    from repro_torch.kernels import stencil as st
+    from repro_torch.kernels import treereduce_kernel as tk
     return {"flash_attention_decode_paged": fa.flash_attention_decode_paged,
             "flash_attention_decode": fa.flash_attention_decode,
             "kv_quantize": kq.kv_quantize,
-            "kv_dequantize": kq.kv_dequantize}
+            "kv_dequantize": kq.kv_dequantize,
+            "stencil2d": st.stencil2d,
+            "tree_row_reduce": tk.tree_row_reduce,
+            "rmsnorm": rk.rmsnorm,
+            "flash_attention": fa.flash_attention}
 
 
 def reset_counts(counts):
@@ -836,6 +1085,90 @@ def phase_full_width(seed):
     return paths
 
 
+# --- phase 5: the hlslib ops path at full size ----------------------------------------
+
+STENCIL_GRID, STENCIL_SWEEPS = 16384, 64
+
+
+def phase_hlslib_path(seed):
+    """The package example's stages and the ``ops`` entry points with
+    ``use_pallas=True``, at full size; counts set to 0 just before and
+    read just after, outputs then held against the plain twins on the
+    card.  Returns the path's launches."""
+    from repro_torch.examples import dataflow_stencil as ex
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.rmsnorm_kernel import rmsnorm_plain
+    from repro_torch.kernels.stencil import stencil2d, stencil2d_plain
+    from repro_torch.kernels.treereduce_kernel import tree_row_reduce_plain
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+
+    # stage 1: the eager ShiftReg stencil on the host, held to the kernel's
+    # sweep of the same grid (the eager stage adds the taps in the paper's
+    # order, north, west, east, south: fp32 rounding apart).
+    xe = ex.make_grid(*ex.EAGER_SHAPE, seed)
+    t = time.perf_counter()
+    eager = ex.eager_stencil(xe)
+    eager_s = time.perf_counter() - t
+    swept_e = stencil2d(torch.from_numpy(xe).to(DEVICE)).cpu().numpy()
+    err = float(np.abs(eager - swept_e).max())
+    check(err <= 1e-6, f"eager ShiftReg stage vs the kernel: {err}")
+    print(f"hlslib path: eager ShiftReg stencil {ex.EAGER_SHAPE} on the host "
+          f"in {eager_s:.3f}s, max abs err vs the kernel's sweep {err}")
+
+    G = STENCIL_GRID
+    x = torch.randn((G, G), generator=gen, device=DEVICE)
+    rows = torch.randn((32768, 4096), generator=gen, device=DEVICE)
+    xn = torch.randn((4096, 3072), generator=gen, device=DEVICE).bfloat16()
+    wn = (torch.randn(3072, generator=gen, device=DEVICE) * 0.1).bfloat16()
+    q, k, v = make_attention(gen)
+    counts = kernel_counts()
+    torch.cuda.synchronize()
+    reset_counts(counts)
+    t0 = time.perf_counter()
+    sweep, swept = ex.kernel_stages(x, STENCIL_SWEEPS)
+    torch.cuda.synchronize()
+    t_stencil = time.perf_counter() - t0
+    red = {op: ops.row_reduce(rows, op=op, use_pallas=True)
+           for op in ("add", "max")}
+    normed = ops.fused_rmsnorm(xn, wn, use_pallas=True)
+    att = ops.attention(q, k, v, use_pallas=True)
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    launches = read_counts(counts)
+    want = {name: 0 for name in counts}
+    want.update(stencil2d=1 + STENCIL_SWEEPS, tree_row_reduce=2, rmsnorm=1,
+                flash_attention=1)
+    check(launches == want, f"hlslib path launches {launches} != {want}")
+
+    check(torch.equal(sweep, stencil2d_plain(x)),
+          "ops.stencil sweep is not bit-equal to the plain twin")
+    ref = x
+    for _ in range(STENCIL_SWEEPS):
+        ref = stencil2d_plain(ref)
+    check(torch.isfinite(swept).all().item() and torch.equal(swept, ref),
+          f"{STENCIL_SWEEPS} kernel sweeps are not bit-equal to the twin's")
+    del x, sweep, swept, ref
+    for op, got in red.items():
+        check(torch.equal(got, tree_row_reduce_plain(rows, op)),
+              f"ops.row_reduce {op} is not bit-equal to the plain twin")
+    errs = {"rmsnorm": hold("B4", "ops path", normed, rmsnorm_plain(xn, wn),
+                            "bf16"),
+            "attention": hold("B5", "ops path", att,
+                              flash_attention_plain(q, k, v), "bf16")}
+    print("hlslib path [16384^2 fp32 stencil x 1 + "
+          f"{STENCIL_SWEEPS} sweeps, row_reduce 32768 x 4096 add+max, "
+          "fused_rmsnorm 4096 x 3072, attention 8 x 512]: " + json.dumps({
+              "stencil_s": t_stencil,
+              "stencil_ms_per_sweep_host": t_stencil / (1 + STENCIL_SWEEPS)
+              * 1e3, "path_s": t_all, "launches": launches,
+              "outputs_vs_plain": {"stencil": "bit-exact",
+                                   "row_reduce": "bit-exact", **errs}}))
+    del rows, xn, wn, q, k, v, red, normed, att
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -850,17 +1183,20 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = torch.cuda.get_device_name(0)
-    print(f"card: {smi.stdout.strip().splitlines()[0]}")
+    card_line = f"card: {smi.stdout.strip().splitlines()[0]}"
+    print(card_line)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t = time.perf_counter()
     reports = build.build_all()
     print(f"kernels built in {time.perf_counter() - t:.2f}s "
           f"({', '.join(sorted(reports)) or 'up to date'})")
-    for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    for name, rep in sorted(reports.items()):
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", rep)]
+        spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores",
+                                                rep))
+        print(f"  {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+              f"registers, {spills} bytes of spill stores")
 
     gen = torch.Generator(device=DEVICE).manual_seed(args.seed)
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
@@ -868,9 +1204,11 @@ def main():
     b3 = phase_dense_kernel(gen, card, flush)[
         "main (8 slots x 1024, pos 128-1023, bf16)"]
     b2 = phase_quant_kernel(gen, card, flush)
+    hl = phase_hlslib_kernels(gen, card, flush)
     del flush
     phase_exactness(args.seed)
     paths = phase_full_width(args.seed)
+    paths["hlslib ops"] = phase_hlslib_path(args.seed)
 
     # each kernel's row: its launches on the full-width path that runs it,
     # its numbers at that path's shapes (B2: quantize at the decode rows
@@ -892,6 +1230,14 @@ def main():
             "bound_ms": d_rows["dequantize_bound_ms"], "bound_by": "bytes",
             "library_ms": d_rows["dequantize_library_ms"]}),
     }
+    # the hlslib kernels: launches on the ops path, numbers at its shapes.
+    for name, case in (
+            ("stencil2d", "main (16384 x 16384 fp32)"),
+            ("tree_row_reduce", "main add (32768 x 4096 fp32)"),
+            ("rmsnorm", "main (4096 x 3072 bf16, 8 prompts x 512 tokens)"),
+            ("flash_attention",
+             "main (8 x 512, hq 24 / hkv 8, d 128, bf16, causal)")):
+        rows[name] = (paths["hlslib ops"], hl[name][case])
     kernels = []
     for name, (launches, m) in rows.items():
         check(launches[name] > 0, f"{name} never launched on its path")
@@ -902,6 +1248,7 @@ def main():
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+    print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

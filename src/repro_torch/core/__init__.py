@@ -1,1 +1,2 @@
-"""hlslib-style infrastructure the serving stack needs (streams, dataflow)."""
+"""The hlslib core: streams, dataflow, shift registers, tree reduction,
+DataPack."""

@@ -20,7 +20,8 @@ in a thread, communicating over bounded ``repro_torch.core.stream.Stream``
 objects; ``mode="sequential"`` reproduces the *naive* C++-compilation
 behavior the paper warns about (each PE runs to completion in call order,
 streams unbounded).  ``launch/serve.py`` runs its producer and batcher
-PEs under it.
+PEs under it; ``run_cyclic_dataflow`` is the paper's Listing 3/4 program,
+on which the two modes diverge.
 """
 
 from __future__ import annotations
@@ -159,3 +160,49 @@ class DataflowContext:
                 for a in pe.args:
                     if isinstance(a, Stream):
                         a.close()
+
+
+# -- the paper's canonical 3-PE Read/Compute/Write shape -----------------------
+
+
+def read_pe(mem, s: Stream, T: int, N: int) -> None:
+    """Paper Listing 3 ``Read``: T outer iterations streaming N elements."""
+    for _ in range(T):
+        for i in range(N):
+            s.Push(mem[i])
+
+
+def write_pe(s: Stream, mem, T: int, N: int) -> None:
+    """Paper Listing 3 ``Write``: T outer iterations draining N elements."""
+    for _ in range(T):
+        for i in range(N):
+            mem[i] = s.Pop()
+
+
+def compute_pe(s_in: Stream, s_out: Stream, fn: Callable[[Any], Any],
+               T: int, N: int) -> None:
+    for _ in range(T):
+        for _ in range(N):
+            s_out.Push(fn(s_in.Pop()))
+
+
+def run_cyclic_dataflow(mem, fn: Callable[[Any], Any], T: int, N: int,
+                        mode: Mode = "software", depth: int = 1):
+    """The paper's Listing 3/4 program: Read → Compute → Write where Read
+    and Write alias the *same* memory (cyclic dataflow through DRAM).
+
+    ``mode="software"`` (hlslib emulation): iteration ``t`` of Read observes
+    values written by iteration ``t-1`` of Write — the hardware behavior.
+    ``mode="sequential"`` (naive emulation): Read runs all T·N iterations
+    first, so every iteration recomputes from the *initial* memory — the
+    divergent software behavior the paper warns about.
+
+    Returns ``mem`` mutated in place (a list, a 1-D numpy array or tensor).
+    """
+    s0: Stream = Stream(depth=depth, name="s0")
+    s1: Stream = Stream(depth=depth, name="s1")
+    with DataflowContext(mode=mode) as df:
+        df.function(read_pe, mem, s0, T, N)
+        df.function(compute_pe, s0, s1, fn, T, N)
+        df.function(write_pe, s1, mem, T, N)
+    return mem

@@ -1,4 +1,4 @@
-"""Decode attention: the CUDA kernels' wrappers and their plain twins.
+"""Attention: the CUDA kernels' wrappers and their plain twins.
 
 * ``flash_attention_decode_paged`` is the port of the TPU kernel
   ``src/repro/kernels/flash_attention.py::flash_attention_decode_paged``
@@ -8,6 +8,9 @@
   ``flash_attention.py::flash_attention_decode`` (its ``pallas_call`` at
   line 322): decode over dense slot caches, launching
   ``csrc/flash_decode.cu``.
+* ``flash_attention`` is the port of ``flash_attention.py::flash_attention``
+  (its ``pallas_call`` at line 153): forward attention over whole
+  sequences (prefill), launching ``csrc/flash_attention.cu``.
 
 On CUDA tensors each wrapper launches its hand-written Hopper kernel
 (built with nvcc for sm_90a at first use, see ``kernels/build.py``) or
@@ -15,9 +18,10 @@ raises; on CPU tensors it runs its ``*_plain`` twin, the same function in
 plain PyTorch, which the CPU tests hold against the JAX kernel and
 ``chip_smoke.py`` holds the CUDA kernel against on the card.
 
-Both kernels are bound by bytes: the live K/V they must read once over
-the card's HBM bandwidth.  Each source says how its design meets that
-and what is left for later.
+The two decode kernels are bound by bytes: the live K/V they must read
+once over the card's HBM bandwidth.  The forward kernel is bound by
+operations at long sequences.  Each source says how its design meets its
+bound and what is left for later.
 """
 
 from __future__ import annotations
@@ -33,6 +37,18 @@ from .build import check_launch, library, on_cpu, require
 
 NEG_INF = -1e30
 F32 = torch.float32
+
+
+def _masked_probs(s, valid):
+    """The plain versions' softmax rule, as the kernels apply it: masked
+    scores NEG_INF, masked probabilities exactly 0.  Returns the
+    unnormalized probabilities and their row sums, 1 for a row with no
+    valid key (which so outputs 0)."""
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    return p, torch.where(l == 0, torch.ones_like(l), l)
 
 
 def flash_attention_decode_paged_plain(
@@ -82,13 +98,8 @@ def flash_attention_decode_paged_plain(
         valid &= (kpos >= 0)[:, None, :]
     if window is not None:
         valid &= kpos[:, None, :] > qpos[:, :, None] - window
-    valid = valid[:, None, None]                      # (b, 1, 1, sq, S)
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
-    l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhgqk,bhkd->bhgqd", p, vd)
-    o = o / torch.where(l == 0, torch.ones_like(l), l)   # empty row -> 0
+    p, l = _masked_probs(s, valid[:, None, None])     # (b, 1, 1, sq, S)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, vd) / l
     return o.reshape(b, hq, sq, d).to(q.dtype)
 
 
@@ -240,13 +251,8 @@ def flash_attention_decode_plain(q, k, v, pos, window: Optional[int] = None,
         valid = kpos <= p
         if window is not None:
             valid &= kpos > p - window
-    valid = valid[:, None, None, :]                       # (b, 1, 1, S)
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    m = s.amax(dim=-1, keepdim=True)
-    e = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
-    l = e.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhgk,bhkd->bhgd", e, v.to(F32))
-    o = o / torch.where(l == 0, torch.ones_like(l), l)    # empty row -> 0
+    e, l = _masked_probs(s, valid[:, None, None, :])      # (b, 1, 1, S)
+    o = torch.einsum("bhgk,bhkd->bhgd", e, v.to(F32)) / l
     return o.reshape(b, hq, 1, d).to(q.dtype)
 
 
@@ -313,3 +319,100 @@ def flash_attention_decode(q, k, v, pos, window: Optional[int] = None,
 
 
 flash_attention_decode.launches = 0
+
+
+# --- forward (prefill) attention (kernel B5) --------------------------------------------
+
+# head dims the kernel is instantiated for (csrc/flash_attention.cu); 256
+# is the most its fp32 shared-memory tiles fit in one CTA.
+FLASH_HEAD_DIMS = (32, 64, 128, 192, 256)
+
+
+def flash_attention_plain(q, k, v, causal: bool = True,
+                          window: Optional[int] = None,
+                          scale: Optional[float] = None):
+    """Plain PyTorch version of the kernel: same mask (queries aligned to
+    the end of the keys, causal, optional window), NEG_INF masking,
+    empty-row (0) and output-dtype rules, computed in fp32 as one masked
+    softmax per row instead of the kernel's tile-by-tile online softmax."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / np.sqrt(d)
+    qg = q.reshape(b, hkv, group, sq, d).to(F32) * scale
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(F32))
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    valid = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= kpos <= qpos
+    if window is not None:
+        valid &= kpos > qpos - window
+    p, l = _masked_probs(s, valid)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(F32)) / l
+    return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_kernel():
+    fn = library("flash_attention").flash_attention
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None):
+    """Forward tiled online-softmax attention.
+
+    q: (b, hq, sq, d); k, v: (b, hkv, sk, d) with hq % hkv == 0 (query
+    head h reads kv head h // group).  Queries align to the end of the
+    keys (query row i sits at position i + sk - sq); ``causal`` keeps keys
+    at or before it, ``window`` those after position - window.  A row
+    with no valid key outputs 0.  Returns (b, hq, sq, d) in q's dtype.
+
+    CPU tensors run the plain version.  CUDA tensors (q, k, v all float32
+    or all bfloat16, contiguous, d in ``FLASH_HEAD_DIMS``) launch the
+    kernel on the current stream, or raise.  Each launch adds one to
+    ``flash_attention.launches``."""
+    if on_cpu("flash_attention", q, k, v):
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale)
+    req = functools.partial(require, "flash_attention")
+    req(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,
+        "q must be (b, hq, sq, d) and k, v one (b, hkv, sk, d) shape")
+    b, hq, sq, d = q.shape
+    _, hkv, sk, dk = k.shape
+    req(k.shape[0] == b and dk == d, f"k/v shape {tuple(k.shape)} does not "
+        f"match q's {tuple(q.shape)}")
+    req(hq % hkv == 0, f"q heads {hq} not a multiple of kv heads {hkv}")
+    req(d in FLASH_HEAD_DIMS, f"head dim {d} (kernel takes "
+        f"{FLASH_HEAD_DIMS}; beyond 256 its tiles exceed shared memory)")
+    req(q.dtype in (torch.float32, torch.bfloat16)
+        and k.dtype == q.dtype and v.dtype == q.dtype,
+        f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype} (kernel takes all "
+        "float32 or all bfloat16)")
+    req(window is None or int(window) > 0, "window must be positive")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        req(t.is_contiguous() and t.data_ptr() % 16 == 0,
+            f"{name} must be contiguous and 16-byte aligned")
+    scale = scale if scale is not None else 1.0 / np.sqrt(d)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _flash_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), b, hq, hkv, sq, sk, d, int(causal),
+                          int(window) if window is not None else 0,
+                          float(scale), int(q.dtype == torch.bfloat16),
+                          stream)
+    check_launch("flash_attention", err)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

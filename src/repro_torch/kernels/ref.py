@@ -1,4 +1,5 @@
-"""Plain oracles for the attention kernels (port of ``kernels/ref.py``).
+"""Plain oracles for the attention, stencil and row-reduce kernels (port
+of ``kernels/ref.py``).
 
 Naive but obviously correct: the kernels and their plain twins are held
 against these in tests.  Like the reference, they mask with -inf, so a
@@ -77,3 +78,29 @@ def paged_attention_ref(q, k_pages, v_pages, block_tab, pos,
     logits = logits.masked_fill(~mask[:, None], float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", probs, vd).to(q.dtype)
+
+
+# --- stencil (paper Listing 6) ---------------------------------------------------
+
+
+def stencil2d_ref(x, iters: int = 1):
+    """4-point average stencil with zero boundary, iterated ``iters``
+    times (the iterative case is the paper's cyclic-dataflow motivation).
+    Computed in x's dtype, summed north, south, west, east."""
+    for _ in range(iters):
+        xp = torch.nn.functional.pad(x, (1, 1, 1, 1))
+        x = 0.25 * (xp[:-2, 1:-1] + xp[2:, 1:-1] + xp[1:-1, :-2]
+                    + xp[1:-1, 2:])
+    return x
+
+
+# --- tree reduction --------------------------------------------------------------
+
+
+def rowreduce_ref(x, op: str = "add"):
+    """Reduce the last axis; oracle for the tree-reduce kernel."""
+    if op == "add":
+        return torch.sum(x, dim=-1)
+    if op == "max":
+        return torch.amax(x, dim=-1)
+    raise ValueError(op)
