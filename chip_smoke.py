@@ -11,17 +11,24 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 2. kernels vs plain — every kernel against its plain PyTorch twin on the
    card: ``flash_attention_decode_paged`` (B1) and
    ``flash_attention_decode`` (B3) at the main path's shapes, a long
-   shape and every option, ``kv_quantize``/``kv_dequantize`` (B2) bit for
-   bit at decode, prefill and full-cache shapes, with timings beside the
-   bound and a library yardstick;
+   shape and every option (B3 also at zamba2's attention widths),
+   ``kv_quantize``/``kv_dequantize`` (B2) bit for bit at decode, prefill
+   and full-cache shapes, the hlslib kernels ``stencil2d`` (B8) and
+   ``tree_row_reduce`` (B7) bit for bit and ``rmsnorm`` (B4) and
+   ``flash_attention`` (B5) within tolerance at their main shapes, long
+   shapes and options, and ``ssd_scan`` (B6) within the JAX tests'
+   tolerance at one mamba2 layer's train shape, a long sequence,
+   zamba2's widths and small odd shapes, with its ``ValueError`` on a
+   ragged length; each timed beside its bound and, where one PyTorch
+   call computes the same function, that library yardstick;
 3. exactness at smoke width — the paged batcher through B1 and the
    dense-slot batcher through B3 (bf16, the sliding-window ring, int8
    through B2) give the dense greedy oracle's tokens; the int8 paged
    batcher gives the int8 dense-slot batcher's, with preemption;
-   then the hlslib kernels against their twins with the same timings:
-   ``stencil2d`` (B8) and ``tree_row_reduce`` (B7) bit for bit,
-   ``rmsnorm`` (B4) and ``flash_attention`` (B5) within tolerance, at
-   their main shapes, long shapes and options;
+   mamba2-1p3b and zamba2-1p2b (fp32) serve dense slots when asked for
+   pages, token-identical to their greedy oracle (zamba2's shared block
+   through B3), and their train forward through B6 matches the plain
+   scan;
 4. full-width serve — minitron-4b at full width, random bf16 weights
    from the seed, 16 requests through ``ContinuousBatcher`` under
    ``DataflowContext``: paged through B1, then dense slots through B3 with
@@ -33,7 +40,17 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    of ``stencil2d_iterated``) on a 16384 x 16384 fp32 grid, and
    ``ops.row_reduce``, ``ops.fused_rmsnorm`` and ``ops.attention`` at
    their main shapes, all with ``use_pallas=True``; outputs against the
-   plain twins on the card (the stencil's 64 sweeps bit for bit).
+   plain twins on the card (the stencil's 64 sweeps bit for bit);
+6. the recurrent families at full width — mamba2-1p3b and zamba2-1p2b,
+   random bf16 weights from the seed: phase 4's traffic through the
+   dense-slot batcher (exact-length admission; zamba2 with
+   ``decode_flash``), zamba2's decode logits through B3 vs the plain
+   path, a decode step's time split, then one train forward each at
+   b 4 x s 2048 through B6 (48 and 38 launches) with its time split; its
+   logits are held to the plain scan's in fp32 compute (bf16 rounding
+   through the random-weight layers amplifies any change of summation
+   order past the tolerance: the plain scan at half the chunk is printed
+   beside it as that noise floor).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -75,6 +92,8 @@ KERNELS = {
                 "src/repro/kernels/rmsnorm_kernel.py:37"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:153"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:88"),
 }
 # bf16 outputs: kernel and plain both accumulate in fp32 and round once,
 # so an output may round to the neighbouring bf16 value: each element is
@@ -90,6 +109,25 @@ TOL_RMS_F32 = 1e-5
 # full-width logits (bf16 compute, 32 layers): one decode step through
 # the kernel vs through the plain path, relative to the largest logit.
 TOL_LOGITS_REL = 5e-2
+# B6 against its twin: the JAX tests' rtol = atol = 2e-4 for the Pallas
+# kernel (fp32, sums over up to 256 positions per chunk in another order).
+TOL_SSD = (2e-4, 2e-4)
+# the full-width train forward (b 4 x s 2048), fp32 compute with the bf16
+# weights: logits through B6 vs through the plain scan, relative to the
+# largest logit.  Readings: 3.5e-4 (mamba2) and 4.1e-4 (zamba2); the
+# control, the plain scan at half the chunk (the same sums in another
+# order), reads 2.4e-4 and 3.9e-4, so the limit sits 6-10x above both.
+TOL_TRAIN_F32_REL = 2.5e-3
+# the same forward in bf16 compute, where one-ulp roundings grow through
+# 48 (38) random-weight layers: B6 vs plain is held to that control.
+# Max error at most 2x the control's (readings 1.12x and 1.44x), argmax
+# disagreement at most 1.5x the control's (readings 1.26x and 1.27x); a
+# wrong scan leaves almost no argmax in place.
+TOL_TRAIN_BF16_ERR_VS_CONTROL = 2.0
+TOL_TRAIN_BF16_DISAGREE_VS_CONTROL = 1.5
+# fp32 smoke-width logits with the scan through B6 vs through the plain
+# chunked formula (the same sums in another order, through <= 12 layers).
+TOL_SMOKE_LOGITS = 1e-3
 # the library yardstick rounds scores/probabilities in bf16 inside its
 # own kernel, so it is held to the plain version more loosely.
 TOL_LIBRARY = 5e-2
@@ -228,7 +266,8 @@ def sdpa_inputs(c):
 def hold(tag, name, out, ref, rule):
     """A kernel's output against its plain twin's: ``rule`` is "bit" (bit
     for bit), "bf16" (TOL_BF16_ULPS ulps of |plain| + TOL_BF16_FLOOR per
-    element) or an absolute tolerance.  Returns the row's error fields."""
+    element), (rtol, atol) or an absolute tolerance.  Returns the row's
+    error fields."""
     check(out.shape == ref.shape and out.dtype == ref.dtype,
           f"{tag} [{name}]: {tuple(out.shape)} {out.dtype} != plain's "
           f"{tuple(ref.shape)} {ref.dtype}")
@@ -242,6 +281,10 @@ def hold(tag, name, out, ref, rule):
     if rule == "bf16":
         tol = f"{TOL_BF16_ULPS} bf16 ulp of |plain| + {TOL_BF16_FLOOR}"
         limit = TOL_BF16_ULPS * bf16_ulp(ref) + TOL_BF16_FLOOR
+    elif isinstance(rule, tuple):
+        rtol, atol = rule
+        tol = f"rtol {rtol}, atol {atol}"
+        limit = atol + rtol * ref.float().abs()
     else:
         tol, limit = rule, torch.full_like(diff, rule)
     ratio = (diff / limit).max().item()
@@ -376,6 +419,8 @@ def phase_dense_kernel(gen, card, flush):
         "ring S=window=256": dict(S=256, window=256, ring=True,
                                   pos=ring_pos),
         "per-row positions": dict(pos=[0, 1, 63, 64, 65, 511, 1022, 1023]),
+        "zamba2 widths (MHA, 32 heads of 64, group 1)": dict(hq=32, hkv=32,
+                                                             d=64),
     }
 
     def yardstick(c):
@@ -680,6 +725,81 @@ def phase_hlslib_kernels(gen, card, flush):
     return res
 
 
+# --- phase 2, continued: the SSD chunked scan (B6) --------------------------------------
+
+
+def ssd_inputs(gen, b, s, h, dh, ds):
+    """x, dt, A, B, C at the JAX tests' scales: x, B, C ~ 0.5 N(0, 1),
+    dt ~ U(0.1, 0.5), A = -U(0.5, 1.5); fp32 on the card."""
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=DEVICE)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE) * 0.5
+
+    return (randn(b, s, h, dh), 0.1 + 0.4 * rand(b, s, h),
+            -(0.5 + rand(h)), randn(b, s, ds), randn(b, s, ds))
+
+
+def ssd_bound(x, B, chunk, card):
+    """Least time of one scan: x, y, B, C, dt and A moved once; at the
+    fp32 peak, the Q x Q products over the causal triangle and the two
+    state products.  B and C are shared by the heads (ngroups = 1), so
+    C·Bᵀ, Q(Q+1) ds flops per chunk, is needed once per (b, chunk); the
+    (C·Bᵀ)-weighted sum of x, Q(Q+1) dh, and the state products,
+    4 Q ds dh, once per (b, h, chunk)."""
+    b, s, h, dh = x.shape
+    ds = B.shape[-1]
+    nbytes = 4 * (2 * x.numel() + 2 * B.numel() + b * s * h + h)
+    per_chunk = (chunk * (chunk + 1) * ds
+                 + h * (chunk * (chunk + 1) * dh + 4 * chunk * ds * dh))
+    ops = float(per_chunk) * (s // chunk) * b
+    return {**bound_of(nbytes, ops, PEAK_F32, card), "flops": ops}
+
+
+def phase_ssd_kernel(gen, card, flush):
+    """B6 against its plain twin on the card, timed at every shape beside
+    its bound (no single PyTorch call computes the scan); a length that
+    is not a multiple of the chunk raises."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    res = {}
+    for name, (b, s, h, dh, ds, chunk) in {
+            "main (one mamba2 layer: b 4 x s 2048, h 64, dh 64, ds 128, "
+            "chunk 256)": (4, 2048, 64, 64, 128, 256),
+            "long (b 1 x s 16384, mamba2 widths)":
+                (1, 16384, 64, 64, 128, 256),
+            "zamba2 widths (b 4 x s 2048, ds 64)":
+                (4, 2048, 64, 64, 64, 256),
+            "small odd (b 2, h 3, s 192, dh 32, ds 48, chunk 64)":
+                (2, 192, 3, 32, 48, 64),
+            "chunk 48, dh 16, ds 16 (b 3, h 5, s 240)":
+                (3, 240, 5, 16, 16, 48)}.items():
+        x, dt, A, B, C = ssd_inputs(gen, b, s, h, dh, ds)
+        row = run_case("B6", name, lambda: ssd_scan(x, dt, A, B, C, chunk),
+                       lambda: ssd_scan_plain(x, dt, A, B, C, chunk),
+                       TOL_SSD, flush, ssd_bound(x, B, chunk, card))
+        ref = ssd_scan_plain(x, dt, A, B, C, chunk)
+        row["max_abs_y"] = ref.abs().max().item()
+        row["err_rel_to_max_y"] = row["max_abs_err"] / row["max_abs_y"]
+        row["library"] = "no single PyTorch call"
+        print(f"B6 [{name}]: worst error {row['max_abs_err']:.3g} = "
+              f"{row['err_rel_to_max_y']:.3g} of max |y| "
+              f"{row['max_abs_y']:.4g}")
+        res[name] = row
+        del x, dt, A, B, C, ref
+    x, dt, A, B, C = ssd_inputs(gen, 1, 200, 2, 32, 16)
+    before = ssd_scan.launches
+    try:
+        ssd_scan(x, dt, A, B, C, 64)
+    except ValueError as e:
+        print(f"B6 [s 200, chunk 64]: raises ValueError ({e})")
+    else:
+        raise AssertionError("B6 accepted s % chunk != 0")
+    check(ssd_scan.launches == before, "B6 launched on a ragged length")
+    torch.cuda.empty_cache()
+    return res
+
+
 # --- phase 3: exactness at smoke width ------------------------------------------------
 
 
@@ -689,6 +809,7 @@ def kernel_counts():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import kv_quant as kq
     from repro_torch.kernels import rmsnorm_kernel as rk
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels import stencil as st
     from repro_torch.kernels import treereduce_kernel as tk
     return {"flash_attention_decode_paged": fa.flash_attention_decode_paged,
@@ -698,7 +819,8 @@ def kernel_counts():
             "stencil2d": st.stencil2d,
             "tree_row_reduce": tk.tree_row_reduce,
             "rmsnorm": rk.rmsnorm,
-            "flash_attention": fa.flash_attention}
+            "flash_attention": fa.flash_attention,
+            "ssd_scan": ss.ssd_scan}
 
 
 def reset_counts(counts):
@@ -801,6 +923,69 @@ def phase_exactness(seed):
           f"slots (launches {json.dumps(n)})")
 
 
+RECURRENT = ("mamba2-1p3b", "zamba2-1p2b")
+
+
+def n_shared(cfg) -> int:
+    """Decode-attention layers per step: zamba2's shared-block sites."""
+    return cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every \
+        else 0
+
+
+def phase_recurrent_exactness(seed):
+    """The recurrent families at smoke width (fp32): the dense-slot
+    batcher, asked for pages, serves dense slots and streams the greedy
+    oracle's tokens (zamba2's shared block decoding through B3); the
+    train forward through B6 matches the plain chunked formula."""
+    from repro_torch.configs import get
+    from repro_torch.configs.base import smoke_variant
+    from repro_torch.models import registry
+    from repro_torch.serve.serve_loop import greedy_generate
+    counts = kernel_counts()
+    rng = np.random.default_rng(seed)
+    plens, max_news = [5, 11, 19], [14, 12, 10]
+    for arch in RECURRENT:
+        base = smoke_variant(get(arch))
+        params = registry.init(base, seed, device=DEVICE)
+        prompts = [rng.integers(0, base.vocab_size, n).astype(np.int32)
+                   for n in plens]
+        gold = [list(greedy_generate(base, params, {"tokens": p[None]},
+                                     steps=m, max_seq=48, device=DEVICE)[0])
+                for p, m in zip(prompts, max_news)]
+        cfg = dataclasses.replace(base, kv_page_size=8, decode_flash=True)
+        reset_counts(counts)
+        got, bat = run_batcher(cfg, params, prompts, max_news, n_slots=2,
+                               max_seq=48)
+        n = read_counts(counts)
+        check(not bat.paged, f"{arch}: kv_page_size served paged")
+        check(got == gold, f"{arch} dense-slot batcher {got} != greedy "
+              f"{gold}")
+        check(n["flash_attention_decode"] == bat.steps * n_shared(cfg),
+              f"{arch}: B3 launches {n} != steps {bat.steps} x shared "
+              f"sites {n_shared(cfg)}")
+
+        tok = torch.from_numpy(rng.integers(0, base.vocab_size, (2, 64))).to(
+            DEVICE)
+        reset_counts(counts)
+        fast = registry.forward(dataclasses.replace(base, use_pallas=True),
+                                params, {"tokens": tok})
+        b6 = counts["ssd_scan"].launches
+        plain = registry.forward(base, params, {"tokens": tok})
+        err = (fast - plain).abs().max().item()
+        check(b6 == base.n_layers, f"{arch}: B6 launches {b6} != layers "
+              f"{base.n_layers}")
+        check(torch.isfinite(fast).all().item() and err <= TOL_SMOKE_LOGITS,
+              f"{arch}: train logits through B6 vs plain: {err}")
+        print(f"smoke exactness [{arch}]: 3 requests through the dense-slot "
+              f"batcher (page size ignored) token-identical to greedy "
+              f"({bat.steps} steps, B3 launches "
+              f"{n['flash_attention_decode']}); train logits through B6 "
+              f"({b6} launches) vs plain: max abs err {err:.3g} (tol "
+              f"{TOL_SMOKE_LOGITS})")
+        del params, fast, plain
+    torch.cuda.empty_cache()
+
+
 # --- phase 4: full-width serve --------------------------------------------------------
 
 
@@ -808,6 +993,7 @@ def phase_exactness(seed):
 SPLIT = (("B1_flash_decode_paged", ("flash_decode_paged_kernel",)),
          ("B3_flash_decode", ("flash_decode_kernel",)),
          ("B2_kv_quant", ("quantize_kernel",)),
+         ("B6_ssd_scan", ("ssd_kernel",)),
          ("matmul", ("gemm", "nvjet", "cublas", "cutlass", "splitKreduce")))
 
 
@@ -929,15 +1115,16 @@ def serve_full_width(cfg, params, seed, counts):
 
 def compare_logits(cfg, params, cache, tokens, pos, label):
     """One decode step's logits through the kernels vs the plain path
-    (``decode_flash`` off), on the same cache (both write the same K/V
-    row in place)."""
+    (``decode_flash`` off), each step on its own copy of the cache (a
+    step writes its K/V row and advances recurrent state in place)."""
+    from repro_torch.models import params as PP
     from repro_torch.models import registry
     logits = {}
     for flash in (True, False):
         c = dataclasses.replace(cfg, decode_flash=flash)
         logits[flash], _ = registry.forward(
             c, params, {"tokens": tokens[:, None].long()}, mode="decode",
-            cache=cache, pos=pos)
+            cache=PP.tree_map(lambda _, a: a.clone(), cache), pos=pos)
     a, b = logits[True].float(), logits[False].float()
     err = (a - b).abs().max().item()
     scale = b.abs().max().item()
@@ -1085,6 +1272,163 @@ def phase_full_width(seed):
     return paths
 
 
+# the recurrent families' train forward: b 4 x s 2048 (8 chunks of 256).
+TRAIN_B, TRAIN_S = 4, 2048
+
+
+def logit_diff(a, b):
+    """Max abs difference of two logit tensors, beside max |b| and the
+    share of positions whose argmax agrees."""
+    a, b = a.float(), b.float()
+    return {"max_abs_err": (a - b).abs().max().item(),
+            "max_abs_logit": b.abs().max().item(),
+            "argmax_agreement": (a.argmax(-1) == b.argmax(-1)).float()
+            .mean().item()}
+
+
+def phase_recurrent_full_width(seed):
+    """mamba2-1p3b and zamba2-1p2b at full width, random bf16 weights
+    from the seed: phase 4's traffic through the dense-slot batcher
+    (exact-length admission; zamba2 with ``decode_flash``, B3 in its
+    shared block), one decode step's logits through the kernels vs the
+    plain path, a decode step's time split; then one train forward at
+    b 4 x s 2048 through B6 (bf16, counted and timed, with its time
+    split), its logits held to the plain scan's in fp32 compute.
+    Returns {path: launches}."""
+    from repro_torch.configs import get
+    from repro_torch.models import params as PP
+    from repro_torch.models import registry
+    from repro_torch.serve.batching import ContinuousBatcher, Request
+    counts = kernel_counts()
+    rng = np.random.default_rng(seed)
+    paths = {}
+    for arch in RECURRENT:
+        base = get(arch)
+        base = dataclasses.replace(base, decode_flash=n_shared(base) > 0)
+        t = time.perf_counter()
+        params = registry.init(base, seed, device=DEVICE,
+                               dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in PP.tree_leaves(params))
+        print(f"full width: {arch}, {n_params} bf16 parameters drawn on "
+              f"the card in {time.perf_counter() - t:.2f}s")
+
+        summary, launches, bat = serve_full_width(base, params, seed, counts)
+        check(not bat.paged, f"[{arch}] ran paged")
+        check(launches["flash_attention_decode"]
+              == bat.steps * n_shared(base),
+              f"[{arch}] B3 launches {launches} != steps {bat.steps} x "
+              f"shared sites {n_shared(base)}")
+        print(f"full-width serve [{arch} dense]: " + json.dumps(summary))
+        paths[f"{arch} serve"] = launches
+        del bat
+        torch.cuda.empty_cache()
+
+        # 8 slots admitted at ~100-900 positions: logits and time split.
+        bat = ContinuousBatcher(base, params, n_slots=N_SLOTS,
+                                max_seq=MAX_SEQ, device=DEVICE)
+        for i, plen in enumerate(rng.integers(100, 900, N_SLOTS)):
+            bat.requests.Push(Request(rid=i, prompt=rng.integers(
+                0, base.vocab_size, int(plen)).astype(np.int32), max_new=4))
+        bat.admit()
+        check(all(r is not None for r in bat._slot_req), "slots not filled")
+        if n_shared(base):
+            compare_logits(base, params, bat.cache, bat.last_tok, bat.pos,
+                           arch)
+        else:
+            print(f"full-width decode logits [{arch}]: the decode step runs "
+                  "no kernel of the port (B6 is on the train forward)")
+        pos = bat.pos.clone()
+        remaining = bat.remaining + 1000
+        active = torch.ones(N_SLOTS, dtype=torch.bool, device=DEVICE)
+
+        def decode_once():
+            nonlocal pos
+            _, _, pos, _, _, out = bat._step(params, bat.cache, bat.last_tok,
+                                             pos, remaining, active)
+            out.cpu()
+
+        decode_once()
+        prof = profile_window(decode_once, 5)
+        print(f"time split [{arch}] (decode step, 8 slots at ~100-900 "
+              "positions): " + json.dumps(prof))
+        del bat
+        torch.cuda.empty_cache()
+
+        # the train forward (bf16) through B6: the path, counted and timed.
+        tok = torch.from_numpy(rng.integers(
+            0, base.vocab_size, (TRAIN_B, TRAIN_S))).to(DEVICE)
+        fast_cfg = dataclasses.replace(base, use_pallas=True)
+        torch.cuda.synchronize()
+        reset_counts(counts)
+        t = time.perf_counter()
+        fast = registry.forward(fast_cfg, params, {"tokens": tok})
+        torch.cuda.synchronize()
+        t_fast = time.perf_counter() - t
+        launches = read_counts(counts)
+        want = {name: 0 for name in counts}
+        want["ssd_scan"] = base.n_layers
+        check(launches == want, f"[{arch} train] launches {launches} != "
+              f"{want}")
+        check(tuple(fast.shape) == (TRAIN_B, TRAIN_S, base.padded_vocab)
+              and torch.isfinite(fast).all().item(),
+              f"[{arch} train] logits {tuple(fast.shape)} not finite")
+        t = time.perf_counter()
+        plain = registry.forward(base, params, {"tokens": tok})
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t
+
+        def held_to_control(c, fast, plain):
+            """B6 vs the plain scan, beside the control: the plain scan
+            at half the chunk (the same function, its sums in another
+            order) vs the plain scan, all in compute dtype ``c.dtype``."""
+            check(torch.isfinite(fast).all().item(),
+                  f"[{arch} train, {c.dtype}] non-finite logits through B6")
+            half = registry.forward(dataclasses.replace(
+                c, ssm_chunk=c.ssm_chunk // 2), params, {"tokens": tok})
+            return {"b6_vs_plain": logit_diff(fast, plain),
+                    "plain_half_chunk_vs_plain": logit_diff(half, plain)}
+
+        bf16 = held_to_control(base, fast, plain)
+        del fast, plain
+        torch.cuda.empty_cache()
+        b6, ctl = bf16["b6_vs_plain"], bf16["plain_half_chunk_vs_plain"]
+        check(b6["max_abs_err"]
+              <= TOL_TRAIN_BF16_ERR_VS_CONTROL * ctl["max_abs_err"]
+              and 1 - b6["argmax_agreement"]
+              <= TOL_TRAIN_BF16_DISAGREE_VS_CONTROL
+              * (1 - ctl["argmax_agreement"]),
+              f"[{arch} train, bf16 compute] logits through B6 stray from "
+              f"the plain scan further than its control: {bf16}")
+        # fp32 compute (the same bf16 weights), held to a fixed limit.
+        c32 = dataclasses.replace(base, dtype="float32")
+        f32 = held_to_control(
+            c32, registry.forward(dataclasses.replace(c32, use_pallas=True),
+                                  params, {"tokens": tok}),
+            registry.forward(c32, params, {"tokens": tok}))
+        b6 = f32["b6_vs_plain"]
+        check(b6["max_abs_err"] <= TOL_TRAIN_F32_REL * b6["max_abs_logit"],
+              f"[{arch} train, fp32 compute] logits through B6 disagree "
+              f"with the plain scan: {f32}")
+        torch.cuda.empty_cache()
+
+        def train_once():
+            registry.forward(fast_cfg, params, {"tokens": tok})
+            torch.cuda.synchronize()
+
+        prof = profile_window(train_once, 2)
+        print(f"full-width train forward [{arch}, b {TRAIN_B} x s "
+              f"{TRAIN_S}, use_pallas]: " + json.dumps({
+                  "through_b6_s": t_fast, "plain_scan_s": t_plain,
+                  "fp32_compute": f32, "fp32_rel_tol": TOL_TRAIN_F32_REL,
+                  "bf16_compute": bf16, "launches": launches,
+                  "time_split": prof}))
+        paths[f"{arch} train"] = launches
+        del params, tok
+        torch.cuda.empty_cache()
+    return paths
+
+
 # --- phase 5: the hlslib ops path at full size ----------------------------------------
 
 STENCIL_GRID, STENCIL_SWEEPS = 16384, 64
@@ -1205,10 +1549,13 @@ def main():
         "main (8 slots x 1024, pos 128-1023, bf16)"]
     b2 = phase_quant_kernel(gen, card, flush)
     hl = phase_hlslib_kernels(gen, card, flush)
+    b6 = phase_ssd_kernel(gen, card, flush)
     del flush
     phase_exactness(args.seed)
+    phase_recurrent_exactness(args.seed)
     paths = phase_full_width(args.seed)
     paths["hlslib ops"] = phase_hlslib_path(args.seed)
+    paths.update(phase_recurrent_full_width(args.seed))
 
     # each kernel's row: its launches on the full-width path that runs it,
     # its numbers at that path's shapes (B2: quantize at the decode rows
@@ -1238,6 +1585,10 @@ def main():
             ("flash_attention",
              "main (8 x 512, hq 24 / hkv 8, d 128, bf16, causal)")):
         rows[name] = (paths["hlslib ops"], hl[name][case])
+    # B6: launches on mamba2's train forward, numbers at its layer's shape.
+    rows["ssd_scan"] = (paths["mamba2-1p3b train"], b6[
+        "main (one mamba2 layer: b 4 x s 2048, h 64, dh 64, ds 128, "
+        "chunk 256)"])
     kernels = []
     for name, (launches, m) in rows.items():
         check(launches[name] > 0, f"{name} never launched on its path")

@@ -21,6 +21,7 @@ from . import ref
 from .flash_attention import flash_attention, flash_attention_decode_paged
 from .kv_quant import kv_quantize
 from .rmsnorm_kernel import rmsnorm
+from .ssd_scan import ssd_scan
 from .stencil import stencil2d
 from .treereduce_kernel import tree_row_reduce
 
@@ -53,9 +54,12 @@ def paged_decode_attention(q, k_pages, v_pages, block_tab, pos, *,
 
 
 def ssd(x, dt, A, B, C, *, chunk: int = 64, use_pallas: bool = False):
-    """Batched SSD scan (mamba2): not ported yet."""
-    raise NotImplementedError(
-        "ops.ssd (kernel B6, ssd_scan) comes with ROADMAP's mamba2 slice")
+    """Batched SSD: x (b, s, h, dh), dt (b, s, h), A (h,), B/C (b, s, ds).
+    ``use_pallas`` takes kernel B6 (``s % chunk == 0``); otherwise the
+    chunked reference over the batch, which pads a ragged tail."""
+    if use_pallas:
+        return ssd_scan(x, dt, A, B, C, chunk=chunk)
+    return ref.ssd_chunked_batch(x, dt, A, B, C, chunk=chunk)[0]
 
 
 def stencil(x, *, use_pallas: bool = False, block_rows: int = 128):

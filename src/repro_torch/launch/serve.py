@@ -10,7 +10,12 @@ are random, drawn from ``--seed`` on the device.  ``--decode-flash`` and
 ``--kv-cache-dtype`` set the config's fields of the same names: decode
 attention through ``kernels.flash_attention`` (``flash_attention_decode``
 on dense slots, ``flash_attention_decode_paged`` on pages), and an int8
-KV cache quantized through ``kernels.kv_quant``.
+KV cache quantized through ``kernels.kv_quant``.  The recurrent
+families (``--arch mamba2-1p3b``, ``zamba2-1p2b``) keep O(1) state per
+slot and have no pageable layout: they serve dense slots with prompts
+admitted at their exact length, and ``--page-size`` falls back to dense
+slots, as the reference's CLI does; ``--decode-flash`` reaches zamba2's
+shared attention block.
 """
 
 import argparse

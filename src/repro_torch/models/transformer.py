@@ -2,9 +2,12 @@
 
 Parameter declarations exist for every family, so every architecture's
 tree can be built and counted.  ``forward`` runs the dense family in
-modes ``train`` (forward only), ``prefill``, ``decode`` and ``chunk``;
-the JAX package's scan over stacked layers is a Python loop here, each
-layer reading its slice of the stacked parameters.
+modes ``train`` (forward only), ``prefill``, ``decode`` and ``chunk``,
+and the recurrent families -- ``ssm`` (mamba2) and ``hybrid`` (zamba2:
+Mamba2 layers with one shared attention+MLP block after every
+``shared_attn_every`` of them) -- in modes ``train``, ``prefill`` and
+``decode``; the JAX package's scan over stacked layers is a Python loop
+here, each layer reading its slice of the stacked parameters.
 
 * ``train``   — full-sequence causal forward, logits everywhere.
 * ``prefill`` — same compute; every layer also emits its K/V (a ring,
@@ -14,8 +17,11 @@ layer reading its slice of the stacked parameters.
   written in place.
 * ``chunk``   — a multi-token prefill chunk against the paged cache.
 
-MoE, MLA, gemma3's local/global layers, ssm/hybrid, vlm and audio, and
-the ``verify`` mode come with later slices and raise here.
+Recurrent caches are slot-dense (nothing to page): ssm's is {"conv",
+"ssd"} stacked over the layers, hybrid's {"ssm": that, "attn": the
+shared block's K/V stacked over its application sites}; every leaf has
+its slot axis at 1.  MoE, MLA, gemma3's local/global layers, vlm and
+audio, and the ``verify`` mode come with later slices and raise here.
 """
 
 from __future__ import annotations
@@ -111,7 +117,8 @@ def model_decls(cfg) -> Dict[str, Any]:
 
 
 def _check_forward_family(cfg) -> None:
-    if cfg.family != "dense" or cfg.local_global_pattern:
+    if cfg.family not in ("dense", "ssm", "hybrid") \
+            or cfg.local_global_pattern:
         slice_ = ("the cache-layouts slice (gemma3 local/global layers)"
                   if cfg.local_global_pattern else
                   "the remaining-families slice")
@@ -119,11 +126,25 @@ def _check_forward_family(cfg) -> None:
             f"{cfg.name} ({cfg.family}): forward comes with {slice_}")
 
 
+def _n_shared(cfg) -> int:
+    """Application sites of zamba2's shared block (one per full group)."""
+    return cfg.n_layers // cfg.shared_attn_every
+
+
 def cache_decls(cfg, batch: int, max_seq: int):
     """Dense slot caches: {"k", "v"} of (n_layers, batch, hkv, S, hd),
     bf16, or int8 plus bf16 {"k_scale", "v_scale"} of (n_layers, batch,
-    hkv, S, 1) when ``cfg.kv_cache_dtype == "int8"``."""
+    hkv, S, 1) when ``cfg.kv_cache_dtype == "int8"``.  ssm: {"conv"
+    (n_layers, batch, K-1, C), "ssd" (n_layers, batch, h, ds, hd)}, fp32;
+    hybrid: {"ssm": those, "attn": the K/V leaves stacked over the shared
+    block's application sites}."""
     _check_forward_family(cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        ssm = stack_decls(S.mamba2_cache_decl(cfg, batch), cfg.n_layers)
+        if cfg.family == "ssm":
+            return ssm
+        attn = L.attention_cache_decl(cfg, batch, max_seq, None)
+        return {"ssm": ssm, "attn": stack_decls(attn, _n_shared(cfg))}
     base = L.attention_cache_decl(cfg, batch, max_seq, cfg.sliding_window)
     return stack_decls(base, cfg.n_layers)
 
@@ -226,29 +247,27 @@ def forward(cfg, params, batch, mode: str = "train",
 
     w, theta = cfg.sliding_window, cfg.rope_theta
     cl = min(cache_len, w) if (w and cache_len) else cache_len
-    emitted = []
     blocks = params["blocks"]
-    for i in range(cfg.n_layers):
-        p = _tree_idx(blocks, i)
-        if block_tab is not None and mode in ("decode", "chunk"):
-            x, _ = L.attention_apply_paged(
-                cfg, p["attn"], x, window=w, theta=theta,
-                pages={n: a[i] for n, a in pools.items()},
-                block_tab=block_tab, pos=pos,
-                last_idx=last_pos if mode == "chunk" else None,
-                cache_offset=cache_offset if mode == "chunk" else None,
-                write_idx=write_idx)
-        elif mode == "decode":
-            x, _ = L.attention_apply(
-                cfg, p["attn"], x, window=w, theta=theta,
-                cache={n: c[i] for n, c in cache.items()}, pos=pos)
-        else:
-            x_in = x
-            x, _ = L.attention_apply(cfg, p["attn"], x, window=w, theta=theta)
-            if mode == "prefill":
-                emitted.append(_prefill_kv(cfg, p["attn"], x_in, w, theta,
-                                           cl, last_pos))
-        x = L.mlp_apply(cfg, p["mlp"], x)
+    if cfg.family in ("ssm", "hybrid"):
+        x, new_cache = _recurrent_layers(cfg, blocks, x, mode, cache, pos,
+                                         cache_len, last_pos)
+    else:
+        emitted = []
+        for i in range(cfg.n_layers):
+            p = _tree_idx(blocks, i)
+            if block_tab is not None and mode in ("decode", "chunk"):
+                x, _ = L.attention_apply_paged(
+                    cfg, p["attn"], x, window=w, theta=theta,
+                    pages={n: a[i] for n, a in pools.items()},
+                    block_tab=block_tab, pos=pos,
+                    last_idx=last_pos if mode == "chunk" else None,
+                    cache_offset=cache_offset if mode == "chunk" else None,
+                    write_idx=write_idx)
+            else:
+                x = _attn_dense(cfg, p["attn"], x, mode, cache, i, pos, w,
+                                theta, cl, last_pos, emitted)
+            x = L.mlp_apply(cfg, p["mlp"], x)
+        new_cache = _stack_emitted(emitted) if mode == "prefill" else None
 
     x = L.rmsnorm(x, params["final_norm"])
     if mode in ("prefill", "chunk"):
@@ -262,9 +281,71 @@ def forward(cfg, params, batch, mode: str = "train",
     if mode == "train":
         return logits
     if mode == "prefill":
-        return logits, {n: torch.stack([c[n] for c in emitted])
-                        for n in emitted[0]}
+        return logits, new_cache
     if block_tab is not None:
         return logits, {"kv": pools}
     return logits, cache
+
+
+def _stack_emitted(emitted):
+    """Per-layer cache dicts -> one dict of leaves stacked over layers."""
+    return {n: torch.stack([c[n] for c in emitted]) for n in emitted[0]}
+
+
+def _attn_dense(cfg, p, x, mode, cache, i, pos, window, theta, cache_len,
+                last_pos, emitted):
+    """One attention block without pages: decode against layer ``i`` of
+    the dense slot ``cache`` (written in place), or the full-sequence
+    forward, which in prefill also appends its K/V to ``emitted``."""
+    if mode == "decode":
+        x, _ = L.attention_apply(cfg, p, x, window=window, theta=theta,
+                                 cache={n: c[i] for n, c in cache.items()},
+                                 pos=pos)
+        return x
+    x_in = x
+    x, _ = L.attention_apply(cfg, p, x, window=window, theta=theta)
+    if mode == "prefill":
+        emitted.append(_prefill_kv(cfg, p, x_in, window, theta, cache_len,
+                                   last_pos))
+    return x
+
+
+def _recurrent_layers(cfg, blocks, x, mode, cache, pos, cache_len,
+                      last_pos):
+    """The ssm and hybrid stacks: the Mamba2 layers in order; for hybrid,
+    after each full group of ``shared_attn_every`` of them the shared
+    attention+MLP block (one set of weights, its own K/V cache at each
+    application site), then the Mamba-only tail.  Returns (x, the cache
+    a prefill emits, else None)."""
+    hybrid = cfg.family == "hybrid"
+    k = cfg.shared_attn_every if hybrid else cfg.n_layers
+    G = _n_shared(cfg) if hybrid else 0
+    ssm_cache = (cache["ssm"] if hybrid else cache) if mode == "decode" \
+        else None
+    emitted_ssm, emitted_attn = [], []
+    for li in range(cfg.n_layers):
+        if not hybrid:
+            p = _tree_idx(blocks["ssm"], li)
+        elif li < G * k:
+            p = _tree_idx(_tree_idx(blocks["ssm_groups"], li // k), li % k)
+        else:
+            p = _tree_idx(blocks["ssm_tail"], li - G * k)
+        if mode == "decode":
+            x, _ = S.mamba2_apply(cfg, p, x, cache={
+                n: c[li] for n, c in ssm_cache.items()})
+        else:
+            x, c = S.mamba2_apply(cfg, p, x, emit_cache=mode == "prefill")
+            if c is not None:
+                emitted_ssm.append(c)
+        if hybrid and li < G * k and (li + 1) % k == 0:
+            x = _attn_dense(cfg, blocks["shared_attn"], x, mode,
+                            cache["attn"] if mode == "decode" else None,
+                            li // k, pos, None, cfg.rope_theta, cache_len,
+                            last_pos, emitted_attn)
+            x = L.mlp_apply(cfg, blocks["shared_mlp"], x)
+    if mode != "prefill":
+        return x, None
+    ssm = _stack_emitted(emitted_ssm)
+    return x, ({"ssm": ssm, "attn": _stack_emitted(emitted_attn)}
+               if hybrid else ssm)
 

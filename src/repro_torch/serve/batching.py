@@ -10,11 +10,13 @@ only per-step device-to-host transfer is the (2, n_slots) int32 array of
 next tokens and finished flags.
 
 Dense-slot mode (``kv_page_size == 0``, the CLI's default, or a family
-with no pageable layout): every slot owns a full ``max_seq`` row of the
-dense cache.  Admission pads each prompt to a power-of-two bucket (at
-least ``_MIN_BUCKET``) and prefills at ``n_slots`` rows per bucket, the
-placed rows scattered into their slots; the decode step runs every slot
-at its own position in one batched forward.
+with no pageable layout, as the recurrent ssm/hybrid families): every
+slot owns a full ``max_seq`` row of the dense cache (or its recurrent
+state).  Admission pads each prompt to a power-of-two bucket (at least
+``_MIN_BUCKET``; recurrent families: the exact length) and prefills at
+``n_slots`` rows per bucket, the placed rows scattered into their slots;
+the decode step runs every slot at its own position in one batched
+forward.
 
 Paged mode: every attention layer owns a shared device page pool
 (the flat ``CacheLayout``), a host ``PageAllocator`` hands pages to
@@ -115,8 +117,7 @@ def _make_admit_fn(cfg: ModelConfig, max_seq: int):
             cfg, params, {"tokens": prompts.long()}, mode="prefill",
             cache_len=max_seq, last_pos=lens - 1)
         tok0 = torch.argmax(logits[:, -1], -1).to(torch.int32)
-        for name, c in cache.items():
-            c[:, slots] = cache1[name][:, rows]
+        _scatter_rows(cache, cache1, rows, slots)
         lens, max_new = lens[rows], max_new[rows]
         last_tok[slots] = tok0[rows]
         pos[slots] = lens
@@ -125,6 +126,18 @@ def _make_admit_fn(cfg: ModelConfig, max_seq: int):
         return cache, last_tok, pos, remaining, active, tok0
 
     return admit_fn
+
+
+def _scatter_rows(cache, cache1, rows, slots) -> None:
+    """Write prefill rows ``rows`` of every leaf of ``cache1`` into slots
+    ``slots`` of the same leaf of ``cache``, in place.  Every leaf of a
+    dense slot cache (attention K/V, recurrent conv/ssd state, nested
+    for hybrid) has its slot axis at 1."""
+    for name, c in cache.items():
+        if isinstance(c, dict):
+            _scatter_rows(c, cache1[name], rows, slots)
+        else:
+            c[:, slots] = cache1[name][:, rows]
 
 
 class RequestFailed(RuntimeError):
@@ -334,7 +347,12 @@ class ContinuousBatcher:
         """Pad-to-power-of-two bucket for a prompt length (at least
         ``_MIN_BUCKET``, at most ``max_seq``).  Attention caches are safe
         for any bucket: padded positions are masked, or (sliding window)
-        kept out of the ring by the mask-aware emission."""
+        kept out of the ring by the mask-aware emission.  Recurrent
+        families (ssm/hybrid) take the exact length: their conv and SSD
+        state reduce over the whole padded sequence, so padding would
+        corrupt the state itself."""
+        if self.cfg.family in ("ssm", "hybrid"):
+            return plen
         return min(max(_MIN_BUCKET, _next_pow2(plen)), self.max_seq)
 
     def _admit_batch(self, pairs) -> None:

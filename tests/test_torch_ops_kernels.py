@@ -273,8 +273,21 @@ def test_ops_kv_quant_bit_equal(use_pallas):
 
 
 def test_ops_ssd_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="mamba2"):
-        ops.ssd(None, None, None, None, None, use_pallas=True)
+    """``ops.ssd`` raised until the mamba2 slice; now both branches match
+    the JAX ``ops.ssd`` (B6's twin against the Pallas kernel in interpret
+    mode) to the JAX tests' 2e-4."""
+    rng = np.random.default_rng(13)
+    x = (rng.standard_normal((2, 64, 3, 32)) * 0.5).astype(np.float32)
+    dt = rng.uniform(0.1, 0.5, (2, 64, 3)).astype(np.float32)
+    A = -rng.uniform(0.5, 1.5, (3,)).astype(np.float32)
+    B, C = ((rng.standard_normal((2, 64, 16)) * 0.5).astype(np.float32)
+            for _ in range(2))
+    for use_pallas in (False, True):
+        want = np.asarray(jops.ssd(*map(jnp.asarray, (x, dt, A, B, C)),
+                                   chunk=16, use_pallas=use_pallas))
+        got = ops.ssd(*map(torch.from_numpy, (x, dt, A, B, C)), chunk=16,
+                      use_pallas=use_pallas)
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
 
 
 def test_cpu_tensors_run_twins_and_count_no_launch():
