@@ -7,7 +7,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. device and build — the card's name and power limit, the CUDA kernels
    built from ``src/repro_torch/csrc`` with nvcc (one process per source,
-   all started together), TF32 off;
+   all started together), registers and spills of each B5 and B1 kernel,
+   and the count of tensor-core instructions in B5's SASS (each bf16
+   kernel must have some), TF32 off;
 2. kernels vs plain — every kernel against its plain PyTorch twin on the
    card: ``flash_attention_decode_paged`` (B1) and
    ``flash_attention_decode`` (B3) at the main path's shapes, a long
@@ -62,6 +64,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -146,6 +149,42 @@ def hbm_rate(name: str) -> float:
         if key and key in name:
             return rate
     return HBM_RATE[""]
+
+
+def demangle(names):
+    """C++ names as c++filt gives them (as they are without it)."""
+    tool = shutil.which("c++filt")
+    if not tool or not names:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, check=True).stdout.splitlines()
+    return out if len(out) == len(names) else list(names)
+
+
+def ptxas_entries(report: str):
+    """[(kernel, registers, bytes of spill stores)] from ``-Xptxas -v``."""
+    rows = []
+    for chunk in report.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        rows.append((name, int(regs.group(1)) if regs else None,
+                     int(spill.group(1)) if spill else 0))
+    names = demangle([r[0] for r in rows])
+    return [(n,) + r[1:] for n, r in zip(names, rows)]
+
+
+def tensor_core_ops(lib) -> dict:
+    """{kernel: count of HMMA/HGMMA instructions} in a built library's
+    SASS (``cuobjdump -sass``)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        counts[name] = len(re.findall(r"\bHG?MMA\.", chunk))
+    return dict(zip(demangle(list(counts)), counts.values()))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -294,12 +333,13 @@ def hold(tag, name, out, ref, rule):
 
 
 def hold_attention(tag, kernel, plain, make, cases, yardstick, bound,
-                   flush):
+                   flush, info=None):
     """Hold a decode-attention kernel against its plain twin for every
     case; time the "main" and "long" cases beside their bound and one
     SDPA call, the library yardstick (the port never calls it).
     ``yardstick(c)`` -> (args, kwargs, note) of that call, its inputs
-    prepared beforehand and not timed; ``bound(c)`` -> dict."""
+    prepared beforehand and not timed; ``bound(c)`` -> dict; ``info(c)``
+    -> dict of more fields for every case's row."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     results = {}
     for name, kw in cases.items():
@@ -309,6 +349,8 @@ def hold_attention(tag, kernel, plain, make, cases, yardstick, bound,
         ref = plain(**c)
         row = hold(tag, name, out, ref,
                    TOL_F32 if c["q"].dtype == torch.float32 else "bf16")
+        if info is not None:
+            row.update(info(c))
         if name.startswith(("main", "long")):
             row["ms"] = time_ms(lambda: kernel(**c), flush)
             row["plain_ms"] = time_ms(lambda: plain(**c), flush)
@@ -331,7 +373,7 @@ def phase_kernel(gen, card, flush):
     """B1 vs its plain twin; timings at the main and long shapes."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_decode_paged as kernel,
-        flash_attention_decode_paged_plain as plain)
+        flash_attention_decode_paged_plain as plain, paged_splits)
     main = dict(b=8, n_blocks=64, max_pos=1024)
     cases = {
         "main (8 seqs, pos <= 1k, bf16)": main,
@@ -344,6 +386,20 @@ def phase_kernel(gen, card, flush):
         "int8 + bf16 scales": dict(main, quant=True),
         "f32 q": dict(main, q_dtype=torch.float32),
         "table entries >= n_pages": dict(main, unallocated=True),
+        # the split-KV edges: many splits on one sequence, splits with no
+        # live key, int8 and verify rows with splits, one split (a ring
+        # of one tile), and a tile of five 12-key pages (int8 scales then
+        # copied by plain loads, not cp.async).
+        "1 seq x 4096 pos (many splits)": dict(b=1, n_blocks=256,
+                                               max_pos=4096),
+        "pos < one tile (splits with no live key)": dict(main, max_pos=40),
+        "int8, 1 seq x 4096 pos (many splits)": dict(
+            b=1, n_blocks=256, max_pos=4096, quant=True),
+        "sq=4, 1 seq x 4096 pos (many splits)": dict(
+            b=1, n_blocks=256, max_pos=4096, sq=4),
+        "ring page_base, window=48 (one tile, n_split 1)": dict(
+            main, n_blocks=4, window=48, ring=True),
+        "int8, page 12": dict(main, page=12, n_blocks=86, quant=True),
     }
 
     def yardstick(c):
@@ -355,8 +411,15 @@ def phase_kernel(gen, card, flush):
         ms, by = bound_ms(c, card)
         return {"bound_ms": ms, "bound_by": by, "live_pages": live_pages(c)}
 
+    def info(c):
+        b, hq, _, _ = c["q"].shape
+        _, hkv, page, _ = c["k_pages"].shape
+        return {"n_split": paged_splits(
+            b, hkv, c["block_tab"].shape[1], page,
+            torch.cuda.get_device_properties(0).multi_processor_count)}
+
     return hold_attention("B1", kernel, plain, lambda **kw: make_case(
-        gen, **kw), cases, yardstick, bound, flush)
+        gen, **kw), cases, yardstick, bound, flush, info)
 
 
 def make_dense_case(gen, *, b=8, hq=24, hkv=8, d=128, S=1024, pos=None,
@@ -705,7 +768,26 @@ def phase_hlslib_kernels(gen, card, flush):
                               False),
             "f32, d 64, window 100, sq 200 / sk 700":
                 (dict(b=1, hq=8, hkv=2, sq=200, sk=700, d=64,
-                      dtype=torch.float32), True, 100, False)}.items():
+                      dtype=torch.float32), True, 100, False),
+            # every bf16 head dim and tile shape of the tensor-core kernel:
+            # d 32 and 64 (128-row q tiles), 192 (64-row q tiles, 32-key
+            # tiles), a single row and a ragged 17-row tile against 64
+            # keys, and a long range with no mask at all.
+            "bf16, d 32, hq 8 / hkv 2, 2 x 300":
+                (dict(b=2, hq=8, hkv=2, sq=300, sk=300, d=32), True, None,
+                 False),
+            "bf16, d 64, window 100, sq 200 / sk 700":
+                (dict(b=1, hq=8, hkv=2, sq=200, sk=700, d=64), True, 100,
+                 False),
+            "bf16, d 192, hq 4 / hkv 4, sq 250 / sk 1000":
+                (dict(b=2, hq=4, hkv=4, sq=250, sk=1000, d=192), True, None,
+                 False),
+            "bf16, sq 1 / sk 64": (dict(b=2, sq=1, sk=64), True, None,
+                                   False),
+            "bf16, sq 17 / sk 64": (dict(b=2, sq=17, sk=64), True, None,
+                                    False),
+            "bf16, not causal, 1 x 8192": (dict(b=1, sq=8192, sk=8192),
+                                           False, None, False)}.items():
         q, k, v = make_attention(gen, **kw)
         bound = library = None
         if timed:
@@ -990,7 +1072,8 @@ def phase_recurrent_exactness(seed):
 
 
 # device kernel names (demangled, as the profiler reports them) by class.
-SPLIT = (("B1_flash_decode_paged", ("flash_decode_paged_kernel",)),
+SPLIT = (("B1_flash_decode_paged", ("flash_decode_paged_kernel",
+                                    "flash_decode_paged_combine")),
          ("B3_flash_decode", ("flash_decode_kernel",)),
          ("B2_kv_quant", ("quantize_kernel",)),
          ("B6_ssd_scan", ("ssd_kernel",)),
@@ -1541,6 +1624,16 @@ def main():
                                                 rep))
         print(f"  {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
               f"registers, {spills} bytes of spill stores")
+        if name in ("flash_attention", "flash_decode_paged"):
+            for fn, n_regs, n_spill in ptxas_entries(rep):
+                print(f"    {fn}: {n_regs} registers, {n_spill} bytes of "
+                      "spill stores")
+    hmma = tensor_core_ops(build._lib_path(build.sources()["flash_attention"]))
+    print("B5 tensor-core instructions (cuobjdump -sass, HMMA/HGMMA): "
+          + json.dumps(hmma))
+    check(all(n > 0 for fn, n in hmma.items() if "flash_fwd_tc_kernel" in fn)
+          and any("flash_fwd_tc_kernel" in fn for fn in hmma),
+          f"B5's bf16 kernels run no tensor-core instruction: {hmma}")
 
     gen = torch.Generator(device=DEVICE).manual_seed(args.seed)
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=DEVICE)

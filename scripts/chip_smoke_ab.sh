@@ -29,7 +29,7 @@ for run in "p1:$parent" "c1:$change" "c2:$change" "p2:$parent"; do
   (cd "$dir" && python3 chip_smoke.py) > "$out/ab_$tag.log" 2>&1
   rc=$?
   echo "== $tag ($dir) rc=$rc"
-  grep -E '^(card:|kernel vs plain \[main|B[13] vs plain \[main|full-width serve|time split|\{"ok")' \
+  grep -E '^(card:|kernel vs plain \[main|B[135] vs plain \[main|full-width serve|time split|\{"ok")' \
     "$out/ab_$tag.log"
   [ "$rc" -eq 0 ] || status=$rc
 done

@@ -1,0 +1,169 @@
+#!/usr/bin/env python3
+"""Time design variants of the attention kernels B5 and B1 on one CUDA card.
+
+    python3 scripts/kernel_variants.py        # from the repo root, on the card
+
+Each variant is the shipped source (``src/repro_torch/csrc``) with one
+textual change, built with the same nvcc flags into ``build/variants/``
+and called through ctypes beside the shipped kernel, at chip_smoke.py's
+main and long shapes, in alternating rounds.  Every output is held to
+the plain twin under chip_smoke.py's 2-ulp rule; a variant that breaks
+it is printed with its error ratio (the diagnostics do so on purpose).
+
+B5 (``flash_attention``, bf16):
+  shipped     -- 64-key tiles scored in 32-key steps at d = 128;
+  steps64     -- 64-key score steps at d = 128 (spills at 128 registers);
+  one_bf16_p  -- P.V with p_hi only (diagnostic: what p_lo costs);
+  fast_exp    -- __expf for the probabilities (diagnostic: what expf costs).
+B1 (``flash_attention_decode_paged``), each at n_split 1 and as chosen:
+  shipped     -- the next tile's pages copied while the current is scored;
+  no_prefetch -- each tile copied, then waited for, before it is scored.
+"""
+
+import ctypes
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+
+B5 = {
+    "shipped": {},
+    "steps64": {"static constexpr int BC = D <= 64 ? 64 : 32;":
+                "static constexpr int BC = D <= 128 ? 64 : 32;"},
+    "one_bf16_p": {"      mma_bf16(o[2 * jj], lo, bb[0], bb[1]);\n": "",
+                   "      mma_bf16(o[2 * jj + 1], lo, bb[2], bb[3]);\n": ""},
+    "fast_exp": {"const float x = expf(s[j][e] - m_r[e >> 1]);":
+                 "const float x = __expf(s[j][e] - m_r[e >> 1]);"},
+}
+B1 = {
+    "shipped": {},
+    "no_prefetch": {
+        "    load(0, 0);\n    cp_async_commit();\n": "",
+        "    cp_async_wait_all();\n":
+            "    __syncthreads();\n    load(slot, st);\n    cp_async_commit();\n"
+            "    cp_async_wait_all();\n",
+        "    if (t + 1 < my_hi) {\n      load((i + 1) % 3, st ^ 1);\n"
+        "      cp_async_commit();\n    }\n": ""},
+}
+
+
+def build_variants(source: str, variants: dict, symbol: str, argtypes):
+    """{name: ctypes function} of each variant, all nvcc runs at once."""
+    text = (build.CSRC / f"{source}.cu").read_text()
+    out_dir = os.path.join(ROOT, "build", "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name, subs in variants.items():
+        t = text
+        for old, new in subs.items():
+            if old not in t:
+                raise SystemExit(f"{source} variant {name}: source changed")
+            t = t.replace(old, new)
+        path = os.path.join(out_dir, f"{source}_{name}.cu")
+        with open(path, "w") as f:
+            f.write(t)
+        procs[name] = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", path[:-3] + ".so", path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for name, proc in procs.items():
+        report, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for {name}:\n{report}")
+        for fn, regs, spill in cs.ptxas_entries(report):
+            print(f"  {source} {name}: {fn.split('(')[0]}: {regs} registers, "
+                  f"{spill} bytes of spill stores")
+        fn = getattr(ctypes.CDLL(os.path.join(out_dir, f"{source}_{name}.so")),
+                     symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def err_ratio(out, ref):
+    try:
+        return cs.hold("variant", "", out, ref, "bf16")["err_over_tol"]
+    except AssertionError as e:
+        return str(e).split(": ", 1)[1]
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("card:", subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    b5 = build_variants("flash_attention", B5, "flash_attention",
+                        fa._flash_kernel().argtypes)
+    b1 = build_variants("flash_decode_paged", B1, "flash_decode_paged",
+                        fa._kernel().argtypes)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    for case, kw in (("main", {}), ("long", dict(b=1, sq=8192, sk=8192))):
+        q, k, v = cs.make_attention(gen, **kw)
+        b, hq, sq, d = q.shape
+        hkv, sk = k.shape[1], k.shape[2]
+        ref = fa.flash_attention_plain(q, k, v)
+        out = torch.empty_like(q)
+        for rnd in range(2):
+            for name, fn in b5.items():
+                def call():
+                    return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              out.data_ptr(), b, hq, hkv, sq, sk, d, 1, 0,
+                              float(d ** -0.5), 1, stream)
+                assert call() == 0
+                torch.cuda.synchronize()
+                print(f"B5 {case} round {rnd} {name}: ms "
+                      f"{cs.time_ms(call, flush)}, err/tol {err_ratio(out, ref)}",
+                      flush=True)
+        del q, k, v, ref, out
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for case, kw in (("main", dict(b=8, n_blocks=64, max_pos=1024)),
+                     ("long", dict(b=32, n_blocks=256, max_pos=4096))):
+        c = cs.make_case(gen, **kw)
+        ref = fa.flash_attention_decode_paged_plain(**c)
+        b, hq, sq, d = c["q"].shape
+        n_pages, hkv, page, _ = c["k_pages"].shape
+        nb = c["block_tab"].shape[1]
+        chosen = fa.paged_splits(b, hkv, nb, page, n_sm)
+        out = torch.empty_like(c["q"])
+        for rnd in range(2):
+            for name, fn in b1.items():
+                for ns in sorted({1, chosen}):
+                    rows = sq * hq // hkv
+                    pa = torch.empty((b, hkv, ns, rows, d), device="cuda")
+                    pm = torch.empty((b, hkv, ns, rows, 2), device="cuda")
+
+                    def call():
+                        return fn(c["q"].data_ptr(), c["k_pages"].data_ptr(),
+                                  c["v_pages"].data_ptr(), None, None,
+                                  c["block_tab"].data_ptr(),
+                                  c["pos"].data_ptr(), None, out.data_ptr(),
+                                  pa.data_ptr(), pm.data_ptr(), b, hq, hkv,
+                                  sq, d, n_pages, page, nb, ns, 0,
+                                  float(d ** -0.5), 1, 0, stream)
+                    assert call() == 0
+                    torch.cuda.synchronize()
+                    print(f"B1 {case} round {rnd} {name} n_split {ns}: ms "
+                          f"{cs.time_ms(call, flush)}, err/tol "
+                          f"{err_ratio(out, ref)}", flush=True)
+        del c, ref, out
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

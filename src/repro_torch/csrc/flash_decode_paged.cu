@@ -18,18 +18,30 @@
 // bytes over HBM bandwidth (3.35 TB/s on the SXM part).
 //
 // Design.  The Pallas grid runs in order and carries (m, l, acc) across
-// its kv steps; CUDA blocks run in no order, so here one CTA owns one
-// (sequence, kv head) and loops over its own block-table row, keeping
-// (m, l, acc) in shared memory.  Per iteration it stages a tile of up to
-// 64 keys (several pages, only the live ones are read) from device
-// memory into shared memory as fp32, scores them with one thread per
-// (row, key) pair, runs the online-softmax update with one warp per
-// row, and accumulates P.V with one thread per output column.  Pages in
-// the future, outside the window or never written are not read at all.
-// Loads are 16-byte vectors, coalesced along d, several issued per thread
-// before any is used, so a tile costs about one memory latency.  Not done yet (later work): split-KV across
-// CTAs with a log-sum-exp combine (with b * hkv CTAs a small batch fills
-// only part of the 132 SMs), cp.async/TMA double buffering, wgmma.
+// its kv steps; CUDA blocks run in no order.  Here the grid is (n_split,
+// hkv, b): the wrapper picks n_split on the host from the shapes and the
+// SM count only (never from pos or the table, which would cost a device
+// sync per decode step), so that a small batch still fills the card.
+// Each CTA reads pos itself, finds the 64-key tiles that can hold a live
+// key (with a flat table, those from the window's first key to pos + sq;
+// with a ring page_base, the whole table) and takes its even share of
+// them.  Within that share it loops over its tiles keeping (m, l, acc) in
+// shared memory: the next tile's raw page bytes (bf16, or int8 and their
+// bf16 scales) are copied by cp.async into a second stage while the
+// current tile is scored, and are converted to fp32 (times the scale) as
+// they are read, as the first design did when it staged them.  One thread
+// scores one (row, key) pair over 16-byte reads of a K row (rows padded
+// by 16 bytes, so the reads are free of bank conflicts), one warp per row
+// runs the online-softmax update, and one thread per four output columns
+// accumulates P.V: three barriers a tile.  Pages in the future, outside
+// the window or never written are not read.  With n_split > 1 each CTA
+// writes its partial (m, l, unnormalised acc) in fp32 to a scratch the
+// wrapper allocates, and a second kernel, enqueued by the same C call,
+// combines them: o = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s (an
+// empty split has m = NEG_INF, l = 0 and weight 0; a row empty in every
+// split writes 0).  With n_split == 1 the CTA writes the output itself.
+// Not done yet (later work): tensor-core products for long verify spans,
+// TMA page copies on an mbarrier.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,20 +49,31 @@
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
 constexpr int kTileKeys = 64;
-constexpr int kLoadUnroll = 4;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 
 __device__ __forceinline__ void store_f(float v, float* o) { *o = v; }
-__device__ __forceinline__ void store_f(float v, __nv_bfloat16* o) {
+__device__ __forceinline__ void store_f(float v, bf16* o) {
   *o = __float2bfloat16_rn(v);
+}
+
+// four consecutive pool elements from shared memory, as fp32
+__device__ __forceinline__ void load4(const bf16* p, float* v) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+__device__ __forceinline__ void load4(const int8_t* p, float* v) {
+  const char4 r = *reinterpret_cast<const char4*>(p);
+  v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
 }
 
 __device__ __forceinline__ bool key_valid(int kpos, int qpos, bool has_base,
@@ -72,43 +95,110 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device to shared memory, asynchronously; zeros if !pred.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+__host__ __device__ constexpr size_t up16(size_t x) {
+  return (x + 15) & ~static_cast<size_t>(15);
+}
+
+// Byte offsets of the shared-memory sections, each 16-byte aligned.
+struct Layout {
+  size_t q, acc, kraw, vraw, p, m, l, a, ksc, vsc, kstart, phys, total;
+  int kst, vst, tile_pad;  // K / V row strides in bytes; scales per stage
+};
+
+__host__ __device__ inline Layout layout(int rows, int d, int tile,
+                                         int tile_pages, int pt_bytes) {
+  Layout L;
+  L.kst = d * pt_bytes + 16;   // K rows padded: conflict-free row reads
+  L.vst = d * pt_bytes;
+  L.tile_pad = (tile + 7) & ~7;
+  size_t o = 0;
+  L.q = o;      o += up16(sizeof(float) * rows * d);
+  L.acc = o;    o += up16(sizeof(float) * rows * d);
+  L.kraw = o;   o += up16(static_cast<size_t>(2) * tile * L.kst);  // 2 stages
+  L.vraw = o;   o += up16(static_cast<size_t>(2) * tile * L.vst);
+  L.p = o;      o += up16(sizeof(float) * rows * tile);
+  L.m = o;      o += up16(sizeof(float) * rows);
+  L.l = o;      o += up16(sizeof(float) * rows);
+  L.a = o;      o += up16(sizeof(float) * rows);
+  L.ksc = o;    o += up16(sizeof(bf16) * 2 * L.tile_pad);
+  L.vsc = o;    o += up16(sizeof(bf16) * 2 * L.tile_pad);
+  L.kstart = o; o += up16(sizeof(int) * 3 * tile_pages);   // 3 slots
+  L.phys = o;   o += up16(sizeof(int) * 3 * tile_pages);
+  L.total = o;
+  return L;
+}
+
 template <typename QT, typename PT, bool QUANT>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_paged_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
                           const PT* __restrict__ vp,
-                          const __nv_bfloat16* __restrict__ ks,
-                          const __nv_bfloat16* __restrict__ vs,
+                          const bf16* __restrict__ ks,
+                          const bf16* __restrict__ vs,
                           const int* __restrict__ block_tab,
                           const int* __restrict__ pos_arr,
                           const int* __restrict__ page_base,
-                          QT* __restrict__ out, int hq, int hkv, int sq, int d,
-                          int n_pages, int page, int n_blocks, int tile_pages,
-                          int window, float scale) {
-  extern __shared__ float smem[];
-  const int kh = blockIdx.x;
-  const int bi = blockIdx.y;
+                          QT* __restrict__ out, float* __restrict__ part_acc,
+                          float* __restrict__ part_ml, int hq, int hkv, int sq,
+                          int d, int n_pages, int page, int n_blocks,
+                          int tile_pages, int window, float scale,
+                          int scale_async) {
+  extern __shared__ uint4 smem_u4[];
+  char* base = reinterpret_cast<char*>(smem_u4);
+  const int split = blockIdx.x, n_split = gridDim.x;
+  const int kh = blockIdx.y;
+  const int bi = blockIdx.z;
   const int group = hq / hkv;
   const int rows = sq * group;
   const int tile = tile_pages * page;  // keys per tile
   const bool has_base = page_base != nullptr;
-
-  float* q_s = smem;                   // rows * d
-  float* acc_s = q_s + rows * d;       // rows * d
-  float* k_s = acc_s + rows * d;       // tile * (d + 1), padded rows
-  float* v_s = k_s + tile * (d + 1);   // tile * d
-  float* p_s = v_s + tile * d;         // rows * tile
-  float* m_s = p_s + rows * tile;      // rows
-  float* l_s = m_s + rows;             // rows
-  float* a_s = l_s + rows;             // rows
-  int* kstart_s = reinterpret_cast<int*>(a_s + rows);  // tile_pages
-  int* phys_s = kstart_s + tile_pages;                 // tile_pages (-1 = skip)
-  __shared__ int any_active;
+  const Layout L = layout(rows, d, tile, tile_pages, sizeof(PT));
+  float* q_s = reinterpret_cast<float*>(base + L.q);       // rows * d
+  float* acc_s = reinterpret_cast<float*>(base + L.acc);   // rows * d
+  char* kraw = base + L.kraw;                              // 2 x tile x kst
+  char* vraw = base + L.vraw;                              // 2 x tile x vst
+  float* p_s = reinterpret_cast<float*>(base + L.p);       // rows * tile
+  float* m_s = reinterpret_cast<float*>(base + L.m);
+  float* l_s = reinterpret_cast<float*>(base + L.l);
+  float* a_s = reinterpret_cast<float*>(base + L.a);
+  bf16* ksc_s = reinterpret_cast<bf16*>(base + L.ksc);     // 2 x tile_pad
+  bf16* vsc_s = reinterpret_cast<bf16*>(base + L.vsc);
+  int* kstart_s = reinterpret_cast<int*>(base + L.kstart);  // 3 x tile_pages
+  int* phys_s = reinterpret_cast<int*>(base + L.phys);      // -1 = skip
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarp = kThreads >> 5;
   const int pos = pos_arr[bi];
+
+  // this split's even share of the tiles that can hold a live key.
+  const int n_tiles = (n_blocks + tile_pages - 1) / tile_pages;
+  int t_lo = 0, t_hi = n_tiles;
+  if (!has_base) {
+    t_hi = min(n_tiles, max(pos + sq - 1, 0) / tile + 1);
+    if (window > 0 && pos - window + 1 > 0)
+      t_lo = min(t_hi, (pos - window + 1) / tile);
+  }
+  const int per = (t_hi - t_lo + n_split - 1) / n_split;
+  const int my_lo = t_lo + split * per;
+  const int my_hi = min(t_hi, my_lo + per);
 
   // q rows, position-major: row rr = t * group + g is head kh * group + g
   // at query position t.
@@ -124,104 +214,129 @@ flash_decode_paged_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
     l_s[r] = 0.f;
   }
 
-  for (int j0 = 0; j0 < n_blocks; j0 += tile_pages) {
-    __syncthreads();
-    if (tid == 0) any_active = 0;
-    __syncthreads();
-    if (tid < tile_pages) {
-      const int j = j0 + tid;
-      int phys = -1;
-      int k_start = 0;
-      if (j < n_blocks) {
-        k_start = has_base ? page_base[bi * n_blocks + j] : j * page;
-        bool active = k_start <= pos + (sq - 1);            // future pages
-        if (has_base) active = active && k_start >= 0;      // never written
-        if (window > 0) active = active && (k_start + page - 1 > pos - window);
-        if (active) {
-          // table entries past the pool (unallocated) clamp to a real page.
-          phys = min(max(block_tab[bi * n_blocks + j], 0), n_pages - 1);
-          atomicExch(&any_active, 1);
+  // tile t's pages into meta slot `slot` (threads tid < tile_pages).
+  auto meta = [&](int t, int slot) {
+    const int j = t * tile_pages + tid;
+    int phys = -1;
+    int k_start = 0;
+    if (j < n_blocks) {
+      k_start = has_base ? page_base[bi * n_blocks + j] : j * page;
+      bool active = k_start <= pos + (sq - 1);            // future pages
+      if (has_base) active = active && k_start >= 0;      // never written
+      if (window > 0) active = active && (k_start + page - 1 > pos - window);
+      // table entries past the pool (unallocated) clamp to a real page.
+      if (active) phys = min(max(block_tab[bi * n_blocks + j], 0), n_pages - 1);
+    }
+    kstart_s[slot * tile_pages + tid] = k_start;
+    phys_s[slot * tile_pages + tid] = phys;
+  };
+
+  // copy the live pages of the tile in meta slot `slot` into stage `st`
+  // (dead slots are zero-filled, and masked).
+  auto load = [&](int slot, int st) {
+    constexpr int V = 16 / sizeof(PT);       // elements per 16-byte chunk
+    const int cpr = d / V;                   // chunks per row
+    const int cpp = page * cpr;              // chunks per page
+    const int* phys_t = phys_s + slot * tile_pages;
+    char* kd = kraw + static_cast<size_t>(st) * tile * L.kst;
+    char* vd = vraw + static_cast<size_t>(st) * tile * L.vst;
+    for (int c = tid; c < tile_pages * cpp; c += kThreads) {
+      const int tp = c / cpp, w = c - tp * cpp;
+      const int row = w / cpr, cc = w - row * cpr;
+      const int phys = phys_t[tp];
+      const size_t src =
+          phys >= 0 ? ((static_cast<size_t>(phys) * hkv + kh) * page + row) * d + cc * V : 0;
+      const int key = tp * page + row;
+      cp_async16(kd + key * L.kst + cc * 16, kp + src, phys >= 0);
+      cp_async16(vd + key * L.vst + cc * 16, vp + src, phys >= 0);
+    }
+    if (QUANT) {
+      bf16* kscd = ksc_s + st * L.tile_pad;
+      bf16* vscd = vsc_s + st * L.tile_pad;
+      if (scale_async) {                     // page % 8 == 0, aligned
+        const int spp = page / 8;            // 16-byte chunks per page
+        for (int c = tid; c < tile_pages * spp; c += kThreads) {
+          const int tp = c / spp, w = c - tp * spp;
+          const int phys = phys_t[tp];
+          const size_t src =
+              phys >= 0 ? (static_cast<size_t>(phys) * hkv + kh) * page + w * 8 : 0;
+          cp_async16(kscd + tp * page + w * 8, ks + src, phys >= 0);
+          cp_async16(vscd + tp * page + w * 8, vs + src, phys >= 0);
+        }
+      } else {
+        for (int i = tid; i < tile; i += kThreads) {
+          const int tp = i / page, row = i - tp * page;
+          const int phys = phys_t[tp];
+          const size_t srow = (static_cast<size_t>(max(phys, 0)) * hkv + kh) * page + row;
+          kscd[i] = phys >= 0 ? ks[srow] : __float2bfloat16_rn(0.f);
+          vscd[i] = phys >= 0 ? vs[srow] : __float2bfloat16_rn(0.f);
         }
       }
-      kstart_s[tid] = k_start;
-      phys_s[tid] = phys;
     }
-    __syncthreads();
-    if (!any_active) continue;  // uniform across the block
+  };
 
-    // stage the tile's live pages (dead slots are zero-filled, masked):
-    // 16-byte vector loads, kLoadUnroll of them issued before any is
-    // used, so each thread keeps several loads in flight.
+  if (my_lo < my_hi) {
+    if (tid < tile_pages) meta(my_lo, 0);
+    __syncthreads();
+    load(0, 0);
+    cp_async_commit();
+    if (tid < tile_pages && my_lo + 1 < my_hi) meta(my_lo + 1, 1);
+  }
+
+  for (int t = my_lo; t < my_hi; ++t) {
+    const int i = t - my_lo, st = i & 1, slot = i % 3;
+    cp_async_wait_all();
+    // tile t has landed and its meta is visible; every thread is done
+    // with tile t - 1, so its stage and meta slot are free.
+    __syncthreads();
+    if (t + 1 < my_hi) {
+      load((i + 1) % 3, st ^ 1);
+      cp_async_commit();
+    }
+    if (tid < tile_pages && t + 2 < my_hi) meta(t + 2, (i + 2) % 3);
+    const int* phys_t = phys_s + slot * tile_pages;
+    const int* kst_t = kstart_s + slot * tile_pages;
+    bool any = false;
+    for (int tp = 0; tp < tile_pages; ++tp) any = any || phys_t[tp] >= 0;
+    if (!any) continue;  // uniform across the block
+
+    // scores: one thread per (row, key) pair, 16-byte reads of the K row.
     {
-      constexpr int V = 16 / sizeof(PT);            // elements per vector
-      const int vec_per_page = page * d / V;
-      const int nvec = tile_pages * vec_per_page;
-      const uint4* k4 = reinterpret_cast<const uint4*>(kp);
-      const uint4* v4 = reinterpret_cast<const uint4*>(vp);
-      for (int v0 = tid; v0 < nvec; v0 += kThreads * kLoadUnroll) {
-        uint4 kr[kLoadUnroll], vr[kLoadUnroll];
+      constexpr int V = 16 / sizeof(PT);
+      const char* kd = kraw + static_cast<size_t>(st) * tile * L.kst;
+      const bf16* kscd = ksc_s + st * L.tile_pad;
+      for (int pr = tid; pr < rows * tile; pr += kThreads) {
+        const int rr = pr / tile, c = pr - rr * tile;
+        const int tp = c / page;
+        const int kpos = kst_t[tp] + (c - tp * page);
+        const bool ok = phys_t[tp] >= 0 &&
+                        key_valid(kpos, pos + rr / group, has_base, window);
+        float dot = kNegInf;
+        if (ok) {
+          const float ksc = QUANT ? __bfloat162float(kscd[c]) : 1.f;
+          const float* qrow = q_s + rr * d;
+          const uint4* krow = reinterpret_cast<const uint4*>(kd + c * L.kst);
+          float acc4[4] = {0.f, 0.f, 0.f, 0.f};
+          for (int cc = 0; cc < d / V; ++cc) {
+            const uint4 raw = krow[cc];
+            const PT* ke = reinterpret_cast<const PT*>(&raw);
 #pragma unroll
-        for (int u = 0; u < kLoadUnroll; ++u) {
-          const int v = v0 + u * kThreads;
-          kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
-          if (v < nvec) {
-            const int tp = v / vec_per_page;
-            const int phys = phys_s[tp];
-            if (phys >= 0) {
-              const size_t slab =
-                  (static_cast<size_t>(phys) * hkv + kh) * vec_per_page;
-              kr[u] = k4[slab + (v - tp * vec_per_page)];
-              vr[u] = v4[slab + (v - tp * vec_per_page)];
+            for (int u = 0; u < V; u += 4) {
+              const float4 qv = *reinterpret_cast<const float4*>(qrow + cc * V + u);
+              float kv[4];
+#pragma unroll
+              for (int x = 0; x < 4; ++x)
+                kv[x] = QUANT ? to_f(ke[u + x]) * ksc : to_f(ke[u + x]);
+              acc4[0] += qv.x * kv[0];
+              acc4[1] += qv.y * kv[1];
+              acc4[2] += qv.z * kv[2];
+              acc4[3] += qv.w * kv[3];
             }
           }
+          dot = (acc4[0] + acc4[1]) + (acc4[2] + acc4[3]);
         }
-#pragma unroll
-        for (int u = 0; u < kLoadUnroll; ++u) {
-          const int v = v0 + u * kThreads;
-          if (v >= nvec) continue;
-          float ksc = 1.f, vsc = 1.f;
-          if (QUANT) {
-            const int tp = v / vec_per_page;
-            const int phys = phys_s[tp];
-            if (phys >= 0) {
-              const int row = (v - tp * vec_per_page) * V / d;
-              const size_t srow = (static_cast<size_t>(phys) * hkv + kh) * page + row;
-              ksc = __bfloat162float(ks[srow]);
-              vsc = __bfloat162float(vs[srow]);
-            }
-          }
-          const PT* ke = reinterpret_cast<const PT*>(&kr[u]);
-          const PT* ve = reinterpret_cast<const PT*>(&vr[u]);
-          const int key = v * V / d, col = v * V - key * d;
-#pragma unroll
-          for (int i = 0; i < V; ++i) {
-            k_s[key * (d + 1) + col + i] = to_f(ke[i]) * ksc;
-            v_s[v * V + i] = to_f(ve[i]) * vsc;
-          }
-        }
+        p_s[pr] = dot;
       }
-    }
-    __syncthreads();
-
-    // scores: one thread per (row, key) pair over the padded K tile
-    // (conflict-free: neighbouring keys sit in neighbouring banks).
-    for (int pr = tid; pr < rows * tile; pr += kThreads) {
-      const int rr = pr / tile, c = pr - rr * tile;
-      const float* qrow = q_s + rr * d;
-      const float* krow = k_s + c * (d + 1);
-      float acc4[4] = {0.f, 0.f, 0.f, 0.f};
-      int e = 0;
-      for (; e + 4 <= d; e += 4) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) acc4[u] += qrow[e + u] * krow[e + u];
-      }
-      for (; e < d; ++e) acc4[0] += qrow[e] * krow[e];
-      const float dot = (acc4[0] + acc4[1]) + (acc4[2] + acc4[3]);
-      const int tp = c / page;
-      const int kpos = kstart_s[tp] + (c - tp * page);
-      const bool ok = phys_s[tp] >= 0 &&
-                      key_valid(kpos, pos + rr / group, has_base, window);
-      p_s[pr] = ok ? dot : kNegInf;
     }
     __syncthreads();
 
@@ -235,8 +350,8 @@ flash_decode_paged_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
       float sum = 0.f;
       for (int c = lane; c < tile; c += 32) {
         const int tp = c / page;
-        const int kpos = kstart_s[tp] + (c - tp * page);
-        const bool ok = phys_s[tp] >= 0 &&
+        const int kpos = kst_t[tp] + (c - tp * page);
+        const bool ok = phys_t[tp] >= 0 &&
                         key_valid(kpos, pos + rr / group, has_base, window);
         const float pv = ok ? expf(p_s[rr * tile + c] - m_new) : 0.f;
         p_s[rr * tile + c] = pv;
@@ -252,17 +367,42 @@ flash_decode_paged_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
     }
     __syncthreads();
 
-    // acc = acc * alpha + P.V, one thread per (row, column).
-    for (int i = tid; i < rows * d; i += kThreads) {
-      const int rr = i / d, e = i - (i / d) * d;
-      const float* prow = p_s + rr * tile;
-      float a2[2] = {0.f, 0.f};
-      for (int c = 0; c < tile; ++c) a2[c & 1] += prow[c] * v_s[c * d + e];
-      acc_s[i] = acc_s[i] * a_s[rr] + (a2[0] + a2[1]);
+    // acc = acc * alpha + P.V, one thread per (row, four columns).
+    {
+      const char* vd = vraw + static_cast<size_t>(st) * tile * L.vst;
+      const bf16* vscd = vsc_s + st * L.tile_pad;
+      const int ncg = d / 4;
+      for (int i4 = tid; i4 < rows * ncg; i4 += kThreads) {
+        const int rr = i4 / ncg, e = (i4 - rr * ncg) * 4;
+        const float* prow = p_s + rr * tile;
+        float a2[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        for (int c = 0; c < tile; ++c) {
+          const float pv = prow[c];
+          float vv[4];
+          load4(reinterpret_cast<const PT*>(vd + c * L.vst) + e, vv);
+          const float vsc = QUANT ? __bfloat162float(vscd[c]) : 1.f;
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            a2[c & 1][x] += pv * (QUANT ? vv[x] * vsc : vv[x]);
+        }
+        const float alpha = a_s[rr];
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          acc_s[rr * d + e + x] = acc_s[rr * d + e + x] * alpha + (a2[0][x] + a2[1][x]);
+      }
     }
   }
   __syncthreads();
 
+  if (part_acc != nullptr) {   // partials, combined by the second kernel
+    const size_t pb = ((static_cast<size_t>(bi) * hkv + kh) * n_split + split) * rows;
+    for (int i = tid; i < rows * d; i += kThreads) part_acc[pb * d + i] = acc_s[i];
+    for (int r = tid; r < rows; r += kThreads) {
+      part_ml[(pb + r) * 2] = m_s[r];
+      part_ml[(pb + r) * 2 + 1] = l_s[r];
+    }
+    return;
+  }
   for (int i = tid; i < rows * d; i += kThreads) {
     const int rr = i / d, e = i - (i / d) * d;
     const int t = rr / group, g = rr - t * group;
@@ -273,31 +413,68 @@ flash_decode_paged_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
   }
 }
 
+// o = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s over the splits of one
+// (sequence, kv head); a row with l = 0 in every split writes 0.
+template <typename QT>
+__global__ void __launch_bounds__(kThreads)
+flash_decode_paged_combine(const float* __restrict__ part_acc,
+                           const float* __restrict__ part_ml,
+                           QT* __restrict__ out, int hq, int hkv, int sq,
+                           int d, int n_split) {
+  const int kh = blockIdx.x, bi = blockIdx.y;
+  const int group = hq / hkv;
+  const int rows = sq * group;
+  const size_t pb = (static_cast<size_t>(bi) * hkv + kh) * n_split;
+  for (int i = threadIdx.x; i < rows * d; i += kThreads) {
+    const int rr = i / d, e = i - (i / d) * d;
+    float M = kNegInf;
+    for (int s = 0; s < n_split; ++s)
+      M = fmaxf(M, part_ml[((pb + s) * rows + rr) * 2]);
+    float num = 0.f, den = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const size_t r = (pb + s) * rows + rr;
+      const float w = expf(part_ml[r * 2] - M);
+      den += w * part_ml[r * 2 + 1];
+      num += w * part_acc[r * d + e];
+    }
+    if (den == 0.f) den = 1.f;
+    const int t = rr / group, g = rr - t * group;
+    const size_t oi = ((static_cast<size_t>(bi) * hq + kh * group + g) * sq + t) * d + e;
+    store_f(num / den, &out[oi]);
+  }
+}
+
 template <typename QT, typename PT, bool QUANT>
 int launch(const void* q, const void* kp, const void* vp, const void* ks,
            const void* vs, const int* bt, const int* pos, const int* page_base,
-           void* out, int b, int hq, int hkv, int sq, int d, int n_pages,
-           int page, int n_blocks, int window, float scale,
-           cudaStream_t stream) {
+           void* out, float* part_acc, float* part_ml, int b, int hq, int hkv,
+           int sq, int d, int n_pages, int page, int n_blocks, int n_split,
+           int window, float scale, cudaStream_t stream) {
   const int rows = sq * (hq / hkv);
   const int tile_pages = page >= kTileKeys ? 1 : kTileKeys / page;
-  const int tile = tile_pages * page;
-  const size_t smem = sizeof(float) * (2 * rows * d + tile * (2 * d + 1) +
-                                       rows * tile + 3 * rows) +
-                      sizeof(int) * 2 * tile_pages;
+  const size_t smem =
+      layout(rows, d, tile_pages * page, tile_pages, sizeof(PT)).total;
   auto kern = flash_decode_paged_kernel<QT, PT, QUANT>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  dim3 grid(hkv, b);
+  const int scale_async = QUANT && page % 8 == 0 &&
+                          reinterpret_cast<uintptr_t>(ks) % 16 == 0 &&
+                          reinterpret_cast<uintptr_t>(vs) % 16 == 0;
+  const bool parts = n_split > 1;
+  dim3 grid(n_split, hkv, b);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const PT*>(kp),
-      static_cast<const PT*>(vp), static_cast<const __nv_bfloat16*>(ks),
-      static_cast<const __nv_bfloat16*>(vs), bt, pos, page_base,
-      static_cast<QT*>(out), hq, hkv, sq, d, n_pages, page, n_blocks,
-      tile_pages, window, scale);
+      static_cast<const PT*>(vp), static_cast<const bf16*>(ks),
+      static_cast<const bf16*>(vs), bt, pos, page_base, static_cast<QT*>(out),
+      parts ? part_acc : nullptr, parts ? part_ml : nullptr, hq, hkv, sq, d,
+      n_pages, page, n_blocks, tile_pages, window, scale, scale_async);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !parts) return static_cast<int>(err);
+  flash_decode_paged_combine<QT><<<dim3(hkv, b), kThreads, 0, stream>>>(
+      part_acc, part_ml, static_cast<QT*>(out), hq, hkv, sq, d, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -305,26 +482,31 @@ int launch(const void* q, const void* kp, const void* vp, const void* ks,
 
 extern "C" {
 
-// Launches on `stream`; returns cudaGetLastError() after the launch.
-// q_bf16: q/out are bf16 (else fp32).  quantized: pools are int8 with bf16
-// scale pages (else bf16 pools, scales unused).  page_base may be null.
-// window <= 0 means no window.
+// Launches on `stream` (with n_split > 1, the split kernel and then the
+// combine kernel); returns cudaGetLastError() after the launches.  q_bf16:
+// q/out are bf16 (else fp32).  quantized: pools are int8 with bf16 scale
+// pages (else bf16 pools, scales unused).  page_base may be null.  window
+// <= 0 means no window.  part_acc (b, hkv, n_split, sq * hq / hkv, d) and
+// part_ml (the same rows, 2) are fp32 scratch, unused when n_split == 1.
 int flash_decode_paged(const void* q, const void* k_pages, const void* v_pages,
                        const void* k_scale, const void* v_scale,
                        const int* block_tab, const int* pos,
-                       const int* page_base, void* out, int b, int hq, int hkv,
-                       int sq, int d, int n_pages, int page, int n_blocks,
+                       const int* page_base, void* out, void* part_acc,
+                       void* part_ml, int b, int hq, int hkv, int sq, int d,
+                       int n_pages, int page, int n_blocks, int n_split,
                        int window, float scale, int q_bf16, int quantized,
                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_split < 1) return static_cast<int>(cudaErrorInvalidValue);
 #define ARGS q, k_pages, v_pages, k_scale, v_scale, block_tab, pos, page_base, \
-             out, b, hq, hkv, sq, d, n_pages, page, n_blocks, window, scale, s
+             out, static_cast<float*>(part_acc), static_cast<float*>(part_ml), \
+             b, hq, hkv, sq, d, n_pages, page, n_blocks, n_split, window, scale, s
   if (q_bf16) {
-    if (quantized) return launch<__nv_bfloat16, int8_t, true>(ARGS);
-    return launch<__nv_bfloat16, __nv_bfloat16, false>(ARGS);
+    if (quantized) return launch<bf16, int8_t, true>(ARGS);
+    return launch<bf16, bf16, false>(ARGS);
   }
   if (quantized) return launch<float, int8_t, true>(ARGS);
-  return launch<float, __nv_bfloat16, false>(ARGS);
+  return launch<float, bf16, false>(ARGS);
 #undef ARGS
 }
 

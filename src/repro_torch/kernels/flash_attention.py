@@ -106,11 +106,35 @@ def flash_attention_decode_paged_plain(
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = library("flash_decode_paged").flash_decode_paged
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+# keys per tile of csrc/flash_decode_paged.cu (kTileKeys): whole pages,
+# one page when a page holds 64 keys or more.
+PAGED_TILE_KEYS = 64
+
+
+def paged_tile_pages(page: int) -> int:
+    return 1 if page >= PAGED_TILE_KEYS else PAGED_TILE_KEYS // page
+
+
+def paged_splits(b: int, hkv: int, n_blocks: int, page: int,
+                 n_sm: int) -> int:
+    """How many CTAs share one (sequence, kv head): enough for two CTAs
+    per SM, at most one per tile of the table.  Shapes only: the live
+    range depends on ``pos``, which the host never reads (that would sync
+    the device on every decode step)."""
+    n_tiles = -(-n_blocks // paged_tile_pages(page))
+    return max(1, min(n_tiles, -(-2 * n_sm // (b * hkv))))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 _require = functools.partial(require, "flash_attention_decode_paged")
@@ -135,8 +159,10 @@ def flash_attention_decode_paged(
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel
     (q f32 or bf16; pools bf16, or int8 with bf16 scales; all contiguous,
-    int32 tables) on the current stream, or raise.  Each launch adds one
-    to ``flash_attention_decode_paged.launches``.
+    int32 tables) on the current stream, or raise: ``paged_splits``
+    CTAs share each (sequence, kv head), and a second kernel combines
+    their partials.  Each launch adds one to
+    ``flash_attention_decode_paged.launches``.
     """
     tensors = [t for t in (q, k_pages, v_pages, block_tab, pos, page_base,
                            k_scale_pages, v_scale_pages) if t is not None]
@@ -195,13 +221,24 @@ def flash_attention_decode_paged(
     fn = _kernel()
     scale = scale if scale is not None else 1.0 / np.sqrt(d)
     out = torch.empty_like(q)
+    n_split = paged_splits(b, hkv, n_blocks, page, _sm_count(q.device.index))
+    part_acc = part_ml = None
+    if n_split > 1:     # per-split (acc) and (m, l), combined on the card
+        rows = sq * (hq // hkv)
+        part_acc = torch.empty((b, hkv, n_split, rows, d), dtype=F32,
+                               device=q.device)
+        part_ml = torch.empty((b, hkv, n_split, rows, 2), dtype=F32,
+                              device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              k_scale_pages.data_ptr() if quantized else None,
              v_scale_pages.data_ptr() if quantized else None,
              block_tab.data_ptr(), pos.data_ptr(),
              page_base.data_ptr() if page_base is not None else None,
-             out.data_ptr(), b, hq, hkv, sq, d, n_pages, page, n_blocks,
+             out.data_ptr(),
+             part_acc.data_ptr() if part_acc is not None else None,
+             part_ml.data_ptr() if part_ml is not None else None,
+             b, hq, hkv, sq, d, n_pages, page, n_blocks, n_split,
              int(window) if window is not None else 0, float(scale),
              int(q.dtype == torch.bfloat16), int(quantized), stream)
     check_launch("flash_attention_decode_paged", err)
@@ -323,8 +360,11 @@ flash_attention_decode.launches = 0
 
 # --- forward (prefill) attention (kernel B5) --------------------------------------------
 
-# head dims the kernel is instantiated for (csrc/flash_attention.cu); 256
-# is the most its fp32 shared-memory tiles fit in one CTA.
+# head dims the kernel is instantiated for, in both dtypes
+# (csrc/flash_attention.cu): bf16 runs on the tensor cores with a q tile
+# and two stages of K/V tiles in bf16 (99-104 KB), fp32 on the CUDA cores
+# with fp32 q and K/V tiles, which at d = 256 take 210 KB, the most one
+# CTA may have.
 FLASH_HEAD_DIMS = (32, 64, 128, 192, 256)
 
 

@@ -8,7 +8,18 @@ every option: sq in {1, 3}, window None/24, ring ``page_base``, int8
 pools with bf16 scales, and table entries >= n_pages.  Inputs are fp32
 (the pools bf16 or int8), so the tolerance is fp32 summation order:
 1e-5 absolute.
+
+The kernel splits each (sequence, kv head)'s key tiles over several CTAs
+and combines their partials by log-sum-exp.  The CPU tests hold that
+rule: the tile shares (``_split_tiles``, the rule the kernel computes on
+the card from ``pos``) cover every live tile once; the plain softmax over each share,
+combined, equals the plain twin over all keys to fp32 rounding (2e-6
+absolute on outputs below ~3); the split count (``paged_splits``) comes
+from shapes alone, and the wrapper reads no device tensor on the host.
 """
+
+import itertools
+import types
 
 import numpy as np
 import jax.numpy as jnp
@@ -18,9 +29,11 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import (
     flash_attention_decode_paged as jax_paged)
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import (
-    flash_attention_decode_paged, flash_attention_decode_paged_plain)
+    NEG_INF, flash_attention_decode_paged, flash_attention_decode_paged_plain,
+    paged_splits, paged_tile_pages)
 
 torch.set_num_threads(2)
 
@@ -30,10 +43,10 @@ B, HQ, HKV, D = 3, 8, 2, 32
 N_PAGES, PAGE = 12, 8
 
 
-def _inputs(variant, sq, seed):
+def _inputs(variant, sq, seed, nb=None, n_pages=N_PAGES, pos=None):
     rng = np.random.default_rng(seed)
-    nb = 4 if variant == "ring" else 6
-    shape = (N_PAGES, HKV, PAGE, D)
+    nb = nb or (4 if variant == "ring" else 6)
+    shape = (n_pages, HKV, PAGE, D)
     if variant == "int8":
         kp = rng.integers(-127, 128, shape).astype(np.int8)
         vp = rng.integers(-127, 128, shape).astype(np.int8)
@@ -45,13 +58,13 @@ def _inputs(variant, sq, seed):
         vp = rng.standard_normal(shape).astype(np.float32)
         ks = vs = None
     q = rng.standard_normal((B, HQ, sq, D)).astype(np.float32)
-    bt = np.stack([rng.permutation(N_PAGES)[:nb] for _ in range(B)]
+    bt = np.stack([rng.permutation(n_pages)[:nb] for _ in range(B)]
                   ).astype(np.int32)
-    pos = np.asarray([5, 21, nb * PAGE - sq], np.int32)
+    pos = np.asarray(pos or [5, 21, nb * PAGE - sq], np.int32)
     base = None
     if variant == "unalloc":
         live = (pos + sq - 1) // PAGE
-        bt = np.where(np.arange(nb)[None, :] > live[:, None], N_PAGES + 3,
+        bt = np.where(np.arange(nb)[None, :] > live[:, None], n_pages + 3,
                       bt).astype(np.int32)
     if variant == "ring":
         pos = np.asarray([9, 43, 61], np.int32)
@@ -186,3 +199,229 @@ def test_build_keys_libraries_by_source_hash_and_needs_nvcc(tmp_path,
         build.build_all()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.library("k")
+
+
+# --- split-KV: the rule the kernel follows ---------------------------------------------
+
+
+def _split_tiles(split, n_split, pos, sq, n_blocks, page, window=None,
+                 ring=False):
+    """The tiles [lo, hi) that CTA ``split`` of ``n_split`` takes, as
+    ``csrc/flash_decode_paged.cu`` computes it from ``pos``: an even share
+    of the tiles that can hold a live key (flat table: from the window's
+    first key to pos + sq - 1; ring: the whole table, each page then read
+    or skipped by its base).  A tile is ``paged_tile_pages(page)`` table
+    entries."""
+    tp = paged_tile_pages(page)
+    tile = tp * page
+    n_tiles = -(-n_blocks // tp)
+    lo, hi = 0, n_tiles
+    if not ring:
+        hi = min(n_tiles, max(pos + sq - 1, 0) // tile + 1)
+        if window is not None and pos - window + 1 > 0:
+            lo = min(hi, (pos - window + 1) // tile)
+    per = -(-(hi - lo) // n_split)
+    first = lo + split * per
+    return first, min(hi, first + per)
+
+
+def _live_entries(pos, sq, n_blocks, page, window, base):
+    """Table entries whose page the kernel reads (its page rule)."""
+    live = []
+    for j in range(n_blocks):
+        start = base[j] if base is not None else j * page
+        ok = start <= pos + sq - 1
+        if base is not None:
+            ok = ok and start >= 0
+        if window is not None:
+            ok = ok and start + page - 1 > pos - window
+        if ok:
+            live.append(j)
+    return live
+
+
+@pytest.mark.parametrize("ring", [False, True])
+@pytest.mark.parametrize("page", [8, 12, 16, 64, 128])
+def test_split_tiles_cover_every_live_tile_once(page, ring):
+    rng = np.random.default_rng(page + ring)
+    tp = paged_tile_pages(page)
+    for n_blocks in (1, 3, 17, 64):
+        n_tiles = -(-n_blocks // tp)
+        for _ in range(12):
+            sq = int(rng.integers(1, 5))
+            pos = int(rng.integers(0, n_blocks * page - sq + 1))
+            window = (int(rng.integers(1, 3 * page)) if rng.random() < 0.5
+                      else None)
+            base = None
+            if ring:
+                cur = pos // page
+                base = [(cur - ((cur - j) % n_blocks)) * page
+                        for j in range(n_blocks)]
+            live = {j // tp for j in _live_entries(pos, sq, n_blocks, page,
+                                                   window, base)}
+            for n_split in range(1, n_tiles + 3):
+                seen = []
+                for split in range(n_split):
+                    lo, hi = _split_tiles(split, n_split, pos, sq,
+                                               n_blocks, page, window, ring)
+                    assert 0 <= lo and hi <= n_tiles
+                    seen += range(lo, hi)
+                assert len(seen) == len(set(seen)), (pos, n_split)
+                assert live <= set(seen), (pos, sq, window, n_split)
+
+
+def _split_partials(x, window, lo_entry, hi_entry):
+    """(m, l, acc) of the plain masked softmax over the keys of each
+    sequence's table entries [lo_entry[b], hi_entry[b]), per (b, hkv,
+    group, sq) row: m = NEG_INF, l = 0, acc = 0 where none is valid."""
+    q, kp, vp = x["q"], x["k_pages"], x["v_pages"]
+    bt, pos, base = x["block_tab"], x["pos"].long(), x["page_base"]
+    b, hq, sq, d = q.shape
+    n_pages, hkv, page, _ = kp.shape
+    nb = bt.shape[1]
+    bt = bt.long().clamp(0, n_pages - 1)
+    kd, vd = kp[bt].float(), vp[bt].float()          # (b, nb, hkv, page, d)
+    if x["k_scale_pages"] is not None:
+        kd = kd * x["k_scale_pages"][bt].float()
+        vd = vd * x["v_scale_pages"][bt].float()
+    S = nb * page
+    kd = kd.transpose(1, 2).reshape(b, hkv, S, d)
+    vd = vd.transpose(1, 2).reshape(b, hkv, S, d)
+    qg = q.float().reshape(b, hkv, hq // hkv, sq, d) / np.sqrt(d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kd)
+    start = (base.long() if base is not None
+             else (torch.arange(nb) * page).expand(b, nb))
+    active = start <= (pos + sq - 1)[:, None]
+    if base is not None:
+        active &= start >= 0
+    if window is not None:
+        active &= start + page - 1 > (pos - window)[:, None]
+    entry = torch.arange(nb)[None, :]
+    active &= (entry >= lo_entry[:, None]) & (entry < hi_entry[:, None])
+    kpos = (start[:, :, None] + torch.arange(page)).reshape(b, S)
+    qpos = pos[:, None] + torch.arange(sq)
+    valid = (kpos[:, None, :] <= qpos[:, :, None]) \
+        & active.repeat_interleave(page, dim=1)[:, None, :]
+    if base is not None:
+        valid &= (kpos >= 0)[:, None, :]
+    if window is not None:
+        valid &= kpos[:, None, :] > qpos[:, :, None] - window
+    valid = valid[:, None, None]                      # (b, 1, 1, sq, S)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    return m, p.sum(-1), torch.einsum("bhgqk,bhkd->bhgqd", p, vd)
+
+
+def _combine(parts):
+    """o = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s; 0 where every
+    l_s is 0 (the combine kernel's rule)."""
+    m = torch.stack([p[0] for p in parts])
+    M = m.amax(dim=0)
+    w = torch.exp(m - M)
+    num = sum(wi[..., None] * p[2] for wi, p in zip(w, parts))
+    den = sum(wi * p[1] for wi, p in zip(w, parts))
+    return num / torch.where(den == 0, torch.ones_like(den), den)[..., None]
+
+
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("sq", [1, 3])
+@pytest.mark.parametrize("variant", ["flat", "int8", "ring", "empty"])
+def test_split_partials_combine_to_the_plain_twin(variant, sq, window):
+    """The plain softmax over each CTA's share of the tiles, combined by
+    log-sum-exp, is the plain twin over all keys; shares with no live key
+    weigh 0, and a row empty in every share writes 0."""
+    ring = variant in ("ring", "empty")
+    if ring:
+        x = _torch(_inputs("ring", sq, seed=sq + 40))
+        if variant == "empty":          # no page ever written
+            x["page_base"] = torch.full_like(x["page_base"], -PAGE)
+    else:
+        # 24 entries of 8 keys: three 64-key tiles, the live ones ending
+        # at each sequence's position.
+        x = _torch(_inputs(variant, sq, seed=sq + 50, nb=24, n_pages=80,
+                           pos=[5, 100, 190 - sq]))
+    plain = flash_attention_decode_paged_plain(**x, window=window)
+    b, hq, _, d = plain.shape
+    nb = x["block_tab"].shape[1]
+    tp = paged_tile_pages(PAGE)
+    for n_split in (1, 2, 3, 5):
+        parts = []
+        for split in range(n_split):
+            lo, hi = zip(*(_split_tiles(
+                split, n_split, int(p), sq, nb, PAGE, window, ring)
+                for p in x["pos"].tolist()))
+            parts.append(_split_partials(x, window, torch.tensor(lo) * tp,
+                                         torch.tensor(hi) * tp))
+        got = _combine(parts).reshape(b, hq, sq, d)
+        assert torch.isfinite(got).all()
+        assert (got - plain).abs().max() <= 2e-6, n_split
+        if variant == "empty":
+            assert torch.count_nonzero(got) == 0
+
+
+def test_split_count_comes_from_shapes_alone():
+    """Two CTAs per SM at least where the table has the tiles, at most one
+    split per tile, never fewer than one."""
+    assert paged_splits(8, 8, 64, 16, 132) == 5      # 320 CTAs
+    assert paged_splits(32, 8, 256, 16, 132) == 2    # 512 CTAs
+    assert paged_splits(1, 8, 256, 16, 132) == 33
+    assert paged_splits(8, 8, 4, 16, 132) == 1       # one tile
+    assert paged_splits(64, 8, 64, 16, 132) == 1     # 512 CTAs unsplit
+    for b, hkv, nb, page in itertools.product((1, 3, 8, 40), (1, 2, 8),
+                                              (1, 5, 64, 300),
+                                              (8, 16, 64, 256)):
+        n_tiles = -(-nb // paged_tile_pages(page))
+        n = paged_splits(b, hkv, nb, page, 132)
+        assert 1 <= n <= n_tiles
+        assert b * hkv * n >= 2 * 132 or n == n_tiles
+
+
+def test_wrapper_reads_no_device_tensor_on_the_host(monkeypatch):
+    """The CUDA path checks shapes, dtypes and pointers only: with meta
+    tensors, which hold no data (any read of pos or the table raises), it
+    reaches the launch, with the split count of the shapes and fp32
+    scratch for the partials."""
+    calls = []
+
+    def launch(*args):
+        calls.append(args)
+        return 0
+
+    scratch = []
+    empty = torch.empty
+
+    def spy_empty(*args, **kw):
+        t = empty(*args, **kw)
+        scratch.append(t)
+        return t
+
+    monkeypatch.setattr(fa, "on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(fa, "_kernel", lambda: launch)
+    monkeypatch.setattr(fa, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(fa.torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    b, hq, hkv, sq, d, page, nb = 1, 8, 2, 3, 32, 8, 64
+    meta = dict(device="meta")
+    x = dict(q=torch.zeros((b, hq, sq, d), **meta),
+             k_pages=torch.zeros((70, hkv, page, d), dtype=torch.int8, **meta),
+             v_pages=torch.zeros((70, hkv, page, d), dtype=torch.int8, **meta),
+             block_tab=torch.zeros((b, nb), dtype=torch.int32, **meta),
+             pos=torch.zeros((b,), dtype=torch.int32, **meta),
+             k_scale_pages=torch.zeros((70, hkv, page, 1),
+                                       dtype=torch.bfloat16, **meta),
+             v_scale_pages=torch.zeros((70, hkv, page, 1),
+                                       dtype=torch.bfloat16, **meta))
+    monkeypatch.setattr(fa.torch, "empty", spy_empty)
+    before = fa.flash_attention_decode_paged.launches
+    out = fa.flash_attention_decode_paged(**x, window=24)
+    assert out.device.type == "meta" and out.shape == (b, hq, sq, d)
+    assert len(calls) == 1
+    assert fa.flash_attention_decode_paged.launches == before + 1
+    n_split = paged_splits(b, hkv, nb, page, 132)
+    assert n_split == 8 and calls[0][19] == n_split
+    rows = sq * hq // hkv
+    assert [tuple(t.shape) for t in scratch] == [
+        (b, hkv, n_split, rows, d), (b, hkv, n_split, rows, 2)]
+    assert all(t.dtype == torch.float32 for t in scratch)
