@@ -13,10 +13,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 2. kernels vs plain — every kernel against its plain PyTorch twin on the
    card: ``flash_attention_decode_paged`` (B1) and
    ``flash_attention_decode`` (B3) at the main path's shapes, a long
-   shape and every option (B3 also at zamba2's attention widths),
+   shape and every option (B3 also at zamba2's attention widths and at
+   its split-KV edges, each row with its ``n_split``),
    ``kv_quantize``/``kv_dequantize`` (B2) bit for bit at decode, prefill
    and full-cache shapes, the hlslib kernels ``stencil2d`` (B8) and
-   ``tree_row_reduce`` (B7) bit for bit and ``rmsnorm`` (B4) and
+   ``tree_row_reduce`` (B7) bit for bit (by the bits, at both its
+   regimes, a warp per row and long rows split over CTAs, and at every
+   vector edge, each row with its split count) and ``rmsnorm`` (B4) and
    ``flash_attention`` (B5) within tolerance at their main shapes, long
    shapes and options, and ``ssd_scan`` (B6) within the JAX tests'
    tolerance at one mamba2 layer's train shape, a long sequence,
@@ -25,7 +28,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    call computes the same function, that library yardstick;
 3. exactness at smoke width — the paged batcher through B1 and the
    dense-slot batcher through B3 (bf16, the sliding-window ring, int8
-   through B2) give the dense greedy oracle's tokens; the int8 paged
+   through B2, and bf16 at max_seq 512, where B3 splits each slot over
+   CTAs) give the dense greedy oracle's tokens; the int8 paged
    batcher gives the int8 dense-slot batcher's, with preemption;
    mamba2-1p3b and zamba2-1p2b (fp32) serve dense slots when asked for
    pages, token-identical to their greedy oracle (zamba2's shared block
@@ -310,6 +314,12 @@ def hold(tag, name, out, ref, rule):
     check(out.shape == ref.shape and out.dtype == ref.dtype,
           f"{tag} [{name}]: {tuple(out.shape)} {out.dtype} != plain's "
           f"{tuple(ref.shape)} {ref.dtype}")
+    if rule == "bits":        # the same bits: -0.0 apart from 0.0, NaN too
+        ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+        same = out.view(ints[out.dtype]) == ref.view(ints[ref.dtype])
+        check(bool(same.all()), f"{tag} vs plain [{name}]: not bit-equal "
+              f"({int((~same).sum())} values differ)")
+        return {"max_abs_err": 0.0, "tol": "bit-exact"}
     diff = (out.float() - ref.float()).abs()
     err = diff.max().item()
     if rule == "bit":
@@ -471,7 +481,7 @@ def dense_bound_ms(c, card: str):
 def phase_dense_kernel(gen, card, flush):
     """B3 vs its plain twin; timings at the main and long shapes."""
     from repro_torch.kernels.flash_attention import (
-        flash_attention_decode as kernel,
+        dense_splits, flash_attention_decode as kernel,
         flash_attention_decode_plain as plain)
     ring_pos = [10, 100, 255, 256, 300, 1000, 4000, 200]
     cases = {
@@ -484,6 +494,26 @@ def phase_dense_kernel(gen, card, flush):
         "per-row positions": dict(pos=[0, 1, 63, 64, 65, 511, 1022, 1023]),
         "zamba2 widths (MHA, 32 heads of 64, group 1)": dict(hq=32, hkv=32,
                                                              d=64),
+        # the split-KV edges: a split per tile, splits with no live key,
+        # positions at and past S (a finished slot), band and ring with
+        # splits, zamba2's widths and fp32 with splits, fp32 at d = 256
+        # (the kernel halves its tile there).
+        "1 slot x 4096, hkv 4 (n_split = tile count)": dict(
+            b=1, hkv=4, S=4096, pos=[4095]),
+        "positions 0 and 1 (most splits empty)": dict(pos=[0, 1] * 4),
+        "pos >= S": dict(pos=[1023, 1024, 1500, 99999, 2000, 4096, 1024,
+                              5000]),
+        "band window=700, 2 slots x 4096": dict(b=2, S=4096, window=700,
+                                                pos=[3000, 4095]),
+        "ring S=window=2048, 2 slots (one wrapped)": dict(
+            b=2, S=2048, window=2048, ring=True, pos=[5000, 100]),
+        "zamba2 widths, 1 slot x 4096": dict(b=1, hq=32, hkv=32, d=64,
+                                            S=4096, pos=[4000]),
+        "f32 q, 2 slots x 4096": dict(b=2, S=4096, max_pos=4096,
+                                      q_dtype=torch.float32),
+        "f32 q, d 256, group 8 (half tiles)": dict(b=2, hq=8, hkv=1, d=256,
+                                                  S=300, pos=[299, 150],
+                                                  q_dtype=torch.float32),
     }
 
     def yardstick(c):
@@ -498,8 +528,15 @@ def phase_dense_kernel(gen, card, flush):
         return {"bound_ms": ms, "bound_by": by,
                 "live_keys": int(dense_valid(c).sum())}
 
+    def info(c):
+        b, _, _, _ = c["q"].shape
+        _, hkv, S, _ = c["k"].shape
+        return {"n_split": dense_splits(
+            b, hkv, S,
+            torch.cuda.get_device_properties(0).multi_processor_count)}
+
     return hold_attention("B3", kernel, plain, lambda **kw: make_dense_case(
-        gen, **kw), cases, yardstick, bound, flush)
+        gen, **kw), cases, yardstick, bound, flush, info)
 
 
 def quant_bound_ms(rows: int, d: int, in_bytes: int, out_bytes: int,
@@ -591,15 +628,17 @@ def phase_quant_kernel(gen, card, flush):
 
 
 def run_case(tag, name, kernel, plain, rule, flush, bound=None,
-             library=None):
+             library=None, info=None):
     """Hold ``kernel()`` against ``plain()``; with ``bound`` (a dict of
     bound_ms and bound_by) also time both beside it and beside
     ``library`` = (call, note), one PyTorch call held loosely to the
-    plain output and never called by the port."""
+    plain output and never called by the port.  ``info``: more fields
+    for the row."""
     out = kernel()
     torch.cuda.synchronize()
     ref = plain()
     row = hold(tag, name, out, ref, rule)
+    row.update(info or {})
     if bound is not None:
         row["ms"] = time_ms(kernel, flush)
         row["plain_ms"] = time_ms(plain, flush)
@@ -687,8 +726,13 @@ def phase_hlslib_kernels(gen, card, flush):
         del x, library
     torch.cuda.empty_cache()
 
-    # B7: bit for bit; library = torch.sum / torch.amax over the rows.
-    for name, (op, rows, n, dt, timed) in {
+    # B7: bit for bit (by the bits: -0.0 and NaN too); library =
+    # torch.sum / torch.amax over the rows.  Both regimes (a warp per row;
+    # few long rows split over CTAs) and every vector edge: N = 2^k + 1,
+    # rows that break 16-byte alignment, an unaligned start, -0.0 rows for
+    # add, +-inf, NaN and +-0.0 rows for max.
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, (op, rows, n, dt, timed, *fill) in {
             "main add (32768 x 4096 fp32)":
                 ("add", 32768, 4096, torch.float32, True),
             "main max (32768 x 4096 fp32)":
@@ -700,8 +744,48 @@ def phase_hlslib_kernels(gen, card, flush):
             "add (7 x 1000 bf16)": ("add", 7, 1000, torch.bfloat16, False),
             "max (100 x 300 fp32)": ("max", 100, 300, torch.float32, False),
             "add (3 x 5 fp32)": ("add", 3, 5, torch.float32, False),
-            "max (5 x 1 fp32)": ("max", 5, 1, torch.float32, False)}.items():
-        x = randn(rows, n, dtype=dt)
+            "max (5 x 1 fp32)": ("max", 5, 1, torch.float32, False),
+            "long add (16 x 256000 bf16)":
+                ("add", 16, 256000, torch.bfloat16, False),
+            "one row of 2^24 fp32": ("add", 1, 1 << 24, torch.float32, False),
+            "n = 2^20 + 1 (3 rows fp32, split, scalar loads)":
+                ("add", 3, (1 << 20) + 1, torch.float32, False),
+            "n = 2^12 + 1 (5 x 4097 bf16)":
+                ("add", 5, 4097, torch.bfloat16, False),
+            "unaligned rows (7 x 1001 bf16)":
+                ("add", 7, 1001, torch.bfloat16, False),
+            "unaligned rows, max (9 x 1003 fp32)":
+                ("max", 9, 1003, torch.float32, False),
+            "unaligned start (6 x 4096 fp32 at offset 4 bytes)":
+                ("add", 6, 4096, torch.float32, False, "offset"),
+            "-0.0 row, add (4 x 65536 fp32, split)":
+                ("add", 4, 65536, torch.float32, False, "neg-zero"),
+            "-0.0 row, add (4 x 1000 fp32, padded)":
+                ("add", 4, 1000, torch.float32, False, "neg-zero"),
+            "+-inf and NaN rows, max (16 x 256000 fp32, split)":
+                ("max", 16, 256000, torch.float32, False, "inf"),
+            "+-inf and NaN rows, max (4 x 4096 bf16)":
+                ("max", 4, 4096, torch.bfloat16, False, "inf"),
+            "+-0.0 rows, max (4 x 1000 fp32)":
+                ("max", 4, 1000, torch.float32, False, "signed-zero"),
+            "+-0.0 rows, max (4 x 65536 fp32, split)":
+                ("max", 4, 65536, torch.float32, False, "signed-zero")
+            }.items():
+        if fill == ["offset"]:
+            x = randn(rows * n + 1)[1:].view(rows, n)
+        else:
+            x = randn(rows, n)
+            if fill == ["neg-zero"]:
+                x[0] = -0.0
+            elif fill == ["inf"]:
+                x[0, ::7] = float("inf")
+                x[1] = float("-inf")
+                x[2, n // 2] = float("nan")
+            elif fill == ["signed-zero"]:
+                x[0, ::2] = 0.0
+                x[0, 1::2] = -0.0
+                x[1] = -0.0
+            x = x.to(dt)
         bound = library = None
         if timed:
             bound = bound_of((x.numel() + rows) * x.element_size(), x.numel(),
@@ -716,8 +800,8 @@ def phase_hlslib_kernels(gen, card, flush):
                 library = (lambda: torch.sum(x, -1), "torch.sum")
         res["tree_row_reduce"][name] = run_case(
             "B7", name, lambda: tk.tree_row_reduce(x, op),
-            lambda: tk.tree_row_reduce_plain(x, op), "bit", flush, bound,
-            library)
+            lambda: tk.tree_row_reduce_plain(x, op), "bits", flush, bound,
+            library, {"n_split": tk.tree_splits(rows, n, n_sm)})
         del x, library
     torch.cuda.empty_cache()
 
@@ -987,6 +1071,32 @@ def phase_exactness(seed):
               f"token-identical to dense greedy ({bat.steps} steps, "
               f"launches {json.dumps(n)})")
 
+    # a cache of several 64-key tiles, so that B3 splits each (slot, kv
+    # head) over CTAs: prompts that reach past the first tiles.
+    from repro_torch.kernels.flash_attention import dense_splits
+    long_plens, long_news, long_seq = [100, 170, 230], [12, 10, 8], 512
+    long_prompts = [rng.integers(0, base.vocab_size, n).astype(np.int32)
+                    for n in long_plens]
+    gold = [list(greedy_generate(base, params, {"tokens": p[None]},
+                                 steps=m, max_seq=long_seq, device=DEVICE)[0])
+            for p, m in zip(long_prompts, long_news)]
+    reset_counts(counts)
+    got, bat = run_batcher(dataclasses.replace(base, decode_flash=True),
+                           params, long_prompts, long_news, n_slots=3,
+                           max_seq=long_seq)
+    n = read_counts(counts)
+    n_split = dense_splits(3, base.n_kv_heads, long_seq,
+                           torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
+    check(n_split > 1, f"max_seq {long_seq} did not split B3: {n_split}")
+    check(got == gold, f"dense-slot+B3 [max_seq {long_seq}] {got} != "
+          f"greedy {gold}")
+    check(n["flash_attention_decode"] == bat.steps * base.n_layers,
+          f"dense-slot [max_seq {long_seq}] did not decode through B3: {n}")
+    print(f"smoke exactness: dense-slot [bf16, max_seq {long_seq}, prompts "
+          f"{long_plens}] through B3 at n_split {n_split} token-identical "
+          f"to dense greedy ({bat.steps} steps)")
+
     # int8 pages (B1's int8 branch + B2) vs the int8 dense slots.
     c = dataclasses.replace(base, kv_cache_dtype="int8", decode_flash=True,
                             kv_page_size=8)
@@ -1074,7 +1184,8 @@ def phase_recurrent_exactness(seed):
 # device kernel names (demangled, as the profiler reports them) by class.
 SPLIT = (("B1_flash_decode_paged", ("flash_decode_paged_kernel",
                                     "flash_decode_paged_combine")),
-         ("B3_flash_decode", ("flash_decode_kernel",)),
+         ("B3_flash_decode", ("flash_decode_kernel",
+                              "flash_decode_combine")),
          ("B2_kv_quant", ("quantize_kernel",)),
          ("B6_ssd_scan", ("ssd_kernel",)),
          ("matmul", ("gemm", "nvjet", "cublas", "cutlass", "splitKreduce")))

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time design variants of the attention kernels B5 and B1 on one CUDA card.
+"""Time design variants of the kernels B5, B1, B7 and B3 on one CUDA card.
 
-    python3 scripts/kernel_variants.py        # from the repo root, on the card
+    python3 scripts/kernel_variants.py [b5 b1 b7 b3]   # repo root, on the card
 
+(no names: all four).
 Each variant is the shipped source (``src/repro_torch/csrc``) with one
 textual change, built with the same nvcc flags into ``build/variants/``
 and called through ctypes beside the shipped kernel, at chip_smoke.py's
@@ -18,6 +19,19 @@ B5 (``flash_attention``, bf16):
 B1 (``flash_attention_decode_paged``), each at n_split 1 and as chosen:
   shipped     -- the next tile's pages copied while the current is scored;
   no_prefetch -- each tile copied, then waited for, before it is scored.
+B7 (``tree_row_reduce``, bit for bit), at the main shape (a warp per row)
+and the long one (split over CTAs, at several split counts beside the
+one ``tree_splits`` chooses):
+  shipped     -- subtrees of 8 leaves, streaming 16-byte loads into
+                 registers, the loop over subtrees unrolled by 2;
+  no_unroll   -- the loop not unrolled;
+  ldg         -- read-only loads instead of streaming ones (evict first);
+  leaves16    -- subtrees of 16 leaves;
+  rows4       -- 4 rows (warps) per CTA instead of 8;
+  residues256 -- 256 residues per split CTA instead of 512 (the scratch
+                 is allocated for 512, so it is large enough).
+B3 (``flash_attention_decode``): the shipped kernel at n_split 1 and as
+``dense_splits`` chooses.
 """
 
 import ctypes
@@ -34,6 +48,7 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import treereduce_kernel as tk  # noqa: E402
 
 B5 = {
     "shipped": {},
@@ -53,6 +68,20 @@ B1 = {
             "    cp_async_wait_all();\n",
         "    if (t + 1 < my_hi) {\n      load((i + 1) % 3, st ^ 1);\n"
         "      cp_async_commit();\n    }\n": ""},
+}
+
+B7 = {
+    "shipped": {},
+    "no_unroll": {"#pragma unroll 2\n  for (int k = 0; k < nchunks; ++k) {":
+                  "  for (int k = 0; k < nchunks; ++k) {"},
+    "ldg": {"__ldcs(reinterpret_cast<const uint4*>(row + (in[h] ? i : 0)))":
+            "__ldg(reinterpret_cast<const uint4*>(row + (in[h] ? i : 0)))"},
+    "leaves16": {"constexpr int kMaxLeaves = 8; ":
+                 "constexpr int kMaxLeaves = 16; "},
+    "rows4": {"constexpr int kWarpRowsPerCta = 8; ":
+              "constexpr int kWarpRowsPerCta = 4; "},
+    "residues256": {"constexpr int kSplitResidues = 512; ":
+                    "constexpr int kSplitResidues = 256; "},
 }
 
 
@@ -96,22 +125,9 @@ def err_ratio(out, ref):
         return str(e).split(": ", 1)[1]
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("kernel_variants: no CUDA device", file=sys.stderr)
-        return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print("card:", subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip())
+def run_b5(gen, flush, stream):
     b5 = build_variants("flash_attention", B5, "flash_attention",
                         fa._flash_kernel().argtypes)
-    b1 = build_variants("flash_decode_paged", B1, "flash_decode_paged",
-                        fa._kernel().argtypes)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-
     for case, kw in (("main", {}), ("long", dict(b=1, sq=8192, sk=8192))):
         q, k, v = cs.make_attention(gen, **kw)
         b, hq, sq, d = q.shape
@@ -131,6 +147,10 @@ def main():
                       flush=True)
         del q, k, v, ref, out
 
+
+def run_b1(gen, flush, stream):
+    b1 = build_variants("flash_decode_paged", B1, "flash_decode_paged",
+                        fa._kernel().argtypes)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for case, kw in (("main", dict(b=8, n_blocks=64, max_pos=1024)),
                      ("long", dict(b=32, n_blocks=256, max_pos=4096))):
@@ -162,6 +182,86 @@ def main():
                           f"{cs.time_ms(call, flush)}, err/tol "
                           f"{err_ratio(out, ref)}", flush=True)
         del c, ref, out
+
+
+def run_b7(gen, flush, stream):
+    b7 = build_variants("treereduce", B7, "tree_row_reduce",
+                        tk._kernel().argtypes)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for case, rows, n in (("main", 32768, 4096), ("long", 16, 256000)):
+        x = torch.randn((rows, n), generator=gen, device="cuda")
+        chosen = tk.tree_splits(rows, n, n_sm)
+        splits = [1] if chosen == 1 else sorted({chosen // 2, chosen,
+                                                  chosen * 2})
+        out = torch.empty(rows, device="cuda")
+        for op in ("add", "max"):
+            ref = tk.tree_row_reduce_plain(x, op)
+            lib = (torch.sum if op == "add" else torch.amax)
+            for rnd in range(2):
+                print(f"B7 {case} {op} round {rnd} library: ms "
+                      f"{cs.time_ms(lambda: lib(x, -1), flush)}", flush=True)
+                for name, fn in b7.items():
+                    for ns in splits:
+                        part = torch.empty((rows, tk.TREE_SPLIT_RESIDUES * ns),
+                                           device="cuda")
+
+                        def call():
+                            return fn(x.data_ptr(), out.data_ptr(),
+                                      part.data_ptr(), rows, n, ns,
+                                      int(op == "max"), 0, stream)
+                        assert call() == 0
+                        torch.cuda.synchronize()
+                        print(f"B7 {case} {op} round {rnd} {name} n_split "
+                              f"{ns}: ms {cs.time_ms(call, flush)}, "
+                              f"bit-equal {torch.equal(out, ref)}",
+                              flush=True)
+        del x, out
+
+
+def run_b3(gen, flush, stream):
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    fn = fa._dense_kernel()
+    for case, kw in (("main", {}), ("long", dict(b=32, S=4096,
+                                                 max_pos=4096))):
+        c = cs.make_dense_case(gen, **kw)
+        ref = fa.flash_attention_decode_plain(**c)
+        b, hq, _, d = c["q"].shape
+        hkv, S = c["k"].shape[1], c["k"].shape[2]
+        chosen = fa.dense_splits(b, hkv, S, n_sm)
+        out = torch.empty_like(c["q"])
+        for rnd in range(2):
+            for ns in sorted({1, chosen}):
+                pa = torch.empty((b, hkv, ns, hq // hkv, d), device="cuda")
+                pm = torch.empty((b, hkv, ns, hq // hkv, 2), device="cuda")
+
+                def call():
+                    return fn(c["q"].data_ptr(), c["k"].data_ptr(),
+                              c["v"].data_ptr(), c["pos"].data_ptr(),
+                              out.data_ptr(), pa.data_ptr(), pm.data_ptr(),
+                              b, hq, hkv, S, d, ns, 0, 0, float(d ** -0.5),
+                              1, stream)
+                assert call() == 0
+                torch.cuda.synchronize()
+                print(f"B3 {case} round {rnd} n_split {ns}: ms "
+                      f"{cs.time_ms(call, flush)}, err/tol "
+                      f"{err_ratio(out, ref)}", flush=True)
+        del c, ref, out
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("card:", subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    runs = {"b5": run_b5, "b1": run_b1, "b7": run_b7, "b3": run_b3}
+    for name in sys.argv[1:] or list(runs):
+        runs[name](gen, flush, stream)
     return 0
 
 

@@ -17,6 +17,7 @@ raise.  There is no fallback from the card to the twin.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -90,6 +91,12 @@ def library(name: str) -> ctypes.CDLL:
         build_all([name])
         _loaded[name] = ctypes.CDLL(str(_lib_path(sources()[name])))
     return _loaded[name]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def require(fn: str, cond: bool, msg: str) -> None:

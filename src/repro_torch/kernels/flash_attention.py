@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .build import check_launch, library, on_cpu, require
+from .build import sm_count as _sm_count
 
 NEG_INF = -1e30
 F32 = torch.float32
@@ -130,11 +131,6 @@ def paged_splits(b: int, hkv: int, n_blocks: int, page: int,
     the device on every decode step)."""
     n_tiles = -(-n_blocks // paged_tile_pages(page))
     return max(1, min(n_tiles, -(-2 * n_sm // (b * hkv))))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 _require = functools.partial(require, "flash_attention_decode_paged")
@@ -296,10 +292,22 @@ def flash_attention_decode_plain(q, k, v, pos, window: Optional[int] = None,
 @functools.lru_cache(maxsize=None)
 def _dense_kernel():
     fn = library("flash_decode").flash_decode
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+# keys per tile of csrc/flash_decode.cu (kTileKeys)
+DENSE_TILE_KEYS = 64
+
+
+def dense_splits(b: int, hkv: int, S: int, n_sm: int) -> int:
+    """How many CTAs share one (slot, kv head): enough for two CTAs per
+    SM, at most one per 64-key tile of the cache.  Shapes only: the live
+    range depends on ``pos``, which the host never reads."""
+    n_tiles = -(-S // DENSE_TILE_KEYS)
+    return max(1, min(n_tiles, -(-2 * n_sm // (b * hkv))))
 
 
 def flash_attention_decode(q, k, v, pos, window: Optional[int] = None,
@@ -315,8 +323,9 @@ def flash_attention_decode(q, k, v, pos, window: Optional[int] = None,
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel (q,
     k, v all float32 or all bfloat16, contiguous; pos (b,) int32) on the
-    current stream, or raise.  Each launch adds one to
-    ``flash_attention_decode.launches``."""
+    current stream, or raise: ``dense_splits`` CTAs share each (slot, kv
+    head), and a second kernel combines their partials.  Each call adds
+    one to ``flash_attention_decode.launches``."""
     tensors = [q, k, v] + ([pos] if torch.is_tensor(pos) else [])
     if on_cpu("flash_attention_decode", *tensors):
         return flash_attention_decode_plain(q, k, v, pos, window=window,
@@ -345,9 +354,20 @@ def flash_attention_decode(q, k, v, pos, window: Optional[int] = None,
     fn = _dense_kernel()
     scale = scale if scale is not None else 1.0 / np.sqrt(d)
     out = torch.empty_like(q)
+    n_split = dense_splits(b, hkv, S, _sm_count(q.device.index))
+    part_acc = part_ml = None
+    if n_split > 1:     # per-split (acc) and (m, l), combined on the card
+        group = hq // hkv
+        part_acc = torch.empty((b, hkv, n_split, group, d), dtype=F32,
+                               device=q.device)
+        part_ml = torch.empty((b, hkv, n_split, group, 2), dtype=F32,
+                              device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-             out.data_ptr(), b, hq, hkv, S, d,
+             out.data_ptr(),
+             part_acc.data_ptr() if part_acc is not None else None,
+             part_ml.data_ptr() if part_ml is not None else None,
+             b, hq, hkv, S, d, n_split,
              int(window) if window is not None else 0, int(ring),
              float(scale), int(q.dtype == torch.bfloat16), stream)
     check_launch("flash_attention_decode", err)

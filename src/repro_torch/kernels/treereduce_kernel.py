@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from .build import check_launch, library, on_cpu, require
+from .build import check_launch, library, on_cpu, require, sm_count
 
 F32 = torch.float32
 _OPS = {"add": (torch.add, 0.0), "max": (torch.maximum, -math.inf)}
@@ -45,10 +45,31 @@ def tree_row_reduce_plain(x: torch.Tensor, op: str = "add") -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = library("treereduce").tree_row_reduce
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+# residues per CTA of the split pass (csrc/treereduce.cu kSplitResidues):
+# a row split over C CTAs leaves Q = 512 C partials in the scratch.
+TREE_SPLIT_RESIDUES = 512
+# each residue's tree spans at least this many elements, so the scratch
+# stays an eighth of the row or less.
+TREE_MIN_LEAVES = 8
+
+
+def tree_splits(rows: int, n: int, n_sm: int) -> int:
+    """How many CTAs share one row: 1 (one warp per row) unless the rows
+    are too few to give every SM two CTAs, then doubled until they do or
+    a residue's tree would span fewer than ``TREE_MIN_LEAVES`` elements.
+    Shapes and the SM count only."""
+    p2 = 1 << (n - 1).bit_length()
+    c = 1
+    while (rows * c < 2 * n_sm
+           and p2 // (TREE_SPLIT_RESIDUES * 2 * c) >= TREE_MIN_LEAVES):
+        c *= 2
+    return c
 
 
 def tree_row_reduce(x: torch.Tensor, op: str = "add") -> torch.Tensor:
@@ -56,8 +77,9 @@ def tree_row_reduce(x: torch.Tensor, op: str = "add") -> torch.Tensor:
 
     Returns (rows,) in x's dtype.  CPU tensors run the plain version.
     CUDA tensors (float32 or bfloat16, contiguous, N <= 2**24) launch the
-    kernel on the current stream, or raise.  Each launch adds one to
-    ``tree_row_reduce.launches``."""
+    kernel on the current stream, or raise: ``tree_splits`` CTAs share a
+    row, and with more than one a second kernel halves their fp32
+    partials.  Each call adds one to ``tree_row_reduce.launches``."""
     if op not in _OPS:
         raise ValueError(f"unknown op {op!r} (add or max)")
     if on_cpu("tree_row_reduce", x):
@@ -71,9 +93,16 @@ def tree_row_reduce(x: torch.Tensor, op: str = "add") -> torch.Tensor:
         f"dtype {x.dtype} (kernel takes float32 or bfloat16)")
     req(x.is_contiguous(), "x must be contiguous")
     out = torch.empty(rows, dtype=x.dtype, device=x.device)
+    n_split = tree_splits(rows, n, sm_count(x.device.index))
+    part = None
+    if n_split > 1:     # per-residue partials, halved by the second kernel
+        part = torch.empty((rows, TREE_SPLIT_RESIDUES * n_split), dtype=F32,
+                           device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernel()(x.data_ptr(), out.data_ptr(), rows, n,
-                    int(op == "max"), int(x.dtype == torch.bfloat16), stream)
+    err = _kernel()(x.data_ptr(), out.data_ptr(),
+                    part.data_ptr() if part is not None else None, rows, n,
+                    n_split, int(op == "max"), int(x.dtype == torch.bfloat16),
+                    stream)
     check_launch("tree_row_reduce", err)
     tree_row_reduce.launches += 1
     return out

@@ -83,8 +83,15 @@ def main(argv=None):
     # request stream, the batcher PE decodes, consumers drain outputs.
     with DataflowContext() as df:
         def producer():
+            # a rejected request's failure is already in its stream;
+            # closing the request stream lets the batcher end once the
+            # accepted ones are served.
             for r in reqs:
-                batcher.submit(r)
+                try:
+                    batcher.submit(r)
+                except ValueError:
+                    pass
+            batcher.requests.close()
         df.function(producer, name="producer")
         df.function(batcher.run, len(reqs), name="batcher")
     dt = time.time() - t0

@@ -589,12 +589,21 @@ class ContinuousBatcher:
     def submit(self, req: Request) -> bool:
         """Validate + enqueue (blocking while the queue is full).
         Degenerate requests are rejected here, in the producer's thread:
-        a prompt that leaves no room to decode, or ``max_new <= 1``.  The
-        rejection is also pushed into ``req.out`` so its consumer ends."""
+        a prompt that leaves no room to decode, ``max_new <= 1``, or, for
+        the recurrent families, a prompt shorter than the conv window's
+        K - 1 inputs (its prefill would raise inside ``run()`` and end
+        the batcher with the requests queued beside it).  The rejection
+        is also pushed into ``req.out`` so its consumer ends."""
         reason = None
+        conv = self.cfg.ssm_conv - 1
         if len(req.prompt) >= self.max_seq - 1:
             reason = (f"prompt length {len(req.prompt)} >= max_seq - 1 "
                       f"({self.max_seq - 1}); no decode budget left")
+        elif (self.cfg.family in ("ssm", "hybrid")
+              and len(req.prompt) < conv):
+            reason = (f"prompt length {len(req.prompt)} < the conv "
+                      f"window's K - 1 = {conv} inputs the recurrent "
+                      "decode cache holds")
         elif req.max_new <= 1:
             reason = (f"max_new={req.max_new} <= 1 would retire at "
                       f"admission; request at least 2 tokens")

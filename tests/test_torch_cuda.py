@@ -20,12 +20,24 @@ splits on one sequence, splits with no live key, int8 and verify rows
 with splits, a one-tile ring, pages of 12 keys).  Tolerance: bf16 outputs
 within 2 bf16 ulps of |plain| + 1e-5 and fp32 within 1e-4, the rule of
 ``chip_smoke.py`` (both accumulate in fp32 and round once).
+
+B3 (``flash_attention_decode``) under the same rule at its split-KV
+edges: one slot of 4096 keys (a split per tile), positions 0 and 1
+(most splits empty), positions at and past S, band and ring with
+splits, zamba2's widths, fp32, and fp32 at d = 256 (half tiles).
+
+B7 (``tree_row_reduce``) bit for bit, both regimes (a warp per row; few
+long rows split over CTAs) and every vector edge: N = 2^k + 1, rows that
+break 16-byte alignment, an unaligned start, -0.0 rows for add, +-inf,
+NaN and +-0.0 rows for max; compared by their bits, since -0.0 == 0.0
+and NaN != NaN.
 """
 
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import treereduce_kernel as tk
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
 
@@ -160,3 +172,96 @@ def test_paged_decode_kernel_matches_twin(card, kw):
     torch.cuda.synchronize()
     assert fa.flash_attention_decode_paged.launches == before + 1
     _assert_attention_close(got, fa.flash_attention_decode_paged_plain(**c))
+
+
+def _dense_case(gen, dev, *, b=8, hq=24, hkv=8, d=128, S=1024, pos=None,
+                max_pos=1024, dtype=torch.bfloat16, window=None, ring=False):
+    q = torch.randn((b, hq, 1, d), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((b, hkv, S, d), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    if pos is None:
+        pos = torch.randint(max_pos // 8, max_pos, (b,), generator=gen,
+                            device=dev)
+    pos = torch.as_tensor(pos, device=dev).int().contiguous()
+    return dict(q=q, k=k, v=v, pos=pos, window=window, ring=ring)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(b=1, S=4096, pos=[4095]),
+    dict(b=4, S=4096, pos=[0, 1, 0, 1]),
+    dict(pos=[1023, 1024, 1500, 99999, 0, 1, 64, 65]),
+    dict(b=2, S=4096, pos=[3000, 4095], window=700),
+    dict(b=8, S=256, window=256, ring=True,
+         pos=[10, 100, 255, 256, 300, 1000, 4000, 200]),
+    dict(b=2, S=2048, window=2048, ring=True, pos=[5000, 100]),
+    dict(hq=32, hkv=32, d=64, pos=[0, 1, 63, 64, 65, 511, 1022, 1023]),
+    dict(b=2, S=1000, dtype=torch.float32),
+    dict(b=2, hq=8, hkv=1, S=300, d=256, dtype=torch.float32),
+], ids=["main", "one-slot-4096", "pos-0-1", "pos-past-S", "band-splits",
+        "ring-splits", "ring-wrapped", "zamba2", "f32", "f32-d256"])
+def test_dense_decode_kernel_matches_twin(card, kw):
+    gen = torch.Generator(device=card).manual_seed(len(kw))
+    c = _dense_case(gen, card, **kw)
+    before = fa.flash_attention_decode.launches
+    got = fa.flash_attention_decode(**c)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_decode.launches == before + 1
+    _assert_attention_close(got, fa.flash_attention_decode_plain(**c))
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _tree_rows(gen, dev, rows, n, dtype, fill, offset):
+    x = torch.randn(rows * n + offset, generator=gen, device=dev)
+    x = x[offset:].view(rows, n)
+    if fill == "neg-zero":
+        x[0] = -0.0
+    elif fill == "inf":
+        x[0, ::7] = float("inf")
+        x[1] = float("-inf")
+        x[2, n // 2] = float("nan")
+    elif fill == "signed-zero":
+        x[0, ::2] = 0.0
+        x[0, 1::2] = -0.0
+        x[1] = -0.0
+    return x.to(dtype) if dtype != torch.float32 else x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,dtype,op,fill,offset", [
+    (300, 4096, torch.float32, "add", None, 0),
+    (300, 4096, torch.bfloat16, "max", None, 0),
+    (16, 256000, torch.float32, "add", None, 0),
+    (16, 256000, torch.bfloat16, "add", None, 0),
+    (16, 256000, torch.float32, "max", "inf", 0),
+    (1, 1 << 24, torch.float32, "add", None, 0),
+    (3, (1 << 20) + 1, torch.float32, "add", None, 0),
+    (5, 4097, torch.bfloat16, "add", None, 0),
+    (7, 1001, torch.bfloat16, "add", None, 0),
+    (9, 1003, torch.float32, "max", None, 0),
+    (6, 4096, torch.float32, "add", None, 1),
+    (4, 65536, torch.float32, "add", "neg-zero", 0),
+    (4, 1000, torch.float32, "add", "neg-zero", 0),
+    (4, 4096, torch.float32, "max", "inf", 0),
+    (4, 4096, torch.bfloat16, "max", "inf", 0),
+    (4, 1000, torch.float32, "max", "signed-zero", 0),
+    (4, 65536, torch.float32, "max", "signed-zero", 0),
+    (5, 1, torch.float32, "max", None, 0),
+    (3, 5, torch.float32, "add", None, 0),
+    (2, 8, torch.bfloat16, "add", None, 0),
+])
+def test_tree_row_reduce_kernel_bit_equal(card, rows, n, dtype, op, fill,
+                                          offset):
+    gen = torch.Generator(device=card).manual_seed(rows + n)
+    x = _tree_rows(gen, card, rows, n, dtype, fill, offset)
+    before = tk.tree_row_reduce.launches
+    got = tk.tree_row_reduce(x, op)
+    torch.cuda.synchronize()
+    assert tk.tree_row_reduce.launches == before + 1
+    want = tk.tree_row_reduce_plain(x, op)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(_bits(got), _bits(want)), (got, want)

@@ -16,6 +16,9 @@ the card from ``pos``) cover every live tile once; the plain softmax over each s
 combined, equals the plain twin over all keys to fp32 rounding (2e-6
 absolute on outputs below ~3); the split count (``paged_splits``) comes
 from shapes alone, and the wrapper reads no device tensor on the host.
+The dense-slot kernel (B3, ``flash_attention_decode``) splits its slot
+caches the same way (``dense_splits``), and the same four rules are held
+for it.
 """
 
 import itertools
@@ -32,7 +35,8 @@ from repro.kernels.flash_attention import (
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import (
-    NEG_INF, flash_attention_decode_paged, flash_attention_decode_paged_plain,
+    NEG_INF, dense_splits, flash_attention_decode_paged,
+    flash_attention_decode_paged_plain, flash_attention_decode_plain,
     paged_splits, paged_tile_pages)
 
 torch.set_num_threads(2)
@@ -424,4 +428,174 @@ def test_wrapper_reads_no_device_tensor_on_the_host(monkeypatch):
     rows = sq * hq // hkv
     assert [tuple(t.shape) for t in scratch] == [
         (b, hkv, n_split, rows, d), (b, hkv, n_split, rows, 2)]
+    assert all(t.dtype == torch.float32 for t in scratch)
+
+
+# --- dense-slot split-KV (kernel B3): the rule the kernel follows ----------------------
+
+
+def _dense_split_tiles(split, n_split, pos, S, window=None, ring=False,
+                       tile=fa.DENSE_TILE_KEYS):
+    """The 64-key tiles [lo, hi) that CTA ``split`` of ``n_split`` takes,
+    as ``csrc/flash_decode.cu`` computes it from ``pos``: an even share of
+    the tiles that can hold a live key (no window: [0, pos]; band: from
+    the window's first key to pos; ring: all once pos >= window), clamped
+    to the cache."""
+    n_tiles = -(-S // tile)
+    lo, hi = 0, n_tiles
+    if not (ring and pos >= window):
+        hi = 0 if pos < 0 else min(n_tiles, pos // tile + 1)
+        if not ring and window is not None and pos - window + 1 > 0:
+            lo = min(hi, (pos - window + 1) // tile)
+    per = -(-(hi - lo) // n_split)
+    first = lo + split * per
+    return first, min(hi, first + per)
+
+
+def _dense_valid(pos, S, window, ring):
+    kpos = torch.arange(S)
+    if ring:
+        return (kpos <= pos) | (pos >= window)
+    valid = kpos <= pos
+    if window is not None:
+        valid &= kpos > pos - window
+    return valid
+
+
+@pytest.mark.parametrize("mode", ["flat", "band", "ring"])
+def test_dense_split_tiles_cover_every_live_tile_once(mode):
+    """Every tile holding a live key is taken by exactly one split, for
+    every split count up to the tile count and past it, positions past S
+    included (a finished slot keeps decoding at pos >= S)."""
+    rng = np.random.default_rng(len(mode))
+    tile = fa.DENSE_TILE_KEYS
+    for S in (1, 40, 64, 65, 256, 1000, 4096):
+        n_tiles = -(-S // tile)
+        for _ in range(10):
+            window = ring = None
+            if mode == "band":
+                window = int(rng.integers(1, 2 * S + 2))
+            if mode == "ring":
+                window, ring = S, True
+            pos = int(rng.integers(0, 3 * S + 2))
+            valid = _dense_valid(pos, S, window, bool(ring))
+            live = {int(j) // tile for j in torch.nonzero(valid).flatten()}
+            for n_split in range(1, n_tiles + 3):
+                seen = []
+                for split in range(n_split):
+                    lo, hi = _dense_split_tiles(split, n_split, pos, S,
+                                                window, bool(ring))
+                    assert 0 <= lo and hi <= n_tiles
+                    seen += range(lo, hi)
+                assert len(seen) == len(set(seen)), (S, pos, n_split)
+                assert live <= set(seen), (S, pos, window, n_split)
+
+
+def _dense_partials(x, window, ring, lo_key, hi_key):
+    """(m, l, acc) of the plain masked softmax over each slot's keys in
+    [lo_key[b], hi_key[b]), per (b, hkv, group) row: m = NEG_INF, l = 0,
+    acc = 0 where none is valid."""
+    q, k, v, pos = x["q"], x["k"], x["v"], x["pos"].long()
+    b, hq, _, d = q.shape
+    _, hkv, S, _ = k.shape
+    qg = q.float().reshape(b, hkv, hq // hkv, d) / np.sqrt(d)
+    s = torch.einsum("bhgd,bhkd->bhgk", qg, k.float())
+    valid = torch.stack([_dense_valid(int(p), S, window, ring)
+                         for p in pos])
+    kpos = torch.arange(S)[None, :]
+    valid &= (kpos >= lo_key[:, None]) & (kpos < hi_key[:, None])
+    valid = valid[:, None, None, :]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    return m, p.sum(-1), torch.einsum("bhgk,bhkd->bhgd", p, v.float())
+
+
+@pytest.mark.parametrize("case", ["flat", "band", "ring", "pos-past-S",
+                                  "pos-0-1"])
+def test_dense_split_partials_combine_to_the_plain_twin(case):
+    """The plain softmax over each CTA's share of the tiles, combined by
+    log-sum-exp, is the plain twin over all keys; shares with no live key
+    weigh 0."""
+    rng = np.random.default_rng(7)
+    b, hq, hkv, d, S = 4, 6, 2, 32, 300
+    pos = {"flat": [5, 64, 200, 299], "band": [5, 64, 200, 299],
+           "ring": [5, 299, 300, 1000], "pos-past-S": [299, 300, 512, 9999],
+           "pos-0-1": [0, 1, 0, 1]}[case]
+    window = {"band": 100, "ring": S}.get(case)
+    ring = case == "ring"
+    x = dict(q=torch.from_numpy(rng.standard_normal((b, hq, 1, d)).astype(
+                 np.float32)),
+             k=torch.from_numpy(rng.standard_normal((b, hkv, S, d)).astype(
+                 np.float32)),
+             v=torch.from_numpy(rng.standard_normal((b, hkv, S, d)).astype(
+                 np.float32)),
+             pos=torch.tensor(pos, dtype=torch.int32))
+    plain = flash_attention_decode_plain(**x, window=window, ring=ring)
+    tile = fa.DENSE_TILE_KEYS
+    for n_split in (1, 2, 3, 5):
+        parts = []
+        for split in range(n_split):
+            lo, hi = zip(*(_dense_split_tiles(split, n_split, p, S, window,
+                                              ring) for p in pos))
+            parts.append(_dense_partials(x, window, ring,
+                                         torch.tensor(lo) * tile,
+                                         torch.tensor(hi) * tile))
+        got = _combine(parts).reshape(b, hq, 1, d)
+        assert torch.isfinite(got).all()
+        assert (got - plain).abs().max() <= 2e-6, n_split
+
+
+def test_dense_split_count_comes_from_shapes_alone():
+    """Two CTAs per SM at least where the cache has the tiles, at most one
+    split per 64-key tile, never fewer than one."""
+    assert dense_splits(8, 8, 1024, 132) == 5      # main: 320 CTAs
+    assert dense_splits(32, 8, 4096, 132) == 2     # long: 512 CTAs
+    assert dense_splits(8, 32, 1024, 132) == 2     # zamba2's shared block
+    assert dense_splits(1, 8, 4096, 132) == 33
+    assert dense_splits(1, 1, 4096, 132) == 64     # one split per tile
+    assert dense_splits(3, 8, 48, 132) == 1        # one tile
+    for b, hkv, S in itertools.product((1, 3, 8, 40), (1, 2, 8, 32),
+                                       (1, 48, 64, 1000, 4096)):
+        n_tiles = -(-S // fa.DENSE_TILE_KEYS)
+        n = dense_splits(b, hkv, S, 132)
+        assert 1 <= n <= n_tiles
+        assert b * hkv * n >= 2 * 132 or n == n_tiles
+
+
+def test_dense_wrapper_reads_no_device_tensor_on_the_host(monkeypatch):
+    """With meta tensors (any read of pos raises), the CUDA path of B3's
+    wrapper reaches the launch with the split count of the shapes and
+    fp32 scratch for the partials."""
+    calls, scratch = [], []
+    empty = torch.empty
+
+    def spy_empty(*args, **kw):
+        t = empty(*args, **kw)
+        scratch.append(t)
+        return t
+
+    monkeypatch.setattr(fa, "on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(fa, "_dense_kernel",
+                        lambda: lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(fa, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(fa.torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    b, hq, hkv, S, d = 8, 24, 8, 1024, 128
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    x = dict(q=torch.zeros((b, hq, 1, d), **meta),
+             k=torch.zeros((b, hkv, S, d), **meta),
+             v=torch.zeros((b, hkv, S, d), **meta),
+             pos=torch.zeros((b,), dtype=torch.int32, device="meta"))
+    monkeypatch.setattr(fa.torch, "empty", spy_empty)
+    before = fa.flash_attention_decode.launches
+    out = fa.flash_attention_decode(**x, window=256)
+    assert out.device.type == "meta" and out.shape == (b, hq, 1, d)
+    assert len(calls) == 1
+    assert fa.flash_attention_decode.launches == before + 1
+    n_split = dense_splits(b, hkv, S, 132)
+    assert n_split == 5 and calls[0][12] == n_split
+    assert [tuple(t.shape) for t in scratch] == [
+        (b, hkv, n_split, hq // hkv, d), (b, hkv, n_split, hq // hkv, 2)]
     assert all(t.dtype == torch.float32 for t in scratch)

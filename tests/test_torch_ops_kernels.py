@@ -10,7 +10,10 @@ formula), against the JAX Pallas kernels in interpret mode and the JAX
 * stencil (B8) at (64, 128), (200, 256), (33, 128): BIT-EQUAL, fp32 and
   bf16, one sweep and iterated;
 * tree row reduce (B7) at (10, 128), (100, 300), (7, 1000) x {add, max}:
-  BIT-EQUAL;
+  BIT-EQUAL; and the card kernel's combine orders (a warp per row with
+  W-wide lanes, a row split over CTAs into fp32 partials), mirrored in
+  Python, bit-equal to the twin; its split count from shapes alone, and
+  its wrapper reading no device tensor on the host;
 * RMSNorm (B4): fp32 at rtol = atol = 1e-6, bf16 at 1e-2 (the JAX tests'
   tolerances; the order of the sum of squares is free);
 * flash attention (B5), fp32 at 2e-5 (the JAX tests' tolerance: fp32
@@ -21,10 +24,12 @@ Also the package example ``repro_torch.examples.dataflow_stencil``: its
 three errors equal the JAX example's.
 """
 
+import itertools
 import os
 import pathlib
 import subprocess
 import sys
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -38,6 +43,7 @@ from repro.kernels.stencil import stencil2d as jstencil
 from repro.kernels.stencil import stencil2d_iterated as jstencil_it
 from repro.kernels.treereduce_kernel import tree_row_reduce as jtree
 from repro_torch.kernels import ops
+from repro_torch.kernels import treereduce_kernel as tk
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.rmsnorm_kernel import rmsnorm, rmsnorm_plain
@@ -138,6 +144,182 @@ def test_ops_row_reduce(use_pallas, op):
 def test_tree_row_reduce_rejects_unknown_op():
     with pytest.raises(ValueError):
         tree_row_reduce(torch.zeros(2, 4), "min")
+
+
+# B7's card design, mirrored in Python: the kernel's combine orders, each
+# in fp32, must be bit-equal to the plain twin's halving.
+
+_COMBINE = {"add": torch.add, "max": torch.maximum}
+
+
+def _padded_f32(x, op, length):
+    """x (rows, n) padded with the identity to ``length``, in fp32."""
+    ident = 0.0 if op == "add" else -np.inf
+    rows, n = x.shape
+    pad = torch.full((rows, length - n), ident, dtype=x.dtype)
+    return torch.cat([x, pad], dim=1).float()
+
+
+def _jtree(leaf, J, combine):
+    """The kernel's stage 1 (``jtree``): the halving tree over j of
+    ``leaf(j)``, J = R * 2^m leaves, streamed in subtrees j = lo + 2^m h
+    (h < R, R = min(J, 8)) halved in registers and merged on a
+    binary-counter stack in bit-reversed order of lo."""
+    R = min(J, 8)
+    nchunks = J // R
+    m = nchunks.bit_length() - 1
+    stack = {}
+    for k in range(nchunks):
+        lo = int(format(k, f"0{m}b")[::-1], 2) if m else 0
+        v = [leaf(lo + nchunks * h) for h in range(R)]
+        half = R // 2
+        while half >= 1:
+            v = [combine(v[h], v[h + half]) for h in range(half)]
+            half //= 2
+        acc, kk, level = v[0], k, 0
+        while kk & 1:
+            acc = combine(stack[level], acc)
+            kk >>= 1
+            level += 1
+        stack[level] = acc
+    return acc
+
+
+def _halve(v, combine):
+    """Halving over the last axis (a power of two long)."""
+    while v.shape[-1] > 1:
+        half = v.shape[-1] // 2
+        v = combine(v[..., :half], v[..., half:])
+    return v[..., 0]
+
+
+def _warp_order(x, op, W):
+    """One warp per row: lane l holds elements W l + c + 32 W j; halving
+    over j in the lane, then over lanes (shuffle down), then over the W
+    components of lane 0."""
+    combine = _COMBINE[op]
+    rows, n = x.shape
+    p2 = 1 << (n - 1).bit_length()
+    span = max(p2, 32 * W)
+    xp = _padded_f32(x, op, span)
+    J = span // (32 * W)
+    acc = _jtree(lambda j: xp[:, 32 * W * j:32 * W * (j + 1)].reshape(
+        rows, 32, W), J, combine)
+    lanes = min(32, max(1, p2 // W))
+    acc = _halve(acc[:, :lanes].transpose(1, 2), combine)    # (rows, W)
+    return _halve(acc[:, :min(W, p2)], combine).to(x.dtype)
+
+
+def _split_order(x, op, C):
+    """A row split over C CTAs: residue t of Q = 512 C halves over j its
+    x[t + Q j] (into the fp32 scratch), then one CTA of P = min(Q, 1024)
+    threads halves each thread's t + P j and the P values."""
+    combine = _COMBINE[op]
+    rows, n = x.shape
+    p2 = 1 << (n - 1).bit_length()
+    Q = tk.TREE_SPLIT_RESIDUES * C
+    xp = _padded_f32(x, op, p2)
+    part = _jtree(lambda j: xp[:, Q * j:Q * (j + 1)], p2 // Q, combine)
+    assert part.dtype == torch.float32 and part.shape == (rows, Q)
+    P = min(Q, 1024)
+    per = _jtree(lambda j: part[:, P * j:P * (j + 1)], Q // P, combine)
+    return _halve(per, combine).to(x.dtype)
+
+
+def _tree_input(rows, n, dtype, seed):
+    """Values over many binades, so that any other combine order rounds
+    differently."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, n)) * np.exp2(rng.integers(-12, 12,
+                                                              (rows, n)))
+    return torch.from_numpy(x.astype(np.float32)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["add", "max"])
+def test_tree_kernel_orders_bit_equal_to_twin(op, dtype):
+    """The warp-per-row order (W = 1, 4 and 8 lanes' components) and the
+    split order (C = 2 ... 16 CTAs per row) are the plain halving, bit
+    for bit, at lengths around every vector and tile edge."""
+    for n in (1, 3, 4, 5, 8, 31, 128, 129, 1000, 1001, 4096, 4097, 70000):
+        x = _tree_input(3, n, dtype, n)
+        want = tree_row_reduce_plain(x, op)
+        for W in (1, 4, 8):
+            got = _warp_order(x, op, W)
+            assert torch.equal(got, want), (n, W)
+        p2 = 1 << (n - 1).bit_length()
+        for C in (2, 4, 16):
+            if tk.TREE_SPLIT_RESIDUES * C <= p2:
+                assert torch.equal(_split_order(x, op, C), want), (n, C)
+
+
+def test_tree_orders_have_teeth():
+    """A left-to-right fp32 sum of the same input rounds differently, so
+    the bit-equality above tests the order."""
+    x = _tree_input(3, 4097, torch.float32, 1)
+    seq = torch.zeros(3)
+    for j in range(x.shape[1]):
+        seq = seq + x[:, j]
+    assert not torch.equal(seq, tree_row_reduce_plain(x, "add"))
+
+
+def test_tree_split_count_comes_from_shapes_alone():
+    """A warp per row when the rows fill the card; otherwise the fewest
+    power-of-two splits that give two CTAs per SM, as long as each
+    residue's tree spans at least TREE_MIN_LEAVES elements."""
+    assert tk.tree_splits(32768, 4096, 132) == 1     # main shape
+    assert tk.tree_splits(16, 256000, 132) == 32     # long: 512 CTAs
+    assert tk.tree_splits(1, 1 << 24, 132) == 512
+    assert tk.tree_splits(7, 1000, 132) == 1
+    assert tk.tree_splits(4, 65536, 132) == 16       # capped by leaves
+    for rows, n in itertools.product((1, 3, 16, 100, 264, 5000),
+                                     (1, 100, 4096, 65537, 256000, 1 << 24)):
+        c = tk.tree_splits(rows, n, 132)
+        p2 = 1 << (n - 1).bit_length()
+        assert c >= 1 and c & (c - 1) == 0
+        if c > 1:
+            assert p2 // (tk.TREE_SPLIT_RESIDUES * c) >= tk.TREE_MIN_LEAVES
+        assert (rows * c >= 2 * 132 or p2 // (tk.TREE_SPLIT_RESIDUES * 2 * c)
+                < tk.TREE_MIN_LEAVES)
+
+
+@pytest.mark.parametrize("rows,n,dtype,n_split", [
+    (16, 256000, torch.bfloat16, 32), (32768, 4096, torch.float32, 1)])
+def test_tree_wrapper_reads_no_device_tensor_on_the_host(
+        monkeypatch, rows, n, dtype, n_split):
+    """With meta tensors (which hold no data), the CUDA path of B7's
+    wrapper reaches the launch with the split count of the shapes and,
+    when split, an fp32 scratch of 512 partials per CTA."""
+    calls, scratch = [], []
+    empty = torch.empty
+
+    def spy_empty(*args, **kw):
+        t = empty(*args, **kw)
+        scratch.append(t)
+        return t
+
+    monkeypatch.setattr(tk, "on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(tk, "_kernel",
+                        lambda: lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(tk, "sm_count", lambda index: 132)
+    monkeypatch.setattr(tk.torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    x = torch.zeros((rows, n), dtype=dtype, device="meta")
+    monkeypatch.setattr(tk.torch, "empty", spy_empty)
+    before = tree_row_reduce.launches
+    out = tree_row_reduce(x, "max")
+    assert out.device.type == "meta" and out.shape == (rows,)
+    assert out.dtype == dtype
+    assert tree_row_reduce.launches == before + 1
+    assert len(calls) == 1 and calls[0][5] == n_split
+    parts = scratch[1:]
+    if n_split == 1:
+        assert parts == [] and calls[0][2] is None
+    else:
+        assert [tuple(t.shape) for t in parts] == [
+            (rows, tk.TREE_SPLIT_RESIDUES * n_split)]
+        assert parts[0].dtype == torch.float32
 
 
 # --- RMSNorm (B4) ---------------------------------------------------------------------

@@ -14,7 +14,12 @@ through both packages:
   shared-block K/V at each application site) and its last logits;
 * greedy token streams; inside the port, prefill + decode equals the
   argmax of the teacher-forced forward, and the dense-slot batcher,
-  asked for pages, serves dense slots and streams the greedy tokens.
+  asked for pages, serves dense slots and streams the greedy tokens;
+* zamba2 with an int8 KV cache: greedy tokens equal to JAX's, and the
+  batcher's (with and without ``decode_flash``) equal to greedy;
+* a prompt shorter than the conv window is rejected at ``submit``, in
+  the batcher and through the serving CLI, and the requests beside it
+  are served.
 
 Tolerances: fp32 logits and states to 2e-4 absolute (the SSD tests'
 tolerance: sums in other orders, through up to 12 layers; measured
@@ -46,7 +51,8 @@ from repro_torch.configs.base import smoke_variant as tsmoke
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import params as tparams
 from repro_torch.models import registry as tregistry
-from repro_torch.serve.batching import ContinuousBatcher, Request, drain
+from repro_torch.serve.batching import (ContinuousBatcher, Request,
+                                        RequestFailed, drain)
 from repro_torch.serve.serve_loop import greedy_generate as tgreedy
 
 torch.set_num_threads(2)
@@ -235,3 +241,71 @@ def test_serve_cli_serves_recurrent_families_dense():
     assert sum(line.startswith("req ") for line in lines) == 4
     assert "4 requests, 20 tokens in" in lines[-1]
     assert ", dense," in lines[-1]
+
+
+@pytest.mark.parametrize("name", ["mamba2", "zamba2"])
+def test_short_prompt_is_rejected_and_its_neighbour_served(name):
+    """A prompt shorter than the conv window's K - 1 inputs is rejected at
+    ``submit`` (a ``ValueError``, and a ``RequestFailed`` in its stream);
+    the batcher lives on and serves a well-formed request submitted
+    beside it with its greedy tokens."""
+    _, tcfg, _, tp = _model(name)
+    bat = ContinuousBatcher(tcfg, tp, device="cpu", n_slots=2, max_seq=24)
+    bad = Request(rid=0, prompt=_tokens((tcfg.ssm_conv - 2,), 20), max_new=3)
+    good = Request(rid=1, prompt=_tokens((6,), 21), max_new=4)
+    with pytest.raises(ValueError, match="conv window"):
+        bat.submit(bad)
+    bat.submit(good)
+    bat.run(1)
+    with pytest.raises(RequestFailed) as failed:
+        drain(bad)
+    assert "conv window" in failed.value.reason
+    gold = list(tgreedy(tcfg, tp, {"tokens": good.prompt[None]}, steps=4,
+                        max_seq=24, device="cpu")[0])
+    assert drain(good) == gold
+
+
+def test_serve_cli_reports_a_short_recurrent_prompt():
+    """``--prompt-len 2`` on mamba2: every request is reported rejected,
+    and the CLI ends normally with its summary line."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "mamba2-1p3b", "--smoke", "--device", "cpu", "--requests", "3",
+         "--slots", "2", "--prompt-len", "2", "--max-new", "4",
+         "--max-seq", "24"],
+        env=env, capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    rejected = [ln for ln in lines if ln.startswith("req ")
+                and "RequestFailed" in ln and "conv window" in ln]
+    assert len(rejected) == 3, out.stdout
+    assert lines[-1].startswith("3 requests, 0 tokens in"), out.stdout
+
+
+def test_zamba2_int8_kv_matches_jax_and_the_batcher():
+    """zamba2 with an int8 KV cache for its shared attention block: the
+    port's greedy tokens equal the JAX package's, and the dense-slot
+    batcher, with and without ``decode_flash`` (B3's twin), streams the
+    port's greedy tokens."""
+    jcfg, tcfg, jp, tp = _model("zamba2")
+    jcfg = dataclasses.replace(jcfg, kv_cache_dtype="int8")
+    tcfg = dataclasses.replace(tcfg, kv_cache_dtype="int8")
+    tok = _tokens((2, 9), 30)
+    want = np.asarray(jgreedy(jcfg, jp, {"tokens": jnp.asarray(tok)},
+                              steps=6, max_seq=24))
+    got = tgreedy(tcfg, tp, {"tokens": tok}, steps=6, max_seq=24,
+                  device="cpu")
+    np.testing.assert_array_equal(got, want)
+    prompts = [_tokens((n,), 31 + n) for n in (6, 9, 4)]
+    max_news = [3, 5, 4]
+    gold = [list(tgreedy(tcfg, tp, {"tokens": p[None]}, steps=m,
+                         max_seq=24, device="cpu")[0])
+            for p, m in zip(prompts, max_news)]
+    for flash in (False, True):
+        cfg = dataclasses.replace(tcfg, decode_flash=flash)
+        streams, bat = _run(cfg, tp, prompts, max_news, n_slots=2,
+                            max_seq=24)
+        assert not bat.paged
+        assert streams == gold, flash
