@@ -811,7 +811,11 @@ def phase_hlslib_kernels(gen, card, flush):
                 (4096, 3072, torch.bfloat16, True),
             "decode rows (8 x 3072 bf16)": (8, 3072, torch.bfloat16, True),
             "fp32 (4096 x 3072)": (4096, 3072, torch.float32, False),
-            "d % 4 != 0 (5 x 100 fp32)": (5, 100, torch.float32, False)
+            "d % 4 != 0 (5 x 100 fp32)": (5, 100, torch.float32, False),
+            "d % 8 != 0 (300 x 3071 bf16)": (300, 3071, torch.bfloat16,
+                                             False),
+            "wide (16 x 16384 fp32, two passes)": (16, 16384, torch.float32,
+                                                   False)
             }.items():
         x = randn(rows, d, dtype=dt)
         w = (randn(d) * 0.1).to(dt)
@@ -822,10 +826,11 @@ def phase_hlslib_kernels(gen, card, flush):
             w1 = (1.0 + w.float()).to(dt)
             library = (lambda: F.rms_norm(x, (d,), weight=w1, eps=1e-6),
                        "F.rms_norm, weight 1 + w formed beforehand")
+        wpr, rpc = rk.rmsnorm_plan(rows, d, x.element_size(), n_sm)
         res["rmsnorm"][name] = run_case(
             "B4", name, lambda: rk.rmsnorm(x, w), lambda: rk.rmsnorm_plain(x, w),
             "bf16" if dt == torch.bfloat16 else TOL_RMS_F32, flush, bound,
-            library)
+            library, {"warps_per_row": wpr, "rows_per_cta": rpc})
         del x, w, library
     torch.cuda.empty_cache()
 
@@ -894,9 +899,10 @@ def phase_hlslib_kernels(gen, card, flush):
 # --- phase 2, continued: the SSD chunked scan (B6) --------------------------------------
 
 
-def ssd_inputs(gen, b, s, h, dh, ds):
+def ssd_inputs(gen, b, s, h, dh, ds, a_scale=1.0):
     """x, dt, A, B, C at the JAX tests' scales: x, B, C ~ 0.5 N(0, 1),
-    dt ~ U(0.1, 0.5), A = -U(0.5, 1.5); fp32 on the card."""
+    dt ~ U(0.1, 0.5), A = -U(0.5, 1.5) (times ``a_scale``); fp32 on the
+    card."""
     def rand(*shape):
         return torch.rand(shape, generator=gen, device=DEVICE)
 
@@ -904,7 +910,7 @@ def ssd_inputs(gen, b, s, h, dh, ds):
         return torch.randn(shape, generator=gen, device=DEVICE) * 0.5
 
     return (randn(b, s, h, dh), 0.1 + 0.4 * rand(b, s, h),
-            -(0.5 + rand(h)), randn(b, s, ds), randn(b, s, ds))
+            -(0.5 + rand(h)) * a_scale, randn(b, s, ds), randn(b, s, ds))
 
 
 def ssd_bound(x, B, chunk, card):
@@ -927,9 +933,10 @@ def phase_ssd_kernel(gen, card, flush):
     """B6 against its plain twin on the card, timed at every shape beside
     its bound (no single PyTorch call computes the scan); a length that
     is not a multiple of the chunk raises."""
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import (ssd_plan, ssd_scan,
+                                              ssd_scan_plain)
     res = {}
-    for name, (b, s, h, dh, ds, chunk) in {
+    for name, (b, s, h, dh, ds, chunk, *a_scale) in {
             "main (one mamba2 layer: b 4 x s 2048, h 64, dh 64, ds 128, "
             "chunk 256)": (4, 2048, 64, 64, 128, 256),
             "long (b 1 x s 16384, mamba2 widths)":
@@ -939,15 +946,24 @@ def phase_ssd_kernel(gen, card, flush):
             "small odd (b 2, h 3, s 192, dh 32, ds 48, chunk 64)":
                 (2, 192, 3, 32, 48, 64),
             "chunk 48, dh 16, ds 16 (b 3, h 5, s 240)":
-                (3, 240, 5, 16, 16, 48)}.items():
-        x, dt, A, B, C = ssd_inputs(gen, b, s, h, dh, ds)
+                (3, 240, 5, 16, 16, 48),
+            "one chunk of 1024 (b 2, h 4, s 1024, dh 64, ds 128)":
+                (2, 1024, 4, 64, 128, 1024),
+            "deep decay, |A| x 200 (b 2, h 8, s 2048, dh 64, ds 128)":
+                (2, 2048, 8, 64, 128, 256, 200.0)}.items():
+        x, dt, A, B, C = ssd_inputs(gen, b, s, h, dh, ds, *a_scale)
+        plan = ssd_plan(b, s, h, dh, ds, chunk)
         row = run_case("B6", name, lambda: ssd_scan(x, dt, A, B, C, chunk),
                        lambda: ssd_scan_plain(x, dt, A, B, C, chunk),
-                       TOL_SSD, flush, ssd_bound(x, B, chunk, card))
+                       TOL_SSD, flush, ssd_bound(x, B, chunk, card),
+                       info={"ctas": plan["ctas"],
+                             "scratch_bytes": plan["scratch_bytes"]})
         ref = ssd_scan_plain(x, dt, A, B, C, chunk)
         row["max_abs_y"] = ref.abs().max().item()
         row["err_rel_to_max_y"] = row["max_abs_err"] / row["max_abs_y"]
         row["library"] = "no single PyTorch call"
+        check(torch.isfinite(ssd_scan(x, dt, A, B, C, chunk)).all().item(),
+              f"B6 [{name}]: non-finite output")
         print(f"B6 [{name}]: worst error {row['max_abs_err']:.3g} = "
               f"{row['err_rel_to_max_y']:.3g} of max |y| "
               f"{row['max_abs_y']:.4g}")
@@ -1187,7 +1203,8 @@ SPLIT = (("B1_flash_decode_paged", ("flash_decode_paged_kernel",
          ("B3_flash_decode", ("flash_decode_kernel",
                               "flash_decode_combine")),
          ("B2_kv_quant", ("quantize_kernel",)),
-         ("B6_ssd_scan", ("ssd_kernel",)),
+         ("B6_ssd_scan", ("ssd_cb_kernel", "ssd_state_kernel",
+                          "ssd_pass_kernel", "ssd_out_kernel")),
          ("matmul", ("gemm", "nvjet", "cublas", "cutlass", "splitKreduce")))
 
 

@@ -14,8 +14,9 @@
 #   bash scripts/chip_smoke_ab.sh build/ab/parent build/ab/change [LOGDIR]
 #
 # Each run's whole output goes to LOGDIR/ab_{p1,c1,c2,p2}.log (LOGDIR
-# defaults to build/ab); its card line, main- and long-shape kernel lines,
-# full-width serve and time-split lines are printed.  Exits non-zero if
+# defaults to build/ab); its card line, main- and long-shape kernel lines
+# (B6 also at zamba2's widths, B4 also at the decode rows), full-width
+# serve, train-forward and time-split lines are printed.  Exits non-zero if
 # any run did.
 set -u
 parent=$1
@@ -29,7 +30,7 @@ for run in "p1:$parent" "c1:$change" "c2:$change" "p2:$parent"; do
   (cd "$dir" && python3 chip_smoke.py) > "$out/ab_$tag.log" 2>&1
   rc=$?
   echo "== $tag ($dir) rc=$rc"
-  grep -E '^(card:|kernel vs plain \[main|B[1357] vs plain \[(main|long)|full-width serve|time split|\{"ok")' \
+  grep -E '^(card:|kernel vs plain \[main|B[134567] vs plain \[(main|long|decode rows|zamba2 widths)|B6 \[|full-width (serve|train forward)|time split|\{"ok")' \
     "$out/ab_$tag.log"
   [ "$rc" -eq 0 ] || status=$rc
 done

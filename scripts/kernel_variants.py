@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time design variants of the kernels B5, B1, B7 and B3 on one CUDA card.
+"""Time design variants of the kernels B5, B1, B7, B3, B6 and B4 on a CUDA card.
 
-    python3 scripts/kernel_variants.py [b5 b1 b7 b3]   # repo root, on the card
+    python3 scripts/kernel_variants.py [b5 b1 b7 b3 b6 b4]   # repo root, on the card
 
-(no names: all four).
+(no names: all six).
 Each variant is the shipped source (``src/repro_torch/csrc``) with one
 textual change, built with the same nvcc flags into ``build/variants/``
 and called through ctypes beside the shipped kernel, at chip_smoke.py's
@@ -32,10 +32,30 @@ one ``tree_splits`` chooses):
                  is allocated for 512, so it is large enough).
 B3 (``flash_attention_decode``): the shipped kernel at n_split 1 and as
 ``dense_splits`` chooses.
+B6 (``ssd_scan``), at chip_smoke.py's main, long and zamba2 shapes, each
+held to the plain twin as a share of the 2e-4 rule, and at the main shape
+each variant's time split over its kernels (``torch.profiler``):
+  shipped     -- the chunk-parallel kernels, products in 3xTF32;
+  split_bf16  -- the same, products as three split-bf16 products;
+  fp32_cores  -- the same tiles, products in fp32 on the CUDA cores;
+  one_tf32    -- one TF32 product (diagnostic: what the split buys);
+  no_state_products, no_out_products -- the shipped kernels without the
+                 products of kernel 2, or of kernel 4 (diagnostics, wrong
+                 outputs: what the loads, exps and syncs cost alone);
+  serial      -- the earlier design, one CTA per (b, h, dh slab) walking
+                 the chunks in order (``baselines/ssd_scan_serial.cu``).
+B4 (``rmsnorm``) at (4096, 3072) and (8, 3072) bf16 beside ``F.rms_norm``:
+the shipped kernel at the plan ``rmsnorm_plan`` picks and at other warps
+per row and rows per CTA; a copy of x (``clone``, the floor of a
+function that reads x and writes y once), after the usual flush and
+after one that leaves clean lines in L2; and the earlier design, one
+CTA of 128 threads per row and two passes over it
+(``baselines/rmsnorm_two_pass.cu``).
 """
 
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -48,6 +68,8 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import rmsnorm_kernel as rk  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.kernels import treereduce_kernel as tk  # noqa: E402
 
 B5 = {
@@ -85,9 +107,30 @@ B7 = {
 }
 
 
-def build_variants(source: str, variants: dict, symbol: str, argtypes):
-    """{name: ctypes function} of each variant, all nvcc runs at once."""
-    text = (build.CSRC / f"{source}.cu").read_text()
+B6 = {
+    "shipped": {},
+    "split_bf16": {"#define SSD_PRODUCT 0": "#define SSD_PRODUCT 1"},
+    "fp32_cores": {"#define SSD_PRODUCT 0": "#define SSD_PRODUCT 2"},
+    "one_tf32": {"#define SSD_PRODUCT 0": "#define SSD_PRODUCT 3"},
+    # diagnostics (wrong outputs): each kernel's time without its products.
+    "no_state_products": {
+        "load_a(fa, bs + k0 * ldb + mt * 16, 1, ldb);\n        mma(acc[u], fa, fb);":
+        "load_a(fa, bs + k0 * ldb + mt * 16, 1, ldb);"},
+    "no_out_products": {
+        "               sc ? sc + k0 : nullptr);\n        mma(acc[u], fa, fb);":
+        "               sc ? sc + k0 : nullptr);",
+        "load_b(fb, SS + k0 * lds + ((w >> 2) + 2 * u) * 8, lds, 1);\n"
+        "        mma(acc[u], fa, fb);":
+        "load_b(fb, SS + k0 * lds + ((w >> 2) + 2 * u) * 8, lds, 1);"},
+}
+BASELINES = os.path.join(ROOT, "scripts", "baselines")
+
+
+def build_variants(source: str, variants: dict, symbol: str, argtypes,
+                   path=None):
+    """{name: ctypes function} of each variant, all nvcc runs at once.
+    ``path``: the source to vary (default ``csrc/<source>.cu``)."""
+    text = open(path or build.CSRC / f"{source}.cu").read()
     out_dir = os.path.join(ROOT, "build", "variants")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
@@ -248,6 +291,121 @@ def run_b3(gen, flush, stream):
         del c, ref, out
 
 
+def run_b6(gen, flush, stream):
+    b6 = build_variants("ssd_scan", B6, "ssd_scan", ss._kernel().argtypes)
+    old = build_variants("ssd_scan_serial", {"serial": {}}, "ssd_scan",
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                         + [ctypes.c_void_p],
+                         os.path.join(BASELINES, "ssd_scan_serial.cu")
+                         )["serial"]
+    for case, (b, s, h, dh, ds, chunk) in (
+            ("main", (4, 2048, 64, 64, 128, 256)),
+            ("long", (1, 16384, 64, 64, 128, 256)),
+            ("zamba2", (4, 2048, 64, 64, 64, 256))):
+        x, dt, A, B, C = cs.ssd_inputs(gen, b, s, h, dh, ds)
+        ref = ss.ssd_scan_plain(x, dt, A, B, C, chunk)
+        plan = ss.ssd_plan(b, s, h, dh, ds, chunk)
+        scratch = [torch.empty(plan["scratch"][k], device="cuda")
+                   for k in ("G", "S", "L")]
+        y = torch.empty_like(x)
+        ptrs = [t.data_ptr() for t in (x, dt, A, B, C, y)]
+        calls = {name: (lambda fn=fn: fn(
+            *ptrs, *(t.data_ptr() for t in scratch), b, s, h, dh, ds, chunk,
+            plan["dhs"], stream)) for name, fn in b6.items()}
+        calls["serial"] = lambda: old(*ptrs, b, s, h, dh, ds, chunk, stream)
+        print(f"B6 {case}: ctas {plan['ctas']}, scratch bytes "
+              f"{plan['scratch_bytes']}", flush=True)
+        for rnd in range(2):
+            for name, call in calls.items():
+                y.fill_(float("nan"))
+                assert call() == 0
+                torch.cuda.synchronize()
+                lim = 2e-4 + 2e-4 * ref.abs()
+                share = ((y - ref).abs() / lim).max().item()
+                print(f"B6 {case} round {rnd} {name}: ms "
+                      f"{cs.time_ms(call, flush)}, err/tol {share:.4g}",
+                      flush=True)
+        if case == "main":
+            for name, call in calls.items():
+                print(f"B6 main {name}, device us per kernel: "
+                      f"{kernel_split(call)}", flush=True)
+        del x, dt, A, B, C, ref, scratch, y
+
+
+def kernel_split(call, n=5):
+    """{kernel: device microseconds per call} of ``call`` from a
+    ``torch.profiler`` trace of ``n`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            m = re.search(r"ssd_\w+", ev.name)
+            key = m.group(0) if m else ev.name[:40]
+            out[key] = out.get(key, 0.0) + ev.time_range.elapsed_us() / n
+    return {k: round(v, 1) for k, v in out.items()}
+
+
+def run_b4(gen, flush, stream):
+    fn = rk._kernel()
+    old = build_variants("rmsnorm_two_pass", {"two_pass": {}}, "rmsnorm",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_void_p],
+                         os.path.join(BASELINES, "rmsnorm_two_pass.cu")
+                         )["two_pass"]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for rows, d in ((4096, 3072), (8, 3072)):
+        x = torch.randn((rows, d), generator=gen, device="cuda").bfloat16()
+        w = (torch.randn(d, generator=gen, device="cuda") * 0.1).bfloat16()
+        w1 = (1.0 + w.float()).bfloat16()
+        ref = rk.rmsnorm_plain(x, w)
+        out = torch.empty_like(x)
+        chosen = rk.rmsnorm_plan(rows, d, 2, n_sm)
+        plans = sorted({chosen, (1, 1), (1, 2), (1, 4), (1, 8), (2, 2),
+                        (4, 1), (8, 1), (0, 1)})
+        calls = {f"wpr {p[0]} rpc {p[1]}"
+                 + (" (chosen)" if p == chosen else ""):
+                 (lambda p=p: fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                 rows, d, 1e-6, 1, 1, p[0], p[1], stream))
+                 for p in plans}
+        calls["two_pass"] = lambda: old(x.data_ptr(), w.data_ptr(),
+                                        out.data_ptr(), rows, d, 1e-6, 1, 1,
+                                        stream)
+        F = torch.nn.functional
+        # a flush that leaves the L2 full of clean lines (a read), beside
+        # the usual one (a write, whose dirty lines the kernel's own
+        # traffic must write back): what the flush's write-backs cost.
+        calls["chosen, read flush"] = calls[next(k for k in calls
+                                                  if "chosen" in k)]
+        read_flush = type("ReadFlush", (), {"zero_": lambda self: flush.view(
+            torch.float32).sum()})()
+
+        def lib():
+            return F.rms_norm(x, (d,), weight=w1, eps=1e-6)
+
+        for rnd in range(2):
+            print(f"B4 {rows} x {d} round {rnd} F.rms_norm: ms "
+                  f"{cs.time_ms(lib, flush)}"
+                  f", x.clone() (copy floor): ms "
+                  f"{cs.time_ms(x.clone, flush)}, with a read flush "
+                  f"{cs.time_ms(x.clone, read_flush)}", flush=True)
+            for name, call in calls.items():
+                assert call() == 0
+                torch.cuda.synchronize()
+                fl = read_flush if "read flush" in name else flush
+                print(f"B4 {rows} x {d} round {rnd} {name}: ms "
+                      f"{cs.time_ms(call, fl)}, err/tol "
+                      f"{err_ratio(out, ref)}", flush=True)
+        del x, w, w1, ref, out
+
+
 def main():
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
@@ -259,7 +417,8 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    runs = {"b5": run_b5, "b1": run_b1, "b7": run_b7, "b3": run_b3}
+    runs = {"b5": run_b5, "b1": run_b1, "b7": run_b7, "b3": run_b3,
+            "b6": run_b6, "b4": run_b4}
     for name in sys.argv[1:] or list(runs):
         runs[name](gen, flush, stream)
     return 0

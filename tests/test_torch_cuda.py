@@ -9,9 +9,16 @@ On a machine with a card and nvcc (which need not have JAX):
 B6 (``ssd_scan``): the kernel against its plain twin on the card, at
 small shapes that cover a chunk of one, two and four 64-row tiles, a
 chunk that is not a multiple of 64, ds of 16 to 128, dh slabs of 16, 32
-and 64, and the ragged-length error.  Tolerance 2e-4 absolute and
-relative, the JAX tests' own for the Pallas kernel (fp32, sums in
-another order).
+and 64, and the ragged-length error; and at its edges: one chunk and 64
+chunks (the serial state pass), chunks of 48 and 1024, zero dt, a decay
+|A| dt so large that exp underflows to 0, with every output finite.
+Tolerance 2e-4 absolute and relative, the JAX tests' own for the Pallas
+kernel (fp32, sums in another order).
+
+B4 (``rmsnorm``): rows 1, 8 and 4096 at d 3072, d not a multiple of the
+16-byte vector, d 16384 (bf16 in registers, fp32 through the two-pass
+kernel), fp32 and bf16 x with fp32 and bf16 w; bf16 within 2 bf16 ulps
+of |plain| + 1e-5 and fp32 within 1e-5 (``chip_smoke.py``'s rules).
 
 B5 (``flash_attention``) and B1 (``flash_attention_decode_paged``): the
 kernels against their plain twins at every bf16 head dim, single-row and
@@ -37,6 +44,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rmsnorm_kernel as rk
 from repro_torch.kernels import treereduce_kernel as tk
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
@@ -75,6 +83,66 @@ def test_ssd_scan_kernel_matches_twin(card, b, s, h, dh, ds, chunk):
     assert ssd_scan.launches == before + 1
     want = ssd_scan_plain(*args, chunk=chunk)
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,dh,ds,chunk,kind", [
+    (2, 256, 3, 64, 128, 256, None),        # one chunk
+    (1, 4096, 2, 32, 64, 64, None),         # 64 chunks
+    (1, 2048, 2, 64, 128, 1024, None),      # chunk 1024
+    (2, 480, 3, 16, 48, 48, None),          # chunk 48, ds 48, dh 16
+    (2, 512, 2, 48, 16, 128, "zero_dt"),    # dt 0 on every third row
+    (2, 768, 2, 64, 128, 256, "deep"),      # exp(cum) underflows to 0
+    (1, 1024, 4, 32, 128, 256, "deep"),
+], ids=["nc-1", "nc-64", "chunk-1024", "chunk-48", "zero-dt", "deep-decay",
+        "deep-decay-dh32"])
+def test_ssd_scan_kernel_edges(card, b, s, h, dh, ds, chunk, kind):
+    gen = torch.Generator(device=card).manual_seed(s + dh)
+    x, dt, A, B, C = _inputs(gen, b, s, h, dh, ds, card)
+    if kind == "zero_dt":
+        dt[:, ::3] = 0.0
+    elif kind == "deep":
+        A = A * 200.0
+    before = ssd_scan.launches
+    got = ssd_scan(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert torch.isfinite(got).all()
+    want = ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,x_dtype,w_dtype", [
+    (1, 3072, torch.bfloat16, torch.bfloat16),
+    (8, 3072, torch.bfloat16, torch.bfloat16),
+    (4096, 3072, torch.bfloat16, torch.bfloat16),
+    (4096, 3072, torch.float32, torch.float32),
+    (8, 3072, torch.bfloat16, torch.float32),
+    (8, 3072, torch.float32, torch.bfloat16),
+    (5, 3071, torch.bfloat16, torch.bfloat16),
+    (300, 1001, torch.float32, torch.float32),
+    (5, 100, torch.float32, torch.float32),
+    (16, 16384, torch.bfloat16, torch.bfloat16),
+    (16, 16384, torch.float32, torch.float32),
+])
+def test_rmsnorm_kernel_matches_twin(card, rows, d, x_dtype, w_dtype):
+    gen = torch.Generator(device=card).manual_seed(rows + d)
+    x = torch.randn((rows, d), generator=gen, device=card).to(x_dtype)
+    w = (torch.randn((d,), generator=gen, device=card) * 0.1).to(w_dtype)
+    before = rk.rmsnorm.launches
+    got = rk.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert rk.rmsnorm.launches == before + 1
+    want = rk.rmsnorm_plain(x, w)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    diff = (got.float() - want.float()).abs()
+    if x_dtype == torch.float32:
+        assert diff.max().item() <= 1e-5
+    else:
+        ax = want.float().abs().clamp(min=1e-30)
+        ulp = torch.exp2(torch.floor(torch.log2(ax)) - 7)
+        assert (diff <= 2 * ulp + 1e-5).all(), diff.max().item()
 
 
 @pytest.mark.cuda

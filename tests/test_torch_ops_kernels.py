@@ -15,7 +15,9 @@ formula), against the JAX Pallas kernels in interpret mode and the JAX
   Python, bit-equal to the twin; its split count from shapes alone, and
   its wrapper reading no device tensor on the host;
 * RMSNorm (B4): fp32 at rtol = atol = 1e-6, bf16 at 1e-2 (the JAX tests'
-  tolerances; the order of the sum of squares is free);
+  tolerances; the order of the sum of squares is free), also at the card
+  kernel's edge widths; its plan (warps per row, rows per CTA) from
+  shapes alone, and its wrapper reading no device tensor on the host;
 * flash attention (B5), fp32 at 2e-5 (the JAX tests' tolerance: fp32
   summation order): causal, window 64, sq < sk, GQA and MQA, a length
   that is not a tile multiple; bf16 at 2e-2.
@@ -341,6 +343,65 @@ def test_rmsnorm_twin_bf16():
     got = rmsnorm(tx, tw)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("rows,d,x_dtype,w_dtype", [
+    (1, 3072, "bfloat16", "bfloat16"), (8, 3071, "float32", "bfloat16"),
+    (3, 1001, "bfloat16", "float32"), (2, 16384, "bfloat16", "bfloat16"),
+    (2, 16384, "float32", "float32")])
+def test_rmsnorm_twin_at_the_kernel_edges(rows, d, x_dtype, w_dtype):
+    """The card kernel's edge widths (one row; d not a multiple of the
+    16-byte vector; rows wider than its registers hold; mixed x and w
+    dtypes): the twin it is held to on the card against the JAX kernel."""
+    jx, tx = _pair(_np((rows, d), d + rows), x_dtype)
+    jw, tw = _pair(_np((d,), d, 0.1), w_dtype)
+    want = jrms(jx, jw, interpret=True)
+    got = rmsnorm(tx, tw)
+    assert got.dtype == tx.dtype and got.shape == (rows, d)
+    tol = 1e-6 if x_dtype == "float32" else 1e-2
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("rows,d,x_bytes,plan", [
+    (4096, 3072, 2, (1, 4)),      # main: a warp per row, 4 rows per CTA
+    (8, 3072, 2, (8, 1)),         # few rows: 8 warps each
+    (4096, 3072, 4, (2, 2)),      # fp32: 768 vectors, two warps per row
+    (4096, 3071, 2, (8, 1)),      # scalars: 3071 of them, 8 warps
+    (4096, 16384, 2, (8, 1)),     # 2048 vectors
+    (64, 16384, 4, (0, 1)),       # 4096 vectors: the two-pass kernel
+    (1, 100, 4, (8, 1))])
+def test_rmsnorm_plan(rows, d, x_bytes, plan):
+    from repro_torch.kernels.rmsnorm_kernel import (RMS_MAX_VECS,
+                                                    rmsnorm_plan)
+    wpr, rpc = rmsnorm_plan(rows, d, x_bytes, 132)
+    assert (wpr, rpc) == plan
+    v = 16 // x_bytes
+    nvec = d // v if d % v == 0 else d
+    if wpr:
+        assert nvec <= 32 * wpr * RMS_MAX_VECS and wpr * rpc <= 8
+
+
+def test_rmsnorm_wrapper_reads_no_device_tensor_on_the_host(monkeypatch):
+    """With meta tensors (which hold no data), the CUDA path of B4's
+    wrapper reaches the launch with the plan of the shapes."""
+    from repro_torch.kernels import rmsnorm_kernel as rk
+    calls = []
+    monkeypatch.setattr(rk, "on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(rk, "_kernel",
+                        lambda: lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(rk, "sm_count", lambda index: 132)
+    monkeypatch.setattr(rk.torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    x = torch.zeros((8, 3072), dtype=torch.bfloat16, device="meta")
+    w = torch.zeros((3072,), dtype=torch.float32, device="meta")
+    before = rk.rmsnorm.launches
+    out = rk.rmsnorm(x, w)
+    assert out.device.type == "meta" and out.shape == (8, 3072)
+    assert out.dtype == torch.bfloat16
+    assert rk.rmsnorm.launches == before + 1
+    assert len(calls) == 1 and calls[0][3:5] == (8, 3072)
+    assert calls[0][6:10] == (1, 0, 8, 1)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])

@@ -9,12 +9,19 @@ dt ~ U(0.1, 0.5), A = -U(0.5, 1.5)) go through both packages:
 * ``ssd_scan`` on CPU tensors (its plain twin, what the CUDA kernel is
   held against on the card) against the JAX Pallas kernel in interpret
   mode at the three shapes of ``tests/test_kernels.py``;
-* ``ops.ssd`` against the JAX ``ops.ssd`` on both branches.
+* ``ops.ssd`` against the JAX ``ops.ssd`` on both branches;
+* the card kernel's order (C·Bᵀ once per (b, chunk), chunk-local states,
+  the serial state pass, the C·S_in term), mirrored in Python, against
+  the twin and the JAX Pallas kernel: one chunk, chunk 48, ds 16/48/128
+  and a decay that underflows; its layout (``ssd_plan``) from shapes
+  alone, and its wrapper reading no device tensor on the host.
 
 Tolerance: rtol = atol = 2e-4, the JAX tests' own (fp32, sums in other
 orders over up to 256 positions and several chunks); the port's oracles
 against JAX's land far inside it (~1e-6).
 """
+
+import types
 
 import jax
 import jax.numpy as jnp
@@ -150,3 +157,111 @@ def test_wrapper_refuses_non_cpu_tensors_without_a_kernel():
     x, dt, A, B, C = _t(_inputs(12, 1, 32, 2, 16, 16))
     with pytest.raises(ValueError, match="one CUDA device"):
         ssd_scan(x.to("meta"), dt, A, B, C, chunk=16)
+
+
+# --- the card kernel's order (csrc/ssd_scan.cu), mirrored in Python ------------------
+
+
+def _decomposed(x, dt, A, B, C, chunk):
+    """B6's chunk-parallel order: G = C·Bᵀ once per (b, chunk) over the
+    causal triangle (the exp of the decay taken only on and below the
+    diagonal); each chunk's own state; the serial pass over chunks,
+    S_in[c] = exp(cum_last[c-1]) S_in[c-1] + S_loc[c-1]; then per chunk
+    y = (G ∘ L ∘ dt_j)·x + exp(cum_i) C_i·S_in.  fp32 throughout."""
+    b, s, h, dh = x.shape
+    ds, nc = B.shape[-1], s // chunk
+    xc = x.reshape(b, nc, chunk, h, dh)
+    dtc = dt.reshape(b, nc, chunk, h)
+    Bc, Cc = B.reshape(b, nc, chunk, ds), C.reshape(b, nc, chunk, ds)
+    tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    G = torch.einsum("bcis,bcjs->bcij", Cc, Bc) * tri          # once per (b, c)
+    cum = torch.cumsum(dtc * A, dim=2)                         # (b, nc, Q, h)
+    cl = cum[:, :, -1]                                         # (b, nc, h)
+    wj = torch.exp(cl[:, :, None] - cum) * dtc
+    S_loc = torch.einsum("bcjs,bcjh,bcjhd->bchsd", Bc, wj, xc)
+    S_in = torch.zeros_like(S_loc)
+    run = torch.zeros_like(S_loc[:, 0])
+    for c in range(nc):                                        # the serial pass
+        S_in[:, c] = run
+        run = run * torch.exp(cl[:, c])[..., None, None] + S_loc[:, c]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # (b, nc, i, j, h)
+    mask = tri[None, None, :, :, None]
+    L = torch.where(mask, torch.exp(diff.masked_fill(~mask, 0.0)), 0.0)
+    assert torch.isfinite(L).all()      # no inf above the diagonal
+    W = G[..., None] * L * dtc[:, :, None, :, :]
+    y = torch.einsum("bcijh,bcjhd->bcihd", W, xc)
+    y = y + torch.exp(cum)[..., None] * torch.einsum(
+        "bcis,bchsd->bcihd", Cc, S_in)
+    return y.reshape(b, s, h, dh)
+
+
+@pytest.mark.parametrize("b,s,h,dh,ds,chunk,deep", [
+    (2, 64, 3, 16, 16, 64, False),      # one chunk (nc = 1)
+    (1, 144, 2, 32, 48, 48, False),     # chunk 48, ds 48
+    (2, 256, 2, 64, 128, 64, False),    # ds 128, four chunks
+    (1, 96, 2, 16, 16, 32, True),       # |A| dt large: exp underflows to 0
+])
+def test_kernel_order_matches_twin_and_jax(b, s, h, dh, ds, chunk, deep):
+    x, dt, A, B, C = _inputs(s * 7 + ds, b, s, h, dh, ds)
+    if deep:
+        A = A * 200.0        # cum falls by ~20-300 per position
+    arrs = (x, dt, A, B, C)
+    got = _decomposed(*_t(arrs), chunk)
+    assert torch.isfinite(got).all()
+    _close(got, ssd_scan_plain(*_t(arrs), chunk=chunk).numpy())
+    _close(got, jscan(*_j(arrs), chunk=chunk, interpret=True))
+
+
+def test_ssd_plan_from_shapes():
+    from repro_torch.kernels.ssd_scan import ssd_plan
+    main = ssd_plan(4, 2048, 64, 64, 128, 256)
+    assert main["dhs"] == 64 and main["qp"] == 256 and main["n_chunks"] == 8
+    assert main["ctas"] == {"cb": 10 * 8 * 4, "state": 2048, "pass": 2048,
+                            "out": 8192}
+    assert main["scratch"] == {"G": (4, 8, 256, 256),
+                               "S": (4, 64, 8, 128, 64), "L": (4, 64, 8)}
+    assert main["scratch_bytes"] == 4 * (4 * 8 * 256 * 256
+                                         + 4 * 64 * 8 * 128 * 64 + 4 * 64 * 8)
+    long = ssd_plan(1, 16384, 64, 64, 128, 256)
+    assert long["ctas"]["state"] == 4096
+    odd = ssd_plan(3, 240, 5, 48, 16, 48)
+    assert odd["dhs"] == 16 and odd["qp"] == 64 and odd["n_chunks"] == 5
+    assert odd["ctas"]["out"] == 5 * 1 * 3 * 5 * 3
+
+
+def test_ssd_wrapper_reads_no_device_tensor_on_the_host(monkeypatch):
+    """With meta tensors (which hold no data), the CUDA path of B6's
+    wrapper reaches the one C call with the plan's slab and fp32 scratch
+    of the plan's shapes, allocated on x's device."""
+    from repro_torch.kernels import ssd_scan as ss
+    calls, scratch = [], []
+    empty = torch.empty
+
+    def spy_empty(*args, **kw):
+        t = empty(*args, **kw)
+        scratch.append(t)
+        return t
+
+    monkeypatch.setattr(ss, "on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(ss, "_kernel",
+                        lambda: lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(ss.torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    b, s, h, dh, ds, chunk = 2, 512, 4, 48, 128, 256
+    meta = dict(device="meta")
+    x = torch.zeros((b, s, h, dh), **meta)
+    dt = torch.zeros((b, s, h), **meta)
+    A = torch.zeros((h,), **meta)
+    B, C = (torch.zeros((b, s, ds), **meta) for _ in range(2))
+    monkeypatch.setattr(ss.torch, "empty", spy_empty)
+    before = ss.ssd_scan.launches
+    y = ss.ssd_scan(x, dt, A, B, C, chunk)
+    assert y.device.type == "meta" and y.shape == x.shape
+    assert ss.ssd_scan.launches == before + 1
+    plan = ss.ssd_plan(b, s, h, dh, ds, chunk)
+    assert len(calls) == 1 and calls[0][9:16] == (b, s, h, dh, ds, chunk, 16)
+    assert [tuple(t.shape) for t in scratch] == [
+        plan["scratch"][k] for k in ("G", "S", "L")]
+    assert all(t.dtype == torch.float32 and t.device.type == "meta"
+               for t in scratch)
