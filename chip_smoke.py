@@ -16,7 +16,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    shape and every option (B3 also at zamba2's attention widths and at
    its split-KV edges, each row with its ``n_split``),
    ``kv_quantize``/``kv_dequantize`` (B2) bit for bit at decode, prefill
-   and full-cache shapes, the hlslib kernels ``stencil2d`` (B8) and
+   and full-cache shapes, B2's quantize-and-store entry
+   ``kv_quantize_store`` bit for bit (every cache leaf after the store) at
+   the full-width path's dense and paged shapes, slots on a ring and
+   clamped, dropped rows, fp32 rows and .5 quotients, timed beside the
+   separate route (two quantize launches, then indexed writes), the hlslib
+   kernels ``stencil2d`` (B8) and
    ``tree_row_reduce`` (B7) bit for bit (by the bits, at both its
    regimes, a warp per row and long rows split over CTAs, and at every
    vector edge, each row with its split count) and ``rmsnorm`` (B4) and
@@ -30,7 +35,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    dense-slot batcher through B3 (bf16, the sliding-window ring, int8
    through B2, and bf16 at max_seq 512, where B3 splits each slot over
    CTAs) give the dense greedy oracle's tokens; the int8 paged
-   batcher gives the int8 dense-slot batcher's, with preemption;
+   batcher gives the int8 dense-slot batcher's, with preemption; B2's
+   launches on both int8 runs are held to exact counts;
    mamba2-1p3b and zamba2-1p2b (fp32) serve dense slots when asked for
    pages, token-identical to their greedy oracle (zamba2's shared block
    through B3), and their train forward through B6 matches the plain
@@ -38,8 +44,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 4. full-width serve — minitron-4b at full width, random bf16 weights
    from the seed, 16 requests through ``ContinuousBatcher`` under
    ``DataflowContext``: paged through B1, then dense slots through B3 with
-   a bf16 and with an int8 cache (B2); each with one decode step's logits
-   through the kernels vs the plain path, and a decode step's time split;
+   a bf16 and with an int8 cache (B2, exact launch counts); each with one
+   decode step's logits through the kernels vs the plain path, and a
+   decode step's time split with the kernels it launches; then int8 page
+   pools prefilled through the chunk step, its decode and chunk steps'
+   B2 launches counted exactly and their time split; an int8 dense and
+   an int8 paged decode step each run through B2's store kernel and
+   through its plain twin from copies of one cache, the caches after
+   them equal bit for bit;
 5. the hlslib ops path at full size — the package example's eager
    ``ShiftReg`` stage at 64 x 128 on the host against the kernel's sweep,
    then its kernel stages (``ops.stencil(use_pallas=True)`` and 64 sweeps
@@ -89,6 +101,8 @@ KERNELS = {
         "src/repro/kernels/flash_attention.py:322"),
     "kv_quantize": ("src/repro_torch/csrc/kv_quant.cu",
                     "src/repro/kernels/kv_quant.py:55"),
+    "kv_quantize_store": ("src/repro_torch/csrc/kv_quant.cu",
+                          "src/repro/kernels/kv_quant.py:55"),
     "kv_dequantize": ("src/repro_torch/csrc/kv_quant.cu",
                       "src/repro/kernels/kv_quant.py:76"),
     "stencil2d": ("src/repro_torch/csrc/stencil.cu",
@@ -624,6 +638,156 @@ def phase_quant_kernel(gen, card, flush):
     return results
 
 
+def store_bound_ms(n: int, kept: int, d: int, in_bytes: int, card: str):
+    """Least time of a ``kv_quantize_store``: n K rows and n V rows read,
+    their int64 destination rows read once, and the int8 values and bf16
+    scales of the ``kept`` rows (of each) written."""
+    return (2 * n * d * in_bytes + n * 8 + 2 * kept * (d + 2)) / hbm_rate(
+        card) * 1e3, "bytes"
+
+
+def make_store_case(gen, layout, *, d=128, dtype=torch.bfloat16,
+                    ties=False):
+    """One layer's K/V rows and the cache leaves they land in, at the
+    full-width path's shapes: 8 slots x 8 kv heads into a dense slot
+    cache of 1024 positions (slots in range, on a ring, clamped to S - 1)
+    or a pool of 8 x 64 pages of 16 (a decode step with one slot
+    inactive, or one slot's prefill chunk of 128 with a padded tail).
+    Returns (k, v, leaves, dst_row, the separate route's cache write)."""
+    from repro_torch.models import layers
+    from repro_torch.kernels.kv_quant import kv_store_rows
+    dev, b, hkv = DEVICE, 8, 8
+    if layout.startswith("paged"):
+        page, nb = 16, 64
+        n_pages = b * nb
+        lead = (n_pages, hkv, page, d)
+        bt = torch.randperm(n_pages, generator=gen, device=dev).reshape(
+            b, nb).int()
+        if layout == "paged chunk":
+            s, rows_b = CHUNK, 1
+            pos = torch.full((1,), 256, device=dev)
+            bt, last = bt[:1], torch.full((1,), 100, device=dev)
+        else:
+            s, rows_b = 1, b
+            pos = torch.randint(100, 900, (b,), generator=gen, device=dev)
+            bt[b - 1] = n_pages                      # an inactive slot
+            last = None
+        args = (bt, pos, s, page, n_pages)
+        dst = layers.paged_store_rows(*args, hkv, last)
+        rb, rs, wp, wo = layers.paged_write_index(*args, last)
+        shape = (rows_b, s, hkv, d)
+
+        def route_write(leaves, new):
+            for name, t in new.items():
+                leaves[name][wp, :, wo] = t[rb, rs]
+    else:
+        S = 1024
+        lead = (b, hkv, S, d)
+        pos = torch.randint(100, 900, (b,), generator=gen, device=dev)
+        if layout == "dense ring":
+            pos = pos + 3 * S
+            slot = pos % S
+        else:
+            pos = pos + (S if layout == "dense clamped" else 0)
+            slot = pos.clamp(max=S - 1)
+        ar = torch.arange(b, device=dev)
+        dst = kv_store_rows(ar, slot, hkv, S)
+        shape = (b, hkv, d)
+
+        def route_write(leaves, new):
+            for name, t in new.items():
+                leaves[name][ar, :, slot] = t
+    leaves = {n: torch.randint(-127, 128, lead, generator=gen, device=dev,
+                               dtype=torch.int8) for n in "kv"}
+    leaves.update({n + "_scale": torch.rand(
+        lead[:-1] + (1,), generator=gen, device=dev).bfloat16() for n in "kv"})
+    k, v = ((torch.randn(shape, generator=gen, device=dev)
+             * torch.rand(shape[:-1] + (1,), generator=gen, device=dev) * 8)
+            for _ in range(2))
+    if ties:
+        k[:] = v[:] = torch.tensor([2.5, -3.5, 0.5, 1.5, -0.5, 127.0, 4.5,
+                                    -126.5] * (d // 8), device=dev)
+    return k.to(dtype), v.to(dtype), leaves, dst.contiguous(), route_write
+
+
+def phase_store_kernel(gen, card, flush):
+    """B2's quantize-and-store entry vs its plain twin, every cache leaf
+    bit for bit after the store, at the full-width path's shapes (dense
+    slots in range, on a ring and clamped; a paged decode step with an
+    inactive slot; a paged prefill chunk with a padded tail; fp32 rows;
+    .5 quotients); timed beside its bound and beside the separate route
+    (two ``kv_quantize`` launches, then the indexed writes of the four
+    leaves, as the model wrote an int8 cache before the store) on the
+    same inputs."""
+    from repro_torch.kernels.kv_quant import (
+        kv_quantize, kv_quantize_store, kv_quantize_store_plain)
+    cases = {
+        "dense decode rows (8 slots x 8 kv heads, K and V, d 128, bf16)":
+            dict(layout="dense"),
+        "dense ring slots (bf16)": dict(layout="dense ring"),
+        "dense slots clamped to S - 1 (f32)": dict(layout="dense clamped",
+                                                   dtype=torch.float32),
+        "paged decode rows, one slot inactive (bf16)": dict(layout="paged"),
+        "paged prefill chunk (1 x 128 tokens x 8 kv heads, padded tail, "
+        "bf16)": dict(layout="paged chunk"),
+        "dense decode rows d 64 (f32)": dict(layout="dense", d=64,
+                                            dtype=torch.float32),
+        "dense decode rows d 256 (bf16)": dict(layout="dense", d=256),
+        "exact .5 quotients (dense, f32)": dict(layout="dense",
+                                                dtype=torch.float32,
+                                                ties=True),
+    }
+    timed = ("dense decode rows (8", "paged decode", "paged prefill")
+    results = {}
+    for name, kw in cases.items():
+        k, v, leaves, dst, route_write = make_store_case(gen, **kw)
+        twin = {n: t.clone() for n, t in leaves.items()}
+
+        def store(leaves=leaves):
+            kv_quantize_store(k, v, leaves["k"], leaves["v"],
+                              leaves["k_scale"], leaves["v_scale"], dst)
+
+        def plain(leaves=twin):
+            kv_quantize_store_plain(k, v, leaves["k"], leaves["v"],
+                                    leaves["k_scale"], leaves["v_scale"],
+                                    dst)
+
+        store()
+        torch.cuda.synchronize()
+        plain()
+        differ = {n: int((leaves[n] != twin[n]).sum()) for n in leaves}
+        check(not any(differ.values()), f"B2 store vs plain [{name}]: not "
+              f"bit-equal ({differ} values differ)")
+        if kw.get("ties"):
+            q = leaves["k"].view(-1, k.shape[-1])[dst.reshape(-1)[0], :8]
+            check(q.tolist() == [2, -4, 0, 2, 0, 127, 4, -126],
+                  f"B2 store rounding is not half-to-even: {q.tolist()}")
+        n = k.numel() // k.shape[-1]
+        kept = int((dst >= 0).sum())
+        row = {"max_abs_err": 0.0, "tol": "bit-exact", "rows": n,
+               "kept": kept}
+        if name.startswith(timed):
+            def route(leaves=leaves):
+                qk, sk = kv_quantize(k.reshape(-1, k.shape[-1]))
+                qv, sv = kv_quantize(v.reshape(-1, v.shape[-1]))
+                route_write(leaves, {
+                    "k": qk.view(k.shape), "v": qv.view(v.shape),
+                    "k_scale": sk.view(k.shape[:-1] + (1,)),
+                    "v_scale": sv.view(v.shape[:-1] + (1,))})
+
+            row["ms"] = time_ms(store, flush)
+            row["plain_ms"] = time_ms(plain, flush)
+            row["separate_route_ms"] = time_ms(route, flush)
+            row["bound_ms"], row["bound_by"] = store_bound_ms(
+                n, kept, k.shape[-1], k.element_size(), card)
+            row["library_ms"] = None
+        results[name] = row
+        print(f"B2 store vs plain [{name}]: " + json.dumps(row))
+        del k, v, leaves, twin, dst
+    torch.cuda.empty_cache()
+    return results
+
+
 # --- phase 2, continued: the hlslib kernels (B8, B7, B4, B5) ---------------------------
 
 
@@ -997,6 +1161,7 @@ def kernel_counts():
     return {"flash_attention_decode_paged": fa.flash_attention_decode_paged,
             "flash_attention_decode": fa.flash_attention_decode,
             "kv_quantize": kq.kv_quantize,
+            "kv_quantize_store": kq.kv_quantize_store,
             "kv_dequantize": kq.kv_dequantize,
             "stencil2d": st.stencil2d,
             "tree_row_reduce": tk.tree_row_reduce,
@@ -1014,10 +1179,43 @@ def read_counts(counts):
     return {name: fn.launches for name, fn in counts.items()}
 
 
+def count_prefills(bat):
+    """Count a dense-slot batcher's prefill calls (one per admitted
+    bucket) in ``bat.prefill_calls``."""
+    bat.prefill_calls = 0
+    if bat.paged:
+        return
+    inner = bat._admit_fn
+
+    def counted(*args):
+        bat.prefill_calls += 1
+        return inner(*args)
+
+    bat._admit_fn = counted
+
+
+def b2_launches_expected(cfg, bat):
+    """B2's launches on an int8 serve, exactly: one store per layer for
+    every decode step (and every paged prefill chunk); two quantize
+    launches per layer for every dense prefill (its whole-cache
+    conversion); two dequantize launches per layer for every dense
+    decode step (the slot cache read back) and every paged chunk (the
+    pool gathered), none for a paged decode step through B1."""
+    L = cfg.n_layers
+    if bat.paged:
+        return {"kv_quantize_store": (bat.steps + bat.prefill_chunks) * L,
+                "kv_quantize": 0,
+                "kv_dequantize": 2 * bat.prefill_chunks * L}
+    return {"kv_quantize_store": bat.steps * L,
+            "kv_quantize": 2 * bat.prefill_calls * L,
+            "kv_dequantize": 2 * bat.steps * L}
+
+
 def run_batcher(cfg, params, prompts, max_news, **kw):
     import threading
     from repro_torch.serve.batching import ContinuousBatcher, Request, drain
     bat = ContinuousBatcher(cfg, params, device=DEVICE, **kw)
+    count_prefills(bat)
     reqs = [Request(rid=i, prompt=p, max_new=m)
             for i, (p, m) in enumerate(zip(prompts, max_news))]
     prod = threading.Thread(target=lambda: [bat.submit(r) for r in reqs])
@@ -1080,9 +1278,13 @@ def phase_exactness(seed):
         check(n["flash_attention_decode"] == bat.steps * c.n_layers,
               f"dense-slot [{label}] did not decode through B3: {n}")
         if kw.get("kv_cache_dtype") == "int8":
-            check(n["kv_quantize"] > 0 and n["kv_dequantize"] > 0,
-                  f"int8 dense-slot did not run B2: {n}")
+            want = b2_launches_expected(c, bat)
+            check({k: n[k] for k in want} == want, f"int8 dense-slot B2 "
+                  f"launches {n} != {want}")
             dense_int8 = got
+        else:
+            check(n["kv_quantize_store"] == n["kv_quantize"] == 0,
+                  f"bf16 dense-slot ran B2's quantize: {n}")
         print(f"smoke exactness: dense-slot [{label}] through the kernels "
               f"token-identical to dense greedy ({bat.steps} steps, "
               f"launches {json.dumps(n)})")
@@ -1124,8 +1326,11 @@ def phase_exactness(seed):
           "int8 paged run did not preempt")
     check(got == dense_int8, f"int8 paged {got} != int8 dense {dense_int8}")
     check(bat.total_used_pages() == 0, "pages leaked")
+    want = b2_launches_expected(c, bat)
     check(n["flash_attention_decode_paged"] == bat.steps * c.n_layers
-          and n["kv_quantize"] > 0, f"int8 paged skipped a kernel: {n}")
+          and {k: n[k] for k in want} == want,
+          f"int8 paged launches {n} != steps {bat.steps} x layers and "
+          f"{want}")
     print(f"smoke exactness: int8 paged with a 5-page pool "
           f"({bat.preemptions} preemptions) token-identical to int8 dense "
           f"slots (launches {json.dumps(n)})")
@@ -1202,7 +1407,8 @@ SPLIT = (("B1_flash_decode_paged", ("flash_decode_paged_kernel",
                                     "flash_decode_paged_combine")),
          ("B3_flash_decode", ("flash_decode_kernel",
                               "flash_decode_combine")),
-         ("B2_kv_quant", ("quantize_kernel",)),
+         ("B2_kv_quantize", ("kv_quantize_store_kernel",)),
+         ("B2_kv_dequantize", ("kv_dequantize_kernel",)),
          ("B6_ssd_scan", ("ssd_cb_kernel", "ssd_state_kernel",
                           "ssd_pass_kernel", "ssd_out_kernel")),
          ("matmul", ("gemm", "nvjet", "cublas", "cutlass", "splitKreduce")))
@@ -1213,7 +1419,9 @@ def profile_window(fn, n: int):
     copy) over ``n`` unprofiled calls, then device busy time per call from
     a ``torch.profiler`` trace of ``n`` more: the sum of the card's kernel
     and copy intervals (one stream, so they do not overlap), split into
-    the port's kernels, matrix products and everything else."""
+    the port's kernels, matrix products and everything else, with the
+    kernels launched per call (copies and fills counted apart), also by
+    class."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
@@ -1226,18 +1434,28 @@ def profile_window(fn, n: int):
             fn()
     split = {key: 0.0 for key, _ in SPLIT}
     split["other"] = 0.0
+    kernels = dict.fromkeys(split, 0)
+    copies = 0
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
             continue
         key = next((k for k, pats in SPLIT
                     if any(pat in ev.name for pat in pats)), "other")
         split[key] += ev.time_range.elapsed_us()
+        if ev.name.startswith(("Memcpy", "Memset")):
+            copies += 1
+        else:
+            kernels[key] += 1
     busy = sum(split.values()) / n / 1e3
     out = {"wall_ms": wall * 1e3,
            "device_busy_ms": busy if busy else "not measured"}
     if busy:
         out["device_idle_share"] = 1.0 - busy / (wall * 1e3)
         out.update({f"{k}_ms": v / n / 1e3 for k, v in split.items()})
+        out["kernels_per_call"] = sum(kernels.values()) / n
+        out["copies_per_call"] = copies / n
+        out["kernels_per_call_by_class"] = {k: c / n for k, c in
+                                            kernels.items()}
     return out
 
 
@@ -1276,6 +1494,7 @@ def serve_full_width(cfg, params, seed, counts):
     torch.cuda.reset_peak_memory_stats()
     bat = ContinuousBatcher(cfg, params, n_slots=N_SLOTS, max_seq=MAX_SEQ,
                             device=DEVICE)
+    count_prefills(bat)
     step_s = []
     inner_step = bat.step
 
@@ -1316,6 +1535,7 @@ def serve_full_width(cfg, params, seed, counts):
         "requests": N_REQ, "tokens": tokens, "wall_s": wall,
         "tokens_per_s": tokens / wall, "decode_steps": bat.steps,
         "prefill_chunks": bat.prefill_chunks,
+        "prefill_calls": bat.prefill_calls,
         "median_step_ms": statistics.median(step_s) * 1e3,
         "ttft_median_s": statistics.median(ttft), "ttft_max_s": max(ttft),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1348,6 +1568,72 @@ def compare_logits(cfg, params, cache, tokens, pos, label):
           f"[{label}]")
 
 
+def prefill_pools(cfg, params, rng):
+    """Page pools of the full-width paged config (8 slots x 64 pages, one
+    table row each), every slot prefilled through the chunk step with a
+    prompt of 100-900 tokens.  Returns (pools, block_tab, slot state
+    [last_tok, pos, remaining, active], chunk step, chunks run)."""
+    from repro_torch.models import params as PP
+    from repro_torch.models import registry
+    from repro_torch.serve.serve_loop import make_chunk_prefill_step
+    n_slots, max_seq, page, chunk = N_SLOTS, MAX_SEQ, PAGE, CHUNK
+    nb = max_seq // page
+    pools = PP.init_params(registry.paged_cache_decls(cfg, n_slots * nb, page),
+                           device=DEVICE)
+    bt = torch.arange(n_slots * nb, device=DEVICE, dtype=torch.int32).reshape(
+        n_slots, nb)
+    zero = torch.zeros(n_slots, dtype=torch.int32, device=DEVICE)
+    state = [zero.clone(), zero.clone(), zero.clone(), zero.bool()]
+    fn = make_chunk_prefill_step(cfg, chunk, max_seq, page)
+    plens = rng.integers(100, 900, n_slots)
+    n_chunks = 0
+    for s, plen in enumerate(plens):
+        prompt = rng.integers(0, cfg.vocab_size, int(plen))
+        for base_pos in range(0, int(plen), chunk):
+            seg = np.zeros((1, chunk), np.int64)
+            part = prompt[base_pos:base_pos + chunk]
+            seg[0, :len(part)] = part
+            final = base_pos + chunk >= plen
+            last = (plen - 1 - base_pos) if final else chunk - 1
+            pools, *state, _ = fn(
+                params, pools, {"kv": bt}, *state,
+                torch.from_numpy(seg).to(DEVICE),
+                torch.full((1,), base_pos, dtype=torch.int32, device=DEVICE),
+                torch.full((1,), int(last), dtype=torch.int32, device=DEVICE),
+                s, final, int(plen), 4, 0)
+            n_chunks += 1
+    return pools, bt, state, fn, n_chunks
+
+
+def same_through_twin(label, step, cache):
+    """Run ``step(cache)`` (one decode step, writing the cache in place)
+    once through B2's store kernel and once with the model calling its
+    plain twin instead, each on its own copy of ``cache``: every leaf
+    after the step must be equal, bit for bit."""
+    from repro_torch.kernels.kv_quant import kv_quantize_store_plain
+    from repro_torch.models import layers
+    from repro_torch.models import params as PP
+    after = {}
+    kernel = layers.kv_quantize_store
+    for route in ("kernel", "twin"):
+        c = PP.tree_map(lambda _, a: a.clone(), cache)
+        layers.kv_quantize_store = kernel if route == "kernel" \
+            else kv_quantize_store_plain
+        try:
+            step(c)
+            torch.cuda.synchronize()
+        finally:
+            layers.kv_quantize_store = kernel
+        after[route] = PP.tree_leaves(c)
+    differ = sum(not torch.equal(a, b)
+                 for a, b in zip(after["kernel"], after["twin"]))
+    check(differ == 0, f"[{label}] {differ} cache leaves differ between "
+          "B2's store kernel and its twin")
+    print(f"full-width [{label}]: the caches after one step through B2's "
+          f"store kernel and through its plain twin are equal "
+          f"({len(after['kernel'])} leaves)")
+
+
 def phase_full_width(seed):
     """Full-width serves: paged through B1, then dense slots through B3
     with a bf16 and an int8 (B2) cache.  Returns {path: launches}."""
@@ -1355,8 +1641,7 @@ def phase_full_width(seed):
     from repro_torch.models import params as PP
     from repro_torch.models import registry
     from repro_torch.serve.batching import ContinuousBatcher, Request
-    from repro_torch.serve.serve_loop import (make_chunk_prefill_step,
-                                              make_paged_decode_step as
+    from repro_torch.serve.serve_loop import (make_paged_decode_step as
                                               make_decode_step)
 
     base = dataclasses.replace(get("minitron-4b"), decode_flash=True)
@@ -1382,29 +1667,7 @@ def phase_full_width(seed):
     rng = np.random.default_rng(seed)
 
     # one decode step's logits, kernel vs plain, on prefilled pools.
-    nb = max_seq // page
-    pools = PP.init_params(registry.paged_cache_decls(cfg, n_slots * nb, page),
-                           device=DEVICE)
-    bt = torch.arange(n_slots * nb, device=DEVICE, dtype=torch.int32).reshape(
-        n_slots, nb)
-    zero = torch.zeros(n_slots, dtype=torch.int32, device=DEVICE)
-    state = [zero.clone(), zero.clone(), zero.clone(), zero.bool()]
-    fn = make_chunk_prefill_step(cfg, chunk, max_seq, page)
-    plens = rng.integers(100, 900, n_slots)
-    for s, plen in enumerate(plens):
-        prompt = rng.integers(0, cfg.vocab_size, int(plen))
-        for base_pos in range(0, int(plen), chunk):
-            seg = np.zeros((1, chunk), np.int64)
-            part = prompt[base_pos:base_pos + chunk]
-            seg[0, :len(part)] = part
-            final = base_pos + chunk >= plen
-            last = (plen - 1 - base_pos) if final else chunk - 1
-            pools, *state, _ = fn(
-                params, pools, {"kv": bt}, *state,
-                torch.from_numpy(seg).to(DEVICE),
-                torch.full((1,), base_pos, dtype=torch.int32, device=DEVICE),
-                torch.full((1,), int(last), dtype=torch.int32, device=DEVICE),
-                s, final, int(plen), 4, 0)
+    pools, bt, state, fn, _ = prefill_pools(cfg, params, rng)
     last_tok, pos = state[0], state[1]
     compare_logits(cfg, params, {"pages": pools, "block_tab": {"kv": bt}},
                    last_tok, pos, "paged bf16")
@@ -1447,10 +1710,10 @@ def phase_full_width(seed):
         check(launches["flash_attention_decode"] == bat.steps * cfg.n_layers,
               f"[{label}] B3 launches {launches} != steps {bat.steps} x "
               f"layers {cfg.n_layers}")
-        if dt == "int8":
-            check(launches["kv_dequantize"] == 2 * bat.steps * cfg.n_layers
-                  and launches["kv_quantize"] > 2 * bat.steps * cfg.n_layers,
-                  f"[{label}] B2 launches {launches}")
+        want = b2_launches_expected(cfg, bat) if dt == "int8" else dict(
+            kv_quantize_store=0, kv_quantize=0, kv_dequantize=0)
+        check({k: launches[k] for k in want} == want,
+              f"[{label}] B2 launches {launches} != {want}")
         print(f"full-width serve [{label}]: " + json.dumps(summary))
         paths[label] = launches
         del bat
@@ -1467,6 +1730,9 @@ def phase_full_width(seed):
         compare_logits(cfg, params, bat.cache, bat.last_tok, bat.pos, label)
         pos = bat.pos.clone()
         remaining = bat.remaining + 1000
+        if dt == "int8":
+            same_through_twin(f"{label} decode step", lambda c: bat._step(
+                params, c, bat.last_tok, pos, remaining, active), bat.cache)
 
         def dense_once():
             nonlocal pos
@@ -1480,6 +1746,52 @@ def phase_full_width(seed):
               "positions): " + json.dumps(prof))
         del bat
         torch.cuda.empty_cache()
+
+    # --- paged, int8 pools: B2's store on every chunk and decode step ---
+    label = "paged int8"
+    cfg = dataclasses.replace(base, kv_page_size=page, prefill_chunk=chunk,
+                              kv_cache_dtype="int8")
+    L = cfg.n_layers
+    reset_counts(counts)
+    pools, bt, state, fn, n_chunks = prefill_pools(
+        cfg, params, np.random.default_rng(seed + 1))
+    n = read_counts(counts)
+    check(n["kv_quantize_store"] == n_chunks * L and n["kv_quantize"] == 0,
+          f"[{label}] {n_chunks} prefill chunks launched {n}")
+    last_tok, pos, rem = state[0], state[1], state[2] + 1000
+    step = make_decode_step(cfg, max_seq, page)
+    same_through_twin(f"{label} decode step", lambda c: step(
+        params, c, {"kv": bt}, last_tok, pos, rem, active), pools)
+
+    def decode_once():
+        nonlocal pos
+        _, _, pos, _, _, out = step(params, pools, {"kv": bt}, last_tok,
+                                    pos, rem, active)
+        out.cpu()
+
+    def chunk_once():
+        *_, tok = fn(params, pools, {"kv": bt}, *state, seg,
+                     torch.zeros(1, dtype=torch.int32, device=DEVICE),
+                     torch.full((1,), chunk - 1, dtype=torch.int32,
+                                device=DEVICE), 0, False, chunk, 4, 0)
+        tok.cpu()
+
+    for f, want in ((decode_once, dict(kv_quantize_store=L, kv_quantize=0,
+                                       kv_dequantize=0,
+                                       flash_attention_decode_paged=L)),
+                    (chunk_once, dict(kv_quantize_store=L, kv_quantize=0,
+                                      kv_dequantize=2 * L))):
+        reset_counts(counts)
+        f()
+        n = read_counts(counts)
+        check({k: n[k] for k in want} == want,
+              f"[{label}] {f.__name__} launched {n}, not {want}")
+    prof = {"decode_step": profile_window(decode_once, 5),
+            "prefill_chunk_128": profile_window(chunk_once, 3)}
+    print(f"time split [{label}] (8 slots at ~100-900 positions): "
+          + json.dumps(prof))
+    del pools, step, fn, state
+    torch.cuda.empty_cache()
     return paths
 
 
@@ -1769,6 +2081,7 @@ def main():
     b3 = phase_dense_kernel(gen, card, flush)[
         "main (8 slots x 1024, pos 128-1023, bf16)"]
     b2 = phase_quant_kernel(gen, card, flush)
+    b2s = phase_store_kernel(gen, card, flush)
     hl = phase_hlslib_kernels(gen, card, flush)
     b6 = phase_ssd_kernel(gen, card, flush)
     del flush
@@ -1779,17 +2092,20 @@ def main():
     paths.update(phase_recurrent_full_width(args.seed))
 
     # each kernel's row: its launches on the full-width path that runs it,
-    # its numbers at that path's shapes (B2: quantize at the decode rows
-    # of each step, dequantize at the full slot cache it reads back).
-    q_rows = b2["decode rows (8*8*1 x 128, bf16)"]
+    # its numbers at that path's shapes (B2: the store at the decode rows
+    # of each step, quantize at the whole slot cache a prefill converts,
+    # dequantize at the full slot cache each step reads back).
     d_rows = b2["full cache (8*8*1024 x 128, bf16)"]
     rows = {
         "flash_attention_decode_paged": (paths["paged bf16"], b1),
         "flash_attention_decode": (paths["dense bfloat16"], b3),
+        "kv_quantize_store": (paths["dense int8"], b2s[
+            "dense decode rows (8 slots x 8 kv heads, K and V, d 128, "
+            "bf16)"]),
         "kv_quantize": (paths["dense int8"], {
-            "max_abs_err": q_rows["max_abs_err"], "ms": q_rows["quantize_ms"],
-            "plain_ms": q_rows["quantize_plain_ms"],
-            "bound_ms": q_rows["quantize_bound_ms"], "bound_by": "bytes",
+            "max_abs_err": d_rows["max_abs_err"], "ms": d_rows["quantize_ms"],
+            "plain_ms": d_rows["quantize_plain_ms"],
+            "bound_ms": d_rows["quantize_bound_ms"], "bound_by": "bytes",
             "library_ms": None}),
         "kv_dequantize": (paths["dense int8"], {
             "max_abs_err": d_rows["max_abs_err"],

@@ -15,13 +15,17 @@
 #
 # Each run's whole output goes to LOGDIR/ab_{p1,c1,c2,p2}.log (LOGDIR
 # defaults to build/ab); its card line, main- and long-shape kernel lines
-# (B6 also at zamba2's widths, B4 also at the decode rows), full-width
-# serve, train-forward and time-split lines are printed.  Exits non-zero if
+# (B6 also at zamba2's widths, B4 and B2 also at the decode rows, B2's
+# store at its timed shapes), full-width serve, train-forward and
+# time-split lines are printed.  After each run, scripts/int8_step_profile.py
+# (of the tree this script is run from) profiles that side's int8 decode
+# steps (kernels and B2 per step) into the same log.  Exits non-zero if
 # any run did.
 set -u
 parent=$1
 change=$2
 out=$(realpath -m "${3:-build/ab}")
+here=$(dirname "$(realpath "$0")")
 mkdir -p "$out"
 status=0
 for run in "p1:$parent" "c1:$change" "c2:$change" "p2:$parent"; do
@@ -29,9 +33,12 @@ for run in "p1:$parent" "c1:$change" "c2:$change" "p2:$parent"; do
   dir=${run#*:}
   (cd "$dir" && python3 chip_smoke.py) > "$out/ab_$tag.log" 2>&1
   rc=$?
-  echo "== $tag ($dir) rc=$rc"
-  grep -E '^(card:|kernel vs plain \[main|B[134567] vs plain \[(main|long|decode rows|zamba2 widths)|B6 \[|full-width (serve|train forward)|time split|\{"ok")' \
+  python3 "$here/int8_step_profile.py" "$dir" >> "$out/ab_$tag.log" 2>&1
+  rc2=$?
+  echo "== $tag ($dir) rc=$rc profile rc=$rc2"
+  grep -E '^(card:|kernel vs plain \[main|B[1-7] vs plain \[(main|long|decode rows|full cache|prefill chunk|zamba2 widths)|B2 store vs plain \[(dense decode rows \(8|paged)|B6 \[|full-width (serve|train forward|\[)|time split|int8 step profile|\{"ok")' \
     "$out/ab_$tag.log"
   [ "$rc" -eq 0 ] || status=$rc
+  [ "$rc2" -eq 0 ] || status=$rc2
 done
 exit "$status"

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Time design variants of the kernels B5, B1, B7, B3, B6 and B4 on a CUDA card.
 
-    python3 scripts/kernel_variants.py [b5 b1 b7 b3 b6 b4]   # repo root, on the card
+    python3 scripts/kernel_variants.py [b5 b1 b7 b3 b6 b4 b2]   # repo root, on the card
 
-(no names: all six).
+(no names: all seven).
 Each variant is the shipped source (``src/repro_torch/csrc``) with one
 textual change, built with the same nvcc flags into ``build/variants/``
 and called through ctypes beside the shipped kernel, at chip_smoke.py's
@@ -51,6 +51,20 @@ function that reads x and writes y once), after the usual flush and
 after one that leaves clean lines in L2; and the earlier design, one
 CTA of 128 threads per row and two passes over it
 (``baselines/rmsnorm_two_pass.cu``).
+B2 (``kv_quantize`` and ``kv_quantize_store``, bit for bit), at the slot
+cache (8·8·1024 x 128 bf16), a prefill (8·128·8 x 128), the decode rows
+(64 x 128) and the store's decode rows (8 slots x 8 kv heads, K and V)
+and paged chunk (1 x 128 tokens x 8 kv heads): the shipped kernel at the
+plan ``kv_quant_plan`` picks and at other lanes per row, vectors per
+lane and threads per CTA; a copy of x (``clone``) after both flushes; the earlier design, a warp per
+row and one launch per input (``baselines/kv_quant_warp_row.cu``), with
+the store's rows written by ``index_put_`` (the separate route); and at
+the quantize shapes, with the chosen plan:
+  plain_loads -- cached loads instead of streaming ones;
+  rintf       -- rintf and float clamps, then a conversion, instead of
+                 one __float2int_rn and integer clamps (the same values);
+  mul_recip   -- x times a reciprocal of the scale (diagnostic, not the
+                 reference's division: what the division costs).
 """
 
 import ctypes
@@ -68,6 +82,7 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import kv_quant as kq  # noqa: E402
 from repro_torch.kernels import rmsnorm_kernel as rk  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.kernels import treereduce_kernel as tk  # noqa: E402
@@ -406,6 +421,119 @@ def run_b4(gen, flush, stream):
         del x, w, w1, ref, out
 
 
+B2 = {
+    "plain_loads": {"? __ldcs(x + c) :": "? x[c] :"},
+    "rintf": {"""        o[k] = static_cast<int8_t>(min(max(
+            __float2int_rn(__fdiv_rn(v[j][k], scale)), -127), 127));""":
+              """        o[k] = static_cast<int8_t>(static_cast<int>(fminf(fmaxf(
+            rintf(__fdiv_rn(v[j][k], scale)), -127.f), 127.f)));"""},
+    "mul_recip": {
+        "  const float scale = __fdiv_rn(fmaxf(amax, 1e-6f), 127.0f);\n":
+        "  const float scale = __fdiv_rn(fmaxf(amax, 1e-6f), 127.0f);\n"
+        "  const float inv = __frcp_rn(scale);\n",
+        "__float2int_rn(__fdiv_rn(v[j][k], scale))":
+        "__float2int_rn(v[j][k] * inv)"},
+}
+
+
+def run_b2(gen, flush, stream):
+    quant, store, _ = kq._kernels()
+    texts = build_variants("kv_quant", B2, "kv_quantize",
+                           [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                           + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    old = build_variants("kv_quant_warp_row", {"warp_row": {}}, "kv_quantize",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                         + [ctypes.c_void_p],
+                         os.path.join(BASELINES, "kv_quant_warp_row.cu")
+                         )["warp_row"]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    read_flush = type("ReadFlush", (), {"zero_": lambda self: flush.view(
+        torch.float32).sum()})()
+    d = 128
+    others = [(8, 2, 128), (8, 2, 256), (8, 2, 64), (16, 1, 64),
+              (16, 1, 128), (16, 1, 256), (32, 1, 64)]
+    for rows in (8 * 8 * 1024, 8 * 128 * 8, 64):
+        x = torch.randn((rows, d), generator=gen, device="cuda").bfloat16()
+        x = x * torch.rand((rows, 1), generator=gen, device="cuda") * 8
+        x = x.bfloat16()
+        pq, ps = kq.kv_quantize_plain(x)
+        q, s_ = torch.empty_like(pq), torch.empty_like(ps)
+        chosen = kq.kv_quant_plan(rows, d, 2, n_sm)
+        calls = {}
+        for p in [chosen] + [p for p in others if p != chosen]:
+            arg = kq._plan_arg(p)
+            calls[f"plan {p}" + (" (chosen)" if p == chosen else "")] = (
+                lambda arg=arg: quant(x.data_ptr(), q.data_ptr(),
+                                      s_.data_ptr(), rows, d, 1, arg, stream))
+        for name, fn in texts.items():
+            arg = kq._plan_arg(chosen)
+            calls[f"{name}, chosen plan"] = (
+                lambda fn=fn, arg=arg: fn(x.data_ptr(), q.data_ptr(),
+                                          s_.data_ptr(), rows, d, 1, arg,
+                                          stream))
+        calls["warp_row (earlier design)"] = lambda: old(
+            x.data_ptr(), q.data_ptr(), s_.data_ptr(), rows, d, 1, stream)
+        bound = cs.quant_bound_ms(rows, d, 2, 1, "H100")[0]
+        for rnd in range(2):
+            print(f"B2 quantize {rows} x {d} round {rnd} bound {bound}: "
+                  f"x.clone() ms {cs.time_ms(x.clone, flush)}, with a read "
+                  f"flush {cs.time_ms(x.clone, read_flush)}", flush=True)
+            for name, call in calls.items():
+                q.zero_()
+                assert call() == 0
+                torch.cuda.synchronize()
+                same = torch.equal(q, pq) and torch.equal(s_, ps)
+                print(f"B2 quantize {rows} x {d} round {rnd} {name}: ms "
+                      f"{cs.time_ms(call, flush)}, bit-equal {same}",
+                      flush=True)
+        del x, q, s_, pq, ps
+
+    for layout in ("dense", "paged chunk"):
+        k, v, leaves, dst, route_write = cs.make_store_case(gen, layout)
+        n = k.numel() // d
+        twin = {name: t.clone() for name, t in leaves.items()}
+        kq.kv_quantize_store_plain(k, v, twin["k"], twin["v"],
+                                   twin["k_scale"], twin["v_scale"], dst)
+        chosen = kq.kv_quant_plan(2 * n, d, 2, n_sm)
+        ptrs = [t.data_ptr() for t in (k, v, leaves["k"], leaves["v"],
+                                       leaves["k_scale"], leaves["v_scale"],
+                                       dst)]
+        n_dst = leaves["k"].numel() // d
+        calls = {}
+        for p in [chosen] + [p for p in others if p != chosen]:
+            arg = kq._plan_arg(p)
+            calls[f"plan {p}" + (" (chosen)" if p == chosen else "")] = (
+                lambda arg=arg: store(*ptrs, n, n_dst, d, 1, arg, stream))
+        kk, vv = k.reshape(-1, d), v.reshape(-1, d)
+        qk, qv = (torch.empty((n, d), dtype=torch.int8, device="cuda")
+                  for _ in range(2))
+        sk, sv = (torch.empty((n, 1), dtype=torch.bfloat16, device="cuda")
+                  for _ in range(2))
+        start = {name: t.clone() for name, t in leaves.items()}
+
+        def separate_route():
+            old(kk.data_ptr(), qk.data_ptr(), sk.data_ptr(), n, d, 1, stream)
+            old(vv.data_ptr(), qv.data_ptr(), sv.data_ptr(), n, d, 1, stream)
+            route_write(leaves, {"k": qk.view(k.shape), "v": qv.view(v.shape),
+                                 "k_scale": sk.view(k.shape[:-1] + (1,)),
+                                 "v_scale": sv.view(v.shape[:-1] + (1,))})
+            return 0
+
+        calls["warp_row + index_put_ (separate route)"] = separate_route
+        bound = cs.store_bound_ms(n, int((dst >= 0).sum()), d, 2, "H100")[0]
+        for rnd in range(2):
+            for name, call in calls.items():
+                for name_, t in leaves.items():
+                    t.copy_(start[name_])
+                assert call() == 0
+                torch.cuda.synchronize()
+                same = all(torch.equal(leaves[x], twin[x]) for x in leaves)
+                print(f"B2 store {layout} ({n} rows each) round {rnd} bound "
+                      f"{bound} {name}: ms {cs.time_ms(call, flush)}, "
+                      f"bit-equal {same}", flush=True)
+        del k, v, leaves, twin, dst
+
+
 def main():
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
@@ -418,7 +546,7 @@ def main():
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     runs = {"b5": run_b5, "b1": run_b1, "b7": run_b7, "b3": run_b3,
-            "b6": run_b6, "b4": run_b4}
+            "b6": run_b6, "b4": run_b4, "b2": run_b2}
     for name in sys.argv[1:] or list(runs):
         runs[name](gen, flush, stream)
     return 0

@@ -27,7 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels.kv_quant import kv_dequantize, kv_quantize
+from ..kernels.kv_quant import (kv_dequantize, kv_quantize,
+                                kv_quantize_store, kv_store_rows)
 from .params import Decl
 
 F32 = torch.float32
@@ -195,16 +196,19 @@ def _qkv(cfg, p, x):
 def attention_apply(cfg, p, x, *, window: Optional[int] = None,
                     theta: Optional[float] = None,
                     cache: Optional[Dict[str, torch.Tensor]] = None,
-                    pos=None):
+                    pos=None, store_rows: Optional[torch.Tensor] = None):
     """Pre-norm attention with residual.  Train/prefill when cache is
     None; single-token decode otherwise: ``cache`` holds k, v of shape
     (b, hkv, S, hd) (int8 caches also k_scale, v_scale of (b, hkv, S,
     1)), written in place, and ``pos`` is a (b,) tensor (or a host int
     for every row) — each row decodes at its own position, as the
     reference's vmap over slots does.  A cache of exactly ``window``
-    slots is the rolling ring buffer.  With ``cfg.decode_flash`` the read
-    goes through ``kernels.flash_attention.flash_attention_decode``.
-    Returns (y, cache)."""
+    slots is the rolling ring buffer.  An int8 cache is written through
+    ``kv_quantize_store`` at ``store_rows`` (``dense_store_rows``; the
+    same for every layer, so callers may compute it once per step).  With
+    ``cfg.decode_flash`` the read goes through
+    ``kernels.flash_attention.flash_attention_decode``.  Returns (y,
+    cache)."""
     theta = theta if theta is not None else cfg.rope_theta
     b, s, d = x.shape
     h = rmsnorm(x, p["norm"])
@@ -217,22 +221,27 @@ def attention_apply(cfg, p, x, *, window: Optional[int] = None,
         o = attention_xla(q, k, v, causal=True, window=window)
         new_cache = None
     else:
-        pos = torch.as_tensor(pos, device=x.device).to(torch.int64).reshape(
-            -1).expand(b)
+        pos = decode_pos(pos, b, x.device)
         cs = _rope_angles(pos[:, None, None], cfg.head_dim, theta, x.device)
         q = _rotate(q, *cs).transpose(1, 2)          # (b, hq, 1, hd)
         k = _rotate(k, *cs).transpose(1, 2)          # (b, hkv, 1, hd)
         v = v.transpose(1, 2)
         S = cache["k"].shape[2]
         ring = window is not None and S == window
-        # rolling ring cache: slot = pos % window.  The reference's
-        # dynamic_update_slice clamps its start index, hence the clamp.
-        slot = (pos % window if ring else pos).clamp(max=S - 1)
-        rows = torch.arange(b, device=x.device)
-        new = _to_cache(cfg, {"k": k[:, :, 0], "v": v[:, :, 0]},
-                        cache["k"].dtype)
-        for name, t in new.items():
-            cache[name][rows, :, slot] = t
+        if cfg.kv_cache_dtype == "int8":
+            # quantize K and V into their slots: one launch of B2.
+            if store_rows is None:
+                store_rows = dense_store_rows(pos, S, k.shape[1], window)
+            kv_quantize_store(
+                k[:, :, 0].contiguous(), v[:, :, 0].contiguous(),
+                cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
+                store_rows)
+        else:
+            slot = decode_slot(pos, S, window)
+            rows = torch.arange(b, device=x.device)
+            for name, t in _to_cache(cfg, {"k": k[:, :, 0], "v": v[:, :, 0]},
+                                     cache["k"].dtype).items():
+                cache[name][rows, :, slot] = t
         full = _from_cache(cache, q.dtype)            # (b, hkv, S, hd)
         if cfg.decode_flash:
             from ..kernels.flash_attention import flash_attention_decode
@@ -251,6 +260,31 @@ def attention_apply(cfg, p, x, *, window: Optional[int] = None,
     return x + y, new_cache
 
 
+def decode_pos(pos, b: int, device) -> torch.Tensor:
+    """A decode step's positions as a (b,) int64 tensor on ``device``
+    (``pos``: a (b,) tensor, or a host int for every row)."""
+    return torch.as_tensor(pos, device=device).to(torch.int64).reshape(
+        -1).expand(b)
+
+
+def decode_slot(pos: torch.Tensor, S: int, window: Optional[int] = None
+                ) -> torch.Tensor:
+    """The dense cache slot each row of a decode step writes: ``pos %
+    window`` on a rolling ring cache (S == window), else ``pos`` — both
+    clamped to S - 1, as the reference's dynamic_update_slice clamps its
+    start index."""
+    ring = window is not None and S == window
+    return (pos % window if ring else pos).clamp(max=S - 1)
+
+
+def dense_store_rows(pos: torch.Tensor, S: int, n_heads: int,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """``kv_store_rows`` of a dense decode step in a (b, hkv, S, hd) cache
+    leaf: batch row i, every head, at ``decode_slot``; (b, hkv) int64."""
+    return kv_store_rows(torch.arange(pos.shape[0], device=pos.device),
+                         decode_slot(pos, S, window), n_heads, S)
+
+
 def paged_write_index(block_tab: torch.Tensor, pos: torch.Tensor, s: int,
                       page: int, n_pages: int,
                       last_idx: Optional[torch.Tensor] = None,
@@ -266,7 +300,31 @@ def paged_write_index(block_tab: torch.Tensor, pos: torch.Tensor, s: int,
     unallocated table entries (ids outside ``[0, n_pages)``, e.g. the
     rows of inactive slots).  The mask is the same for every layer, so
     callers compute it once per forward."""
-    b = block_tab.shape[0]
+    keep, wp, wo = _paged_targets(block_tab, pos, s, page, n_pages,
+                                  last_idx, cache_offset)
+    rows_b, rows_s = keep.nonzero(as_tuple=True)
+    return rows_b, rows_s, wp[rows_b, rows_s], wo[rows_b, rows_s]
+
+
+def paged_store_rows(block_tab: torch.Tensor, pos: torch.Tensor, s: int,
+                     page: int, n_pages: int, n_heads: int,
+                     last_idx: Optional[torch.Tensor] = None,
+                     cache_offset: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """``paged_write_index`` for an int8 pool: the destination row of
+    every (b, s, head) K/V row in a pool leaf viewed as (-1, hd), -1 for
+    the rows that are not kept, as ``kv_quantize_store`` takes them.
+    Computed on the device with no host read (no ``nonzero``); the same
+    for every layer."""
+    keep, wp, wo = _paged_targets(block_tab, pos, s, page, n_pages,
+                                  last_idx, cache_offset)
+    return kv_store_rows(wp, wo, n_heads, page, keep)
+
+
+def _paged_targets(block_tab, pos, s, page, n_pages, last_idx,
+                   cache_offset):
+    """(keep, page id, offset), each (b, s): where each chunk row lands
+    and whether it is written (the masks of ``paged_write_index``)."""
     n_blocks = block_tab.shape[1]
     ar = torch.arange(s, device=block_tab.device)
     positions = pos.to(torch.int64)[:, None] + ar            # (b, s)
@@ -279,9 +337,7 @@ def paged_write_index(block_tab: torch.Tensor, pos: torch.Tensor, s: int,
     wp = torch.gather(block_tab.to(torch.int64), 1,
                       logical.clamp(max=n_blocks - 1))
     keep &= (wp >= 0) & (wp < n_pages)
-    rows_b, rows_s = keep.nonzero(as_tuple=True)
-    return rows_b, rows_s, wp[rows_b, rows_s], (positions % page)[rows_b,
-                                                                   rows_s]
+    return keep, wp, positions % page
 
 
 def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
@@ -302,8 +358,8 @@ def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
     unallocated (writes through them are dropped, reads clamped and
     masked).  ``pos``: (b,) start position per row.  ``last_idx``/
     ``cache_offset`` mask writes as in ``paged_write_index``;
-    ``write_idx`` is that function's result when the caller computed it
-    already.
+    ``write_idx`` is that function's result (for an int8 pool
+    ``paged_store_rows``'s) when the caller computed it already.
 
     Reads mirror the dense path's rounding exactly.  Without the kernel,
     the PRE-write pool is gathered and the chunk's own K/V overlaid: a
@@ -332,11 +388,12 @@ def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
     pk, pv = pages["k"], pages["v"]
     n_pages, hkv, page, hd = pk.shape
     n_blocks = block_tab.shape[1]
+    int8 = cfg.kv_cache_dtype == "int8"
     if write_idx is None:
-        write_idx = paged_write_index(block_tab, pos, s, page, n_pages,
-                                      last_idx, cache_offset)
-    rows_b, rows_s, wp, wo = write_idx
-    new = _to_cache(cfg, {"k": kc, "v": vc}, pk.dtype)   # (b, s, hkv, X)
+        write_idx = paged_store_rows(
+            block_tab, pos, s, page, n_pages, hkv, last_idx, cache_offset) \
+            if int8 else paged_write_index(block_tab, pos, s, page, n_pages,
+                                           last_idx, cache_offset)
 
     flash = cfg.decode_flash and s == 1 and cache_offset is None
     if not flash:
@@ -350,7 +407,8 @@ def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
 
         pre = _from_cache({n: gather(a) for n, a in pages.items()}, q.dtype)
         # a decode step attends its own k/v pool-rounded, a chunk exactly.
-        own = _from_cache(new, q.dtype) if s == 1 else {"k": kc, "v": vc}
+        own = _from_cache(_to_cache(cfg, {"k": kc, "v": vc}, pk.dtype),
+                          q.dtype) if s == 1 else {"k": kc, "v": vc}
         kpos = torch.arange(S, device=x.device).expand(b, S)
         K = torch.cat([pre["k"], own["k"].transpose(1, 2)], dim=2)
         V = torch.cat([pre["v"], own["v"].transpose(1, 2)], dim=2)
@@ -366,9 +424,15 @@ def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
             mask &= kpos_cat[:, None, :] > positions[:, :, None] - window
         o = attention_masked(q, K, V, mask)
 
-    # append: scatter the kept rows of the chunk's K/V into the pools.
-    for name, t in new.items():
-        pages[name][wp, :, wo] = t[rows_b, rows_s]
+    # append: the kept rows of the chunk's K/V into the pools; int8 pools
+    # quantize and store in one launch of B2.
+    if int8:
+        kv_quantize_store(kc.contiguous(), vc.contiguous(), pk, pv,
+                          pages["k_scale"], pages["v_scale"], write_idx)
+    else:
+        rows_b, rows_s, wp, wo = write_idx
+        for name, t in (("k", kc), ("v", vc)):
+            pages[name][wp, :, wo] = t[rows_b, rows_s].to(pk.dtype)
 
     if flash:
         from ..kernels.flash_attention import flash_attention_decode_paged

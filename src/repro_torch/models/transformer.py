@@ -239,15 +239,24 @@ def forward(cfg, params, batch, mode: str = "train",
         raise NotImplementedError("chunk mode requires a paged cache")
     write_idx = None
     if block_tab is not None:
-        n_pages, _, page, _ = pools["k"].shape[1:]
-        write_idx = L.paged_write_index(
-            block_tab, pos, s, page, n_pages,
-            last_pos if mode == "chunk" else None,
-            cache_offset if mode == "chunk" else None)
+        n_pages, hkv, page, _ = pools["k"].shape[1:]
+        chunk_masks = ((last_pos, cache_offset) if mode == "chunk"
+                       else (None, None))
+        write_idx = L.paged_store_rows(
+            block_tab, pos, s, page, n_pages, hkv, *chunk_masks) \
+            if cfg.kv_cache_dtype == "int8" else L.paged_write_index(
+                block_tab, pos, s, page, n_pages, *chunk_masks)
 
     w, theta = cfg.sliding_window, cfg.rope_theta
     cl = min(cache_len, w) if (w and cache_len) else cache_len
     blocks = params["blocks"]
+    store_rows = None
+    if mode == "decode" and block_tab is None \
+            and cfg.kv_cache_dtype == "int8" and "k" in cache:
+        # an int8 dense step writes the same rows in every layer.
+        _, _, hkv, S, _ = cache["k"].shape
+        store_rows = L.dense_store_rows(L.decode_pos(pos, b, x.device), S,
+                                        hkv, w)
     if cfg.family in ("ssm", "hybrid"):
         x, new_cache = _recurrent_layers(cfg, blocks, x, mode, cache, pos,
                                          cache_len, last_pos)
@@ -265,7 +274,7 @@ def forward(cfg, params, batch, mode: str = "train",
                     write_idx=write_idx)
             else:
                 x = _attn_dense(cfg, p["attn"], x, mode, cache, i, pos, w,
-                                theta, cl, last_pos, emitted)
+                                theta, cl, last_pos, emitted, store_rows)
             x = L.mlp_apply(cfg, p["mlp"], x)
         new_cache = _stack_emitted(emitted) if mode == "prefill" else None
 
@@ -293,14 +302,15 @@ def _stack_emitted(emitted):
 
 
 def _attn_dense(cfg, p, x, mode, cache, i, pos, window, theta, cache_len,
-                last_pos, emitted):
+                last_pos, emitted, store_rows=None):
     """One attention block without pages: decode against layer ``i`` of
-    the dense slot ``cache`` (written in place), or the full-sequence
-    forward, which in prefill also appends its K/V to ``emitted``."""
+    the dense slot ``cache`` (written in place; an int8 cache at
+    ``store_rows``), or the full-sequence forward, which in prefill also
+    appends its K/V to ``emitted``."""
     if mode == "decode":
         x, _ = L.attention_apply(cfg, p, x, window=window, theta=theta,
                                  cache={n: c[i] for n, c in cache.items()},
-                                 pos=pos)
+                                 pos=pos, store_rows=store_rows)
         return x
     x_in = x
     x, _ = L.attention_apply(cfg, p, x, window=window, theta=theta)

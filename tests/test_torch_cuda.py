@@ -38,12 +38,19 @@ long rows split over CTAs) and every vector edge: N = 2^k + 1, rows that
 break 16-byte alignment, an unaligned start, -0.0 rows for add, +-inf,
 NaN and +-0.0 rows for max; compared by their bits, since -0.0 == 0.0
 and NaN != NaN.
+
+B2 (``kv_quantize`` and ``kv_quantize_store``) bit for bit: every plan
+of lanes per row (d 8 to 512, fp32 and bf16), the slot cache of 65 536
+rows, and the store into dense slot caches (slots in range, on a ring,
+clamped to S - 1) and page pools with dropped rows, with rows of exact
+.5 quotients (round half to even).
 """
 
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import kv_quant as kq
 from repro_torch.kernels import rmsnorm_kernel as rk
 from repro_torch.kernels import treereduce_kernel as tk
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
@@ -333,3 +340,105 @@ def test_tree_row_reduce_kernel_bit_equal(card, rows, n, dtype, op, fill,
     want = tk.tree_row_reduce_plain(x, op)
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(_bits(got), _bits(want)), (got, want)
+
+
+def _quant_rows(gen, dev, shape, dtype, ties=False):
+    """Rows of widely varying scale; an all-zero row; with ``ties`` every
+    row holds exact .5 quotients (amax 127 gives scale 1 exactly)."""
+    x = (torch.randn(shape, generator=gen, device=dev)
+         * torch.rand(shape[:-1] + (1,), generator=gen, device=dev) * 8)
+    flat = x.view(-1, shape[-1])
+    flat[1] = 0.0
+    if ties:
+        flat[:] = torch.tensor([2.5, -3.5, 0.5, 1.5, -0.5, 127.0, 4.5,
+                                -126.5] * (shape[-1] // 8), device=dev)
+    return x.to(dtype)
+
+
+def _quant_leaves(gen, dev, shape):
+    q = {n: torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8) for n in "kv"}
+    s = {n + "_scale": torch.rand(shape[:-1] + (1,), generator=gen,
+                                  device=dev).bfloat16() for n in "kv"}
+    return {**q, **s}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,dtype", [
+    (64, 128, torch.bfloat16), (64, 128, torch.float32),
+    (65536, 128, torch.bfloat16), (1000, 64, torch.bfloat16),
+    (999, 256, torch.float32), (77, 512, torch.bfloat16),
+    (77, 512, torch.float32), (5, 8, torch.bfloat16),
+])
+def test_kv_quantize_kernel_bit_equal(card, rows, d, dtype):
+    gen = torch.Generator(device=card).manual_seed(rows + d)
+    x = _quant_rows(gen, card, (rows, d), dtype)
+    before = kq.kv_quantize.launches
+    q, s = kq.kv_quantize(x)
+    torch.cuda.synchronize()
+    assert kq.kv_quantize.launches == before + 1
+    pq, ps = kq.kv_quantize_plain(x)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,d,dtype,ties", [
+    ("dense", 128, torch.bfloat16, False),
+    ("dense", 128, torch.float32, False),
+    ("ring", 64, torch.bfloat16, False),
+    ("clamped", 256, torch.bfloat16, False),
+    ("clamped", 256, torch.float32, False),
+    ("paged", 128, torch.bfloat16, False),
+    ("paged", 64, torch.float32, False),
+    ("paged", 256, torch.bfloat16, False),
+    ("dense", 128, torch.float32, True),
+    ("paged", 128, torch.bfloat16, True),
+])
+def test_kv_quantize_store_kernel_bit_equal(card, layout, d, dtype, ties):
+    """Dense slot caches (slots in range, on a ring, clamped to S - 1) and
+    page pools with dropped rows (an unallocated page, positions past the
+    table, a padded chunk tail, a read-only prefix): every leaf equal to
+    the twin's after the store."""
+    from repro_torch.models import layers
+    gen = torch.Generator(device=card).manual_seed(d + len(layout))
+    hkv = 8
+    if layout == "paged":
+        n_pages, page, b, s = 40, 16, 4, 24
+        leaves = _quant_leaves(gen, card, (n_pages, hkv, page, d))
+        bt = torch.randperm(n_pages, generator=gen, device=card)[:12].reshape(
+            b, 3).int()
+        bt[1, 2] = n_pages                               # unallocated
+        pos = torch.tensor([0, 20, 30, 5], device=card)  # row 2 past the table
+        rows = layers.paged_store_rows(
+            bt, pos, s, page, n_pages, hkv,
+            torch.tensor([23, 23, 23, 9], device=card),  # row 3: padded tail
+            torch.tensor([0, 26, 0, 0], device=card))    # row 1: read-only
+        shape = (b, s, hkv, d)
+    else:
+        b, S = 8, 1024
+        leaves = _quant_leaves(gen, card, (b, hkv, S, d))
+        pos = torch.randint(0, 4 * S, (b,), generator=gen, device=card)
+        slot = {"dense": pos % S, "ring": pos % S,
+                "clamped": pos.clamp(max=S - 1)}[layout]
+        if layout == "clamped":
+            slot[0] = S - 1
+        rows = kq.kv_store_rows(torch.arange(b, device=card), slot, hkv, S)
+        shape = (b, hkv, d)
+    k = _quant_rows(gen, card, shape, dtype, ties)
+    v = _quant_rows(gen, card, shape, dtype, ties)
+    twin = {n: t.clone() for n, t in leaves.items()}
+    before = kq.kv_quantize_store.launches
+    kq.kv_quantize_store(k, v, leaves["k"], leaves["v"], leaves["k_scale"],
+                         leaves["v_scale"], rows)
+    torch.cuda.synchronize()
+    assert kq.kv_quantize_store.launches == before + 1
+    kq.kv_quantize_store_plain(k, v, twin["k"], twin["v"], twin["k_scale"],
+                               twin["v_scale"], rows)
+    for name in leaves:
+        assert torch.equal(leaves[name], twin[name]), name
+    if layout == "paged":
+        assert (rows < 0).any() and (rows >= 0).any()
+    if ties:
+        kept = rows.reshape(-1)[rows.reshape(-1) >= 0][0]
+        assert leaves["k"].view(-1, d)[kept, :8].tolist() == [
+            2, -4, 0, 2, 0, 127, 4, -126]
