@@ -12,7 +12,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    kernel must have some), TF32 off;
 2. kernels vs plain — every kernel against its plain PyTorch twin on the
    card: ``flash_attention_decode_paged`` (B1) and
-   ``flash_attention_decode`` (B3) at the main path's shapes, a long
+   ``flash_attention_decode`` (B3) at the main path's shapes (B1 also at
+   the served verify span, 8 sequences at sq = 5, bf16 and int8), a long
    shape and every option (B3 also at zamba2's attention widths and at
    its split-KV edges, each row with its ``n_split``),
    ``kv_quantize``/``kv_dequantize`` (B2) bit for bit at decode, prefill
@@ -36,7 +37,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    through B2, and bf16 at max_seq 512, where B3 splits each slot over
    CTAs) give the dense greedy oracle's tokens; the int8 paged
    batcher gives the int8 dense-slot batcher's, with preemption; B2's
-   launches on both int8 runs are held to exact counts;
+   launches on both int8 runs are held to exact counts; the prefix
+   cache's hit gives the cold run's tokens, ``prefill_exact`` the same
+   pool bits however the prompt is chunked, and speculative decode
+   (``speculate_k`` 4, verify spans through B1 at sq = 5, bf16 and int8
+   pools, with a prefix re-hit) plain decode's tokens, every allocator
+   consistent with no page in use at the end;
    mamba2-1p3b and zamba2-1p2b (fp32) serve dense slots when asked for
    pages, token-identical to their greedy oracle (zamba2's shared block
    through B3), and their train forward through B6 matches the plain
@@ -51,7 +57,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    B2 launches counted exactly and their time split; an int8 dense and
    an int8 paged decode step each run through B2's store kernel and
    through its plain twin from copies of one cache, the caches after
-   them equal bit for bit;
+   them equal bit for bit; then 16 requests sharing a 512-token system
+   prompt (32-128 own tokens each cycling a motif) served paged through
+   B1, plain and with the prefix cache, ``prefill_exact`` and
+   ``speculate_k`` 4 (B1 launched layers x (decode + verify steps),
+   drafts and prefix hits required, prefix, speculation and TTFT
+   counters printed), one verify span held against sequential decode
+   steps from copies of the same pools, and a verify step's time split
+   beside a decode step's;
 5. the hlslib ops path at full size — the package example's eager
    ``ShiftReg`` stage at 64 x 128 on the host against the kernel's sweep,
    then its kernel stages (``ops.stencil(use_pallas=True)`` and 64 sweeps
@@ -307,16 +320,27 @@ def bound_ms(c, card: str):
 
 
 def sdpa_inputs(c):
-    """Pre-gathered contiguous K/V (b, hkv, S, d) and the boolean mask for
-    the library yardstick (flat tables, no window, sq = 1)."""
+    """Pre-gathered contiguous K/V (b, hkv, S, d), dequantized to bf16
+    for int8 pages, and the boolean (b, 1, sq, S) causal mask of the query
+    rows at pos..pos+sq-1, for the library yardstick (flat tables, no
+    window)."""
     kp, vp, bt = c["k_pages"], c["v_pages"], c["block_tab"].long()
     b, nb = bt.shape
     _, hkv, page, d = kp.shape
     S = nb * page
-    K = kp[bt].transpose(1, 2).reshape(b, hkv, S, d).contiguous()
-    V = vp[bt].transpose(1, 2).reshape(b, hkv, S, d).contiguous()
-    mask = (torch.arange(S, device=DEVICE)[None, :]
-            <= c["pos"].long()[:, None])[:, None, None, :]
+
+    def gather(pages, scales):
+        x = pages[bt]
+        if scales is not None:
+            x = (x.float() * scales[bt].float()).bfloat16()
+        return x.transpose(1, 2).reshape(b, hkv, S, d).contiguous()
+
+    K = gather(kp, c["k_scale_pages"])
+    V = gather(vp, c["v_scale_pages"])
+    sq = c["q"].shape[2]
+    qpos = c["pos"].long()[:, None] + torch.arange(sq, device=DEVICE)
+    mask = (torch.arange(S, device=DEVICE)[None, None, :]
+            <= qpos[:, :, None])[:, None]
     return K, V, mask
 
 
@@ -404,6 +428,10 @@ def phase_kernel(gen, card, flush):
         "long (32 seqs x 4096 pos, bf16)": dict(b=32, n_blocks=256,
                                                 max_pos=4096),
         "sq=4 verify span": dict(main, sq=4),
+        # the served verify span: speculate_k 4 drafts + the last token.
+        "main verify (8 seqs, sq=5, pos <= 1k, bf16)": dict(main, sq=5),
+        "main verify (8 seqs, sq=5, pos <= 1k, int8 + bf16 scales)": dict(
+            main, sq=5, quant=True),
         "window=256": dict(main, window=256),
         "ring page_base, window=100": dict(
             main, n_blocks=-(-100 // 16) + 1, window=100, ring=True),
@@ -429,7 +457,8 @@ def phase_kernel(gen, card, flush):
     def yardstick(c):
         K, V, mask = sdpa_inputs(c)
         return ((c["q"], K, V), dict(attn_mask=mask, enable_gqa=True),
-                "sdpa on pre-gathered K/V, gather excluded")
+                "sdpa on pre-gathered K/V (int8 dequantized), gather "
+                "excluded")
 
     def bound(c):
         ms, by = bound_ms(c, card)
@@ -1336,6 +1365,133 @@ def phase_exactness(seed):
           f"slots (launches {json.dumps(n)})")
 
 
+def motif_prompts(plens, vocab, rng):
+    """Prompts that cycle a 4-token motif of their own, so the n-gram
+    drafter finds matches in the history."""
+    return [np.tile(rng.integers(0, vocab, 4), n // 4 + 1)[:n].astype(
+        np.int32) for n in plens]
+
+
+def serve_seq(bat, prompts, max_new):
+    """Serve requests one after another through one batcher, so its
+    prefix index holds each retired prompt when the next arrives."""
+    from repro_torch.serve.batching import Request, drain
+    outs = []
+    for i, p in enumerate(prompts):
+        r = Request(rid=i, prompt=p, max_new=max_new)
+        bat.submit(r)
+        bat.run(bat.retired + 1)
+        outs.append(drain(r))
+    return outs
+
+
+def empty_index(bat):
+    """Check every allocator, evict every cached prefix and check that no
+    page is left in use."""
+    for alloc in bat._alloc.values():
+        alloc.check_consistency()
+    held = bat._prefix.n_pages if bat._prefix is not None else 0
+    check(bat.total_used_pages() == held * len(bat._alloc),
+          f"{bat.total_used_pages()} pages in use, the index holds {held}")
+    while bat._prefix is not None and bat._prefix.n_nodes:
+        for name, pgs in bat._prefix.evict_lru()[1].items():
+            bat._alloc[name].free(pgs)
+    check(bat.total_used_pages() == 0, "pages leaked")
+
+
+def phase_prefix_spec_exactness(seed):
+    """The prefix cache and speculative decode at smoke width (fp32
+    compute, bf16 or int8 pools, B1 for every decode and verify step):
+    a prefix hit gives the cold run's tokens, ``prefill_exact`` installs
+    the same pool bits however the prompt was chunked, speculation gives
+    plain greedy decode's tokens (bf16 and int8 pools) with B1 launched
+    once per layer for every decode and verify step, and every allocator
+    ends consistent with no page in use.  The weights are drawn on the
+    host from the seed and moved to the card, as the CPU rehearsal draws
+    them."""
+    from repro_torch.configs import get
+    from repro_torch.configs.base import smoke_variant
+    from repro_torch.models import params as PP
+    from repro_torch.models import registry
+    from repro_torch.serve.batching import ContinuousBatcher, Request, drain
+    base = smoke_variant(get("minitron-4b"))
+    params = PP.tree_map(lambda _, a: a.to(DEVICE),
+                         registry.init(base, seed, device="cpu"))
+    counts = kernel_counts()
+    rng = np.random.default_rng(seed + 19)
+    cfg = dataclasses.replace(base, kv_page_size=8, decode_flash=True,
+                              prefix_cache=True)
+
+    P = rng.integers(0, base.vocab_size, 32).astype(np.int32)
+    bat = ContinuousBatcher(cfg, params, n_slots=2, max_seq=64,
+                            prefill_chunk=8, device=DEVICE)
+    cold, hit = serve_seq(bat, [P, P], 6)
+    check(hit == cold, f"prefix hit {hit} != cold {cold}")
+    check(bat.prefix_hits == 1 and bat.prefill_chunks == 4 + 1,
+          f"hits {bat.prefix_hits}, chunks {bat.prefill_chunks}")
+    empty_index(bat)
+
+    # prefill_exact: the installed prompt pages are the same bits from
+    # one 64-token chunk and from chunks of 16 with the exact final pass.
+    P = rng.integers(0, base.vocab_size, 40).astype(np.int32)
+    snaps, toks = [], []
+    for chunk, exact in ((64, False), (16, True)):
+        bat = ContinuousBatcher(
+            dataclasses.replace(cfg, prefix_cache=False,
+                                prefill_exact=exact),
+            params, n_slots=1, max_seq=64, prefill_chunk=chunk,
+            device=DEVICE)
+        r = Request(rid=0, prompt=P, max_new=4)
+        bat.submit(r)
+        bat.admit()
+        while bat._admitting:
+            bat._prefill_step()
+        pages = bat._slot_pages["kv"][0][:5]
+        snaps.append({k: bat.pools["kv"][k][:, pages].clone()
+                      for k in ("k", "v")})
+        bat.run(1)
+        toks.append(drain(r))
+        empty_index(bat)
+    check(all(torch.equal(snaps[0][k], snaps[1][k]) for k in ("k", "v")),
+          "prefill_exact pools differ between chunkings")
+    check(toks[0] == toks[1], f"prefill_exact tokens {toks}")
+
+    # speculation vs plain greedy, bf16 and int8 pools, with a prefix
+    # re-hit: the last two requests repeat the first two.
+    prompts = motif_prompts([9, 14, 6, 12], base.vocab_size, rng)
+    prompts += prompts[:2]
+    for kv in ("bfloat16", "int8"):
+        c = dataclasses.replace(cfg, kv_cache_dtype=kv, prefill_chunk=8,
+                                prefill_exact=True, speculate_ngram=1)
+        outs = {}
+        for k in (0, 4):
+            reset_counts(counts)
+            got, bat = run_batcher(dataclasses.replace(c, speculate_k=k),
+                                   params, prompts, [16] * len(prompts),
+                                   n_slots=2, max_seq=48)
+            n = read_counts(counts)["flash_attention_decode_paged"]
+            check(n == bat.steps * c.n_layers, f"[{kv}, k {k}] B1 launches "
+                  f"{n} != steps {bat.steps} x layers")
+            outs[k] = got
+            empty_index(bat)
+        sp = bat.stats()["speculation"]
+        check(outs[4] == outs[0], f"[{kv}] speculative {outs[4]} != plain "
+              f"{outs[0]}")
+        check(sp["verify_steps"] > 0 and sp["drafted"] > 0,
+              f"[{kv}] nothing drafted: {sp}")
+        print(f"smoke exactness [prefix cache + speculate_k 4, {kv} pools]: "
+              f"6 requests token-identical to plain decode; "
+              f"{bat.prefix_hits} prefix hits, {bat.steps} steps "
+              f"({sp['verify_steps']} verify), drafted {sp['drafted']}, "
+              f"accepted {sp['accepted']}, B1 launches {n} = steps x "
+              f"{c.n_layers}")
+    print("smoke exactness: prefix hit == cold (1 catch-up chunk); "
+          "prefill_exact pools bit-equal across chunkings; every allocator "
+          "consistent, no page in use")
+    del params
+    torch.cuda.empty_cache()
+
+
 RECURRENT = ("mamba2-1p3b", "zamba2-1p2b")
 
 
@@ -1481,27 +1637,34 @@ def stamped_stream():
 N_SLOTS, N_REQ, MAX_NEW, MAX_SEQ, PAGE, CHUNK = 8, 16, 64, 1024, 16, 128
 
 
-def serve_full_width(cfg, params, seed, counts):
-    """The traffic above through ``ContinuousBatcher`` under
-    ``DataflowContext``; kernel counts are set to 0 just before and read
-    just after.  Returns (summary, launches, batcher)."""
+def serve_full_width(cfg, params, seed, counts, prompts=None):
+    """The traffic above (or ``prompts``, MAX_NEW tokens each) through
+    ``ContinuousBatcher`` under ``DataflowContext``; kernel counts are set
+    to 0 just before and read just after.  Returns (summary, launches,
+    batcher, outputs)."""
     from repro_torch.core.dataflow import DataflowContext
     from repro_torch.serve.batching import ContinuousBatcher, Request, drain
     rng = np.random.default_rng(seed)
-    reqs = [Request(rid=i, prompt=rng.integers(
-        0, cfg.vocab_size, int(rng.integers(256, 513))).astype(np.int32),
-        max_new=MAX_NEW, out=stamped_stream()) for i in range(N_REQ)]
+    if prompts is None:
+        prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(
+            256, 513))).astype(np.int32) for _ in range(N_REQ)]
+    reqs = [Request(rid=i, prompt=p, max_new=MAX_NEW, out=stamped_stream())
+            for i, p in enumerate(prompts)]
     torch.cuda.reset_peak_memory_stats()
     bat = ContinuousBatcher(cfg, params, n_slots=N_SLOTS, max_seq=MAX_SEQ,
                             device=DEVICE)
     count_prefills(bat)
     step_s = []
+    shared = [0]
     inner_step = bat.step
 
     def timed_step():
         t0 = time.perf_counter()
-        n = inner_step()            # ends in the (2, n_slots) device->host copy
+        n = inner_step()            # ends in the step's device->host copy
         step_s.append(time.perf_counter() - t0)
+        if bat.paged:
+            shared[0] = max(shared[0], sum(a.shared_pages
+                                           for a in bat._alloc.values()))
         return n
 
     bat.step = timed_step
@@ -1526,6 +1689,8 @@ def serve_full_width(cfg, params, seed, counts):
           f"token counts {[len(o) for o in outs]} != {MAX_NEW}")
     check(all(0 <= t < cfg.padded_vocab for o in outs for t in o),
           "token id out of range")
+    if bat.paged:
+        empty_index(bat)
     check(bat.total_used_pages() == 0, "pages leaked")
     tokens = sum(len(o) for o in outs)
     ttft = [r.out.first_at - submitted[r.rid] for r in reqs]
@@ -1541,7 +1706,15 @@ def serve_full_width(cfg, params, seed, counts):
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches,
     }
-    return summary, launches, bat
+    if bat.paged and (bat.prefix_cache or bat.speculate_k):
+        st = bat.stats()
+        summary["prefix"] = {k: st.get(k) for k in (
+            "prefix_lookups", "prefix_hits", "prefix_hit_tokens",
+            "prefix_evictions", "cow_copies")}
+        summary["prefix"]["peak_shared_pages"] = shared[0]
+        summary["speculation"] = {k: st["speculation"][k] for k in (
+            "drafted", "accepted", "rolled_back", "verify_steps")}
+    return summary, launches, bat, outs
 
 
 def compare_logits(cfg, params, cache, tokens, pos, label):
@@ -1657,7 +1830,7 @@ def phase_full_width(seed):
     # --- paged, bf16, through B1 ---
     n_slots, max_seq, page, chunk = N_SLOTS, MAX_SEQ, PAGE, CHUNK
     cfg = dataclasses.replace(base, kv_page_size=page, prefill_chunk=chunk)
-    summary, launches, bat = serve_full_width(cfg, params, seed, counts)
+    summary, launches, bat, _ = serve_full_width(cfg, params, seed, counts)
     check(launches["flash_attention_decode_paged"]
           == bat.steps * cfg.n_layers,
           f"B1 launches {launches} != steps {bat.steps} x layers "
@@ -1705,7 +1878,8 @@ def phase_full_width(seed):
     for dt in ("bfloat16", "int8"):
         label = f"dense {dt}"
         cfg = dataclasses.replace(base, kv_cache_dtype=dt)
-        summary, launches, bat = serve_full_width(cfg, params, seed, counts)
+        summary, launches, bat, _ = serve_full_width(cfg, params, seed,
+                                                     counts)
         check(not bat.paged, f"[{label}] ran paged")
         check(launches["flash_attention_decode"] == bat.steps * cfg.n_layers,
               f"[{label}] B3 launches {launches} != steps {bat.steps} x "
@@ -1795,6 +1969,183 @@ def phase_full_width(seed):
     return paths
 
 
+# the prefix-cache + speculation traffic: N_REQ requests sharing one
+# SYS_LEN-token system prompt, each followed by 32-128 own tokens that
+# cycle a 4-token motif, MAX_NEW new tokens; SPEC_K drafts per verify.
+SYS_LEN, SPEC_K = 512, 4
+
+
+def shared_prompt_traffic(vocab, rng):
+    sysp = rng.integers(0, vocab, SYS_LEN)
+    own = motif_prompts([int(n) for n in rng.integers(32, 129, N_REQ)],
+                        vocab, rng)
+    return [np.concatenate([sysp, o]).astype(np.int32) for o in own]
+
+
+def drafts_possible(prompts, outs, k=SPEC_K):
+    """Decode steps of plain greedy decode at which the single-token
+    drafter would propose a full span: the last token occurred earlier
+    in the history with k tokens after it."""
+    n = 0
+    for prompt, out in zip(prompts, outs):
+        hist = [int(t) for t in prompt] + [out[0]]
+        for t in out[1:]:
+            n += hist[-1] in hist[:len(hist) - 1 - k]
+            hist.append(t)
+    return n
+
+
+def hold_verify_span(cfg, params, pools, bt, pos, rng, counts):
+    """One verify span (8 slots x SPEC_K + 1 tokens at ~100-900
+    positions) against SPEC_K + 1 sequential decode steps of the same
+    tokens, each from its own copy of the same pools: logits held to
+    compare_logits's bf16 rule row by row, B1 launched once per layer.
+    Returns the comparison's fields."""
+    from repro_torch.models import params as PP
+    from repro_torch.models import registry
+    k1 = SPEC_K + 1
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (N_SLOTS, k1))).to(DEVICE)
+    copy = lambda: PP.tree_map(lambda _, a: a.clone(), pools)
+    reset_counts(counts)
+    span, span_pools = registry.forward(
+        cfg, params, {"tokens": tokens}, mode="verify",
+        cache={"pages": copy(), "block_tab": {"kv": bt}}, pos=pos)
+    n_b1 = read_counts(counts)["flash_attention_decode_paged"]
+    check(n_b1 == cfg.n_layers, f"verify span launched B1 {n_b1} times")
+    seq_pools = copy()
+    rows = []
+    for i in range(k1):
+        step, seq_pools = registry.forward(
+            cfg, params, {"tokens": tokens[:, i:i + 1]}, mode="decode",
+            cache={"pages": seq_pools, "block_tab": {"kv": bt}},
+            pos=pos + i)
+        a, b = span[:, i].float(), step[:, 0].float()
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        check(torch.isfinite(a).all().item()
+              and err <= TOL_LOGITS_REL * scale,
+              f"verify row {i} vs decode step: {err} (max |logit| {scale})")
+        rows.append({"max_abs_err": err, "max_abs_logit": scale,
+                     "bit_equal": torch.equal(span[:, i], step[:, 0]),
+                     "argmax_agree": (a.argmax(-1) == b.argmax(-1)).float()
+                     .mean().item()})
+    diff = {leaf: (span_pools["kv"][leaf] != seq_pools["kv"][leaf]).float()
+            .mean().item() for leaf in ("k", "v")}
+    return {"rows": rows, "pool_share_differing": diff,
+            "b1_launches": n_b1, "rel_tol": TOL_LOGITS_REL}
+
+
+def phase_prefix_spec_full_width(seed):
+    """Full-width minitron-4b, paged bf16 pools through B1
+    (``decode_flash``), page 16, chunk 128, 8 slots, max_seq 1024: the
+    shared-system-prompt traffic served plain, with the prefix cache and
+    ``prefill_exact``, and with both and ``speculate_k`` 4 (the
+    single-token drafter); B1's launches held to (decode steps + verify
+    steps) x layers in each, drafts and prefix hits required, token
+    identity between the runs reported as shares (bf16 at random weights:
+    another GEMM shape may flip a rounding); one verify span held against
+    sequential decode; one verify step's time split beside a decode
+    step's.  Returns {path: launches}."""
+    from repro_torch.configs import get
+    from repro_torch.models import registry
+    from repro_torch.serve.serve_loop import (make_paged_decode_step,
+                                              make_spec_verify_step)
+    t_phase = time.perf_counter()
+    plain = dataclasses.replace(get("minitron-4b"), decode_flash=True,
+                                kv_page_size=PAGE, prefill_chunk=CHUNK)
+    params = registry.init(plain, seed, device=DEVICE, dtype=torch.bfloat16)
+    prefix = dataclasses.replace(plain, prefix_cache=True,
+                                 prefill_exact=True)
+    spec = dataclasses.replace(prefix, speculate_k=SPEC_K, speculate_ngram=1)
+    counts = kernel_counts()
+    rng = np.random.default_rng(seed + 19)
+    prompts = shared_prompt_traffic(plain.vocab_size, rng)
+    paths, outs, summaries = {}, {}, {}
+    for label, cfg in (("plain", plain), ("prefix cache", prefix),
+                       ("prefix cache + speculate_k 4", spec)):
+        summary, launches, bat, outs[label] = serve_full_width(
+            cfg, params, seed, counts, prompts)
+        n_verify = bat.spec_verify_steps       # bat.steps counts them too
+        check(launches["flash_attention_decode_paged"]
+              == bat.steps * cfg.n_layers,
+              f"[{label}] B1 launches {launches} != (decode steps "
+              f"{bat.steps - n_verify} + verify steps {n_verify}) x layers "
+              f"{cfg.n_layers}")
+        summaries[label] = summary
+        paths[f"paged bf16 shared prompt, {label}"] = launches
+        print(f"full-width serve [shared prompt, {label}]: "
+              + json.dumps(summary))
+        del bat
+    st = summaries["prefix cache + speculate_k 4"]
+    possible = drafts_possible(prompts, outs["plain"])
+    check(st["speculation"]["verify_steps"] > 0
+          and st["speculation"]["drafted"] > 0,
+          f"no verify step ({st['speculation']}); plain decode offered "
+          f"{possible} draftable steps")
+    check(st["prefix"]["prefix_hits"] > 0, f"no prefix hit: {st['prefix']}")
+
+    def identity(a, b):
+        same = sum(x == y for x, y in zip(outs[a], outs[b]))
+        share = np.mean([x == y for u, v in zip(outs[a], outs[b])
+                         for x, y in zip(u, v)])
+        return f"{same} of {N_REQ} requests, {share:.4f} of tokens"
+
+    print(f"full-width shared prompt, token identity: prefix cache vs plain "
+          f"{identity('prefix cache', 'plain')}; speculation vs prefix cache "
+          f"{identity('prefix cache + speculate_k 4', 'prefix cache')}; "
+          f"plain decode offered the drafter {possible} steps; tokens/s "
+          + ", ".join(f"{k} {v['tokens_per_s']:.2f}"
+                      for k, v in summaries.items())
+          + " (reported, not claimed)")
+
+    # one verify span against sequential decode, and the time split of a
+    # verify step beside a decode step's, on pools prefilled at ~100-900.
+    pools, bt, state, _, _ = prefill_pools(plain, params, rng)
+    last_tok, pos = state[0], state[1]
+    held = hold_verify_span(plain, params, pools, bt, pos, rng, counts)
+    print("full-width verify span vs sequential decode: "
+          + json.dumps(held))
+    k1 = SPEC_K + 1
+    verify = make_spec_verify_step(plain, k1, MAX_SEQ, PAGE)
+    step = make_paged_decode_step(plain, MAX_SEQ, PAGE)
+    n_pages = pools["kv"]["k"].shape[1]
+    cap = N_SLOTS * ((k1 - 1) // PAGE + 2)
+    nothing = ({"kv": np.zeros(cap, np.int32)},
+               {"kv": np.full(cap, n_pages, np.int32)},
+               {"kv": np.full(cap, N_SLOTS, np.int32)},
+               {"kv": np.zeros(cap, np.int32)},
+               {"kv": np.zeros(cap, np.int32)})
+    tokens = torch.from_numpy(rng.integers(0, plain.vocab_size,
+                                           (N_SLOTS, k1))).int().to(DEVICE)
+    n_draft = torch.full((N_SLOTS,), SPEC_K, dtype=torch.int32,
+                         device=DEVICE)
+    rem = state[2] + 1000
+    active = torch.ones(N_SLOTS, dtype=torch.bool, device=DEVICE)
+
+    def verify_once():
+        *_, out = verify(params, pools, {"kv": bt}, tokens, n_draft, pos,
+                         rem, active, *nothing)
+        out.cpu()
+
+    def decode_once():
+        *_, out = step(params, pools, {"kv": bt}, last_tok, pos, rem,
+                       active)
+        out.cpu()
+
+    for f in (verify_once, decode_once):
+        f()
+    prof = {"verify_step": profile_window(verify_once, 5),
+            "decode_step": profile_window(decode_once, 5)}
+    print(f"time split [paged bf16, verify span {k1} vs decode] (8 slots at "
+          "~100-900 positions): " + json.dumps(prof))
+    print(f"full-width prefix cache + speculation phase: "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    del pools, params
+    torch.cuda.empty_cache()
+    return paths
+
+
 # the recurrent families' train forward: b 4 x s 2048 (8 chunks of 256).
 TRAIN_B, TRAIN_S = 4, 2048
 
@@ -1836,7 +2187,8 @@ def phase_recurrent_full_width(seed):
         print(f"full width: {arch}, {n_params} bf16 parameters drawn on "
               f"the card in {time.perf_counter() - t:.2f}s")
 
-        summary, launches, bat = serve_full_width(base, params, seed, counts)
+        summary, launches, bat, _ = serve_full_width(base, params, seed,
+                                                     counts)
         check(not bat.paged, f"[{arch}] ran paged")
         check(launches["flash_attention_decode"]
               == bat.steps * n_shared(base),
@@ -2040,6 +2392,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -2086,8 +2439,10 @@ def main():
     b6 = phase_ssd_kernel(gen, card, flush)
     del flush
     phase_exactness(args.seed)
+    phase_prefix_spec_exactness(args.seed)
     phase_recurrent_exactness(args.seed)
     paths = phase_full_width(args.seed)
+    spec_paths = phase_prefix_spec_full_width(args.seed)
     paths["hlslib ops"] = phase_hlslib_path(args.seed)
     paths.update(phase_recurrent_full_width(args.seed))
 
@@ -2096,8 +2451,12 @@ def main():
     # of each step, quantize at the whole slot cache a prefill converts,
     # dequantize at the full slot cache each step reads back).
     d_rows = b2["full cache (8*8*1024 x 128, bf16)"]
+    # B1's launches: every paged bf16 serve, decode and verify steps.
+    b1_paths = [paths["paged bf16"]] + list(spec_paths.values())
     rows = {
-        "flash_attention_decode_paged": (paths["paged bf16"], b1),
+        "flash_attention_decode_paged": ({
+            "flash_attention_decode_paged": sum(
+                p["flash_attention_decode_paged"] for p in b1_paths)}, b1),
         "flash_attention_decode": (paths["dense bfloat16"], b3),
         "kv_quantize_store": (paths["dense int8"], b2s[
             "dense decode rows (8 slots x 8 kv heads, K and V, d 128, "
@@ -2136,6 +2495,8 @@ def main():
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all, the "
+          "kernels' build included")
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

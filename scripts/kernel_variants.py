@@ -16,9 +16,14 @@ B5 (``flash_attention``, bf16):
   steps64     -- 64-key score steps at d = 128 (spills at 128 registers);
   one_bf16_p  -- P.V with p_hi only (diagnostic: what p_lo costs);
   fast_exp    -- __expf for the probabilities (diagnostic: what expf costs).
-B1 (``flash_attention_decode_paged``), each at n_split 1 and as chosen:
+B1 (``flash_attention_decode_paged``), at chip_smoke.py's main and long
+shapes and its served verify spans (8 sequences at sq = 5, bf16 and int8
+pages), each at n_split 1 and as chosen:
   shipped     -- the next tile's pages copied while the current is scored;
-  no_prefetch -- each tile copied, then waited for, before it is scored.
+  no_prefetch -- each tile copied, then waited for, before it is scored;
+  span_rows   -- a tried design: in a verify span a thread scores one key
+                 for 4 query rows and sums P.V for 4 rows, each K/V read
+                 converted once (``baselines/flash_decode_paged_span_rows.cu``).
 B7 (``tree_row_reduce``, bit for bit), at the main shape (a warp per row)
 and the long one (split over CTAs, at several split counts beside the
 one ``tree_splits`` chooses):
@@ -207,16 +212,27 @@ def run_b5(gen, flush, stream):
 
 
 def run_b1(gen, flush, stream):
+    argtypes = fa._kernel().argtypes
     b1 = build_variants("flash_decode_paged", B1, "flash_decode_paged",
-                        fa._kernel().argtypes)
+                        argtypes)
+    b1.update(build_variants(
+        "flash_decode_paged_span_rows", {"span_rows": {}},
+        "flash_decode_paged", argtypes,
+        os.path.join(BASELINES, "flash_decode_paged_span_rows.cu")))
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    for case, kw in (("main", dict(b=8, n_blocks=64, max_pos=1024)),
-                     ("long", dict(b=32, n_blocks=256, max_pos=4096))):
+    main = dict(b=8, n_blocks=64, max_pos=1024)
+    for case, kw in (("main", main),
+                     ("long", dict(b=32, n_blocks=256, max_pos=4096)),
+                     ("verify sq=5", dict(main, sq=5)),
+                     ("verify sq=5 int8", dict(main, sq=5, quant=True))):
         c = cs.make_case(gen, **kw)
         ref = fa.flash_attention_decode_paged_plain(**c)
         b, hq, sq, d = c["q"].shape
         n_pages, hkv, page, _ = c["k_pages"].shape
         nb = c["block_tab"].shape[1]
+        quant = c["k_scale_pages"] is not None
+        scales = ((c["k_scale_pages"].data_ptr(),
+                   c["v_scale_pages"].data_ptr()) if quant else (None, None))
         chosen = fa.paged_splits(b, hkv, nb, page, n_sm)
         out = torch.empty_like(c["q"])
         for rnd in range(2):
@@ -228,12 +244,12 @@ def run_b1(gen, flush, stream):
 
                     def call():
                         return fn(c["q"].data_ptr(), c["k_pages"].data_ptr(),
-                                  c["v_pages"].data_ptr(), None, None,
+                                  c["v_pages"].data_ptr(), *scales,
                                   c["block_tab"].data_ptr(),
                                   c["pos"].data_ptr(), None, out.data_ptr(),
                                   pa.data_ptr(), pm.data_ptr(), b, hq, hkv,
                                   sq, d, n_pages, page, nb, ns, 0,
-                                  float(d ** -0.5), 1, 0, stream)
+                                  float(d ** -0.5), 1, int(quant), stream)
                     assert call() == 0
                     torch.cuda.synchronize()
                     print(f"B1 {case} round {rnd} {name} n_split {ns}: ms "

@@ -13,8 +13,13 @@ bf16, or int8 with bf16 {k_scale, v_scale} pages of (n_layers, n_pages,
 hkv, page, 1) when ``cfg.kv_cache_dtype == "int8"``.  Every primitive
 below walks all leaves of the group, so scale pages move with their
 pages.  gemma3's local/global ring-of-pages layout and MLA's latent
-pages come with later slices, and ``copy_pages`` (copy-on-write) with
-the prefix-cache slice.
+pages come with later slices.
+
+Each ``PageGroup`` declares whether its pages may be aliased across
+sequences (the prefix cache): flat groups are, since a page holds a
+fixed positional span.  ``copy_pages`` is the copy-on-write primitive:
+a shared page is duplicated into a private one on the card before the
+first write that would diverge from it.
 """
 
 from __future__ import annotations
@@ -33,7 +38,16 @@ def _ceil_div(a: int, b: int) -> int:
 
 
 class PageGroup:
-    """One independently allocated page-id space of a layout."""
+    """One independently allocated page-id space of a layout.
+
+    ``shareable``: whether pages of this group may be referenced by
+    several sequences at once (the prefix cache).  Flat groups are: a
+    physical page holds the K/V of a fixed positional span, identical for
+    every request sharing the prompt prefix.  (A ring-of-pages window
+    group, a later slice's, is not: its pages' content depends on how far
+    the ring has wrapped.)"""
+
+    shareable = True
 
     def __init__(self, name: str):
         self.name = name
@@ -52,6 +66,13 @@ class CacheLayout:
     @property
     def groups(self) -> Tuple[PageGroup, ...]:
         return (PageGroup("kv"),)
+
+    @property
+    def prefix_shareable(self) -> bool:
+        """True iff EVERY page group can alias pages across sequences: a
+        prefix-cache hit attaches the matched prefix in every group at
+        once."""
+        return all(g.shareable for g in self.groups)
 
     def n_blocks(self, name: str, max_seq: int) -> int:
         """Block-table width of a group: pages covering ``max_seq``."""
@@ -117,6 +138,22 @@ class CacheLayout:
         """Scatter spilled page data back into (possibly different)
         physical pages; returns the pools dict."""
         return self.restore_pages(pools, name, data, pages)
+
+    # -- copy-on-write ----------------------------------------------------------------
+
+    def copy_pages(self, pools, name: str, src: Sequence[int],
+                   dst: Sequence[int]):
+        """Duplicate the ``src`` physical pages into ``dst`` (every layer,
+        every leaf: int8 value pages and their bf16 scale pages alike), in
+        place on the card: one ``index_select`` and one ``index_copy_``
+        per pool leaf, no host round trip.  Returns the pools dict."""
+        ax = self.page_axis(name)
+        dev = next(iter(pools[name].values())).device
+        si, di = (torch.as_tensor(list(p), dtype=torch.int64, device=dev)
+                  for p in (src, dst))
+        for a in pools[name].values():
+            a.index_copy_(ax, di, a.index_select(ax, si))
+        return pools
 
 
 @functools.lru_cache(maxsize=64)

@@ -13,10 +13,11 @@ int8 KV caches (``cfg.kv_cache_dtype == "int8"``) quantize through
 ``kernels.kv_quant`` (kernel B2), one bf16 scale per (head, position)
 row, in the dense cache and in the page pools alike.
 
-Not in this slice: ring-of-pages paging (gemma3's local/global layout),
-MLA attention (the MLA slice), MoE (the MoE slice), verify spans (the
-speculative-decode slice).  Their parameter declarations are here, so
-every architecture's parameter tree can be built.
+Paged attention also scores speculative-decode verify spans
+(``attention_apply_paged(verify=True)``).  Not in this slice:
+ring-of-pages paging (gemma3's local/global layout), MLA attention (the
+MLA slice), MoE (the MoE slice).  Their parameter declarations are here,
+so every architecture's parameter tree can be built.
 """
 
 from __future__ import annotations
@@ -367,15 +368,20 @@ def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
     step the pool-rounded values.  With ``cfg.decode_flash`` a decode
     step writes first and then reads through the block-table kernel
     (``kernels.flash_attention.flash_attention_decode_paged``), which
-    sees the same pool-rounded values.  Returns (y, pages).
+    sees the same pool-rounded values.
+
+    ``verify=True`` (speculative decode): the s rows behave like s
+    sequential decode steps scored at once — their own K/V is read
+    pool-rounded (what each position would have read back through the
+    cache had it been decoded one step at a time), and with
+    ``cfg.decode_flash`` the span is written first and read through the
+    kernel at sq == s, so accepted tokens equal plain greedy decode's.
+    Returns (y, pages).
     """
     if ring:
         raise NotImplementedError(
             "ring-of-pages paging (gemma3 local layers) comes with the "
             "local/global layout slice")
-    if verify:
-        raise NotImplementedError(
-            "verify spans come with the speculative-decode slice")
     theta = theta if theta is not None else cfg.rope_theta
     b, s, d = x.shape
     h = rmsnorm(x, p["norm"])
@@ -395,7 +401,8 @@ def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
             if int8 else paged_write_index(block_tab, pos, s, page, n_pages,
                                            last_idx, cache_offset)
 
-    flash = cfg.decode_flash and s == 1 and cache_offset is None
+    step_like = s == 1 or verify        # own K/V read back pool-rounded
+    flash = cfg.decode_flash and step_like and cache_offset is None
     if not flash:
         # gather the PRE-write pool state + overlay the chunk's own K/V.
         bt = block_tab.to(torch.int64).clamp(0, n_pages - 1)
@@ -406,9 +413,10 @@ def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
             return g.transpose(1, 2).reshape(b, hkv, S, -1)
 
         pre = _from_cache({n: gather(a) for n, a in pages.items()}, q.dtype)
-        # a decode step attends its own k/v pool-rounded, a chunk exactly.
+        # a decode step (or verify span) attends its own k/v
+        # pool-rounded, a chunk exactly.
         own = _from_cache(_to_cache(cfg, {"k": kc, "v": vc}, pk.dtype),
-                          q.dtype) if s == 1 else {"k": kc, "v": vc}
+                          q.dtype) if step_like else {"k": kc, "v": vc}
         kpos = torch.arange(S, device=x.device).expand(b, S)
         K = torch.cat([pre["k"], own["k"].transpose(1, 2)], dim=2)
         V = torch.cat([pre["v"], own["v"].transpose(1, 2)], dim=2)

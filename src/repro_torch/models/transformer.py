@@ -16,12 +16,14 @@ here, each layer reading its slice of the stacked parameters.
 * ``decode``  — one token in; a dense slot cache or the page pools are
   written in place.
 * ``chunk``   — a multi-token prefill chunk against the paged cache.
+* ``verify``  — a speculative-decode span against the paged cache: k
+  tokens scored like k sequential decode steps, full (b, k, Vp) logits.
 
 Recurrent caches are slot-dense (nothing to page): ssm's is {"conv",
 "ssd"} stacked over the layers, hybrid's {"ssm": that, "attn": the
 shared block's K/V stacked over its application sites}; every leaf has
 its slot axis at 1.  MoE, MLA, gemma3's local/global layers, vlm and
-audio, and the ``verify`` mode come with later slices and raise here.
+audio come with later slices and raise here.
 """
 
 from __future__ import annotations
@@ -212,7 +214,7 @@ def forward(cfg, params, batch, mode: str = "train",
             last_pos: Optional[torch.Tensor] = None,
             cache_offset: Optional[torch.Tensor] = None):
     """train -> logits (b, s, Vp); prefill -> (last logits, cache);
-    decode/chunk -> (logits, cache).
+    decode/chunk/verify -> (logits, cache).
 
     ``last_pos`` (prefill/chunk): (b,) index of the true last token; the
     returned logits are gathered there.  Paged serving: pass
@@ -221,10 +223,15 @@ def forward(cfg, params, batch, mode: str = "train",
     position tensor, one position per row; dense decode also takes a host
     int for every row.  ``cache_offset`` (chunk mode): (b,) position
     below which the cache is read-only.  The pools or the dense cache
-    passed in are updated in place and returned."""
-    if mode not in ("train", "prefill", "decode", "chunk"):
-        raise NotImplementedError(
-            f"mode {mode!r} comes with the speculative-decode slice")
+    passed in are updated in place and returned.
+
+    ``mode="verify"`` (speculative decode): tokens (b, k) at positions
+    pos..pos+k-1 against the paged cache, like a batched k-token decode
+    step, returning FULL (b, k, Vp) logits (no last-position gather) so
+    the caller scores every span position in one call.  The span's own
+    K/V is read pool-rounded, as sequential decode would read it."""
+    if mode not in ("train", "prefill", "decode", "chunk", "verify"):
+        raise NotImplementedError(f"unknown forward mode {mode!r}")
     dtype = torch_dtype(cfg.dtype)
     params = tree_map(
         lambda _, p: p.to(dtype) if p.dtype.is_floating_point
@@ -235,8 +242,8 @@ def forward(cfg, params, batch, mode: str = "train",
     block_tab = pools = None
     if isinstance(cache, dict) and "block_tab" in cache:
         block_tab, pools = cache["block_tab"]["kv"], cache["pages"]["kv"]
-    if mode == "chunk" and block_tab is None:
-        raise NotImplementedError("chunk mode requires a paged cache")
+    if mode in ("chunk", "verify") and block_tab is None:
+        raise NotImplementedError(f"{mode} mode requires a paged cache")
     write_idx = None
     if block_tab is not None:
         n_pages, hkv, page, _ = pools["k"].shape[1:]
@@ -264,14 +271,15 @@ def forward(cfg, params, batch, mode: str = "train",
         emitted = []
         for i in range(cfg.n_layers):
             p = _tree_idx(blocks, i)
-            if block_tab is not None and mode in ("decode", "chunk"):
+            if block_tab is not None and mode in ("decode", "chunk",
+                                                  "verify"):
                 x, _ = L.attention_apply_paged(
                     cfg, p["attn"], x, window=w, theta=theta,
                     pages={n: a[i] for n, a in pools.items()},
                     block_tab=block_tab, pos=pos,
                     last_idx=last_pos if mode == "chunk" else None,
                     cache_offset=cache_offset if mode == "chunk" else None,
-                    write_idx=write_idx)
+                    verify=mode == "verify", write_idx=write_idx)
             else:
                 x = _attn_dense(cfg, p["attn"], x, mode, cache, i, pos, w,
                                 theta, cl, last_pos, emitted, store_rows)

@@ -7,7 +7,7 @@ and retires finished sequences into per-request output streams,
 immediately reusing the slot.  The per-slot decode state (last token,
 position, remaining budget, active mask) lives in device tensors; the
 only per-step device-to-host transfer is the (2, n_slots) int32 array of
-next tokens and finished flags.
+next tokens and finished flags (a verify step's (k + 3, n_slots) block).
 
 Dense-slot mode (``kv_page_size == 0``, the CLI's default, or a family
 with no pageable layout, as the recurrent ssm/hybrid families): every
@@ -31,18 +31,47 @@ host, freed, and restored bit-identically — possibly into another slot
 the head of the FIFO; one that could not fit even an empty pool is
 rejected.
 
+Refcounted prefix cache (paged, ``prefix_cache``): retiring requests
+hand their prompt's full pages to a radix-tree ``PrefixIndex`` instead
+of freeing them; a later request whose prompt shares the prefix attaches
+those pages (incref) and starts its chunked prefill at the chunk-grid
+point at or below the divergence, its writes below the matched offset
+suppressed (``cache_offset``).  The first write past a shared page — the
+catch-up prefill crossing a mid-page divergence, or decode growing past
+a fully matched prompt — copies the page first (copy-on-write), so
+shared pages stay bit-stable for every sequence aliasing them.  Cached
+prefixes linger until pool pressure LRU-evicts them, always before any
+live slot is preempted; a preempted slot spills only its private pages
+and keeps its references on the shared ones.  ``prefill_exact``
+recomputes the whole remaining prompt span in the final (pow2-bucketed)
+chunk, so the installed cache is bit-identical however the prompt was
+chunked.
+
+Speculative decode (paged, ``cfg.speculate_k``): a self-speculative
+n-gram drafter proposes up to ``speculate_k`` tokens per slot from the
+slot's own history, and ONE batched verify call (span ``speculate_k +
+1``) scores them; the longest prefix of drafts agreeing with greedy
+argmax commits (at least one token per slot).  The span writes into
+freshly allocated scratch pages, swapped into a copy of the block table
+inside the call: a rejected tail rolls back by freeing its scratch, a
+commit scatters it into the slot's table, and the token stream equals
+plain greedy decode's.  A per-slot acceptance EWMA self-disables
+drafting on text that does not repeat, with re-probes on a backed-off
+step grid.
+
 This slice runs both modes with FIFO admission and the blocking
-overload policy, bf16 or int8 KV.  The prefix cache, host tiers,
-speculative decode, SLA scheduling, fault injection, telemetry and mesh
-sharding come with later slices; the constructor raises if asked for
-them.
+overload policy, bf16 or int8 KV; dense-slot mode switches the prefix
+cache and speculation off, as the reference does.  Host tiers, SLA
+scheduling, fault injection, telemetry and mesh sharding come with later
+slices; the constructor raises if asked for them.
 """
 
 from __future__ import annotations
 
+import bisect
 import collections
 import dataclasses
-from typing import Any, Deque, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,17 +81,16 @@ from ..core.stream import Stream, StreamClosed
 from ..models import params as PP
 from ..models import registry
 from ..models.cache_layouts import get_layout
-from .prefix_cache import PageAllocator
+from .prefix_cache import PageAllocator, PrefixIndex
 from .serve_loop import (advance_slots, make_chunk_prefill_step,
-                         make_paged_decode_step)
+                         make_paged_decode_step, make_spec_verify_step)
 
 _MIN_BUCKET = 8            # smallest prefill bucket (pad-to-power-of-two)
 _MIN_CHUNK = 16            # smallest auto-selected prefill chunk
 
 # constructor keywords of the reference that belong to later slices.
 _LATER_KWARGS = {
-    "prefix_cache": "prefix-cache", "prefix_block": "prefix-cache",
-    "prefill_exact": "prefix-cache", "host_tier_bytes": "tiered-memory",
+    "host_tier_bytes": "tiered-memory",
     "tier_snapshot": "tiered-memory", "tier_restore_min": "tiered-memory",
     "schedule": "resilience", "overload": "resilience",
     "queue_depth": "resilience", "faults": "resilience",
@@ -162,19 +190,29 @@ class Request:
 
 @dataclasses.dataclass
 class _Admission:
-    """A request mid-chunked-prefill: owns a slot + pages, not decoding."""
+    """A request mid-chunked-prefill: owns a slot + pages, not decoding.
+    ``start`` is the first prompt position the catch-up prefill computes
+    (0 for a cold request); ``cache_offset`` the read-only boundary below
+    which the slot's pages are shared with the prefix cache (the matched
+    token count)."""
     req: Request
     slot: int
     plen: int
     next_chunk: int
     n_chunks: int
+    start: int = 0
+    cache_offset: int = 0
 
 
 @dataclasses.dataclass
 class _Preempted:
     """A preempted decode: its KV pages parked on the host, slot released.
     ``pos``/``last_tok``/``remaining`` mirror the slot's device state at
-    preemption; ``data``/``counts`` hold the spilled pages per group."""
+    preemption; ``data``/``counts`` hold the spilled *private* pages per
+    group.  ``shared`` lists the leading prefix-cache pages the slot
+    still references: never spilled (immutable while shared), the record
+    keeps the slot's references and resume re-attaches them.  ``hist`` is
+    the slot's token history, parked for the drafter."""
     req: Request
     pos: int
     last_tok: int
@@ -182,6 +220,13 @@ class _Preempted:
     data: Dict[str, Any]
     counts: Dict[str, int]
     seq: int                     # admission order (preemption tie-break)
+    shared: Dict[str, List[int]] = dataclasses.field(default_factory=dict)
+    hist: List[int] = dataclasses.field(default_factory=list)
+
+
+# one scratch record of a verify span: (group, logical page, table entry,
+# old physical page or None, scratch page).
+_Swap = Tuple[str, int, int, Optional[int], int]
 
 
 class ContinuousBatcher:
@@ -190,13 +235,17 @@ class ContinuousBatcher:
     when a page size is given (or the config's ``kv_page_size``) and the
     family has a pageable layout, dense slots otherwise.  ``device`` is
     where the caches and slot state live; the parameters must already be
-    there."""
+    there.  ``prefix_cache``, ``prefix_block`` and ``prefill_exact``
+    override the config's fields of those names (paged mode only)."""
 
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int,
                  max_seq: int, n_pages=None,
                  page_size: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  prefill_interleave: Optional[int] = None,
+                 prefix_cache: Optional[bool] = None,
+                 prefix_block: Optional[int] = None,
+                 prefill_exact: Optional[bool] = None,
                  device="cuda", **later):
         for k, v in later.items():
             if k not in _LATER_KWARGS:
@@ -205,12 +254,9 @@ class ContinuousBatcher:
                 raise NotImplementedError(
                     f"{k}= comes with the {_LATER_KWARGS[k]} slice")
         psz = int(page_size or cfg.kv_page_size)
-        for on, what in ((cfg.prefix_cache or cfg.prefill_exact,
-                          "the prefix cache"),
-                         (cfg.kv_host_tier_bytes or cfg.kv_tier_snapshot,
+        for on, what in ((cfg.kv_host_tier_bytes or cfg.kv_tier_snapshot,
                           "tiered KV memory"),
                          (cfg.kv_reserve_decode, "reserve-at-admission"),
-                         (cfg.speculate_k, "speculative decode"),
                          (cfg.serve_schedule != "fifo"
                           or cfg.serve_overload != "block" or cfg.fault_plan,
                           "SLA scheduling, shedding and fault injection"),
@@ -234,6 +280,20 @@ class ContinuousBatcher:
         self.resumes = 0
         self.peak_pages = 0
         self.preempted_rids: List[int] = []
+        # prefix-cache and speculation counters (stats(); zero when off).
+        self.prefix_lookups = 0
+        self.prefix_hits = 0
+        self.prefix_hit_tokens = 0
+        self.cow_copies = 0
+        self.prefix_evictions = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_rolled_back = 0
+        self.spec_verify_steps = 0
+        # dense slots: no shared pages and no block tables to roll back.
+        self.prefix_cache = False
+        self._prefix: Optional[PrefixIndex] = None
+        self.speculate_k = 0
 
         # host mirror: which Request occupies each decoding slot.
         self._slot_req: List[Optional[Request]] = [None] * n_slots
@@ -286,6 +346,21 @@ class ContinuousBatcher:
                        for name, n in self.n_pages.items()}
         self._slot_pages: Dict[str, List[List[int]]] = {
             name: [[] for _ in range(n_slots)] for name in self.n_pages}
+        # leading run of each slot's pages still shared with the prefix
+        # cache (a write there copies the page first).
+        self._slot_nshared: Dict[str, List[int]] = {
+            name: [0] * n_slots for name in self.n_pages}
+        self.prefill_exact = bool(
+            cfg.prefill_exact if prefill_exact is None else prefill_exact)
+        self.prefix_block = int(prefix_block or cfg.prefix_block
+                                or self.page_size)
+        want_prefix = bool(cfg.prefix_cache if prefix_cache is None
+                           else prefix_cache)
+        # sharing needs EVERY page group shareable.
+        self.prefix_cache = want_prefix and self.layout.prefix_shareable
+        if self.prefix_cache:
+            self._prefix = PrefixIndex([g.name for g in self.layout.groups],
+                                       self.page_size, self.prefix_block)
         self.pools = PP.init_params(
             registry.paged_cache_decls(cfg, self.n_pages, self.page_size),
             device=self.device)
@@ -301,6 +376,28 @@ class ContinuousBatcher:
         self._step = make_paged_decode_step(cfg, max_seq, self.page_size)
         self._chunk_fn = make_chunk_prefill_step(cfg, self.chunk, max_seq,
                                                  self.page_size)
+        # speculative decode.  The history and acceptance state exist
+        # even at k = 0, so the bookkeeping paths stay branch-free.
+        self.speculate_k = max(int(cfg.speculate_k), 0)
+        self.speculate_ngram = max(int(cfg.speculate_ngram), 1)
+        self.speculate_min_accept = float(cfg.speculate_min_accept)
+        self.speculate_probe = max(int(cfg.speculate_probe), 0)
+        self._history: List[List[int]] = [[] for _ in range(n_slots)]
+        self._accept_ewma = [1.0] * n_slots
+        # re-probe schedule of self-disabled drafter slots: the next step
+        # allowed to probe, and the (exponentially backed-off) gap.
+        self._probe_at = [0] * n_slots
+        self._probe_gap = [0] * n_slots
+        # per-slot n-gram position index (ngram -> sorted positions of
+        # its occurrences in the history), extended incrementally
+        # (_ng_done = positions indexed so far): a draft lookup costs
+        # O(log occurrences), not a backward scan of the history.
+        self._ng_idx: List[Dict[Tuple[int, ...], List[int]]] = \
+            [{} for _ in range(n_slots)]
+        self._ng_done = [0] * n_slots
+        if self.speculate_k:
+            self._verify = make_spec_verify_step(
+                cfg, self.speculate_k + 1, max_seq, self.page_size)
 
     # -- shared helpers -------------------------------------------------------------
 
@@ -327,7 +424,9 @@ class ContinuousBatcher:
         return sum(a.used_pages for a in self._alloc.values())
 
     def stats(self) -> Dict[str, Any]:
-        """Scheduling counters; paged mode adds per-group pool occupancy."""
+        """Scheduling counters; paged mode adds per-group pool occupancy,
+        the shared-page and copy-on-write counts, the speculation
+        counters and, with the prefix cache, its hit counters."""
         s: Dict[str, Any] = {
             "paged": self.paged,
             "steps": self.steps, "retired": self.retired,
@@ -336,9 +435,36 @@ class ContinuousBatcher:
             "peak_pages": self.peak_pages,
             "rejections": dict(self.rejections),
         }
-        if self.paged:
-            s["pools"] = {name: {"free": a.free_pages, "used": a.used_pages}
-                          for name, a in self._alloc.items()}
+        if not self.paged:
+            return s
+        s["pools"] = {name: {"free": a.free_pages, "used": a.used_pages,
+                             "shared": a.shared_pages}
+                      for name, a in self._alloc.items()}
+        s["shared_pages"] = sum(a.shared_pages for a in self._alloc.values())
+        s["cow_copies"] = self.cow_copies
+        s["prefix_cache"] = self.prefix_cache
+        # every accepted draft token is one decode step the slot skipped;
+        # rolled_back counts draft tokens whose scratch KV was discarded.
+        s["speculation"] = {
+            "k": self.speculate_k,
+            "drafted": self.spec_drafted,
+            "accepted": self.spec_accepted,
+            "rolled_back": self.spec_rolled_back,
+            "acceptance_rate": (self.spec_accepted
+                                / max(self.spec_drafted, 1)),
+            "verify_steps": self.spec_verify_steps,
+            "decode_steps_saved": self.spec_accepted,
+            "accept_ewma": list(self._accept_ewma),
+        }
+        if self.prefix_cache:
+            s["prefix_lookups"] = self.prefix_lookups
+            s["prefix_hits"] = self.prefix_hits
+            s["prefix_hit_rate"] = (self.prefix_hits
+                                    / max(self.prefix_lookups, 1))
+            s["prefix_hit_tokens"] = self.prefix_hit_tokens
+            s["prefix_evictions"] = self.prefix_evictions
+            s["cached_prefixes"] = self._prefix.n_nodes
+            s["cached_prefix_pages"] = self._prefix.n_pages
         return s
 
     # -- dense bucketed admission -------------------------------------------------------
@@ -392,7 +518,7 @@ class ContinuousBatcher:
                     r.out.close()
                     self.retired += 1
 
-    # -- paged admission (chunked prefill) --------------------------------------------
+    # -- paged admission (chunked prefill, prefix hits) ------------------------------
 
     def _full_pages_needed(self, r: Request, group: str) -> int:
         """Worst-case pages the request can ever hold in this group."""
@@ -407,56 +533,147 @@ class ContinuousBatcher:
     def _note_peak(self) -> None:
         self.peak_pages = max(self.peak_pages, self.total_used_pages())
 
+    def _alloc_evict(self, name: str, n: int) -> Optional[List[int]]:
+        """Alloc ``n`` pages, evicting LRU cached prefixes under pressure.
+        Cached prefixes are worth less than any live request, so they are
+        released (decref'd: pages still shared by live slots survive
+        through those references) before admission backpressures or any
+        live slot is preempted."""
+        got = self._alloc[name].alloc(n)
+        while got is None and self._prefix is not None \
+                and self._prefix.n_nodes:
+            evicted = self._prefix.evict_lru()
+            if evicted is None:
+                break
+            for gname, pgs in evicted[1].items():
+                self._alloc[gname].free(pgs)
+            self.prefix_evictions += 1
+            got = self._alloc[name].alloc(n)
+        return got
+
     def _try_admit_paged(self, r: Request, slot: int) -> bool:
         """Reserve the prompt's pages + a slot and start chunked prefill.
         Returns False (leaving ``r`` to the caller) when any group's pool
-        is dry — all-or-nothing across page groups."""
+        is dry — all-or-nothing across page groups.
+
+        With the prefix cache the prompt is first matched against the
+        ``PrefixIndex``: the matched span's pages are attached (incref,
+        shared read-only) instead of allocated, and the catch-up prefill
+        starts at the chunk-grid point at or below the divergence — a
+        fully cached prompt prefills one chunk.  A partially matched page
+        on the divergence boundary is copied (copy-on-write) into the
+        first private page when the catch-up prefill will write past the
+        match."""
         plen = len(r.prompt)
+        m = 0
+        shared: Dict[str, List[int]] = {g.name: [] for g in self.layout.groups}
+        if self.prefix_cache:
+            self.prefix_lookups += 1
+            m, shared = self._prefix.match(np.asarray(r.prompt, np.int32))
+        n_matched = _ceil_div(m, self.page_size)
+        cow = bool(m % self.page_size) and m < plen
+        n_attach = n_matched - (1 if cow else 0)
+        # Pin the matched pages BEFORE anything can evict: _alloc_evict
+        # below may evict the very nodes just matched, and without this
+        # reference their pages could come straight back as this
+        # request's private pages, aliasing the prefix it reads.  The pin
+        # is the slot's reference on the attached pages; the CoW source's
+        # is dropped again after the copy.
+        pinned = {name: pgs[:n_matched] for name, pgs in shared.items()}
+        for name, pgs in pinned.items():
+            if pgs:
+                self._alloc[name].incref(pgs)
         grabbed: Dict[str, List[int]] = {}
         for g in self.layout.groups:
-            pages = self._alloc[g.name].alloc(
-                self.layout.blocks_for(g.name, plen, self.max_seq))
+            need = self.layout.blocks_for(g.name, plen, self.max_seq)
+            if g.shareable:
+                need -= n_attach
+            pages = self._alloc_evict(g.name, max(need, 0))
             if pages is None:
                 for name, pgs in grabbed.items():
                     self._alloc[name].free(pgs)
+                for name, pgs in pinned.items():
+                    if pgs:
+                        self._alloc[name].free(pgs)
                 return False
             grabbed[g.name] = pages
-        for name, pages in grabbed.items():
-            self._set_table_row(name, slot, pages)
-            self._slot_pages[name][slot] = list(pages)
+        for g in self.layout.groups:
+            name = g.name
+            attach = shared[name][:n_attach] if g.shareable else []
+            if cow and shared[name][n_attach:]:
+                # divergence mid-page: duplicate the boundary page into the
+                # first private page before any differing write.
+                self.layout.copy_pages(self.pools, name,
+                                       shared[name][n_attach:n_attach + 1],
+                                       grabbed[name][:1])
+            if pinned[name][n_attach:]:            # unpin the CoW source
+                self._alloc[name].free(pinned[name][n_attach:])
+            row = attach + grabbed[name]
+            self._set_table_row(name, slot, row)
+            self._slot_pages[name][slot] = list(row)
+            self._slot_nshared[name][slot] = len(attach)
+        if cow:
+            self.cow_copies += 1
+        if m:
+            self.prefix_hits += 1
+            self.prefix_hit_tokens += m
         self._note_peak()
+        # The catch-up prefill starts at the CHUNK-GRID point at or below
+        # the divergence: its chunks then cover exactly the spans a cold
+        # run covers, reading the same pool bytes, and since a shared
+        # page's bits depend only on the matched tokens, a hit is
+        # bit-identical to a cold run.  Positions in [start, m) are
+        # recomputed as queries, their writes suppressed (cache_offset).
+        start = min(m, plen - 1)
+        start -= start % self.chunk
         self._slot_seq[slot] = self._admit_seq
         self._admit_seq += 1
         self._admitting.append(_Admission(
             req=r, slot=slot, plen=plen, next_chunk=0,
-            n_chunks=max(1, _ceil_div(plen, self.chunk))))
+            n_chunks=max(1, _ceil_div(plen - start, self.chunk)),
+            start=start, cache_offset=m))
         return True
 
     def _prefill_step(self) -> None:
-        """Run ONE chunk of the oldest mid-admission request."""
+        """Run ONE chunk of the oldest mid-admission request.  Chunks
+        cover ``[start + c*chunk, ...)``.  ``prefill_exact`` swaps the
+        final chunk for one pow2-bucketed pass over the whole remaining
+        span ``[start, plen)``, so every prompt position's K/V is
+        recomputed with full-precision own-chunk attention and the
+        installed cache does not depend on the chunking."""
         a = self._admitting[0]
         C, c = self.chunk, a.next_chunk
         final = c == a.n_chunks - 1
-        base = c * C
+        base = a.start + c * C
+        fn = self._chunk_fn
+        if final and self.prefill_exact:
+            base = a.start
+            C = max(_next_pow2(a.plen - base), _MIN_CHUNK)
+            fn = make_chunk_prefill_step(self.cfg, C, self.max_seq,
+                                         self.page_size)
         seg = np.zeros((1, C), np.int32)
         part = np.asarray(a.req.prompt[base:base + C], np.int32)
         seg[0, :len(part)] = part
         last_in_chunk = (a.plen - 1 - base) if final else (C - 1)
         dev = self.device
         (self.pools, self.last_tok, self.pos, self.remaining, self.active,
-         tok0) = self._chunk_fn(
+         tok0) = fn(
             self.params, self.pools, self.block_tab, self.last_tok,
             self.pos, self.remaining, self.active,
             torch.from_numpy(seg).to(dev),
             torch.full((1,), base, dtype=torch.int32, device=dev),
             torch.full((1,), last_in_chunk, dtype=torch.int32, device=dev),
-            a.slot, final, a.plen, a.req.max_new, 0)
+            a.slot, final, a.plen, a.req.max_new, a.cache_offset)
         self.prefill_chunks += 1
         a.next_chunk += 1
         if not final:
             return
         self._admitting.popleft()
         tok0 = int(tok0)
+        # drafter history = every token the model has consumed (prompt +
+        # first sampled token); invariant len == pos + 1.
+        self._history[a.slot] = [int(t) for t in a.req.prompt] + [tok0]
+        self._reset_drafter(a.slot)
         a.req.out.Push(tok0)
         if a.req.max_new > 1 and a.plen < self.max_seq - 1:
             self._slot_req[a.slot] = a.req
@@ -466,17 +683,36 @@ class ContinuousBatcher:
         else:                                  # retired at admission
             a.req.out.close()
             self.retired += 1
-            self._release_slot(a.slot)
+            self._release_slot(a.slot, prompt=a.req.prompt)
 
-    def _release_slot(self, slot: int) -> None:
-        """Free the slot's pages (every group) and invalidate its block
+    def _release_slot(self, slot: int, prompt: Optional[np.ndarray] = None,
+                      keep_shared: bool = False) -> None:
+        """Release the slot's pages (every group) and invalidate its block
         table rows so later (masked) decode writes never touch reused
-        pages."""
+        pages.
+
+        With the prefix cache and a retiring ``prompt``, the prompt's full
+        token blocks are first inserted into the ``PrefixIndex``: pages
+        backing newly indexed blocks transfer the slot's reference to the
+        index (the prefix lingers as cache), everything else is
+        decref'd.  ``keep_shared`` (preemption): the leading shared
+        pages keep their references, which the parked record owns."""
+        absorbed: frozenset = frozenset()
+        if self._prefix is not None and prompt is not None and len(prompt):
+            pages = {name: self._slot_pages[name][slot]
+                     for name in self._slot_pages}
+            absorbed = frozenset(self._prefix.insert(
+                np.asarray(prompt, np.int32), pages))
         for name in self._slot_pages:
-            if self._slot_pages[name][slot]:
-                self._alloc[name].free(self._slot_pages[name][slot])
+            ns = self._slot_nshared[name][slot] if keep_shared else 0
+            rest = [p for i, p in enumerate(self._slot_pages[name][slot])
+                    if i >= ns and i not in absorbed]
+            if rest:
+                self._alloc[name].free(rest)
             self._slot_pages[name][slot] = []
+            self._slot_nshared[name][slot] = 0
             self.block_tab[name][slot] = self.n_pages[name]
+        self._history[slot] = []
 
     # -- lazy decode growth + preemption ------------------------------------------------
 
@@ -490,50 +726,80 @@ class ContinuousBatcher:
                                          -self._slot_seq[i]))
 
     def _preempt(self, slot: int) -> None:
-        """Spill the slot's pages to the host, free them, park the
-        request."""
+        """Spill the slot's PRIVATE pages to the host, free them, park the
+        request.  Pages still shared with the prefix cache are not
+        spilled (immutable while shared): the record keeps the slot's
+        references and resume re-attaches the same physical pages."""
         r = self._slot_req[slot]
-        data, counts = {}, {}
+        data, counts, shared = {}, {}, {}
         for g in self.layout.groups:
             pages = self._slot_pages[g.name][slot]
-            data[g.name] = self.layout.spill(self.pools, g.name, pages)
-            counts[g.name] = len(pages)
+            ns = self._slot_nshared[g.name][slot]
+            shared[g.name] = pages[:ns]
+            data[g.name] = self.layout.spill(self.pools, g.name, pages[ns:])
+            counts[g.name] = len(pages) - ns
         self._preempted.append(_Preempted(
             req=r, pos=self._host_pos[slot],
             last_tok=self._host_last_tok[slot],
             remaining=self._host_remaining[slot], data=data, counts=counts,
-            seq=self._slot_seq[slot]))
+            seq=self._slot_seq[slot], shared=shared,
+            hist=list(self._history[slot])))
         self.active[slot] = False
         self._slot_req[slot] = None
-        self._release_slot(slot)
+        self._release_slot(slot, keep_shared=True)
         self.preemptions += 1
         self.preempted_rids.append(r.rid)
 
     def _grow_slot(self, slot: int) -> bool:
-        """Ensure every group holds a page for the slot's next decode
-        write; preempts other slots when the pool is dry (self-preempts
-        as a last resort).  Returns False iff the slot was preempted."""
+        """Ensure every group holds a WRITABLE page for the slot's next
+        decode write; preempts other slots when the pool is dry
+        (self-preempts as a last resort).  Returns False iff the slot was
+        preempted.  A write landing inside a page still shared with the
+        prefix cache copies it first (copy-on-write): the page is
+        duplicated into a fresh private page and the table redirected, so
+        the cached original stays bit-stable for every sequence aliasing
+        it."""
         nxt = self._host_pos[slot]             # position decode writes next
+
+        def take_one(name: str) -> Optional[List[int]]:
+            got = self._alloc_evict(name, 1)
+            while got is None:
+                victim = self._pick_victim()
+                if victim is None or victim == slot:
+                    self._preempt(slot)
+                    return None
+                self._preempt(victim)
+                got = self._alloc_evict(name, 1)
+            return got
+
         for g in self.layout.groups:
             need = self.layout.blocks_for(g.name, nxt + 1, self.max_seq)
             pages = self._slot_pages[g.name][slot]
             while len(pages) < need:
-                got = self._alloc[g.name].alloc(1)
-                while got is None:
-                    victim = self._pick_victim()
-                    if victim is None or victim == slot:
-                        self._preempt(slot)
-                        return False
-                    self._preempt(victim)
-                    got = self._alloc[g.name].alloc(1)
+                got = take_one(g.name)
+                if got is None:
+                    return False
                 pages.append(got[0])
                 self.block_tab[g.name][slot, len(pages) - 1] = got[0]
+            j = need - 1                       # page holding the write
+            if j < self._slot_nshared[g.name][slot]:
+                got = take_one(g.name)
+                if got is None:
+                    return False
+                self.layout.copy_pages(self.pools, g.name, [pages[j]], got)
+                self._alloc[g.name].free([pages[j]])   # drop the shared ref
+                pages[j] = got[0]
+                self.block_tab[g.name][slot, j] = got[0]
+                self._slot_nshared[g.name][slot] = j
+                self.cow_copies += 1
         self._note_peak()
         return True
 
     def _try_resume(self) -> int:
         """Restore preempted requests into free slots, highest priority
-        (then oldest) first; all page groups alloc-or-nothing."""
+        (then oldest) first; all page groups alloc-or-nothing.  Shared
+        prefix pages re-attach as they were (the record kept the slot's
+        references); the private ones are restored into fresh pages."""
         resumed = 0
         while self._preempted:
             busy = {a.slot for a in self._admitting}
@@ -551,10 +817,11 @@ class ContinuousBatcher:
                 # headroom: also cover the next decode write, so a resumed
                 # slot emits at least one token before it can be preempted
                 # again (no spill/restore thrash on a still-dry pool).
+                ns = len(rec.shared.get(g.name, ()))
                 need = max(rec.counts[g.name],
                            self.layout.blocks_for(g.name, rec.pos + 1,
-                                                  self.max_seq))
-                pages = self._alloc[g.name].alloc(need)
+                                                  self.max_seq) - ns)
+                pages = self._alloc_evict(g.name, need)
                 if pages is None:
                     break
                 grabbed[g.name] = pages
@@ -563,13 +830,15 @@ class ContinuousBatcher:
                     self._alloc[name].free(pgs)
                 break
             self._preempted.pop(idx)
-            for name, pages in grabbed.items():
+            for name, priv in grabbed.items():
                 n = rec.counts[name]
                 if n:
                     self.layout.restore(self.pools, name, rec.data[name],
-                                        pages[:n])
+                                        priv[:n])
+                pages = rec.shared.get(name, []) + priv
                 self._set_table_row(name, slot, pages)
                 self._slot_pages[name][slot] = list(pages)
+                self._slot_nshared[name][slot] = len(rec.shared.get(name, ()))
             self._note_peak()
             self.last_tok[slot] = rec.last_tok
             self.pos[slot] = rec.pos
@@ -580,6 +849,8 @@ class ContinuousBatcher:
             self._host_pos[slot] = rec.pos
             self._host_last_tok[slot] = rec.last_tok
             self._host_remaining[slot] = rec.remaining
+            self._history[slot] = list(rec.hist)
+            self._reset_drafter(slot)
             self.resumes += 1
             resumed += 1
         return resumed
@@ -653,16 +924,294 @@ class ContinuousBatcher:
             admitted += 1
         return admitted
 
+    # -- speculative decode (draft / verify / commit-or-rollback) ----------------------
+
+    def _reset_drafter(self, slot: int) -> None:
+        """Fresh acceptance state for a slot whose history was replaced."""
+        self._accept_ewma[slot] = 1.0
+        self._probe_at[slot] = 0
+        self._probe_gap[slot] = 0
+        self._ng_idx[slot].clear()
+        self._ng_done[slot] = 0
+
+    def _draft(self, slot: int) -> List[int]:
+        """Self-speculative n-gram draft for one slot: the tokens that
+        followed the most recent earlier occurrence of the history's
+        trailing ``speculate_ngram``-gram, ``min(speculate_k, remaining -
+        1)`` of them (a shorter continuation is not proposed: the verify
+        span costs the same whatever the draft).  A slot whose acceptance
+        EWMA fell below ``speculate_min_accept`` drafts only as a probe:
+        on the global grid of ``speculate_probe`` steps, at or after its
+        backed-off ``_probe_at``; a probe that finds no match backs off
+        as a failed round does."""
+        probing = self._accept_ewma[slot] < self.speculate_min_accept
+        if probing and not (
+                self.speculate_probe
+                and self.steps >= self._probe_at[slot]
+                and self.steps % self.speculate_probe == 0):
+            return []
+        cap = min(self.speculate_k, self._host_remaining[slot] - 1)
+        if cap <= 0:
+            return []
+        hist = self._history[slot]
+        n = len(hist)
+        ng = self.speculate_ngram
+        if n > ng:
+            # extend the position index over the tokens appended since
+            # the last call, then look the trailing ngram up.
+            idx = self._ng_idx[slot]
+            done = self._ng_done[slot]
+            if done > n - ng:
+                idx.clear()
+                done = 0
+            for j in range(done, n - ng):
+                idx.setdefault(tuple(hist[j:j + ng]), []).append(j)
+            self._ng_done[slot] = max(done, n - ng)
+            posns = idx.get(tuple(hist[n - ng:]))
+            if posns:
+                # the most recent occurrence whose continuation fills the
+                # whole span (j + ng + cap <= n).
+                i = bisect.bisect_right(posns, n - ng - cap) - 1
+                if i >= 0:
+                    j = posns[i]
+                    return hist[j + ng:j + ng + cap]
+        if probing:
+            # the probe found nothing to draft: consume it and back off.
+            self._probe_gap[slot] = max(2 * self._probe_gap[slot],
+                                        self.speculate_probe // 2, 1)
+            self._probe_at[slot] = self.steps + self._probe_gap[slot]
+        return []
+
+    def _collect_drafts(self) -> Dict[int, List[int]]:
+        """Drafts for every decoding slot; an empty dict sends the step
+        down the plain decode path.  The verify span writes
+        ``speculate_k + 1`` positions per active slot (padding included),
+        so the whole batch must satisfy ``pos + speculate_k <= max_seq -
+        2``: a slot that close to the end forces a plain step."""
+        lim = self.max_seq - 2 - self.speculate_k
+        drafts: Dict[int, List[int]] = {}
+        for i, r in enumerate(self._slot_req):
+            if r is None:
+                continue
+            if self._host_pos[i] > lim:
+                return {}
+            d = self._draft(i)
+            if d:
+                drafts[i] = d
+        return drafts
+
+    def _spec_setup(self, drafts: Dict[int, List[int]]):
+        """Plan the scratch redirection of every drafting slot's verify
+        span, on the host: for each logical page ``pos // page .. (pos +
+        k) // page`` the span writes, a freshly allocated private scratch
+        page (the old page's contents copied in), so speculative writes
+        never touch a shared page or a CoW boundary.  The copies and the
+        table swap run inside the verify step from the padded arrays
+        built here; the batcher's own table is never touched.  A slot
+        whose scratch allocation fails drops its draft (speculation never
+        preempts); ``drafts`` is pruned in place.
+
+        Returns ``(swaps, xfer)``: per slot its ``_Swap`` records, and the
+        per-group padded arrays ``(copy_src, copy_dst, swap_rows,
+        swap_cols, swap_vals)`` of fixed length ``n_slots * (k // page +
+        2)``; copy padding points dst at ``n_pages``, swap padding rows at
+        ``n_slots``."""
+        k_span = self.speculate_k + 1
+        swaps: Dict[int, List[_Swap]] = {}
+        for slot in list(drafts):
+            pos = self._host_pos[slot]
+            recs: List[_Swap] = []
+            ok = True
+            for g in self.layout.groups:
+                name = g.name
+                pages = self._slot_pages[name][slot]
+                for j in range(pos // self.page_size,
+                               (pos + k_span - 1) // self.page_size + 1):
+                    if j >= self.n_blocks[name]:   # past the table: the
+                        continue                   # pos gate forbids it
+                    got = self._alloc_evict(name, 1)
+                    if got is None:
+                        ok = False
+                        break
+                    old = pages[j] if j < len(pages) else None
+                    recs.append((name, j, j, old, got[0]))
+                if not ok:
+                    break
+            if not ok:       # dry pool: free grabbed scratch, drop draft
+                for name, _, _, _, scr in recs:
+                    self._alloc[name].free([scr])
+                del drafts[slot]
+                continue
+            swaps[slot] = recs
+        cap = self.n_slots * ((k_span - 1) // self.page_size + 2)
+        copy_src, copy_dst, rows, cols, vals = {}, {}, {}, {}, {}
+        fill = {}
+        for g in self.layout.groups:
+            copy_src[g.name] = np.zeros(cap, np.int32)
+            copy_dst[g.name] = np.full(cap, self.n_pages[g.name], np.int32)
+            rows[g.name] = np.full(cap, self.n_slots, np.int32)
+            cols[g.name] = np.zeros(cap, np.int32)
+            vals[g.name] = np.zeros(cap, np.int32)
+            fill[g.name] = 0
+        for slot, recs in swaps.items():
+            for name, _, j, old, scr in recs:
+                i = fill[name]
+                fill[name] = i + 1
+                rows[name][i] = slot
+                cols[name][i] = j
+                vals[name][i] = scr
+                if old is not None:
+                    copy_src[name][i] = old
+                    copy_dst[name][i] = scr
+        self._note_peak()
+        return swaps, (copy_src, copy_dst, rows, cols, vals)
+
+    def _spec_unwind(self, swaps) -> None:
+        """Abort path: free every scratch page so the allocator stays
+        consistent.  The batcher's table was never touched (the swap
+        lives inside the failed call), so nothing else is restored."""
+        for recs in swaps.values():
+            for name, _, _, _, scr in recs:
+                self._alloc[name].free([scr])
+
+    def _spec_resolve(self, swaps, commit: np.ndarray) -> None:
+        """Commit or roll back by block-table swap.  Pages holding
+        committed positions (logical <= page of ``pos + commit - 1``)
+        take their scratch page into the slot's page list and the table
+        (the old page, if any, is freed); the others free the scratch.
+        A committed page may hold rejected rows past the commit point:
+        they are causally masked on every read until decode overwrites
+        them."""
+        updates: Dict[str, List[Tuple[int, int, int]]] = {}
+        for slot, recs in swaps.items():
+            c = int(commit[slot])
+            last_page = (self._host_pos[slot] + c - 1) // self.page_size
+            for name, l, j, old, scr in recs:
+                pages = self._slot_pages[name][slot]
+                if c > 0 and l <= last_page:           # commit
+                    if j < len(pages):
+                        if old is not None:
+                            self._alloc[name].free([old])
+                        pages[j] = scr
+                    else:
+                        assert j == len(pages)
+                        pages.append(scr)
+                    updates.setdefault(name, []).append((slot, j, scr))
+                else:                                  # roll back
+                    self._alloc[name].free([scr])
+        self._scatter_tab(updates)
+
+    def _scatter_tab(self, updates: Dict[str, List[Tuple[int, int, int]]]
+                     ) -> None:
+        """One batched block-table entry scatter per group."""
+        for name, items in updates.items():
+            idx = torch.as_tensor(np.asarray(items, np.int64),
+                                  device=self.device)
+            self.block_tab[name][idx[:, 0], idx[:, 1]] = \
+                idx[:, 2].to(torch.int32)
+
+    def _spec_step(self, drafts: Dict[int, List[int]], swaps, xfer) -> int:
+        """One batched draft-verify-commit step covering ALL active
+        slots: drafting slots feed [last_tok, d_1..d_n, pad...], the rest
+        [last_tok, pad...] (n_draft = 0 commits exactly 1, plain decode).
+        The bookkeeping mirrors ``step()`` but advances every host mirror
+        by the slot's commit count."""
+        k = self.speculate_k + 1
+        n = self.n_slots
+        tokens = np.zeros((n, k), np.int32)
+        n_draft = np.zeros((n,), np.int32)
+        for i, r in enumerate(self._slot_req):
+            if r is None:
+                continue
+            tokens[i, 0] = self._host_last_tok[i]
+            d = drafts.get(i, ())
+            tokens[i, 1:1 + len(d)] = d
+            tokens[i, 1 + len(d):] = tokens[i, len(d)]   # pad (masked)
+            n_draft[i] = len(d)
+        dev = self.device
+        try:
+            (self.pools, self.last_tok, self.pos, self.remaining,
+             self.active, out) = self._verify(
+                self.params, self.pools, self.block_tab,
+                torch.from_numpy(tokens).to(dev),
+                torch.from_numpy(n_draft).to(dev),
+                self.pos, self.remaining, self.active, *xfer)
+        except BaseException:
+            self._spec_unwind(swaps)
+            raise
+        out = out.cpu().numpy()                # the ONLY per-step transfer
+        preds, commit, finished = out[:k], out[k], out[k + 1]
+        self._spec_resolve(swaps, commit)
+        done = 0
+        for i, r in enumerate(self._slot_req):
+            if r is None:
+                continue
+            c = int(commit[i])
+            for t in range(c):
+                tok = int(preds[t, i])
+                r.out.Push(tok)
+                self._history[i].append(tok)
+            self._host_last_tok[i] = int(preds[c - 1, i])
+            self._host_pos[i] += c
+            self._host_remaining[i] -= c
+            nd = int(n_draft[i])
+            if nd:
+                self._note_acceptance(i, nd, c - 1)
+            if finished[i]:
+                r.out.close()
+                self._slot_req[i] = None
+                self._release_slot(i, prompt=r.prompt)
+                done += 1
+        self.spec_verify_steps += 1
+        self.steps += 1
+        self.retired += done
+        return done
+
+    def _note_acceptance(self, i: int, nd: int, acc: int) -> None:
+        """Count a drafting slot's round and update its acceptance EWMA
+        and probe schedule."""
+        self.spec_drafted += nd
+        self.spec_accepted += acc
+        self.spec_rolled_back += nd - acc
+        floor = self.speculate_min_accept
+        if self._accept_ewma[i] < floor:
+            # probe round: re-enable only on decisively good acceptance
+            # (2x the floor: hysteresis), back off while probes fail.
+            good = acc >= min(1.0, 2.0 * floor) * nd
+            self._accept_ewma[i] = acc / nd if good else 0.0
+            if not good:
+                self._probe_gap[i] *= 2
+                self._probe_at[i] = self.steps + self._probe_gap[i]
+            return
+        if acc == 0:
+            # a fully rejected span is maximal evidence: cut hard.
+            self._accept_ewma[i] *= 0.25
+        else:
+            self._accept_ewma[i] = (0.5 * self._accept_ewma[i]
+                                    + 0.5 * (acc / nd))
+        if self._accept_ewma[i] < floor:
+            # just disabled: the first probe on the next grid tick.
+            self._probe_gap[i] = max(self.speculate_probe // 2, 1)
+            self._probe_at[i] = self.steps + self._probe_gap[i]
+
     def step(self) -> int:
         """One batched decode step; returns the number of sequences
         retired.  Paged: every decoding slot's block table first grows to
-        cover its next write position (preempting if the pool is dry)."""
+        cover its next write position (preempting if the pool is dry);
+        with ``speculate_k`` a step whose slots drafted runs as one
+        verify step instead."""
         if self.paged:
             for slot in range(self.n_slots):
                 if self._slot_req[slot] is not None:
                     self._grow_slot(slot)
         if all(r is None for r in self._slot_req):
             return 0
+        if self.speculate_k:
+            drafts = self._collect_drafts()
+            if drafts:
+                swaps, xfer = self._spec_setup(drafts)
+                if drafts:       # setup may prune drafts (dry pool)
+                    return self._spec_step(drafts, swaps, xfer)
         if self.paged:
             (self.pools, self.last_tok, self.pos, self.remaining,
              self.active, out) = self._step(
@@ -683,11 +1232,15 @@ class ContinuousBatcher:
             self._host_last_tok[i] = int(toks[i])
             self._host_pos[i] += 1
             self._host_remaining[i] -= 1
+            if self.speculate_k:
+                self._history[i].append(int(toks[i]))
             if finished[i]:
                 r.out.close()
                 self._slot_req[i] = None
                 if self.paged:
-                    self._release_slot(i)
+                    # retire: the prompt's full pages are offered to the
+                    # prefix cache (decref instead of free).
+                    self._release_slot(i, prompt=r.prompt)
                 done += 1
         self.steps += 1
         self.retired += done

@@ -7,6 +7,9 @@
   the continuous batcher over the page pools.
 * ``make_chunk_prefill_step`` — one prompt chunk for one slot against the
   page pools; the final chunk installs the slot's decode state.
+* ``make_spec_verify_step`` — one speculative verify span for every slot:
+  scratch page copies, the block-table swap, the span forward, greedy
+  agreement and the commit, in one call.
 
 The JAX steps are jitted with their pools donated; here they run eagerly
 and update the pools and slot-state tensors in place.  Pools and block
@@ -91,6 +94,89 @@ def make_paged_decode_step(cfg: ModelConfig, max_seq: int, page_size: int):
                                         active, max_seq)
 
     return step
+
+
+def _kept(idx: np.ndarray, bound: int, *others: np.ndarray):
+    """The entries of padded host index arrays whose ``idx`` lies in
+    ``[0, bound)``, as int64 arrays.  The reference pads with an
+    out-of-range index that ``mode="drop"`` discards; torch indexing
+    would raise (CPU) or device-assert (CUDA), so the padding is masked
+    out on the host before any scatter."""
+    idx = np.asarray(idx)
+    keep = (idx >= 0) & (idx < bound)
+    return [np.asarray(a)[keep].astype(np.int64) for a in (idx,) + others]
+
+
+def make_spec_verify_step(cfg: ModelConfig, k: int, max_seq: int,
+                          page_size: int):
+    """Batched speculative *verify* step: one (n, k) forward scores a
+    k-token span per slot in a single call.
+
+    Row layout per slot: ``tokens[:, 0]`` is the last committed token
+    (position ``pos``), ``tokens[:, 1:1+n_draft]`` the drafted tokens,
+    the remaining columns padding (agreement-masked).  Greedy argmax of
+    logits row i predicts position ``pos + i + 1``; the accepted length
+    is the longest prefix of drafts agreeing with those predictions, and
+    every verify commits at least one token (a row with ``n_draft == 0``
+    commits exactly 1, plain decode), so one step serves mixed batches.
+    The forward writes K/V for the whole span.
+
+    ``fn(params, pools, block_tab, tokens, n_draft, pos, remaining,
+    active, copy_src, copy_dst, swap_rows, swap_cols, swap_vals)``:
+    ``tokens``/``n_draft`` on the device; the last five are per-group
+    padded host arrays from the batcher's plan (copy padding points dst
+    at ``n_pages``, swap padding points rows at ``n_slots``).  The old ->
+    scratch page copies run in place on the pools; the swap is applied to
+    a *copy* of the block table, so the batcher's own table is never
+    touched by speculation (rollback is free; only commits scatter it
+    afterwards).  Returns ``(pools, last_tok, pos, remaining, active,
+    out)`` with ``out`` the (k + 2, n) int32 block the host reads: k
+    prediction rows, the per-slot commit count and the finished flags."""
+    layout = get_layout(cfg, page_size)
+
+    def fn(params, pools, block_tab, tokens, n_draft, pos, remaining,
+           active, copy_src, copy_dst, swap_rows, swap_cols, swap_vals):
+        bt = {}
+        for g in layout.groups:
+            ax = layout.page_axis(g.name)
+            n_pages = pools[g.name]["k"].shape[ax]
+            dst, src = _kept(copy_dst[g.name], n_pages, copy_src[g.name])
+            if len(dst):
+                layout.copy_pages(pools, g.name, src.tolist(), dst.tolist())
+            tab = block_tab[g.name].clone()
+            rows, cols, vals = _kept(swap_rows[g.name], tab.shape[0],
+                                     swap_cols[g.name], swap_vals[g.name])
+            if len(rows):
+                dev = tab.device
+                tab[torch.from_numpy(rows).to(dev),
+                    torch.from_numpy(cols).to(dev)] = torch.from_numpy(
+                        vals).to(dev, tab.dtype)
+            bt[g.name] = torch.where(active[:, None], tab, n_pages)
+        cache = {"pages": pools, "block_tab": bt}
+        logits, pools = registry.forward(
+            cfg, params, {"tokens": tokens.long()}, mode="verify",
+            cache=cache, pos=pos)
+        preds = torch.argmax(logits, -1).to(torch.int32)       # (n, k)
+        # drafts agree while they match the model's own greedy argmax.
+        agree = (tokens[:, 1:] == preds[:, :-1]) & (
+            torch.arange(k - 1, device=tokens.device)[None, :]
+            < n_draft[:, None])
+        acc = torch.cumprod(agree.to(torch.int32), dim=1).sum(dim=1)
+        commit = torch.minimum(torch.minimum(acc + 1, remaining),
+                               (max_seq - 1 - pos).clamp(min=1))
+        commit = torch.where(active, commit, 0).to(torch.int32)
+        last = torch.gather(preds, 1,
+                            (commit - 1).clamp(0, k - 1)[:, None].long())
+        last_tok = torch.where(active, last[:, 0], tokens[:, 0])
+        pos = pos + commit
+        remaining = remaining - commit
+        finished = active & ((remaining <= 0) | (pos >= max_seq - 1))
+        active = active & ~finished
+        out = torch.cat([preds.T, commit[None, :],
+                         finished.to(torch.int32)[None, :]])
+        return pools, last_tok, pos, remaining, active, out
+
+    return fn
 
 
 def make_chunk_prefill_step(cfg: ModelConfig, chunk: int, max_seq: int,

@@ -251,10 +251,10 @@ def test_submit_rejects_degenerate_requests(model):
 
 
 @pytest.mark.parametrize("kw", [
-    {"prefix_cache": True}, {"host_tier_bytes": 1 << 20},
+    {"tier_snapshot": "x"}, {"host_tier_bytes": 1 << 20},
     {"schedule": "sla"}, {"faults": "step:1"}, {"telemetry": object()},
-    {"cfg": {"speculate_k": 2}}, {"cfg": {"mesh_shape": (2,)}},
-    {"cfg": {"prefix_cache": True}}, {"cfg": {"kv_reserve_decode": True}},
+    {"queue_depth": 4}, {"cfg": {"mesh_shape": (2,)}},
+    {"cfg": {"fault_plan": "step:1"}}, {"cfg": {"kv_reserve_decode": True}},
     {"cfg": {"serve_overload": "reject"}},
 ])
 def test_later_slice_options_raise(model, kw):

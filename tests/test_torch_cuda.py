@@ -237,8 +237,14 @@ def _paged_case(gen, dev, *, b, n_blocks, max_pos, sq=1, page=16, hq=24,
     dict(b=8, n_blocks=4, max_pos=1024, window=48, ring=True),
     dict(b=2, n_blocks=64, max_pos=1024, window=300),
     dict(b=4, n_blocks=86, max_pos=1024, page=12, quant=True),
+    dict(b=8, n_blocks=64, max_pos=1024, sq=5),
+    dict(b=8, n_blocks=64, max_pos=1024, sq=5, quant=True),
+    dict(b=2, n_blocks=64, max_pos=1024, sq=8, window=300),
+    dict(b=4, n_blocks=86, max_pos=1024, page=12, sq=5, quant=True),
 ], ids=["main", "many-splits", "empty-splits", "int8-splits",
-        "verify-splits", "ring-one-split", "window-splits", "page-12-int8"])
+        "verify-splits", "ring-one-split", "window-splits", "page-12-int8",
+        "verify-5", "verify-5-int8", "verify-8-rows-24-window",
+        "verify-5-page-12-int8"])
 def test_paged_decode_kernel_matches_twin(card, kw):
     gen = torch.Generator(device=card).manual_seed(kw["n_blocks"])
     c = _paged_case(gen, card, **kw)
