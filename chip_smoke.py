@@ -15,7 +15,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``flash_attention_decode`` (B3) at the main path's shapes (B1 also at
    the served verify span, 8 sequences at sq = 5, bf16 and int8), a long
    shape and every option (B3 also at zamba2's attention widths and at
-   its split-KV edges, each row with its ``n_split``),
+   its split-KV edges, each row with its ``n_split``), and both at
+   gemma3-12b's served shapes, d 256 with 16 / 8 heads (B1: the local
+   layers' ring of 65 pages with ``page_base`` under a 1024 window at
+   positions 1100-1560, its verify span at sq = 5 on the 66-page ring,
+   int8 pages, the global layers' flat table; B3: the rolled ring of
+   S == window == 1024 and the global 2048), timed beside SDPA on the
+   same pre-gathered K/V with the same mask,
    ``kv_quantize``/``kv_dequantize`` (B2) bit for bit at decode, prefill
    and full-cache shapes, B2's quantize-and-store entry
    ``kv_quantize_store`` bit for bit (every cache leaf after the store) at
@@ -32,7 +38,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    zamba2's widths and small odd shapes, with its ``ValueError`` on a
    ragged length; each timed beside its bound and, where one PyTorch
    call computes the same function, that library yardstick;
-3. exactness at smoke width — the paged batcher through B1 and the
+3. the hlslib host runtime and exactness at smoke width — the paper's
+   Listing 2 through ``Context()`` on the card (``ExecuteTask`` returns
+   finished results equal to the expected values), ``fused_pipeline``
+   equal to sequential composition, the quickstart twin's lines equal to
+   its CPU run's; the paged batcher through B1 and the
    dense-slot batcher through B3 (bf16, the sliding-window ring, int8
    through B2, and bf16 at max_seq 512, where B3 splits each slot over
    CTAs) give the dense greedy oracle's tokens; the int8 paged
@@ -46,7 +56,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    mamba2-1p3b and zamba2-1p2b (fp32) serve dense slots when asked for
    pages, token-identical to their greedy oracle (zamba2's shared block
    through B3), and their train forward through B6 matches the plain
-   scan;
+   scan; gemma3 (fp32, window 16, prompts past it) gives the dense
+   greedy oracle's tokens from dense slots through B3 on the ring, the
+   dense slots' tokens paged through B1 with ``page_base`` (also with
+   pools that preempt; bf16 and int8), one request's pages within the
+   ring plus the global table, and plain decode's tokens with
+   ``speculate_k`` 4, B1 and B3 launched steps x layers;
 4. full-width serve — minitron-4b at full width, random bf16 weights
    from the seed, 16 requests through ``ContinuousBatcher`` under
    ``DataflowContext``: paged through B1, then dense slots through B3 with
@@ -81,7 +96,22 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    logits are held to the plain scan's in fp32 compute (bf16 rounding
    through the random-weight layers amplifies any change of summation
    order past the tolerance: the plain scan at half the chunk is printed
-   beside it as that noise floor).
+   beside it as that noise floor);
+7. gemma3-12b at full width — random bf16 weights from the seed, 16
+   requests of 1100-1500 prompt tokens (past the 1024 window) and 64 new
+   tokens on 8 slots, max_seq 2048, page 16, chunk 128, ``decode_flash``:
+   served paged (B1 with the ring's ``page_base`` on the 40 local layers,
+   flat on the 8 global), paged with ``speculate_k`` 4 and the
+   single-token drafter (verify spans at sq = 5 on a 66-page ring; once
+   with the default pool, whose local group is exactly the 8 rings, and
+   once with 2 scratch pages per slot beyond them), and from dense slots
+   (B3 on the rolled window and the full cache); B1 / B3 launched steps
+   x 48 exactly, the local group's peak pages within the rings (and the
+   scratch); tokens/s, step and TTFT times, peak memory, each group's
+   peak pages, the speculation counters beside the draftable steps of
+   plain decode and token identity to the paged run printed; one decode
+   step's logits through the kernels vs the plain path and its time
+   split, paged and dense.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -251,7 +281,7 @@ def time_ms(fn, flush, reps: int = 25, warmup: int = 3) -> float:
 
 def make_case(gen, *, b, hq=24, hkv=8, sq=1, d=128, page=16, n_blocks,
               max_pos, q_dtype=torch.bfloat16, quant=False, window=None,
-              ring=False, unallocated=False):
+              ring=False, unallocated=False, min_pos=None):
     dev = DEVICE
     n_pages = b * n_blocks
     shape = (n_pages, hkv, page, d)
@@ -269,15 +299,16 @@ def make_case(gen, *, b, hq=24, hkv=8, sq=1, d=128, page=16, n_blocks,
     q = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(q_dtype)
     bt = torch.randperm(n_pages, generator=gen, device=dev).reshape(
         b, n_blocks).int()
-    pos = torch.randint(max_pos // 8, max_pos - sq + 1, (b,), generator=gen,
+    lo = max_pos // 8 if min_pos is None else min_pos
+    pos = torch.randint(lo, max_pos - sq + 1, (b,), generator=gen,
                         device=dev).int()
     if unallocated:             # entries past each sequence's pages
         live = (pos.long() + sq - 1) // page
         cols = torch.arange(n_blocks, device=dev)[None, :]
         bt = torch.where(cols > live[:, None], n_pages + 7, bt).int()
     base = None
-    if ring:
-        cur = pos.long()[:, None] // page
+    if ring:        # the served rule: bases from the span's last row
+        cur = (pos.long()[:, None] + sq - 1) // page
         j = torch.arange(n_blocks, device=dev)[None, :]
         base = ((cur - ((cur - j) % n_blocks)) * page).int().contiguous()
     return dict(q=q, k_pages=kp, v_pages=vp, block_tab=bt.contiguous(),
@@ -321,9 +352,10 @@ def bound_ms(c, card: str):
 
 def sdpa_inputs(c):
     """Pre-gathered contiguous K/V (b, hkv, S, d), dequantized to bf16
-    for int8 pages, and the boolean (b, 1, sq, S) causal mask of the query
-    rows at pos..pos+sq-1, for the library yardstick (flat tables, no
-    window)."""
+    for int8 pages, and the boolean (b, 1, sq, S) mask of the query rows
+    at pos..pos+sq-1 (causal; the window band and the ring's key
+    positions from ``page_base`` where the case has them), for the
+    library yardstick."""
     kp, vp, bt = c["k_pages"], c["v_pages"], c["block_tab"].long()
     b, nb = bt.shape
     _, hkv, page, d = kp.shape
@@ -339,9 +371,17 @@ def sdpa_inputs(c):
     V = gather(vp, c["v_scale_pages"])
     sq = c["q"].shape[2]
     qpos = c["pos"].long()[:, None] + torch.arange(sq, device=DEVICE)
-    mask = (torch.arange(S, device=DEVICE)[None, None, :]
-            <= qpos[:, :, None])[:, None]
-    return K, V, mask
+    if c["page_base"] is not None:
+        kpos = (c["page_base"].long()[:, :, None]
+                + torch.arange(page, device=DEVICE)).reshape(b, S)
+    else:
+        kpos = torch.arange(S, device=DEVICE).expand(b, S)
+    mask = kpos[:, None, :] <= qpos[:, :, None]
+    if c["page_base"] is not None:
+        mask &= (kpos >= 0)[:, None, :]
+    if c["window"] is not None:
+        mask &= kpos[:, None, :] > qpos[:, :, None] - c["window"]
+    return K, V, mask[:, None]
 
 
 def hold(tag, name, out, ref, rule):
@@ -417,6 +457,11 @@ def hold_attention(tag, kernel, plain, make, cases, yardstick, bound,
     return results
 
 
+# B1 at gemma3-12b's local layers, as its paged serve reads them.
+GEMMA3_LOCAL = dict(b=8, hq=16, hkv=8, d=256, n_blocks=65, window=1024,
+                    ring=True, min_pos=1100, max_pos=1561)
+
+
 def phase_kernel(gen, card, flush):
     """B1 vs its plain twin; timings at the main and long shapes."""
     from repro_torch.kernels.flash_attention import (
@@ -452,6 +497,24 @@ def phase_kernel(gen, card, flush):
         "ring page_base, window=48 (one tile, n_split 1)": dict(
             main, n_blocks=4, window=48, ring=True),
         "int8, page 12": dict(main, page=12, n_blocks=86, quant=True),
+        # gemma3-12b's served shapes: 16 / 8 heads of 256; the local
+        # layers read a ring of 65 pages (66 with speculate_k 4, the
+        # verify span's) under a 1024 window at positions past the wrap,
+        # the global layers a flat table of 2048 positions.
+        "main gemma3 local decode (8 seqs, d 256, ring of 65 pages, "
+        "window 1024, pos 1100-1560, bf16)": GEMMA3_LOCAL,
+        "main gemma3 local verify (8 seqs, sq=5, d 256, ring of 66 pages, "
+        "window 1024, pos 1100-1560, bf16)": dict(GEMMA3_LOCAL, sq=5,
+                                                   n_blocks=66),
+        "main gemma3 global decode (8 seqs, d 256, 128 pages, pos "
+        "1100-1560, bf16)": dict(GEMMA3_LOCAL, n_blocks=128, window=None,
+                                  ring=False),
+        "gemma3 local decode, int8 + bf16 scales": dict(GEMMA3_LOCAL,
+                                                        quant=True),
+        "gemma3 local verify, sq=5, int8 + bf16 scales": dict(
+            GEMMA3_LOCAL, sq=5, n_blocks=66, quant=True),
+        "gemma3 local verify, sq=5, before the wrap": dict(
+            GEMMA3_LOCAL, sq=5, n_blocks=66, min_pos=0, max_pos=1100),
     }
 
     def yardstick(c):
@@ -557,6 +620,19 @@ def phase_dense_kernel(gen, card, flush):
         "f32 q, d 256, group 8 (half tiles)": dict(b=2, hq=8, hkv=1, d=256,
                                                   S=300, pos=[299, 150],
                                                   q_dtype=torch.float32),
+        # gemma3-12b's served shapes, bf16 at d 256: the local layers'
+        # rolled ring (S == window == 1024, positions past the wrap), the
+        # global layers' flat 2048.
+        "main gemma3 local (8 slots, d 256, ring S=window=1024, pos "
+        "1100-1560, bf16)": dict(hq=16, hkv=8, d=256, S=1024, window=1024,
+                                 ring=True, pos=[1100, 1560, 1234, 1301,
+                                                 1455, 1112, 1499, 1387]),
+        "main gemma3 global (8 slots, d 256, S 2048, pos 1100-1560, bf16)":
+            dict(hq=16, hkv=8, d=256, S=2048,
+                 pos=[1100, 1560, 1234, 1301, 1455, 1112, 1499, 1387]),
+        "gemma3 local ring, positions before and at the wrap": dict(
+            hq=16, hkv=8, d=256, S=1024, window=1024, ring=True,
+            pos=[0, 1, 700, 1022, 1023, 1024, 1025, 2047]),
     }
 
     def yardstick(c):
@@ -1637,11 +1713,16 @@ def stamped_stream():
 N_SLOTS, N_REQ, MAX_NEW, MAX_SEQ, PAGE, CHUNK = 8, 16, 64, 1024, 16, 128
 
 
-def serve_full_width(cfg, params, seed, counts, prompts=None):
+def serve_full_width(cfg, params, seed, counts, prompts=None,
+                     max_seq=MAX_SEQ, n_pages=None):
     """The traffic above (or ``prompts``, MAX_NEW tokens each) through
     ``ContinuousBatcher`` under ``DataflowContext``; kernel counts are set
-    to 0 just before and read just after.  Returns (summary, launches,
-    batcher, outputs)."""
+    to 0 just before and read just after.  Paged runs also report each
+    page group's pages in use at its peak (sampled wherever the batcher
+    notes its peak: admission, decode growth, speculation's scratch).
+    ``n_pages`` sizes the page pools (the batcher's default: each group's
+    table width times the slots).  Returns (summary, launches, batcher,
+    outputs)."""
     from repro_torch.core.dataflow import DataflowContext
     from repro_torch.serve.batching import ContinuousBatcher, Request, drain
     rng = np.random.default_rng(seed)
@@ -1651,12 +1732,22 @@ def serve_full_width(cfg, params, seed, counts, prompts=None):
     reqs = [Request(rid=i, prompt=p, max_new=MAX_NEW, out=stamped_stream())
             for i, p in enumerate(prompts)]
     torch.cuda.reset_peak_memory_stats()
-    bat = ContinuousBatcher(cfg, params, n_slots=N_SLOTS, max_seq=MAX_SEQ,
-                            device=DEVICE)
+    bat = ContinuousBatcher(cfg, params, n_slots=N_SLOTS, max_seq=max_seq,
+                            n_pages=n_pages, device=DEVICE)
     count_prefills(bat)
     step_s = []
     shared = [0]
     inner_step = bat.step
+    group_peak = {}
+    if bat.paged:
+        inner_note = bat._note_peak
+
+        def note_peak():
+            inner_note()
+            for name, a in bat._alloc.items():
+                group_peak[name] = max(group_peak.get(name, 0), a.used_pages)
+
+        bat._note_peak = note_peak
 
     def timed_step():
         t0 = time.perf_counter()
@@ -1706,13 +1797,18 @@ def serve_full_width(cfg, params, seed, counts, prompts=None):
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches,
     }
-    if bat.paged and (bat.prefix_cache or bat.speculate_k):
+    if bat.paged:
+        summary["peak_pages"] = bat.peak_pages
+        summary["peak_pages_by_group"] = group_peak
+        summary["n_blocks"] = dict(bat.n_blocks)
+    if bat.paged and bat.prefix_cache:
         st = bat.stats()
         summary["prefix"] = {k: st.get(k) for k in (
             "prefix_lookups", "prefix_hits", "prefix_hit_tokens",
             "prefix_evictions", "cow_copies")}
         summary["prefix"]["peak_shared_pages"] = shared[0]
-        summary["speculation"] = {k: st["speculation"][k] for k in (
+    if bat.paged and bat.speculate_k:
+        summary["speculation"] = {k: bat.stats()["speculation"][k] for k in (
             "drafted", "accepted", "rolled_back", "verify_steps")}
     return summary, launches, bat, outs
 
@@ -1741,24 +1837,30 @@ def compare_logits(cfg, params, cache, tokens, pos, label):
           f"[{label}]")
 
 
-def prefill_pools(cfg, params, rng):
-    """Page pools of the full-width paged config (8 slots x 64 pages, one
-    table row each), every slot prefilled through the chunk step with a
-    prompt of 100-900 tokens.  Returns (pools, block_tab, slot state
-    [last_tok, pos, remaining, active], chunk step, chunks run)."""
+def prefill_pools(cfg, params, rng, max_seq=MAX_SEQ, plens=(100, 900)):
+    """Page pools of a full-width paged config (8 slots, each a full
+    table row of its own in every page group: 64 pages of minitron's flat
+    group at max_seq 1024), every slot prefilled through the chunk step
+    with a prompt of ``plens`` tokens (drawn in [lo, hi)).  Returns
+    (pools, block tables by group, slot state [last_tok, pos, remaining,
+    active], chunk step, chunks run)."""
     from repro_torch.models import params as PP
     from repro_torch.models import registry
+    from repro_torch.models.cache_layouts import get_layout
     from repro_torch.serve.serve_loop import make_chunk_prefill_step
-    n_slots, max_seq, page, chunk = N_SLOTS, MAX_SEQ, PAGE, CHUNK
-    nb = max_seq // page
-    pools = PP.init_params(registry.paged_cache_decls(cfg, n_slots * nb, page),
-                           device=DEVICE)
-    bt = torch.arange(n_slots * nb, device=DEVICE, dtype=torch.int32).reshape(
-        n_slots, nb)
+    n_slots, page, chunk = N_SLOTS, PAGE, CHUNK
+    layout = get_layout(cfg, page)
+    nbs = {g.name: layout.n_blocks(g.name, max_seq) for g in layout.groups}
+    pools = PP.init_params(registry.paged_cache_decls(
+        cfg, {n: n_slots * nb for n, nb in nbs.items()}, page),
+        device=DEVICE)
+    bt = {n: torch.arange(n_slots * nb, device=DEVICE,
+                          dtype=torch.int32).reshape(n_slots, nb)
+          for n, nb in nbs.items()}
     zero = torch.zeros(n_slots, dtype=torch.int32, device=DEVICE)
     state = [zero.clone(), zero.clone(), zero.clone(), zero.bool()]
     fn = make_chunk_prefill_step(cfg, chunk, max_seq, page)
-    plens = rng.integers(100, 900, n_slots)
+    plens = rng.integers(*plens, n_slots)
     n_chunks = 0
     for s, plen in enumerate(plens):
         prompt = rng.integers(0, cfg.vocab_size, int(plen))
@@ -1769,7 +1871,7 @@ def prefill_pools(cfg, params, rng):
             final = base_pos + chunk >= plen
             last = (plen - 1 - base_pos) if final else chunk - 1
             pools, *state, _ = fn(
-                params, pools, {"kv": bt}, *state,
+                params, pools, bt, *state,
                 torch.from_numpy(seg).to(DEVICE),
                 torch.full((1,), base_pos, dtype=torch.int32, device=DEVICE),
                 torch.full((1,), int(last), dtype=torch.int32, device=DEVICE),
@@ -1842,7 +1944,7 @@ def phase_full_width(seed):
     # one decode step's logits, kernel vs plain, on prefilled pools.
     pools, bt, state, fn, _ = prefill_pools(cfg, params, rng)
     last_tok, pos = state[0], state[1]
-    compare_logits(cfg, params, {"pages": pools, "block_tab": {"kv": bt}},
+    compare_logits(cfg, params, {"pages": pools, "block_tab": bt},
                    last_tok, pos, "paged bf16")
 
     # where a decode step's and a prefill chunk's time goes.
@@ -1851,7 +1953,7 @@ def phase_full_width(seed):
 
     def decode_once():
         nonlocal pos
-        _, _, pos, _, _, out = step(params, pools, {"kv": bt}, last_tok,
+        _, _, pos, _, _, out = step(params, pools, bt, last_tok,
                                     pos, state[2] + 1000, active)
         out.cpu()
 
@@ -1859,7 +1961,7 @@ def phase_full_width(seed):
         DEVICE)
 
     def chunk_once():
-        *_, tok = fn(params, pools, {"kv": bt}, *state, seg,
+        *_, tok = fn(params, pools, bt, *state, seg,
                      torch.zeros(1, dtype=torch.int32, device=DEVICE),
                      torch.full((1,), chunk - 1, dtype=torch.int32,
                                 device=DEVICE), 0, False, chunk, 4, 0)
@@ -1935,16 +2037,16 @@ def phase_full_width(seed):
     last_tok, pos, rem = state[0], state[1], state[2] + 1000
     step = make_decode_step(cfg, max_seq, page)
     same_through_twin(f"{label} decode step", lambda c: step(
-        params, c, {"kv": bt}, last_tok, pos, rem, active), pools)
+        params, c, bt, last_tok, pos, rem, active), pools)
 
     def decode_once():
         nonlocal pos
-        _, _, pos, _, _, out = step(params, pools, {"kv": bt}, last_tok,
+        _, _, pos, _, _, out = step(params, pools, bt, last_tok,
                                     pos, rem, active)
         out.cpu()
 
     def chunk_once():
-        *_, tok = fn(params, pools, {"kv": bt}, *state, seg,
+        *_, tok = fn(params, pools, bt, *state, seg,
                      torch.zeros(1, dtype=torch.int32, device=DEVICE),
                      torch.full((1,), chunk - 1, dtype=torch.int32,
                                 device=DEVICE), 0, False, chunk, 4, 0)
@@ -2010,7 +2112,7 @@ def hold_verify_span(cfg, params, pools, bt, pos, rng, counts):
     reset_counts(counts)
     span, span_pools = registry.forward(
         cfg, params, {"tokens": tokens}, mode="verify",
-        cache={"pages": copy(), "block_tab": {"kv": bt}}, pos=pos)
+        cache={"pages": copy(), "block_tab": bt}, pos=pos)
     n_b1 = read_counts(counts)["flash_attention_decode_paged"]
     check(n_b1 == cfg.n_layers, f"verify span launched B1 {n_b1} times")
     seq_pools = copy()
@@ -2018,7 +2120,7 @@ def hold_verify_span(cfg, params, pools, bt, pos, rng, counts):
     for i in range(k1):
         step, seq_pools = registry.forward(
             cfg, params, {"tokens": tokens[:, i:i + 1]}, mode="decode",
-            cache={"pages": seq_pools, "block_tab": {"kv": bt}},
+            cache={"pages": seq_pools, "block_tab": bt},
             pos=pos + i)
         a, b = span[:, i].float(), step[:, 0].float()
         err = (a - b).abs().max().item()
@@ -2124,12 +2226,12 @@ def phase_prefix_spec_full_width(seed):
     active = torch.ones(N_SLOTS, dtype=torch.bool, device=DEVICE)
 
     def verify_once():
-        *_, out = verify(params, pools, {"kv": bt}, tokens, n_draft, pos,
+        *_, out = verify(params, pools, bt, tokens, n_draft, pos,
                          rem, active, *nothing)
         out.cpu()
 
     def decode_once():
-        *_, out = step(params, pools, {"kv": bt}, last_tok, pos, rem,
+        *_, out = step(params, pools, bt, last_tok, pos, rem,
                        active)
         out.cpu()
 
@@ -2304,6 +2406,329 @@ def phase_recurrent_full_width(seed):
     return paths
 
 
+# --- the hlslib host runtime on the card (F2, F3's compiled mode) -----------------------
+
+
+def phase_host_runtime():
+    """The paper's Listing 2 through ``Context()`` (the card by default):
+    buffers on the card, ``ExecuteTask`` returning finished results equal
+    to the expected values, the read-only buffer refusing a host
+    rewrite; ``fused_pipeline`` equal to composing its stages by hand on
+    each microbatch; the quickstart twin on the card printing what it
+    prints on the CPU (F7 to 1e-5)."""
+    from repro_torch.core import Access, Context, MemoryBank
+    from repro_torch.core.pipeline import fused_pipeline, pipeline_efficiency
+    from repro_torch.examples import quickstart
+    ctx = Context()
+    check(ctx.device.type == "cuda", f"Context() chose {ctx.device}")
+    N = 1 << 22
+    program = ctx.MakeProgram({"Kernel": lambda a, b, n: (a * 2.0 + b, n)})
+    in_dev = ctx.MakeBuffer(torch.float32, Access.read, MemoryBank.bank0,
+                            np.full(N, 5.0, np.float32))
+    out_dev = ctx.MakeBuffer(torch.float32, Access.write, MemoryBank.bank1,
+                             N)
+    check(in_dev.tensor.is_cuda and out_dev.tensor.is_cuda,
+          "buffers not on the card")
+    kernel = program.MakeKernel("Kernel", in_dev, out_dev, N)
+    result, n = kernel.ExecuteTask()
+    done = torch.cuda.current_stream().query()
+    host = np.empty(N, np.float32)
+    np.copyto(host, result.cpu().numpy())
+    check(result.is_cuda and done and n == N and bool((host == 10.0).all()),
+          f"Listing 2 on the card: finished {done}, values "
+          f"{np.unique(host)[:4]}")
+    try:
+        in_dev.CopyFromHost(np.zeros(N, np.float32))
+        check(False, "a read-only buffer took a host rewrite")
+    except PermissionError:
+        pass
+    out_dev.CopyFromHost(np.arange(N, dtype=np.float32))
+    check(bool((out_dev.CopyToHost() == np.arange(N)).all()),
+          "write buffer round trip")
+    fut = program.MakeKernel("Kernel", out_dev, in_dev, 3).ExecuteAsync()[0]
+    check(torch.equal(fut, out_dev.tensor * 2.0 + in_dev.tensor),
+          "ExecuteAsync result")
+
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    ws = [torch.randn((256, 256), generator=gen, device=DEVICE) * 0.06
+          for _ in range(4)]
+    stages = [lambda x, w=w: torch.tanh(x @ w) * 1.5 + 0.25 for w in ws]
+    xs = torch.randn((6, 64, 256), generator=gen, device=DEVICE)
+    ys = fused_pipeline(stages, xs)
+    seq = []
+    for x in xs:
+        for f in stages:
+            x = f(x)
+        seq.append(x)
+    check(ys.is_cuda, "fused_pipeline left the card")
+    check(torch.equal(ys, torch.stack(seq)),
+          "fused_pipeline != sequential composition")
+    check(pipeline_efficiency(6, 4) == 6 / 9, "pipeline_efficiency")
+
+    card_lines, cpu_lines = quickstart.run(), quickstart.run("cpu")
+    check(card_lines[:4] == cpu_lines[:4],
+          f"quickstart on the card {card_lines} != on the CPU {cpu_lines}")
+    f7 = [[float(v) for v in line.split(":")[1].split("vs")[0].split()]
+          + [float(line.rsplit(":", 1)[1])]
+          for line in (card_lines[4], cpu_lines[4])]
+    check(np.allclose(f7[0], f7[1], rtol=1e-5, atol=0), f"F7 {f7}")
+    for line in card_lines:
+        print(f"quickstart on the card: {line}")
+    print(f"host runtime on the card: Listing 2 through Context() "
+          f"({ctx.device}, {N} floats, ExecuteTask finished and equal), "
+          "fused_pipeline == sequential composition (6 microbatches x 4 "
+          "stages), quickstart's lines equal the CPU run's")
+
+
+# --- gemma3-12b: the local/global layout ----------------------------------------------------
+
+
+def phase_gemma3_exactness(seed):
+    """gemma3 at smoke width (12 layers: 2 groups of 5 local layers with a
+    16-token window and 1 global; fp32 compute, bf16 or int8 caches) on
+    the card, prompts past the window: dense slots through B3 (the local
+    layers on the rolled ring) give the dense greedy oracle's tokens;
+    paged through B1 (the local layers on a ring of pages with
+    ``page_base``) gives the dense slots' tokens, also with pools small
+    enough to preempt; one request's pages stay within the ring's width
+    plus the global table; speculative decode (``speculate_k`` 4, verify
+    spans through B1 at sq = 5) gives plain decode's tokens; B1 and B3
+    launched once per layer for every step.  The weights are drawn on
+    the host from the seed and moved to the card, as the CPU rehearsal
+    draws them."""
+    from repro_torch.configs import get
+    from repro_torch.configs.base import smoke_variant
+    from repro_torch.models import params as PP
+    from repro_torch.models import registry
+    from repro_torch.serve.serve_loop import greedy_generate
+    base = smoke_variant(get("gemma3-12b"))
+    params = PP.tree_map(lambda _, a: a.to(DEVICE),
+                         registry.init(base, seed, device="cpu"))
+    L, w, page = base.n_layers, base.sliding_window, 8
+    counts = kernel_counts()
+    rng = np.random.default_rng(seed + 3)
+    plens, max_news, max_seq = [9, 21, 40], [20, 16, 12], 64
+    prompts = [rng.integers(0, base.vocab_size, n).astype(np.int32)
+               for n in plens]
+    for kv in ("bfloat16", "int8"):
+        c = dataclasses.replace(base, kv_cache_dtype=kv)
+        gold = [list(greedy_generate(c, params, {"tokens": p[None]}, steps=m,
+                                     max_seq=max_seq, device=DEVICE)[0])
+                for p, m in zip(prompts, max_news)]
+        c = dataclasses.replace(c, decode_flash=True)
+        reset_counts(counts)
+        dense, bat = run_batcher(c, params, prompts, max_news, n_slots=3,
+                                 max_seq=max_seq)
+        n = read_counts(counts)
+        check(not bat.paged and dense == gold,
+              f"gemma3 dense [{kv}] {dense} != greedy {gold}")
+        check(n["flash_attention_decode"] == bat.steps * L,
+              f"gemma3 dense [{kv}] B3 launches {n} != steps {bat.steps} x "
+              f"{L}")
+        p = dataclasses.replace(c, kv_page_size=page)
+        for pool in (None, {"local": 6, "global": 8}):
+            reset_counts(counts)
+            got, bat = run_batcher(p, params, prompts, max_news, n_slots=3,
+                                   max_seq=max_seq, prefill_chunk=64,
+                                   n_pages=pool)
+            n = read_counts(counts)
+            check(got == dense, f"gemma3 paged [{kv}, pool {pool}] {got} != "
+                  f"dense {dense}")
+            check(n["flash_attention_decode_paged"] == bat.steps * L,
+                  f"gemma3 paged [{kv}] B1 launches {n} != steps "
+                  f"{bat.steps} x {L}")
+            check(pool is None or bat.preemptions > 0,
+                  f"gemma3 paged [{kv}] pool {pool} did not preempt")
+            empty_index(bat)
+        print(f"gemma3 smoke exactness [{kv}]: prompts {plens} (window {w}) "
+              f"dense slots through B3 == greedy; paged through B1 (ring "
+              f"{bat.n_blocks['local']} pages, global "
+              f"{bat.n_blocks['global']}) == dense, also with pools "
+              f"{pool} ({bat.preemptions} preemptions)")
+
+    # one request's pages: at most the ring's width plus the global table.
+    p = dataclasses.replace(base, kv_page_size=page, decode_flash=True)
+    gold = [list(greedy_generate(base, params, {"tokens": prompts[2][None]},
+                                 steps=6, max_seq=max_seq,
+                                 device=DEVICE)[0])]
+    got, bat = run_batcher(p, params, prompts[2:], [6], n_slots=2,
+                           max_seq=max_seq, prefill_chunk=64)
+    bound = (w // page + 1) + -(-max_seq // page)
+    peak = bat.peak_pages
+    check(got == gold and peak <= bound,
+          f"gemma3 window bound: {got} vs {gold}, peak {peak} > {bound}")
+
+    # speculation vs plain, bf16 and int8 pools, decoding past the window
+    # (prompts of their own 4-token motif, 30 new tokens; motifs on which
+    # the smoke model accepts drafts, so that commits run too).
+    prompts = motif_prompts([9, 14, 6, 12], base.vocab_size,
+                            np.random.default_rng(seed + 20))
+    for kv in ("bfloat16", "int8"):
+        c = dataclasses.replace(p, kv_cache_dtype=kv, prefill_chunk=page,
+                                speculate_ngram=1)
+        outs = {}
+        for k in (0, 4):
+            reset_counts(counts)
+            outs[k], bat = run_batcher(dataclasses.replace(c, speculate_k=k),
+                                       params, prompts, [30] * 4, n_slots=2,
+                                       max_seq=max_seq)
+            n = read_counts(counts)["flash_attention_decode_paged"]
+            check(n == bat.steps * L, f"gemma3 spec [{kv}, k {k}] B1 "
+                  f"launches {n} != steps {bat.steps} x {L}")
+            empty_index(bat)
+        sp = bat.stats()["speculation"]
+        check(outs[4] == outs[0], f"gemma3 [{kv}] speculative {outs[4]} != "
+              f"plain {outs[0]}")
+        check(sp["verify_steps"] > 0 and sp["accepted"] > 0,
+              f"gemma3 [{kv}] no draft accepted: {sp}")
+        print(f"gemma3 smoke exactness [speculate_k 4, {kv} pools]: 4 "
+              f"requests token-identical to plain decode; {bat.steps} steps "
+              f"({sp['verify_steps']} verify), drafted {sp['drafted']}, "
+              f"accepted {sp['accepted']}, ring {bat.n_blocks['local']} "
+              f"pages; B1 launches {n} = steps x {L}")
+    print(f"gemma3 smoke exactness: one request of {plens[2]} + 6 tokens "
+          f"held {peak} pages at its peak (ring + global table: {bound})")
+    del params
+    torch.cuda.empty_cache()
+
+
+# gemma3-12b at full width: 8 slots, max_seq 2048, page 16, chunk 128;
+# 16 requests of 1100-1500 prompt tokens (past the 1024 window, so the
+# local ring wraps during prefill and decode), MAX_NEW new tokens each.
+G3_MAX_SEQ, G3_PLENS = 2048, (1100, 1501)
+
+
+def phase_gemma3_full_width(seed):
+    """gemma3-12b at full width, random bf16 weights from the seed,
+    ``decode_flash``: the traffic above served paged (B1 with the ring's
+    ``page_base`` on 40 local layers, flat on 8 global), paged with
+    ``speculate_k`` 4 and the single-token drafter (verify spans at sq =
+    5; the ring 66 pages), and from dense slots (B3 on the rolled window
+    of 1024 and the flat 2048); launches = steps x 48 in each, the local
+    group's peak pages within 8 x the ring's width; one decode step's
+    logits through the kernels vs the plain path, paged and dense, and
+    each one's time split.  Returns {path: launches}."""
+    from repro_torch.configs import get
+    from repro_torch.models import params as PP
+    from repro_torch.models import registry
+    from repro_torch.models.cache_layouts import ring_blocks
+    from repro_torch.serve.batching import ContinuousBatcher, Request
+    from repro_torch.serve.serve_loop import make_paged_decode_step
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    base = dataclasses.replace(get("gemma3-12b"), decode_flash=True)
+    t = time.perf_counter()
+    params = registry.init(base, seed, device=DEVICE, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in PP.tree_leaves(params))
+    print(f"full width: gemma3-12b, {n_params} bf16 parameters "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB on the card) drawn "
+          f"in {time.perf_counter() - t:.2f}s")
+    counts = kernel_counts()
+    L = base.n_layers
+    rng = np.random.default_rng(seed + 12)
+    prompts = [rng.integers(0, base.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(*G3_PLENS, N_REQ)]
+    paged = dataclasses.replace(base, kv_page_size=PAGE, prefill_chunk=CHUNK)
+    spec = dataclasses.replace(paged, speculate_k=SPEC_K, speculate_ngram=1)
+    # the default local pool is exactly the 8 rings, all held once every
+    # prompt is past the window, which leaves a verify span no scratch
+    # page there; the last run gives each slot 2 more (a span of 5 tokens
+    # touches at most 2 pages).
+    scratch = {"local": N_SLOTS * (ring_blocks(base.sliding_window + SPEC_K,
+                                               PAGE) + 2)}
+    paths, outs = {}, {}
+    for label, cfg, pool in (
+            ("paged", paged, None), ("paged, speculate_k 4", spec, None),
+            ("dense", base, None),
+            ("paged, speculate_k 4, 2 scratch pages per slot", spec,
+             scratch)):
+        summary, launches, bat, outs[label] = serve_full_width(
+            cfg, params, seed, counts, prompts, max_seq=G3_MAX_SEQ,
+            n_pages=pool)
+        kernel = ("flash_attention_decode_paged" if bat.paged
+                  else "flash_attention_decode")
+        check(launches[kernel] == bat.steps * L,
+              f"gemma3 [{label}] {kernel} launches {launches[kernel]} != "
+              f"steps {bat.steps} x {L}")
+        if bat.paged:
+            ring = bat.n_blocks["local"]
+            check(ring == (66 if cfg.speculate_k else 65),
+                  f"gemma3 [{label}] ring of {ring} pages")
+            # the rings, and a verify span's scratch where the pool has it.
+            bound = N_SLOTS * ring if pool is None else pool["local"]
+            check(summary["peak_pages_by_group"]["local"] <= bound,
+                  f"gemma3 [{label}] local pages {summary} beyond the "
+                  f"rings ({bound})")
+        if cfg.speculate_k:
+            check(summary["speculation"]["verify_steps"] > 0,
+                  f"gemma3 [{label}] no verify step: {summary}")
+            summary["drafts_possible"] = drafts_possible(prompts,
+                                                         outs["paged"])
+        print(f"full-width serve [gemma3-12b, {label}]: "
+              + json.dumps(summary))
+        paths[f"gemma3-12b {label}"] = launches
+        del bat
+        torch.cuda.empty_cache()
+
+    def identity(a, b):
+        same = sum(x == y for x, y in zip(outs[a], outs[b]))
+        share = np.mean([x == y for u, v in zip(outs[a], outs[b])
+                         for x, y in zip(u, v)])
+        return f"{same} of {N_REQ} requests, {share:.4f} of tokens"
+
+    print("full-width gemma3-12b, token identity to the paged run (bf16: "
+          "other GEMM shapes may flip a rounding; reported, not held): "
+          + "; ".join(f"{k} {identity(k, 'paged')}" for k in outs
+                      if k != "paged"))
+
+    # one paged decode step: logits through B1 vs the plain path, and
+    # its time split, on pools prefilled at 1100-1500 positions.
+    pools, bt, state, _, _ = prefill_pools(paged, params, rng, G3_MAX_SEQ,
+                                           G3_PLENS)
+    last_tok, pos = state[0], state[1]
+    compare_logits(paged, params, {"pages": pools, "block_tab": bt},
+                   last_tok, pos, "gemma3-12b paged")
+    step = make_paged_decode_step(paged, G3_MAX_SEQ, PAGE)
+    active = torch.ones(N_SLOTS, dtype=torch.bool, device=DEVICE)
+    rem = state[2] + 1000
+
+    def paged_once():
+        *_, out = step(params, pools, bt, last_tok, pos, rem, active)
+        out.cpu()
+
+    paged_once()
+    prof = {"paged_decode_step": profile_window(paged_once, 5)}
+    del pools, step, state
+    torch.cuda.empty_cache()
+
+    # one dense decode step: 8 slots admitted at 1100-1500 positions.
+    bat = ContinuousBatcher(base, params, n_slots=N_SLOTS,
+                            max_seq=G3_MAX_SEQ, device=DEVICE)
+    for i, plen in enumerate(rng.integers(*G3_PLENS, N_SLOTS)):
+        bat.requests.Push(Request(rid=i, prompt=rng.integers(
+            0, base.vocab_size, int(plen)).astype(np.int32), max_new=4))
+    bat.admit()
+    check(all(r is not None for r in bat._slot_req), "slots not filled")
+    compare_logits(base, params, bat.cache, bat.last_tok, bat.pos,
+                   "gemma3-12b dense")
+    dpos, drem = bat.pos.clone(), bat.remaining + 1000
+
+    def dense_once():
+        *_, out = bat._step(params, bat.cache, bat.last_tok, dpos, drem,
+                            active)
+        out.cpu()
+
+    dense_once()
+    prof["dense_decode_step"] = profile_window(dense_once, 5)
+    print("time split [gemma3-12b] (8 slots at 1100-1500 positions): "
+          + json.dumps(prof))
+    del bat, params
+    torch.cuda.empty_cache()
+    print(f"full-width gemma3-12b phase: {time.perf_counter() - t_phase:.1f}s")
+    return paths
+
+
 # --- phase 5: the hlslib ops path at full size ----------------------------------------
 
 STENCIL_GRID, STENCIL_SWEEPS = 16384, 64
@@ -2438,26 +2863,37 @@ def main():
     hl = phase_hlslib_kernels(gen, card, flush)
     b6 = phase_ssd_kernel(gen, card, flush)
     del flush
+    phase_host_runtime()
     phase_exactness(args.seed)
     phase_prefix_spec_exactness(args.seed)
     phase_recurrent_exactness(args.seed)
+    phase_gemma3_exactness(args.seed)
     paths = phase_full_width(args.seed)
     spec_paths = phase_prefix_spec_full_width(args.seed)
     paths["hlslib ops"] = phase_hlslib_path(args.seed)
     paths.update(phase_recurrent_full_width(args.seed))
+    g3_paths = phase_gemma3_full_width(args.seed)
 
     # each kernel's row: its launches on the full-width path that runs it,
     # its numbers at that path's shapes (B2: the store at the decode rows
     # of each step, quantize at the whole slot cache a prefill converts,
     # dequantize at the full slot cache each step reads back).
     d_rows = b2["full cache (8*8*1024 x 128, bf16)"]
-    # B1's launches: every paged bf16 serve, decode and verify steps.
-    b1_paths = [paths["paged bf16"]] + list(spec_paths.values())
+    # B1's launches: every paged bf16 serve, decode and verify steps
+    # (minitron-4b's and gemma3-12b's); B3's: the dense bf16 serves.
+    b1_paths = ([paths["paged bf16"]] + list(spec_paths.values())
+                + [g3_paths["gemma3-12b paged"],
+                   g3_paths["gemma3-12b paged, speculate_k 4"]])
+    b3_paths = [paths["dense bfloat16"], g3_paths["gemma3-12b dense"]]
+    b1_paths.append(g3_paths["gemma3-12b paged, speculate_k 4, 2 scratch "
+                             "pages per slot"])
     rows = {
         "flash_attention_decode_paged": ({
             "flash_attention_decode_paged": sum(
                 p["flash_attention_decode_paged"] for p in b1_paths)}, b1),
-        "flash_attention_decode": (paths["dense bfloat16"], b3),
+        "flash_attention_decode": ({
+            "flash_attention_decode": sum(
+                p["flash_attention_decode"] for p in b3_paths)}, b3),
         "kv_quantize_store": (paths["dense int8"], b2s[
             "dense decode rows (8 slots x 8 kv heads, K and V, d 128, "
             "bf16)"]),

@@ -1,0 +1,171 @@
+"""F2 — portable host runtime (paper §II-B, Listing 2); port of
+``core/context.py`` on one device.
+
+The paper: Intel and Xilinx adapted OpenCL to FPGAs differently (one
+command queue vs per-kernel queues; extended pointers vs memory flags for
+bank placement), so hlslib wraps both behind one API::
+
+    Context -> MakeProgram -> MakeKernel -> ExecuteTask
+            -> MakeBuffer(MemoryBank::bank0, ...) -> CopyToHost
+
+PyTorch port: the "vendor" is a torch device — ``cuda`` unless the caller
+passes ``device="cpu"``.  ``Context`` hides
+
+* the device (``MakeBuffer`` places tensors on it),
+* buffer access modes (a read-only buffer refuses a host rewrite),
+* synchronous vs asynchronous execution: ``ExecuteTask`` synchronises the
+  device before it returns (the paper's Listing 2 semantics),
+  ``ExecuteAsync`` returns as soon as the work is queued.
+
+PyTorch runs eagerly, so ``MakeKernel`` binds a callable to its arguments
+and compiles nothing.  The reference's XLA introspection
+(``cost_analysis``, ``memory_analysis``, ``hlo_text``), which serves its
+roofline layer, has no counterpart here yet.  Placement across several
+devices (``MemoryBank.sharded``) comes with tensor-parallel serving.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+class Access(enum.Enum):
+    """Buffer access mode (paper: ``Access::read`` / ``Access::write``)."""
+    read = "read"
+    write = "write"
+    read_write = "read_write"
+
+
+@dataclasses.dataclass(frozen=True)
+class MemoryBank:
+    """FPGA DDR banks -> placements.  On one device every bank is the
+    context's device: ``bank0`` and ``bank1`` name the paper's two banks
+    for API parity with its Listing 2."""
+    name: str = "bank0"
+
+    @classmethod
+    def sharded(cls, *axes) -> "MemoryBank":
+        raise NotImplementedError(
+            f"MemoryBank.sharded{axes}: placement over several devices "
+            "comes with tensor-parallel serving (A13 in ROADMAP.md)")
+
+
+MemoryBank.bank0 = MemoryBank("bank0")  # type: ignore[attr-defined]
+MemoryBank.bank1 = MemoryBank("bank1")  # type: ignore[attr-defined]
+
+
+class Buffer:
+    """A tensor on the context's device plus its access mode (≈ cl::Buffer
+    + bank)."""
+
+    def __init__(self, ctx: "Context", tensor: torch.Tensor, access: Access):
+        self.ctx = ctx
+        self.tensor = tensor
+        self.access = access
+
+    def CopyToHost(self, out: Optional[np.ndarray] = None) -> np.ndarray:
+        host = self.tensor.cpu().numpy()
+        if out is not None:
+            np.copyto(out, host)
+            return out
+        return host
+
+    def CopyFromHost(self, src: np.ndarray) -> "Buffer":
+        if self.access == Access.read:
+            raise PermissionError("buffer is read-only for the device; "
+                                  "host rewrite not allowed")
+        self.tensor.copy_(torch.as_tensor(np.asarray(src)))
+        return self
+
+    @property
+    def shape(self):
+        return tuple(self.tensor.shape)
+
+    @property
+    def dtype(self):
+        return self.tensor.dtype
+
+
+def _concrete(args: Tuple[Any, ...]):
+    return [a.tensor if isinstance(a, Buffer) else a for a in args]
+
+
+class Kernel:
+    """A callable bound to its arguments (≈ cl::Kernel).  ``ExecuteTask``
+    runs it and synchronises the device before returning, matching the
+    paper's synchronous semantics; ``ExecuteAsync`` returns the result as
+    soon as the work is queued (dispatch-and-continue).  Either takes
+    arguments that override the bound ones."""
+
+    def __init__(self, ctx: "Context", fn: Callable, args: Tuple[Any, ...],
+                 name: str):
+        self.ctx = ctx
+        self.fn = fn
+        self.name = name
+        self.args = args
+
+    def ExecuteTask(self, *override_args) -> Any:
+        out = self.ExecuteAsync(*override_args)
+        self.ctx.synchronize()
+        return out
+
+    def ExecuteAsync(self, *override_args) -> Any:
+        return self.fn(*_concrete(override_args or self.args))
+
+
+class Program:
+    """A namespace of kernels (≈ the FPGA binary / .xclbin)."""
+
+    def __init__(self, ctx: "Context", fns: Dict[str, Callable]):
+        self.ctx = ctx
+        self.fns = dict(fns)
+
+    def MakeKernel(self, name: str, *args) -> Kernel:
+        if name not in self.fns:
+            raise KeyError(f"no kernel named {name!r}; have {list(self.fns)}")
+        return Kernel(self.ctx, self.fns[name], args, name)
+
+
+class Context:
+    """Sets up the runtime (paper: "Sets up the vendor OpenCL runtime") on
+    one torch device, ``cuda`` unless ``device`` says otherwise."""
+
+    def __init__(self, device=None):
+        self.device = torch.device("cuda" if device is None else device)
+
+    def synchronize(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- paper Listing 2 API -------------------------------------------------------
+
+    def MakeProgram(self, fns: Dict[str, Callable] | Callable) -> Program:
+        if callable(fns):
+            fns = {getattr(fns, "__name__", "kernel"): fns}
+        return Program(self, fns)
+
+    def MakeBuffer(self, dtype: torch.dtype, access: Access, bank: MemoryBank,
+                   *shape_or_data) -> Buffer:
+        """``MakeBuffer<float, Access::read>(bank, begin, end)`` or
+        ``MakeBuffer<float, Access::write>(bank, N[, M, ...])``.  Every
+        bank is the context's device."""
+        if len(shape_or_data) == 1 and isinstance(shape_or_data[0],
+                                                  torch.Tensor):
+            data = shape_or_data[0].to(self.device, dtype, copy=True)
+        elif len(shape_or_data) == 1 and isinstance(
+                shape_or_data[0], (np.ndarray, list)):
+            data = torch.as_tensor(np.asarray(shape_or_data[0]), dtype=dtype,
+                                   device=self.device)
+        elif shape_or_data and all(isinstance(s, (int, np.integer))
+                                   for s in shape_or_data):
+            data = torch.zeros(tuple(int(s) for s in shape_or_data),
+                               dtype=dtype, device=self.device)
+        else:
+            raise TypeError(f"MakeBuffer: pass data or a shape, got "
+                            f"{shape_or_data}")
+        return Buffer(self, data, access)

@@ -15,7 +15,14 @@ families (``--arch mamba2-1p3b``, ``zamba2-1p2b``) keep O(1) state per
 slot and have no pageable layout: they serve dense slots with prompts
 admitted at their exact length, and ``--page-size`` falls back to dense
 slots, as the reference's CLI does; ``--decode-flash`` reaches zamba2's
-shared attention block.
+shared attention block.  gemma3 (``--arch gemma3-12b``) serves paged and
+dense: its sliding-window layers read a ring of pages (paged) or a
+rolled window cache (dense), its global layers the flat table or the
+full cache; its ring group cannot be shared, so ``--prefix-cache`` serves
+with the prefix cache off, as the reference does:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
+        --smoke --device cpu --page-size 8 --prompt-len 24 --max-seq 48
 
 Paged serving also takes the prefix cache (``--prefix-cache``, with
 ``--shared-prefix N`` giving every request the same first N tokens, and

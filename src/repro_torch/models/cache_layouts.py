@@ -1,4 +1,4 @@
-"""Paged-KV cache layouts (port of ``models/cache_layouts.py``, flat layout).
+"""Paged-KV cache layouts (port of ``models/cache_layouts.py``).
 
 A ``CacheLayout`` says how one attention family's KV state maps onto
 shared device page pools: its page groups (independently allocated
@@ -7,19 +7,23 @@ the batcher's allocator and lazy decode growth consult, and the
 spill/restore primitives slot preemption uses to park a sequence's KV
 on the host and resume it bit-identically.
 
-This slice ports the flat layout: one ``kv`` group of {k, v} pools,
-(n_layers, n_pages, hkv, page, hd) per leaf, for dense and GQA configs —
-bf16, or int8 with bf16 {k_scale, v_scale} pages of (n_layers, n_pages,
-hkv, page, 1) when ``cfg.kv_cache_dtype == "int8"``.  Every primitive
-below walks all leaves of the group, so scale pages move with their
-pages.  gemma3's local/global ring-of-pages layout and MLA's latent
-pages come with later slices.
+The flat layout has one ``kv`` group of {k, v} pools, (n_layers,
+n_pages, hkv, page, hd) per leaf, for dense and GQA configs — bf16, or
+int8 with bf16 {k_scale, v_scale} pages of (n_layers, n_pages, hkv,
+page, 1) when ``cfg.kv_cache_dtype == "int8"``.  gemma3's
+``LocalGlobalLayout`` has two: ``local`` serves the sliding-window
+layers with a window-bounded ring of pages (the table wraps and pages
+are reused in place), ``global`` the full-attention layers, growing
+with the sequence; its leaves are (G, per_kind, n_pages, hkv, page, hd).
+Every primitive below walks all leaves of a group, so scale pages move
+with their pages.  MLA's latent pages come with a later slice.
 
 Each ``PageGroup`` declares whether its pages may be aliased across
 sequences (the prefix cache): flat groups are, since a page holds a
-fixed positional span.  ``copy_pages`` is the copy-on-write primitive:
-a shared page is duplicated into a private one on the card before the
-first write that would diverge from it.
+fixed positional span; ring groups are not, since a ring page's content
+depends on how far the ring has wrapped.  ``copy_pages`` is the
+copy-on-write primitive: a shared page is duplicated into a private one
+on the card before the first write that would diverge from it.
 """
 
 from __future__ import annotations
@@ -37,20 +41,34 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def ring_blocks(window: int, page: int) -> int:
+    """Table width of a ring-of-pages windowed group.  ``ceil(w/p) + 1``
+    slots guarantee every position in the live band ``(pos - w, pos]``
+    maps to a distinct slot for any alignment, so a page whose slot is
+    being rewritten is always fully outside the window."""
+    return _ceil_div(window, page) + 1
+
+
 class PageGroup:
     """One independently allocated page-id space of a layout.
 
-    ``shareable``: whether pages of this group may be referenced by
-    several sequences at once (the prefix cache).  Flat groups are: a
-    physical page holds the K/V of a fixed positional span, identical for
-    every request sharing the prompt prefix.  (A ring-of-pages window
-    group, a later slice's, is not: its pages' content depends on how far
-    the ring has wrapped.)"""
+    ``window`` makes it a ring-of-pages group.  ``shareable``: whether
+    pages of this group may be referenced by several sequences at once
+    (the prefix cache).  Flat groups are: a physical page holds the K/V
+    of a fixed positional span, identical for every request sharing the
+    prompt prefix.  Ring groups are not: the same table entry holds
+    different logical pages at different decode positions."""
 
-    shareable = True
-
-    def __init__(self, name: str):
+    def __init__(self, name: str, window: Optional[int] = None,
+                 shareable: Optional[bool] = None):
         self.name = name
+        self.window = window          # ring-of-pages group when set
+        self.shareable = (window is None) if shareable is None \
+            else bool(shareable)
+
+    @property
+    def ring(self) -> bool:
+        return self.window is not None
 
 
 class CacheLayout:
@@ -67,6 +85,12 @@ class CacheLayout:
     def groups(self) -> Tuple[PageGroup, ...]:
         return (PageGroup("kv"),)
 
+    def group(self, name: str) -> PageGroup:
+        for g in self.groups:
+            if g.name == name:
+                return g
+        raise KeyError(name)
+
     @property
     def prefix_shareable(self) -> bool:
         """True iff EVERY page group can alias pages across sequences: a
@@ -75,11 +99,22 @@ class CacheLayout:
         return all(g.shareable for g in self.groups)
 
     def n_blocks(self, name: str, max_seq: int) -> int:
-        """Block-table width of a group: pages covering ``max_seq``."""
-        return _ceil_div(max_seq, self.page)
+        """Block-table width of a group: pages covering ``max_seq``; a
+        ring group's ``ring_blocks`` of its window padded by
+        ``cfg.speculate_k`` (a verify span writes up to speculate_k
+        positions past ``pos``, and the extra slots keep every ring page
+        it clobbers strictly outside every span row's window band)."""
+        g = self.group(name)
+        flat = _ceil_div(max_seq, self.page)
+        if g.ring:
+            w = g.window + max(int(getattr(self.cfg, "speculate_k", 0)), 0)
+            return min(ring_blocks(w, self.page), flat)
+        return flat
 
     def blocks_for(self, name: str, n_tokens: int, max_seq: int) -> int:
-        """Pages a sequence holding ``n_tokens`` positions needs."""
+        """Pages a sequence holding ``n_tokens`` positions needs in this
+        group.  Ring groups saturate at the table width: past that the
+        ring reuses its own pages in place, so decode growth stops."""
         return min(_ceil_div(max(n_tokens, 0), self.page),
                    self.n_blocks(name, max_seq))
 
@@ -156,18 +191,42 @@ class CacheLayout:
         return pools
 
 
+class LocalGlobalLayout(CacheLayout):
+    """gemma3's local/global tree: the ``local`` group serves the
+    sliding-window layers with a window-bounded ring of pages; the
+    ``global`` group serves the full-attention layers and grows with the
+    sequence.  Leaves are (G, per_kind, n_pages, hkv, page, hd)."""
+
+    @property
+    def groups(self) -> Tuple[PageGroup, ...]:
+        return (PageGroup("local", window=self.cfg.sliding_window),
+                PageGroup("global"))
+
+    def pool_decls(self, n_pages: Dict[str, int]):
+        cfg = self.cfg
+        G, per = cfg.group_layout
+        n_local = cfg.local_global_pattern
+        base = L.attention_paged_cache_decl
+        loc = _stack_decls(base(cfg, n_pages["local"], self.page), n_local)
+        glo = _stack_decls(base(cfg, n_pages["global"], self.page),
+                           per - n_local)
+        return {"local": _stack_decls(loc, G),
+                "global": _stack_decls(glo, G)}
+
+    def page_axis(self, name: str) -> int:
+        return 2                      # leaves are (G, per_kind, n_pages, ...)
+
+
 @functools.lru_cache(maxsize=64)
 def get_layout(cfg, page_size: int) -> Optional[CacheLayout]:
     """The layout registry.  ``None`` = the family has no pageable cache
     in the reference either (recurrent state, and the vlm/audio stubs);
-    layouts of later slices raise."""
+    MLA's latent layout, a later slice's, raises."""
     if cfg.family not in ("dense", "moe"):
         return None
     if cfg.mla:
         raise NotImplementedError(
             f"{cfg.name}: MLA latent pages come with the MLA slice")
     if cfg.local_global_pattern:
-        raise NotImplementedError(
-            f"{cfg.name}: the local/global ring-of-pages layout comes with "
-            "a later port slice")
+        return LocalGlobalLayout(cfg, page_size)
     return CacheLayout(cfg, page_size)

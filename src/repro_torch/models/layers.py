@@ -14,10 +14,11 @@ int8 KV caches (``cfg.kv_cache_dtype == "int8"``) quantize through
 row, in the dense cache and in the page pools alike.
 
 Paged attention also scores speculative-decode verify spans
-(``attention_apply_paged(verify=True)``).  Not in this slice:
-ring-of-pages paging (gemma3's local/global layout), MLA attention (the
-MLA slice), MoE (the MoE slice).  Their parameter declarations are here,
-so every architecture's parameter tree can be built.
+(``attention_apply_paged(verify=True)``) and reads gemma3's local layers
+through a ring of pages (``ring=True``, bases from ``ring_page_base``).
+Not in this slice: MLA attention (the MLA slice), MoE (the MoE slice).
+Their parameter declarations are here, so every architecture's parameter
+tree can be built.
 """
 
 from __future__ import annotations
@@ -286,23 +287,41 @@ def dense_store_rows(pos: torch.Tensor, S: int, n_heads: int,
                          decode_slot(pos, S, window), n_heads, S)
 
 
+def ring_page_base(pos: torch.Tensor, page: int, n_blocks: int
+                   ) -> torch.Tensor:
+    """Logical base position of each ring-table slot.
+
+    Slot j of a ring-of-pages table holds the LATEST logical page
+    l ≡ j (mod n_blocks) with l <= pos // page — the page-granular
+    analogue of the dense ring cache's mask-aware slot math.  Slots whose
+    reconstructed page is negative (never written yet) get a negative
+    base, which readers mask via kpos >= 0.  pos: (b,); returns (b,
+    n_blocks) int32."""
+    cur = pos.to(torch.int64)[:, None] // page                  # (b, 1)
+    j = torch.arange(n_blocks, device=pos.device)[None, :]
+    return ((cur - (cur - j) % n_blocks) * page).to(torch.int32)
+
+
 def paged_write_index(block_tab: torch.Tensor, pos: torch.Tensor, s: int,
                       page: int, n_pages: int,
                       last_idx: Optional[torch.Tensor] = None,
-                      cache_offset: Optional[torch.Tensor] = None):
-    """Where a chunk's K/V rows land in a flat paged pool.
+                      cache_offset: Optional[torch.Tensor] = None,
+                      ring: bool = False):
+    """Where a chunk's K/V rows land in a paged pool (flat, or a ring of
+    pages with ``ring``).
 
     Returns ``(rows_b, rows_s, page_ids, offsets)`` for the KEPT rows
     only.  The reference scatters every row and lets ``mode="drop"``
     discard the invalid page id ``n_pages``; torch indexing would raise
     (CPU) or device-assert (CUDA) instead, so rows are masked out before
-    the scatter: positions past the table, padded chunk tails
-    (``last_idx``), read-only prefix positions (``cache_offset``) and
-    unallocated table entries (ids outside ``[0, n_pages)``, e.g. the
-    rows of inactive slots).  The mask is the same for every layer, so
+    the scatter: positions past the table (flat) or pages the chunk's
+    own later rows still need (ring), padded chunk tails (``last_idx``),
+    read-only prefix positions (``cache_offset``) and unallocated table
+    entries (ids outside ``[0, n_pages)``, e.g. the rows of inactive
+    slots).  The mask is the same for every layer of a page group, so
     callers compute it once per forward."""
     keep, wp, wo = _paged_targets(block_tab, pos, s, page, n_pages,
-                                  last_idx, cache_offset)
+                                  last_idx, cache_offset, ring)
     rows_b, rows_s = keep.nonzero(as_tuple=True)
     return rows_b, rows_s, wp[rows_b, rows_s], wo[rows_b, rows_s]
 
@@ -310,33 +329,42 @@ def paged_write_index(block_tab: torch.Tensor, pos: torch.Tensor, s: int,
 def paged_store_rows(block_tab: torch.Tensor, pos: torch.Tensor, s: int,
                      page: int, n_pages: int, n_heads: int,
                      last_idx: Optional[torch.Tensor] = None,
-                     cache_offset: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     cache_offset: Optional[torch.Tensor] = None,
+                     ring: bool = False) -> torch.Tensor:
     """``paged_write_index`` for an int8 pool: the destination row of
     every (b, s, head) K/V row in a pool leaf viewed as (-1, hd), -1 for
     the rows that are not kept, as ``kv_quantize_store`` takes them.
     Computed on the device with no host read (no ``nonzero``); the same
-    for every layer."""
+    for every layer of a page group."""
     keep, wp, wo = _paged_targets(block_tab, pos, s, page, n_pages,
-                                  last_idx, cache_offset)
+                                  last_idx, cache_offset, ring)
     return kv_store_rows(wp, wo, n_heads, page, keep)
 
 
 def _paged_targets(block_tab, pos, s, page, n_pages, last_idx,
-                   cache_offset):
+                   cache_offset, ring=False):
     """(keep, page id, offset), each (b, s): where each chunk row lands
     and whether it is written (the masks of ``paged_write_index``)."""
     n_blocks = block_tab.shape[1]
     ar = torch.arange(s, device=block_tab.device)
     positions = pos.to(torch.int64)[:, None] + ar            # (b, s)
     logical = positions // page
-    keep = logical < n_blocks
+    if ring:
+        tab_idx = logical % n_blocks
+        # only pages still live at the end of the true chunk are written:
+        # an in-chunk wrap must not clobber pages the chunk's later rows
+        # still need.
+        end = pos.to(torch.int64) + (
+            last_idx.to(torch.int64) if last_idx is not None else s - 1)
+        keep = logical > (end // page)[:, None] - n_blocks
+    else:
+        tab_idx = logical.clamp(max=n_blocks - 1)
+        keep = logical < n_blocks
     if last_idx is not None:
         keep &= ar[None, :] <= last_idx.to(torch.int64)[:, None]
     if cache_offset is not None:
         keep &= positions >= cache_offset.to(torch.int64)[:, None]
-    wp = torch.gather(block_tab.to(torch.int64), 1,
-                      logical.clamp(max=n_blocks - 1))
+    wp = torch.gather(block_tab.to(torch.int64), 1, tab_idx)
     keep &= (wp >= 0) & (wp < n_pages)
     return keep, wp, positions % page
 
@@ -349,7 +377,7 @@ def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
                           last_idx: Optional[torch.Tensor] = None,
                           cache_offset: Optional[torch.Tensor] = None,
                           verify: bool = False, write_idx=None):
-    """Pre-norm attention against a flat *paged* KV cache.
+    """Pre-norm attention against a *paged* KV cache.
 
     x: (b, s, d) — s == 1 is a decode step, s > 1 a prefill chunk at
     positions pos..pos+s-1.  ``pages``: this layer's pools {"k", "v"} of
@@ -361,6 +389,14 @@ def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
     ``cache_offset`` mask writes as in ``paged_write_index``;
     ``write_idx`` is that function's result (for an int8 pool
     ``paged_store_rows``'s) when the caller computed it already.
+
+    ``ring=False`` (flat layout): logical page j lives at table entry j;
+    a sliding window applies the (qpos - window, qpos] band in the mask.
+    ``ring=True`` (window-bounded layout, gemma3's local layers): table
+    entry j holds logical page l ≡ j (mod n_blocks) and pages are reused
+    in place once the table wraps, so the layer's page count stays
+    O(window/page); readers reconstruct each entry's logical base
+    position from ``pos`` (``ring_page_base``).
 
     Reads mirror the dense path's rounding exactly.  Without the kernel,
     the PRE-write pool is gathered and the chunk's own K/V overlaid: a
@@ -378,10 +414,6 @@ def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
     kernel at sq == s, so accepted tokens equal plain greedy decode's.
     Returns (y, pages).
     """
-    if ring:
-        raise NotImplementedError(
-            "ring-of-pages paging (gemma3 local layers) comes with the "
-            "local/global layout slice")
     theta = theta if theta is not None else cfg.rope_theta
     b, s, d = x.shape
     h = rmsnorm(x, p["norm"])
@@ -397,9 +429,10 @@ def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
     int8 = cfg.kv_cache_dtype == "int8"
     if write_idx is None:
         write_idx = paged_store_rows(
-            block_tab, pos, s, page, n_pages, hkv, last_idx, cache_offset) \
-            if int8 else paged_write_index(block_tab, pos, s, page, n_pages,
-                                           last_idx, cache_offset)
+            block_tab, pos, s, page, n_pages, hkv, last_idx, cache_offset,
+            ring) if int8 else paged_write_index(
+                block_tab, pos, s, page, n_pages, last_idx, cache_offset,
+                ring)
 
     step_like = s == 1 or verify        # own K/V read back pool-rounded
     flash = cfg.decode_flash and step_like and cache_offset is None
@@ -417,14 +450,20 @@ def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
         # pool-rounded, a chunk exactly.
         own = _from_cache(_to_cache(cfg, {"k": kc, "v": vc}, pk.dtype),
                           q.dtype) if step_like else {"k": kc, "v": vc}
-        kpos = torch.arange(S, device=x.device).expand(b, S)
+        if ring:
+            base = ring_page_base(pos, page, n_blocks).to(torch.int64)
+            kpos = (base[:, :, None] + torch.arange(
+                page, device=x.device)).reshape(b, S)
+        else:
+            kpos = torch.arange(S, device=x.device).expand(b, S)
         K = torch.cat([pre["k"], own["k"].transpose(1, 2)], dim=2)
         V = torch.cat([pre["v"], own["v"].transpose(1, 2)], dim=2)
         kpos_cat = torch.cat([kpos, positions], dim=1)  # (b, S + s)
-        # gathered entries are only valid STRICTLY before the chunk;
-        # own entries cover [pos, pos + s).
+        # gathered entries are only valid STRICTLY before the chunk
+        # (stale or ring-relabelled entries carry kpos >= pos, entries
+        # never written kpos < 0); own entries cover [pos, pos + s).
         pre_ok = torch.cat(
-            [kpos < positions[:, :1],
+            [(kpos >= 0) & (kpos < positions[:, :1]),
              torch.ones((b, s), dtype=torch.bool, device=x.device)], dim=1)
         mask = (kpos_cat[:, None, :] <= positions[:, :, None]) \
             & pre_ok[:, None, :]
@@ -444,8 +483,14 @@ def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
 
     if flash:
         from ..kernels.flash_attention import flash_attention_decode_paged
+        # the span's writes land before the read, so ring bases key off
+        # the span END: entries the span wrote hold their NEW logical
+        # pages (the ring's width is padded by speculate_k, so every
+        # clobbered old page is out of every row's window).
         o = flash_attention_decode_paged(
             q.contiguous(), pk, pv, block_tab, pos, window=window,
+            page_base=ring_page_base(pos + (s - 1), page, n_blocks)
+            if ring else None,
             k_scale_pages=pages.get("k_scale"),
             v_scale_pages=pages.get("v_scale"))
     y = o.transpose(1, 2).reshape(b, s, -1) @ p["wo"]

@@ -2,8 +2,11 @@
 
 Parameter declarations exist for every family, so every architecture's
 tree can be built and counted.  ``forward`` runs the dense family in
-modes ``train`` (forward only), ``prefill``, ``decode`` and ``chunk``,
-and the recurrent families -- ``ssm`` (mamba2) and ``hybrid`` (zamba2:
+modes ``train`` (forward only), ``prefill``, ``decode``, ``chunk`` and
+``verify`` -- gemma3 too: groups of ``local_global_pattern``
+sliding-window layers (θ ``rope_theta``) and one global layer (θ
+``rope_theta_global``), parameters stacked (G, per) -- and the recurrent
+families -- ``ssm`` (mamba2) and ``hybrid`` (zamba2:
 Mamba2 layers with one shared attention+MLP block after every
 ``shared_attn_every`` of them) -- in modes ``train``, ``prefill`` and
 ``decode``; the JAX package's scan over stacked layers is a Python loop
@@ -19,17 +22,22 @@ here, each layer reading its slice of the stacked parameters.
 * ``verify``  — a speculative-decode span against the paged cache: k
   tokens scored like k sequential decode steps, full (b, k, Vp) logits.
 
-Recurrent caches are slot-dense (nothing to page): ssm's is {"conv",
-"ssd"} stacked over the layers, hybrid's {"ssm": that, "attn": the
-shared block's K/V stacked over its application sites}; every leaf has
-its slot axis at 1.  MoE, MLA, gemma3's local/global layers, vlm and
-audio come with later slices and raise here.
+gemma3's caches are split by kind, {"local": leaves of (G, n_local, ...),
+"global": leaves of (G, per - n_local, ...)}: dense slot caches (the
+local layers' cache is a rolled ring of ``sliding_window`` slots) with
+the slot axis at 2, or page pools read through per-group block tables, the local
+group a ring of pages.  Recurrent caches are slot-dense (nothing to
+page): ssm's is {"conv", "ssd"} stacked over the layers, hybrid's
+{"ssm": that, "attn": the shared block's K/V stacked over its
+application sites}; every leaf has its slot axis at 1.  MoE, MLA, vlm
+and audio come with later slices and raise here.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from . import layers as L
@@ -119,13 +127,10 @@ def model_decls(cfg) -> Dict[str, Any]:
 
 
 def _check_forward_family(cfg) -> None:
-    if cfg.family not in ("dense", "ssm", "hybrid") \
-            or cfg.local_global_pattern:
-        slice_ = ("the cache-layouts slice (gemma3 local/global layers)"
-                  if cfg.local_global_pattern else
-                  "the remaining-families slice")
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): forward comes with {slice_}")
+            f"{cfg.name} ({cfg.family}): forward comes with the "
+            "remaining-families slice")
 
 
 def _n_shared(cfg) -> int:
@@ -139,8 +144,17 @@ def cache_decls(cfg, batch: int, max_seq: int):
     hkv, S, 1) when ``cfg.kv_cache_dtype == "int8"``.  ssm: {"conv"
     (n_layers, batch, K-1, C), "ssd" (n_layers, batch, h, ds, hd)}, fp32;
     hybrid: {"ssm": those, "attn": the K/V leaves stacked over the shared
-    block's application sites}."""
+    block's application sites}; gemma3: {"local": (G, n_local, batch,
+    hkv, min(max_seq, window), hd), "global": (G, per - n_local, batch,
+    hkv, max_seq, hd)} per leaf."""
     _check_forward_family(cfg)
+    if cfg.local_global_pattern:
+        G, per = cfg.group_layout
+        n_local, w = cfg.local_global_pattern, cfg.sliding_window
+        loc = L.attention_cache_decl(cfg, batch, min(max_seq, w), w)
+        glo = L.attention_cache_decl(cfg, batch, max_seq, None)
+        return stack_decls({"local": stack_decls(loc, n_local),
+                            "global": stack_decls(glo, per - n_local)}, G)
     if cfg.family in ("ssm", "hybrid"):
         ssm = stack_decls(S.mamba2_cache_decl(cfg, batch), cfg.n_layers)
         if cfg.family == "ssm":
@@ -159,8 +173,9 @@ def paged_supported(cfg) -> bool:
 
 def paged_cache_decls(cfg, n_pages, page_size: int):
     """Per-group, per-layer shared page pools, stacked over layers —
-    (n_layers, n_pages, hkv, page_size, head_dim) per k/v leaf.
-    ``n_pages``: int or {group_name: int}."""
+    (n_layers, n_pages, hkv, page_size, head_dim) per k/v leaf of the
+    flat layout's "kv" group, (G, per_kind, n_pages, ...) for gemma3's
+    "local" and "global".  ``n_pages``: int or {group_name: int}."""
     from .cache_layouts import get_layout
     layout = get_layout(cfg, page_size)
     if layout is None:
@@ -178,6 +193,10 @@ def paged_cache_decls(cfg, n_pages, page_size: int):
 def _embed_input(cfg, params, batch) -> torch.Tensor:
     _check_forward_family(cfg)
     x = params["embed"][batch["tokens"]]
+    if cfg.local_global_pattern:
+        # gemma scaling: the reference multiplies by an np.float32 scalar,
+        # which promotes to float32, and rounds to the model dtype after.
+        x = x.to(torch.float32) * float(np.float32(np.sqrt(cfg.d_model)))
     return x.to(torch_dtype(cfg.dtype))
 
 
@@ -219,9 +238,9 @@ def forward(cfg, params, batch, mode: str = "train",
     ``last_pos`` (prefill/chunk): (b,) index of the true last token; the
     returned logits are gathered there.  Paged serving: pass
     ``cache={"pages": pools, "block_tab": bt}`` with pools and tables
-    keyed by page group ({"kv"}).  ``pos`` (decode/chunk) is a (b,)
-    position tensor, one position per row; dense decode also takes a host
-    int for every row.  ``cache_offset`` (chunk mode): (b,) position
+    keyed by page group ({"kv"}, or gemma3's {"local", "global"}).
+    ``pos`` (decode/chunk) is a (b,) position tensor, one position per
+    row; dense decode also takes a host int for every row.  ``cache_offset`` (chunk mode): (b,) position
     below which the cache is read-only.  The pools or the dense cache
     passed in are updated in place and returned.
 
@@ -241,45 +260,38 @@ def forward(cfg, params, batch, mode: str = "train",
 
     block_tab = pools = None
     if isinstance(cache, dict) and "block_tab" in cache:
-        block_tab, pools = cache["block_tab"]["kv"], cache["pages"]["kv"]
+        block_tab, pools = cache["block_tab"], cache["pages"]
     if mode in ("chunk", "verify") and block_tab is None:
         raise NotImplementedError(f"{mode} mode requires a paged cache")
-    write_idx = None
-    if block_tab is not None:
-        n_pages, hkv, page, _ = pools["k"].shape[1:]
-        chunk_masks = ((last_pos, cache_offset) if mode == "chunk"
-                       else (None, None))
-        write_idx = L.paged_store_rows(
-            block_tab, pos, s, page, n_pages, hkv, *chunk_masks) \
-            if cfg.kv_cache_dtype == "int8" else L.paged_write_index(
-                block_tab, pos, s, page, n_pages, *chunk_masks)
+    # the rows this forward writes: its mode, positions and chunk masks.
+    span = dict(mode=mode, pos=pos,
+                last_idx=last_pos if mode == "chunk" else None,
+                cache_offset=cache_offset if mode == "chunk" else None)
 
     w, theta = cfg.sliding_window, cfg.rope_theta
     cl = min(cache_len, w) if (w and cache_len) else cache_len
     blocks = params["blocks"]
-    store_rows = None
-    if mode == "decode" and block_tab is None \
-            and cfg.kv_cache_dtype == "int8" and "k" in cache:
-        # an int8 dense step writes the same rows in every layer.
-        _, _, hkv, S, _ = cache["k"].shape
-        store_rows = L.dense_store_rows(L.decode_pos(pos, b, x.device), S,
-                                        hkv, w)
     if cfg.family in ("ssm", "hybrid"):
         x, new_cache = _recurrent_layers(cfg, blocks, x, mode, cache, pos,
                                          cache_len, last_pos)
+    elif cfg.local_global_pattern:
+        x, new_cache = _gemma3_layers(cfg, blocks, x, mode, cache, pools,
+                                      block_tab, span, cache_len, last_pos)
     else:
         emitted = []
+        if block_tab is not None:
+            bt, pools_kv = block_tab["kv"], pools["kv"]
+            write_idx = _write_index(cfg, bt, pools_kv, 1, x.shape[1],
+                                     False, span)
+        else:
+            store_rows = _dense_store_rows(cfg, mode, cache, pos, b, w,
+                                           x.device)
         for i in range(cfg.n_layers):
             p = _tree_idx(blocks, i)
-            if block_tab is not None and mode in ("decode", "chunk",
-                                                  "verify"):
-                x, _ = L.attention_apply_paged(
-                    cfg, p["attn"], x, window=w, theta=theta,
-                    pages={n: a[i] for n, a in pools.items()},
-                    block_tab=block_tab, pos=pos,
-                    last_idx=last_pos if mode == "chunk" else None,
-                    cache_offset=cache_offset if mode == "chunk" else None,
-                    verify=mode == "verify", write_idx=write_idx)
+            if block_tab is not None:
+                x = _attn_paged(cfg, p["attn"], x, w, theta,
+                                {n: a[i] for n, a in pools_kv.items()}, bt,
+                                False, write_idx, span)
             else:
                 x = _attn_dense(cfg, p["attn"], x, mode, cache, i, pos, w,
                                 theta, cl, last_pos, emitted, store_rows)
@@ -300,13 +312,97 @@ def forward(cfg, params, batch, mode: str = "train",
     if mode == "prefill":
         return logits, new_cache
     if block_tab is not None:
-        return logits, {"kv": pools}
+        return logits, pools
     return logits, cache
 
 
 def _stack_emitted(emitted):
     """Per-layer cache dicts -> one dict of leaves stacked over layers."""
     return {n: torch.stack([c[n] for c in emitted]) for n in emitted[0]}
+
+
+def _write_index(cfg, block_tab, pools, page_axis, s, ring, span):
+    """Where a forward's K/V rows land in one page group's pools (the
+    same rows in every layer of the group): ``paged_store_rows`` for an
+    int8 pool, else ``paged_write_index``; ``page_axis`` is the index of
+    the page axis of the group's stacked leaves."""
+    n_pages, hkv, page, _ = pools["k"].shape[page_axis:]
+    args = (block_tab, span["pos"], s, page, n_pages)
+    masks = dict(last_idx=span["last_idx"],
+                 cache_offset=span["cache_offset"], ring=ring)
+    if cfg.kv_cache_dtype == "int8":
+        return L.paged_store_rows(*args, hkv, **masks)
+    return L.paged_write_index(*args, **masks)
+
+
+def _dense_store_rows(cfg, mode, cache, pos, b, window, device):
+    """An int8 dense decode step's store rows (the same in every layer of
+    one cache leaf shape), or None."""
+    if mode != "decode" or cfg.kv_cache_dtype != "int8":
+        return None
+    hkv, S = cache["k"].shape[-3:-1]
+    return L.dense_store_rows(L.decode_pos(pos, b, device), S, hkv, window)
+
+
+def _attn_paged(cfg, p, x, window, theta, pages, block_tab, ring,
+                write_idx, span):
+    """One attention block against a layer's page pools (written in
+    place)."""
+    x, _ = L.attention_apply_paged(
+        cfg, p, x, window=window, theta=theta, pages=pages,
+        block_tab=block_tab, pos=span["pos"], ring=ring,
+        last_idx=span["last_idx"], cache_offset=span["cache_offset"],
+        verify=span["mode"] == "verify", write_idx=write_idx)
+    return x
+
+
+def _gemma3_layers(cfg, blocks, x, mode, cache, pools, block_tab, span,
+                   cache_len, last_pos):
+    """gemma3's stack: G groups of ``local_global_pattern`` sliding-window
+    layers then one global layer, each layer reading its (g, i) slice of
+    the (G, per)-stacked parameters.  Local layers read the ring (a ring
+    of pages when paged, the rolled window cache in dense slots), global
+    layers the flat table or the full cache.  Returns (x, the cache a
+    prefill emits, else None)."""
+    G, per = cfg.group_layout
+    n_local = cfg.local_global_pattern
+    b, s, _ = x.shape
+    kinds = {"local": (cfg.sliding_window, cfg.rope_theta),
+             "global": (None, cfg.rope_theta_global)}
+    write_idx, store_rows = {}, {}
+    for kind, (window, _) in kinds.items():
+        if block_tab is not None:
+            write_idx[kind] = _write_index(
+                cfg, block_tab[kind], pools[kind], 2, s, kind == "local",
+                span)
+        elif mode == "decode":
+            store_rows[kind] = _dense_store_rows(
+                cfg, mode, cache[kind], span["pos"], b, window, x.device)
+    emitted = {"local": [], "global": []}
+    for g in range(G):
+        for i in range(per):
+            p = _tree_idx(_tree_idx(blocks, g), i)
+            kind, j = ("local", i) if i < n_local else ("global", i - n_local)
+            window, theta = kinds[kind]
+            if block_tab is not None:
+                x = _attn_paged(cfg, p["attn"], x, window, theta,
+                                {n: a[g, j] for n, a in pools[kind].items()},
+                                block_tab[kind], kind == "local",
+                                write_idx[kind], span)
+            else:
+                cl = (min(cache_len, window) if (window and cache_len)
+                      else cache_len)
+                ci = ({n: c[g] for n, c in cache[kind].items()}
+                      if mode == "decode" else None)
+                x = _attn_dense(cfg, p["attn"], x, mode, ci, j, span["pos"],
+                                window, theta, cl, last_pos, emitted[kind],
+                                store_rows.get(kind))
+            x = L.mlp_apply(cfg, p["mlp"], x)
+    if mode != "prefill":
+        return x, None
+    return x, {kind: {n: t.reshape((G, -1) + t.shape[1:])
+                      for n, t in _stack_emitted(layers).items()}
+               for kind, layers in emitted.items()}
 
 
 def _attn_dense(cfg, p, x, mode, cache, i, pos, window, theta, cache_len,

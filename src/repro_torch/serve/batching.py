@@ -145,7 +145,8 @@ def _make_admit_fn(cfg: ModelConfig, max_seq: int):
             cfg, params, {"tokens": prompts.long()}, mode="prefill",
             cache_len=max_seq, last_pos=lens - 1)
         tok0 = torch.argmax(logits[:, -1], -1).to(torch.int32)
-        _scatter_rows(cache, cache1, rows, slots)
+        _scatter_rows(cache, cache1, rows, slots,
+                      2 if cfg.local_global_pattern else 1)
         lens, max_new = lens[rows], max_new[rows]
         last_tok[slots] = tok0[rows]
         pos[slots] = lens
@@ -156,16 +157,18 @@ def _make_admit_fn(cfg: ModelConfig, max_seq: int):
     return admit_fn
 
 
-def _scatter_rows(cache, cache1, rows, slots) -> None:
+def _scatter_rows(cache, cache1, rows, slots, axis: int) -> None:
     """Write prefill rows ``rows`` of every leaf of ``cache1`` into slots
     ``slots`` of the same leaf of ``cache``, in place.  Every leaf of a
-    dense slot cache (attention K/V, recurrent conv/ssd state, nested
-    for hybrid) has its slot axis at 1."""
+    dense slot cache has its slot axis at ``axis``: 1 for attention K/V
+    and recurrent conv/ssd state (nested for hybrid), 2 for gemma3's
+    (G, per_kind)-stacked local and global K/V."""
+    lead = (slice(None),) * axis
     for name, c in cache.items():
         if isinstance(c, dict):
-            _scatter_rows(c, cache1[name], rows, slots)
+            _scatter_rows(c, cache1[name], rows, slots, axis)
         else:
-            c[:, slots] = cache1[name][:, rows]
+            c[lead + (slots,)] = cache1[name][lead + (rows,)]
 
 
 class RequestFailed(RuntimeError):
@@ -336,7 +339,12 @@ class ContinuousBatcher:
             self.n_pages = {**dense_eq,
                             **{k: int(v) for k, v in n_pages.items()}}
         else:
-            self.n_pages = {g.name: int(n_pages) for g in self.layout.groups}
+            # an int applies to every growing group; a window-bounded
+            # ring group never needs more than n_slots * n_blocks pages.
+            self.n_pages = {
+                g.name: (min(int(n_pages), dense_eq[g.name]) if g.ring
+                         else int(n_pages))
+                for g in self.layout.groups}
         self.chunk = int(prefill_chunk or cfg.prefill_chunk
                          or max(self.page_size, _MIN_CHUNK))
         self.prefill_interleave = int(
@@ -1005,7 +1013,9 @@ class ContinuousBatcher:
         span, on the host: for each logical page ``pos // page .. (pos +
         k) // page`` the span writes, a freshly allocated private scratch
         page (the old page's contents copied in), so speculative writes
-        never touch a shared page or a CoW boundary.  The copies and the
+        never touch a shared page or a CoW boundary.  A ring group's
+        logical page l lives at table entry ``l % n_blocks``.  The copies
+        and the
         table swap run inside the verify step from the padded arrays
         built here; the batcher's own table is never touched.  A slot
         whose scratch allocation fails drops its draft (speculation never
@@ -1024,17 +1034,19 @@ class ContinuousBatcher:
             ok = True
             for g in self.layout.groups:
                 name = g.name
+                nb = self.n_blocks[name]
                 pages = self._slot_pages[name][slot]
-                for j in range(pos // self.page_size,
+                for l in range(pos // self.page_size,
                                (pos + k_span - 1) // self.page_size + 1):
-                    if j >= self.n_blocks[name]:   # past the table: the
-                        continue                   # pos gate forbids it
+                    j = l % nb if g.ring else l
+                    if j >= nb:          # flat span past the table: the
+                        continue         # pos gate forbids it
                     got = self._alloc_evict(name, 1)
                     if got is None:
                         ok = False
                         break
                     old = pages[j] if j < len(pages) else None
-                    recs.append((name, j, j, old, got[0]))
+                    recs.append((name, l, j, old, got[0]))
                 if not ok:
                     break
             if not ok:       # dry pool: free grabbed scratch, drop draft

@@ -13,8 +13,9 @@
 
 The JAX steps are jitted with their pools donated; here they run eagerly
 and update the pools and slot-state tensors in place.  Pools and block
-tables are dicts keyed by the layout's page groups ({"kv"}).  Decoding
-is greedy; sampling at a temperature above 0 comes with a later slice.
+tables are dicts keyed by the layout's page groups ({"kv"}, or gemma3's
+{"local", "global"}).  Decoding is greedy; sampling at a temperature
+above 0 comes with a later slice.
 """
 
 from __future__ import annotations

@@ -24,14 +24,21 @@ B5 (``flash_attention``) and B1 (``flash_attention_decode_paged``): the
 kernels against their plain twins at every bf16 head dim, single-row and
 ragged q tiles, windows, no causal mask, and B1's split-KV edges (many
 splits on one sequence, splits with no live key, int8 and verify rows
-with splits, a one-tile ring, pages of 12 keys).  Tolerance: bf16 outputs
+with splits, a one-tile ring, pages of 12 keys), and B1 at gemma3-12b's
+local layers (d 256, 16 / 8 heads, a 65- and 66-page ring of 16-key
+pages under a 1024 window, positions 1100-1560 and before the wrap, sq
+1 and 5, bf16 and int8 pages, bases from the span's last row as the
+model computes them).  Tolerance: bf16 outputs
 within 2 bf16 ulps of |plain| + 1e-5 and fp32 within 1e-4, the rule of
 ``chip_smoke.py`` (both accumulate in fp32 and round once).
 
 B3 (``flash_attention_decode``) under the same rule at its split-KV
 edges: one slot of 4096 keys (a split per tile), positions 0 and 1
 (most splits empty), positions at and past S, band and ring with
-splits, zamba2's widths, fp32, and fp32 at d = 256 (half tiles).
+splits, zamba2's widths, fp32, fp32 at d = 256 (half tiles), and
+gemma3-12b's bf16 shapes at d 256: the local layers' ring of S == window
+== 1024 (positions before, at and past the wrap) and the global layers'
+flat 2048.
 
 B7 (``tree_row_reduce``) bit for bit, both regimes (a warp per row; few
 long rows split over CTAs) and every vector edge: N = 2^k + 1, rows that
@@ -200,7 +207,8 @@ def test_flash_attention_kernel_matches_twin(card, b, hq, hkv, sq, sk, d,
 
 
 def _paged_case(gen, dev, *, b, n_blocks, max_pos, sq=1, page=16, hq=24,
-                hkv=8, d=128, quant=False, window=None, ring=False):
+                hkv=8, d=128, quant=False, window=None, ring=False,
+                min_pos=None):
     n_pages = b * n_blocks
     shape = (n_pages, hkv, page, d)
     if quant:
@@ -215,11 +223,12 @@ def _paged_case(gen, dev, *, b, n_blocks, max_pos, sq=1, page=16, hq=24,
     q = torch.randn((b, hq, sq, d), generator=gen, device=dev).bfloat16()
     bt = torch.randperm(n_pages, generator=gen, device=dev).reshape(
         b, n_blocks).int().contiguous()
-    pos = torch.randint(max_pos // 8, max_pos - sq + 1, (b,), generator=gen,
+    lo = max_pos // 8 if min_pos is None else min_pos
+    pos = torch.randint(lo, max_pos - sq + 1, (b,), generator=gen,
                         device=dev).int()
     base = None
-    if ring:
-        cur = pos.long()[:, None] // page
+    if ring:        # the served rule: bases from the span's last row
+        cur = (pos.long()[:, None] + sq - 1) // page
         j = torch.arange(n_blocks, device=dev)[None, :]
         base = ((cur - ((cur - j) % n_blocks)) * page).int().contiguous()
     return dict(q=q, k_pages=kp, v_pages=vp, block_tab=bt, pos=pos,
@@ -241,10 +250,24 @@ def _paged_case(gen, dev, *, b, n_blocks, max_pos, sq=1, page=16, hq=24,
     dict(b=8, n_blocks=64, max_pos=1024, sq=5, quant=True),
     dict(b=2, n_blocks=64, max_pos=1024, sq=8, window=300),
     dict(b=4, n_blocks=86, max_pos=1024, page=12, sq=5, quant=True),
+    # gemma3-12b's local layers: d 256, 16 / 8 heads, a 65-page ring
+    # (66 with speculate_k 4) under a 1024 window, positions past it.
+    dict(b=8, n_blocks=65, hq=16, hkv=8, d=256, window=1024, ring=True,
+         min_pos=1100, max_pos=1561),
+    dict(b=8, n_blocks=65, hq=16, hkv=8, d=256, window=1024, ring=True,
+         min_pos=1100, max_pos=1561, quant=True),
+    dict(b=8, n_blocks=66, hq=16, hkv=8, d=256, window=1024, ring=True,
+         min_pos=1100, max_pos=1561, sq=5),
+    dict(b=8, n_blocks=66, hq=16, hkv=8, d=256, window=1024, ring=True,
+         min_pos=1100, max_pos=1561, sq=5, quant=True),
+    dict(b=8, n_blocks=66, hq=16, hkv=8, d=256, window=1024, ring=True,
+         min_pos=0, max_pos=1100, sq=5),
 ], ids=["main", "many-splits", "empty-splits", "int8-splits",
         "verify-splits", "ring-one-split", "window-splits", "page-12-int8",
         "verify-5", "verify-5-int8", "verify-8-rows-24-window",
-        "verify-5-page-12-int8"])
+        "verify-5-page-12-int8", "gemma3-ring-d256", "gemma3-ring-d256-int8",
+        "gemma3-ring-d256-verify-5", "gemma3-ring-d256-verify-5-int8",
+        "gemma3-ring-d256-verify-5-before-wrap"])
 def test_paged_decode_kernel_matches_twin(card, kw):
     gen = torch.Generator(device=card).manual_seed(kw["n_blocks"])
     c = _paged_case(gen, card, **kw)
@@ -280,8 +303,14 @@ def _dense_case(gen, dev, *, b=8, hq=24, hkv=8, d=128, S=1024, pos=None,
     dict(hq=32, hkv=32, d=64, pos=[0, 1, 63, 64, 65, 511, 1022, 1023]),
     dict(b=2, S=1000, dtype=torch.float32),
     dict(b=2, hq=8, hkv=1, S=300, d=256, dtype=torch.float32),
+    # gemma3-12b: d 256, 16 / 8 heads, bf16; local layers a rolled ring of
+    # S == window == 1024 (before and after the wrap), global 2048 flat.
+    dict(hq=16, hkv=8, d=256, S=1024, window=1024, ring=True,
+         pos=[1100, 1560, 1023, 1024, 700, 1300, 2047, 5]),
+    dict(hq=16, hkv=8, d=256, S=2048, max_pos=1561),
 ], ids=["main", "one-slot-4096", "pos-0-1", "pos-past-S", "band-splits",
-        "ring-splits", "ring-wrapped", "zamba2", "f32", "f32-d256"])
+        "ring-splits", "ring-wrapped", "zamba2", "f32", "f32-d256",
+        "gemma3-ring-d256", "gemma3-global-d256"])
 def test_dense_decode_kernel_matches_twin(card, kw):
     gen = torch.Generator(device=card).manual_seed(len(kw))
     c = _dense_case(gen, card, **kw)

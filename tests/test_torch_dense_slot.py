@@ -264,12 +264,13 @@ def test_int8_kv_greedy_exact():
 
 
 def test_families_without_a_forward_still_raise(model):
-    """Families whose forward is a later slice's (gemma3, asked for pages
-    its local/global layout does not have yet; the MoE family in dense
+    """Families whose forward is a later slice's (deepseek, asked for the
+    MLA latent pages it does not have yet; the MoE family in dense
     slots): the constructor raises instead of serving.  The recurrent
-    families serve (``tests/test_torch_recurrent.py``)."""
+    families (``tests/test_torch_recurrent.py``) and gemma3
+    (``tests/test_torch_gemma3.py``) serve."""
     _, tp, _, _ = model
-    for arch, page in (("gemma3-12b", 8), ("phi3p5-moe-42b", 0)):
+    for arch, page in (("deepseek-v2-lite-16b", 8), ("phi3p5-moe-42b", 0)):
         cfg = tsmoke(tconfigs.get(arch))
         with pytest.raises(NotImplementedError):
             ContinuousBatcher(dataclasses.replace(cfg, kv_page_size=page),

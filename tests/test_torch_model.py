@@ -201,21 +201,20 @@ def test_greedy_generate_tokens_identical(model, window, plens):
 
 def test_later_slices_raise(model):
     _, tcfg, _, tp = model
-    with pytest.raises(NotImplementedError, match="ring-of-pages"):
-        tlayers.attention_apply_paged(
-            tcfg, {}, torch.zeros(1, 1, tcfg.d_model), pages={},
-            block_tab=torch.zeros(1, 1, dtype=torch.int32),
-            pos=torch.zeros(1, dtype=torch.int32), ring=True)
-    with pytest.raises(NotImplementedError, match="local/global"):
-        tregistry.paged_cache_decls(tsmoke(tconfigs.get("gemma3-12b")), 4, 8)
+    with pytest.raises(NotImplementedError, match="MLA"):
+        tregistry.paged_cache_decls(
+            tsmoke(tconfigs.get("deepseek-v2-lite-16b")), 4, 8)
+    with pytest.raises(NotImplementedError, match="remaining-families"):
+        tregistry.cache_decls(tsmoke(tconfigs.get("musicgen-medium")), 1, 8)
     with pytest.raises(NotImplementedError, match="verify"):
         tregistry.forward(tcfg, tp, {"tokens": torch.zeros(1, 2).long()},
                           mode="verify")
-    for arch in ("phi3p5-moe-42b", "gemma3-12b"):
+    for arch in ("phi3p5-moe-42b", "paligemma-3b"):
         cfg = tsmoke(tconfigs.get(arch))
         with pytest.raises(NotImplementedError):
             tregistry.forward(cfg, {}, {"tokens": torch.zeros(1, 2).long()})
     with pytest.raises(NotImplementedError, match="MLA"):
         tregistry.paged_supported(tsmoke(tconfigs.get("deepseek-v2-lite-16b")))
     assert tregistry.paged_supported(tcfg)
+    assert tregistry.paged_supported(tsmoke(tconfigs.get("gemma3-12b")))
     assert not tregistry.paged_supported(tsmoke(tconfigs.get("zamba2-1p2b")))

@@ -61,11 +61,11 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert int(out.stdout.strip()) >= 15
 
 
-def _serve(*extra):
+def _serve(*extra, arch="minitron-4b", prompt_len=10):
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "minitron-4b", "--smoke", "--device", "cpu", "--requests", "4",
-         "--slots", "2", "--prompt-len", "10", "--max-new", "5",
+         arch, "--smoke", "--device", "cpu", "--requests", "4",
+         "--slots", "2", "--prompt-len", str(prompt_len), "--max-new", "5",
          "--max-seq", "48", *extra],
         env=_env(), capture_output=True, text=True, timeout=120, cwd=ROOT)
 
@@ -86,6 +86,25 @@ def test_serve_cli_runs_and_prints_summary(extra):
     assert "4 requests, 20 tokens in" in lines[-1]
     mode = "paged(page=8," if "--page-size" in extra else ", dense,"
     assert mode in lines[-1]
+
+
+@pytest.mark.parametrize("extra", [
+    ("--page-size", "8", "--decode-flash"),
+    ("--decode-flash",),
+    ("--page-size", "8", "--prefix-cache", "--speculate"),
+])
+def test_serve_cli_gemma3(extra):
+    """gemma3-12b serves paged and dense, prompts past the smoke window
+    (24 > 16); its ring layout serves with the prefix cache off."""
+    out = _serve(*extra, arch="gemma3-12b", prompt_len=24)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert sum(line.startswith("req ") for line in lines) == 4
+    assert "4 requests, 20 tokens in" in lines[-1]
+    mode = "paged(page=8,pool=global:" if "--page-size" in extra \
+        else ", dense,"
+    assert mode in lines[-1]
+    assert not any(line.startswith("prefix-cache:") for line in lines)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -1,8 +1,9 @@
 """Port parity: the refcounted prefix cache on the paged batcher.
 
 The reference's ``tests/test_prefix_cache.py`` cases that the port's
-flat page layout runs (its gemma3 ring and MLA latent cases wait for
-those layouts), on the same weights (JAX's ``registry.init(cfg, 0)``
+flat page layout runs (its gemma3 ring case is in
+``tests/test_torch_gemma3.py``; its MLA latent case waits for that
+layout), on the same weights (JAX's ``registry.init(cfg, 0)``
 carried across with ``params_from_numpy``) with the port's dense
 ``greedy_generate`` as the oracle: refcounted allocation, the radix-tree
 ``PrefixIndex``, hit == cold with one catch-up chunk, copy-on-write at

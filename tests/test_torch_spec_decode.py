@@ -1,7 +1,8 @@
 """Port parity: speculative decode on the paged batcher.
 
 The reference's ``tests/test_spec_decode.py`` cases that the port runs
-(its gemma3 and MLA layout cases wait for those layouts; deadline
+(its gemma3 case is in ``tests/test_torch_gemma3.py``; its MLA case
+waits for that layout; deadline
 expiry, the verify-fault unwind and supervised recovery for the
 resilience slice), on the same weights (JAX's ``registry.init(cfg, 0)``
 carried across with ``params_from_numpy``): speculative decode streams
