@@ -61,7 +61,18 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    dense slots' tokens paged through B1 with ``page_base`` (also with
    pools that preempt; bf16 and int8), one request's pages within the
    ring plus the global table, and plain decode's tokens with
-   ``speculate_k`` 4, B1 and B3 launched steps x layers;
+   ``speculate_k`` 4, B1 and B3 launched steps x layers; tiered KV memory
+   and resilient serving (fp32, page movement through the staged
+   engine's copy stream and pinned buffers): a T1 rehit gives the tokens
+   of a device-resident hit and of a cold run, spill/restore and
+   recompute preemption those of a run never preempted, a snapshot
+   restart pays only the catch-up chunk, a bit-flipped or truncated
+   snapshot gives a cold start, and the chaos matrix (step:2, chunk:2,
+   t1_d2h:1+, t1_h2d:1+, alloc:3..5; bf16 and int8 pages) under the
+   supervisor keeps every survivor bit-identical to the fault-free run
+   with only the affected request errored and every allocator
+   consistent (step:2 recovered by a supervised restart); fault-free
+   runs show no tier fault and no supervisor fault or restart;
 4. full-width serve — minitron-4b at full width, random bf16 weights
    from the seed, 16 requests through ``ContinuousBatcher`` under
    ``DataflowContext``: paged through B1, then dense slots through B3 with
@@ -79,7 +90,18 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    drafts and prefix hits required, prefix, speculation and TTFT
    counters printed), one verify span held against sequential decode
    steps from copies of the same pools, and a verify step's time split
-   beside a decode step's;
+   beside a decode step's; then the tiered serve: three rounds (families
+   A, B, A) of 16 requests, 4 distinct 512-token system prompts shared by
+   4 requests each, with a 1 GiB host tier on a pool of the live pages
+   at peak plus 96 (fewer than a family's cached blocks), so round B
+   demotes A's blocks and round 3 promotes them; the same rounds with
+   ``host_tier_bytes=0`` (round 3 recomputes) and A twice on a pool that
+   keeps it on the card; B1 launched (decode + verify steps) x 32 in
+   every round, demotions and rehits required, no tier fault, round 3
+   through T1 bit-identical to round 3 from device-resident hits;
+   tokens/s, TTFTs, the tier counters, the staged engine's GB/s beside a
+   pinned ``copy_`` of the same bytes and the restore-vs-recompute
+   crossover at 16-512 tokens printed;
 5. the hlslib ops path at full size — the package example's eager
    ``ShiftReg`` stage at 64 x 128 on the host against the kernel's sweep,
    then its kernel stages (``ops.stencil(use_pallas=True)`` and 64 sweeps
@@ -2729,6 +2751,454 @@ def phase_gemma3_full_width(seed):
     return paths
 
 
+# --- tiered KV memory and resilient serving (A10a, A10b) ------------------------------------
+
+
+def ladder_quiet(bat, label, report=None):
+    """A fault-free run must show no rung of the degradation ladder and
+    no supervisor fault: a broken copy or kernel on the card would pass
+    as a recompute or a restart otherwise."""
+    st = bat.stats()
+    check(st["tier_faults"] == 0 and not st["tier_disabled"]
+          and not bat._fault.active,
+          f"[{label}] fault-free run took the ladder: tier_faults "
+          f"{st['tier_faults']}, tier_disabled {st['tier_disabled']}")
+    if report is not None:
+        check(report.faults == 0 and report.restarts == 0,
+              f"[{label}] fault-free supervised run: {report}")
+
+
+def phase_tier_resilience_exactness(seed):
+    """Tiered KV memory and resilient serving at smoke width on the card
+    (fp32 compute, bf16 or int8 pools, B1 for every decode step, every
+    page movement through the staged engine's copy stream and pinned
+    buffers): a T1 rehit gives the tokens of a device-resident hit and
+    of a cold run; spill/restore and recompute preemption give the
+    tokens of a run never preempted; a batcher restarted from a T2
+    snapshot pays only the catch-up chunk, and a bit-flipped or
+    truncated snapshot gives a cold start; the chaos matrix (step:2,
+    chunk:2, t1_d2h:1+, t1_h2d:1+, alloc:3..5, bf16 and int8 pages)
+    under the supervisor: survivors bit-identical to the fault-free run,
+    only the affected request errors, every allocator consistent; a
+    supervised recovery after step:2 bit-identical.  Fault-free runs
+    show no tier fault and no supervisor fault or restart."""
+    import tempfile
+    import warnings
+    from repro_torch.configs import get
+    from repro_torch.configs.base import smoke_variant
+    from repro_torch.models import registry
+    from repro_torch.serve.batching import ContinuousBatcher, Request, drain
+    from repro_torch.serve.resilience import (InjectedFault, RequestErrored,
+                                              RequestFailed, ServeSupervisor)
+    t_phase = time.perf_counter()
+    base = smoke_variant(get("minitron-4b"))
+    params = registry.init(base, seed, device=DEVICE)
+    counts = kernel_counts()
+    rng = np.random.default_rng(seed + 41)
+    V = base.vocab_size
+
+    def tier(page=8, **kw):
+        kw = {"kv_host_tier_bytes": 1 << 20, "tier_restore_min_tokens": 0,
+              **kw}
+        return dataclasses.replace(
+            base, kv_page_size=page, prefill_chunk=page, prefix_cache=True,
+            decode_flash=True, **kw)
+
+    def make(c, **kw):
+        return ContinuousBatcher(c, params, device=DEVICE, **kw)
+
+    def b1_per_step(bat, n, label):
+        check(n["flash_attention_decode_paged"] == bat.steps * base.n_layers,
+              f"[{label}] B1 launches {n['flash_attention_decode_paged']} "
+              f"!= steps {bat.steps} x {base.n_layers}")
+
+    # T1 rehit == device-resident hit == cold.
+    P, F = (rng.integers(0, V, 32).astype(np.int32) for _ in range(2))
+    for kv in ("bfloat16", "int8"):
+        c = tier(kv_cache_dtype=kv)
+        reset_counts(counts)
+        bat = make(c, n_slots=1, max_seq=64, n_pages=6)
+        cold, _, rehit = serve_seq(bat, [P, F, P], 5)
+        b1_per_step(bat, read_counts(counts), f"T1 rehit, {kv}")
+        t = bat._tiers.stats()
+        check(t["demotions"] >= 3 and t["rehits"] >= 1,
+              f"[{kv}] no demote/rehit: {t}")
+        ladder_quiet(bat, f"T1 rehit, {kv}")
+        dev = make(c, n_slots=1, max_seq=64)
+        cold2, hit = serve_seq(dev, [P, P], 5)
+        check(dev.prefix_hits == 1 and dev._tiers.rehits == 0,
+              f"[{kv}] the default pool did not hit on the card")
+        check(rehit == hit == cold == cold2, f"[{kv}] T1 rehit {rehit}, "
+              f"device hit {hit}, cold {cold} / {cold2}")
+        print(f"tiers [smoke, {kv}]: T1 rehit == device-resident hit == cold "
+              f"({t['demotions']} demotions, {t['rehits']} rehits, "
+              f"{t['d2h_bytes']} B down, {t['h2d_bytes']} B up)")
+
+    # preemption: spill/restore and recompute == never preempted.
+    prompts = [rng.integers(0, V, 6).astype(np.int32) for _ in range(3)]
+    for kv in ("bfloat16", "int8"):
+        for mode, rmin in (("spill/restore", 0), ("recompute", 10_000)):
+            c = tier(page=4, kv_cache_dtype=kv, tier_restore_min_tokens=rmin)
+            gold, gbat = run_batcher(c, params, prompts, [12] * 3,
+                                     n_slots=3, max_seq=64)
+            check(gbat.preemptions == 0, "the oracle run preempted")
+            reset_counts(counts)
+            got, bat = run_batcher(c, params, prompts, [12] * 3, n_slots=3,
+                                   max_seq=64, n_pages=8)
+            b1_per_step(bat, read_counts(counts), f"{mode}, {kv}")
+            x = bat.stats()["transfers"]
+            check(bat.preemptions > 0 and got == gold,
+                  f"[{mode}, {kv}] {bat.preemptions} preemptions, {got} != "
+                  f"never preempted {gold}")
+            spills = x["gathers"] - bat._tiers.demotions  # the rest demote
+            if rmin:
+                check(bat.recompute_resumes == bat.resumes > 0
+                      and spills == 0, f"[{mode}, {kv}] {x}")
+            else:
+                check(bat.recompute_resumes == 0 and spills > 0
+                      and x["scatters"] > 0, f"[{mode}, {kv}] {x}")
+            ladder_quiet(bat, f"{mode}, {kv}")
+            print(f"tiers [smoke, {kv}]: {mode} preemption == never "
+                  f"preempted ({bat.preemptions} preemptions, "
+                  f"{bat.recompute_resumes} recompute resumes, transfers "
+                  f"{x['gathers']}G/{x['scatters']}S)")
+
+    # T2: a restart pays only the catch-up chunk; rot gives a cold start.
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = os.path.join(tmp, "kv_tier.snap")
+        a = make(tier(kv_tier_snapshot=snap), n_slots=2, max_seq=64)
+        (cold,) = serve_seq(a, [P], 5)
+        check(a.prefill_chunks == 4, f"cold chunks {a.prefill_chunks}")
+        a.save_tier_snapshot()
+        b = make(tier(kv_tier_snapshot=snap), n_slots=2, max_seq=64)
+        loaded = b._tiers.stats()["snapshot_loaded"]
+        (hit,) = serve_seq(b, [P], 5)
+        check(loaded >= 4 and hit == cold and b.prefill_chunks == 1,
+              f"snapshot restart: loaded {loaded}, chunks "
+              f"{b.prefill_chunks}, {hit} != {cold}")
+        ladder_quiet(b, "snapshot restart")
+        for mangle in ("snapshot_corrupt", "snapshot_truncate"):
+            os.remove(snap)
+            a = make(tier(kv_tier_snapshot=snap, fault_plan=f"{mangle}:1"),
+                     n_slots=2, max_seq=64)
+            serve_seq(a, [P], 5)
+            a.save_tier_snapshot()
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                b = make(tier(kv_tier_snapshot=snap), n_slots=2, max_seq=64)
+            check(b.snapshot_cold_start and len(b._tiers.store) == 0
+                  and any("cold start" in str(m.message) for m in w),
+                  f"[{mangle}] no cold start")
+            (again,) = serve_seq(b, [P], 5)
+            check(again == cold and b.prefill_chunks == 4,
+                  f"[{mangle}] cold start served {again} in "
+                  f"{b.prefill_chunks} chunks")
+        print("tiers [smoke]: snapshot restart == cold with 1 catch-up chunk "
+              f"({loaded} entries loaded); bit-flipped and truncated "
+              "snapshots give a cold start that serves the cold tokens")
+
+    # the chaos matrix under the supervisor.
+    chaos_prompts = [rng.integers(0, V, 16).astype(np.int32)
+                     for _ in range(4)]
+
+    def chaos(c, faults=None):
+        bat = make(c, n_slots=2, max_seq=64, queue_depth=64, n_pages=8,
+                   faults=faults)
+        sup = ServeSupervisor(bat, max_restarts=2)
+        reqs = [Request(rid=i, prompt=p, max_new=20)
+                for i, p in enumerate(chaos_prompts)]
+        for r in reqs:
+            bat.submit(r)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            sup.run(len(reqs))
+        outs = {}
+        for r in reqs:
+            try:
+                outs[r.rid] = (drain(r, timeout=60.0), None)
+            except RequestFailed as e:
+                outs[r.rid] = (e.tokens, e)
+        return bat, sup, outs
+
+    table = {}
+    for kv in ("bfloat16", "int8"):
+        c = tier(kv_cache_dtype=kv)
+        reset_counts(counts)
+        gbat, gsup, gold = chaos(c)
+        n = read_counts(counts)
+        b1_per_step(gbat, n, f"chaos fault-free, {kv}")
+        if kv == "int8":
+            want = b2_launches_expected(c, gbat)
+            check({k: n[k] for k in want} == want,
+                  f"int8 chaos B2 launches {n} != {want}")
+        check(all(e is None for _, e in gold.values())
+              and gbat.preemptions > 0 and gbat._tiers.demotions > 0,
+              f"[{kv}] fault-free chaos run: {gbat.stats()}")
+        ladder_quiet(gbat, f"chaos fault-free, {kv}", gsup.report)
+        for site in ("step:2", "chunk:2", "t1_d2h:1+", "t1_h2d:1+",
+                     "alloc:3..5"):
+            reset_counts(counts)
+            bat, sup, outs = chaos(c, faults=site)
+            b1_per_step(bat, read_counts(counts), f"{site}, {kv}")
+            check(bool(bat._fault.fired.get(site.split(":")[0])),
+                  f"[{site}, {kv}] the fault never fired")
+            errs = 0
+            for rid, (toks, e) in outs.items():
+                if e is not None:
+                    errs += 1
+                    check(isinstance(e, RequestErrored)
+                          and isinstance(e.__cause__, InjectedFault),
+                          f"[{site}, {kv}] rid {rid}: {e!r}")
+                    continue
+                check(toks == gold[rid][0], f"[{site}, {kv}] rid {rid} "
+                      f"{toks} != fault-free {gold[rid][0]}")
+            check(errs <= 1, f"[{site}, {kv}] {errs} requests errored")
+            if site.startswith(("t1_", "alloc")):
+                check(errs == 0 and sup.report.faults == 0,
+                      f"[{site}, {kv}] the ladder killed a request")
+            if site.startswith("step"):
+                check(errs == 0 and sup.report.restarts == 1,
+                      f"[{site}, {kv}] supervised recovery: {sup.report}")
+            for alloc in bat._alloc.values():
+                alloc.check_consistency()
+            check(bat.retired == len(outs), "a request never ended")
+            st = bat.stats()
+            table[f"{site} {kv}"] = {
+                "errored": errs, "restarts": sup.report.restarts,
+                "tier_faults": st["tier_faults"],
+                "recompute_resumes": bat.recompute_resumes}
+    print("chaos matrix [smoke, card]: survivors bit-identical to the "
+          "fault-free runs, allocators consistent, step:2 recovered by the "
+          "supervisor bit for bit: " + json.dumps(table))
+    print(f"tiers and resilience smoke phase: "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    del params
+    torch.cuda.empty_cache()
+
+
+# the tiered serve: 3 rounds (families A, B, A) of 16 requests, each round
+# 4 distinct 512-token system prompts shared by 4 requests each (plus
+# 32-128 own tokens, 64 new); a 1 GiB host tier.
+T1_BYTES = 1 << 30
+TIER_POOL_SPARE = 96      # pool = live pages at peak + this (< a family)
+CROSSOVER_N = (16, 32, 64, 128, 512)
+
+
+def tier_family(vocab, rng):
+    systems = [rng.integers(0, vocab, SYS_LEN) for _ in range(4)]
+    own = [rng.integers(0, vocab, int(n)) for n in rng.integers(32, 129,
+                                                                N_REQ)]
+    return [np.concatenate([systems[i % 4], o]).astype(np.int32)
+            for i, o in enumerate(own)]
+
+
+def serve_round(bat, prompts, counts):
+    """One round of requests through a live batcher under
+    ``DataflowContext`` (its prefix index and host tier carry over from
+    earlier rounds); kernel counts are set to 0 just before and read just
+    after.  Returns (summary, launches, outputs)."""
+    from repro_torch.core.dataflow import DataflowContext
+    from repro_torch.serve.batching import Request, drain
+    reqs = [Request(rid=i, prompt=p, max_new=MAX_NEW, out=stamped_stream())
+            for i, p in enumerate(prompts)]
+    submitted = {}
+    steps0, chunks0 = bat.steps, bat.prefill_chunks
+
+    def producer():
+        for r in reqs:
+            submitted[r.rid] = time.perf_counter()
+            bat.submit(r)
+
+    reset_counts(counts)
+    t0 = time.perf_counter()
+    with DataflowContext() as df:
+        df.function(producer, name="producer")
+        df.function(bat.run, bat.retired + len(reqs), name="batcher")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counts)
+    outs = [drain(r, timeout=60.0) for r in reqs]
+    check(all(len(o) == MAX_NEW for o in outs), "short stream")
+    steps = bat.steps - steps0
+    check(launches["flash_attention_decode_paged"]
+          == (bat.steps - steps0) * bat.cfg.n_layers,
+          f"B1 launches {launches['flash_attention_decode_paged']} != "
+          f"(decode + verify steps) {bat.steps - steps0} x layers")
+    ttft = [r.out.first_at - submitted[r.rid] for r in reqs]
+    return {"tokens_per_s": sum(map(len, outs)) / wall, "wall_s": wall,
+            "decode_steps": steps, "chunks": bat.prefill_chunks - chunks0,
+            "ttft_median_s": statistics.median(ttft),
+            "ttft_max_s": max(ttft)}, launches, outs
+
+
+def time_sync(fn, reps=5):
+    """Median wall seconds of ``fn`` bracketed by device syncs."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return statistics.median(out)
+
+
+def phase_tiered_full_width(seed):
+    """Full-width minitron-4b, bf16, page 16, chunk 128, ``decode_flash``,
+    8 slots, max_seq 1024, prefix cache on, a 1 GiB host tier: rounds A,
+    B, A of the family traffic on a pool of the live pages at peak plus
+    fewer pages than one family's cached blocks, so round B demotes A's
+    blocks to T1 and round 3 promotes them; the same rounds with
+    ``host_tier_bytes=0`` (round 3 recomputes) and A twice on a pool that
+    keeps A on the card (device-resident hits).  Asserts demotions,
+    rehits, no tier fault, B1 launched (decode + verify steps) x 32 in
+    every round, and round 3 through T1 bit-identical to round 3 from
+    device-resident hits; reports tokens/s, TTFTs, the tier counters, the
+    staged engine's GB/s beside a pinned ``copy_`` of the same bytes, and
+    the restore-vs-recompute crossover.  Returns {path: launches}."""
+    from repro_torch.configs import get
+    from repro_torch.models import registry
+    from repro_torch.serve.batching import ContinuousBatcher
+    from repro_torch.serve.kv_tiers import StagedTransferEngine
+    from repro_torch.serve.serve_loop import make_chunk_prefill_step
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get("minitron-4b"), decode_flash=True,
+                              kv_page_size=PAGE, prefill_chunk=CHUNK,
+                              prefix_cache=True, kv_host_tier_bytes=T1_BYTES)
+    params = registry.init(cfg, seed, device=DEVICE, dtype=torch.bfloat16)
+    counts = kernel_counts()
+    rng = np.random.default_rng(seed + 43)
+    fam = {"A": tier_family(cfg.vocab_size, rng),
+           "B": tier_family(cfg.vocab_size, rng)}
+    live = N_SLOTS * -(-(SYS_LEN + 128 + MAX_NEW) // PAGE)
+    cached = sum(len(p) // PAGE for p in fam["A"]) - 3 * 4 * (SYS_LEN
+                                                              // PAGE)
+    check(TIER_POOL_SPARE < cached, "the pool would hold family A's blocks")
+    pool = live + TIER_POOL_SPARE
+    runs, paths, outs = {}, {}, {}
+    for label, c, n_pages, rounds in (
+            ("T1", cfg, pool, "ABA"),
+            ("recompute", dataclasses.replace(cfg, kv_host_tier_bytes=0),
+             pool, "ABA"),
+            ("device hits", cfg, 2 * pool, "AA")):
+        bat = ContinuousBatcher(c, params, n_slots=N_SLOTS, max_seq=MAX_SEQ,
+                                n_pages=n_pages, device=DEVICE)
+        for i, f in enumerate(rounds):
+            summary, launches, outs[label, i] = serve_round(bat, fam[f],
+                                                            counts)
+            paths[f"tiered serve [{label}] round {i + 1} ({f})"] = launches
+            if bat._tiers is not None:
+                t = bat.stats()["tiers"]
+                summary["tiers"] = {k: t[k] for k in (
+                    "demotions", "demote_skips", "rehits", "rehit_tokens",
+                    "recomputes", "t1_entries", "t1_bytes", "t1_evictions",
+                    "gathers", "scatters", "d2h_bytes", "h2d_bytes",
+                    "gather_seconds", "scatter_seconds")}
+            summary["prefix_hits"] = bat.prefix_hits
+            summary["prefix_evictions"] = bat.prefix_evictions
+            summary["preemptions"] = bat.preemptions
+            runs[label, i] = summary
+            print(f"tiered serve [{label}, round {i + 1}: family {f}, pool "
+                  f"{n_pages} pages]: " + json.dumps(summary))
+        ladder_quiet(bat, f"tiered serve, {label}")
+        empty_index(bat)
+        if label == "T1":
+            t = bat.stats()["tiers"]
+            check(t["demotions"] > 0 and t["rehits"] > 0,
+                  f"no demotion or rehit at full width: {t}")
+            x_bat = bat
+        else:
+            del bat
+    same = [a == b for a, b in zip(outs["T1", 2], outs["device hits", 1])]
+    check(all(same), f"round 3 through T1 differs from device-resident hits "
+          f"in {same.count(False)} of {N_REQ} requests")
+
+    def share(a, b):
+        return (sum(x == y for x, y in zip(a, b)),
+                float(np.mean([u == v for x, y in zip(a, b)
+                               for u, v in zip(x, y)])))
+
+    vs_cold = share(outs["T1", 2], outs["T1", 0])
+    vs_rec = share(outs["T1", 2], outs["recompute", 2])
+    print(f"tiered serve: round 3 through T1 == round 3 from device-resident "
+          f"hits in {N_REQ} of {N_REQ} requests; vs round 1 (cold) "
+          f"{vs_cold[0]} of {N_REQ} requests, {vs_cold[1]:.4f} of tokens; "
+          f"vs round 3 recomputed {vs_rec[0]} of {N_REQ}, {vs_rec[1]:.4f} "
+          "(reported, not held: other catch-up spans change GEMM shapes)")
+    print("tiered serve TTFT s (median / worst): round 1 cold "
+          f"{runs['T1', 0]['ttft_median_s']:.4f} / "
+          f"{runs['T1', 0]['ttft_max_s']:.4f}; round 3 restore "
+          f"{runs['T1', 2]['ttft_median_s']:.4f} / "
+          f"{runs['T1', 2]['ttft_max_s']:.4f}; round 3 recompute "
+          f"{runs['recompute', 2]['ttft_median_s']:.4f} / "
+          f"{runs['recompute', 2]['ttft_max_s']:.4f}; round 3 device hits "
+          f"{runs['device hits', 1]['ttft_median_s']:.4f} / "
+          f"{runs['device hits', 1]['ttft_max_s']:.4f}")
+
+    # the staged engine beside a pinned copy_ of the same bytes.
+    bat = x_bat
+    layout = bat.layout
+    eng = StagedTransferEngine(layout)
+    pages = list(range(128))                   # 128 pages = 256 MiB
+    payload = eng.gather_host(bat.pools, {"kv": pages})  # warms the pool
+    nbytes = sum(a.numel() * a.element_size() for a in payload["kv"].values())
+    d2h = time_sync(lambda: eng.gather_host(bat.pools, {"kv": pages}))
+    h2d = time_sync(lambda: eng.scatter_device(bat.pools, payload,
+                                               {"kv": pages}))
+    dev = torch.empty(nbytes, dtype=torch.uint8, device=DEVICE)
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    plain_d2h = time_sync(lambda: host.copy_(dev, non_blocking=True))
+    plain_h2d = time_sync(lambda: dev.copy_(host, non_blocking=True))
+    rates = {"bytes": nbytes,
+             "staged_d2h_GBps": nbytes / d2h / 1e9,
+             "pinned_copy_d2h_GBps": nbytes / plain_d2h / 1e9,
+             "staged_h2d_GBps": nbytes / h2d / 1e9,
+             "pinned_copy_h2d_GBps": nbytes / plain_h2d / 1e9}
+    print("staged engine vs a pinned copy_ of the same bytes (128 pages of "
+          "K and V, 32 layers stacked in each leaf): " + json.dumps(rates))
+    del dev, host, payload
+
+    # restore (T1 promote of n tokens) against recompute (a chunk prefill
+    # of the same n tokens), in the same call.
+    tiers = bat._tiers
+    cross = {}
+    pos0 = torch.zeros(N_SLOTS, dtype=torch.int32, device=DEVICE)
+    # slot 0's table: pages of its own, so the prefill writes its K/V.
+    nb = bat.n_blocks["kv"]
+    bt = {"kv": torch.full_like(bat.block_tab["kv"], bat.n_pages["kv"])}
+    bt["kv"][0] = torch.arange(pool - nb, pool, dtype=torch.int32,
+                               device=DEVICE)
+    for n in CROSSOVER_N:
+        pg = list(range(n // PAGE))
+        blocks = [eng.gather_host(bat.pools, {"kv": [p]}) for p in pg]
+        dst = list(range(200, 200 + len(pg)))
+        promote = time_sync(lambda: tiers.restore_chain(
+            bat.pools, blocks, {"kv": dst}))
+        fn = make_chunk_prefill_step(cfg, n, MAX_SEQ, PAGE)
+        seg = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))).to(
+            DEVICE)
+        state = [pos0.clone(), pos0.clone(), pos0.clone(), pos0.bool()]
+
+        def prefill():
+            fn(params, bat.pools, bt, *state, seg,
+               torch.zeros(1, dtype=torch.int32, device=DEVICE),
+               torch.full((1,), n - 1, dtype=torch.int32, device=DEVICE),
+               0, True, n, 2, 0)
+
+        prefill()
+        recompute = time_sync(prefill)
+        cross[n] = {"promote_ms": promote * 1e3,
+                    "prefill_ms": recompute * 1e3,
+                    "restore_wins": promote < recompute}
+    print("restore vs recompute (one T1 promote of n tokens vs one chunk "
+          "prefill of the same n tokens, ms): " + json.dumps(cross)
+          + f"; tier_restore_min_tokens default {cfg.tier_restore_min_tokens}")
+    del bat, x_bat, params
+    torch.cuda.empty_cache()
+    print(f"tiered full-width phase: {time.perf_counter() - t_phase:.1f}s")
+    return paths
+
+
 # --- phase 5: the hlslib ops path at full size ----------------------------------------
 
 STENCIL_GRID, STENCIL_SWEEPS = 16384, 64
@@ -2868,8 +3338,10 @@ def main():
     phase_prefix_spec_exactness(args.seed)
     phase_recurrent_exactness(args.seed)
     phase_gemma3_exactness(args.seed)
+    phase_tier_resilience_exactness(args.seed)
     paths = phase_full_width(args.seed)
     spec_paths = phase_prefix_spec_full_width(args.seed)
+    tier_paths = phase_tiered_full_width(args.seed)
     paths["hlslib ops"] = phase_hlslib_path(args.seed)
     paths.update(phase_recurrent_full_width(args.seed))
     g3_paths = phase_gemma3_full_width(args.seed)
@@ -2880,8 +3352,10 @@ def main():
     # dequantize at the full slot cache each step reads back).
     d_rows = b2["full cache (8*8*1024 x 128, bf16)"]
     # B1's launches: every paged bf16 serve, decode and verify steps
-    # (minitron-4b's and gemma3-12b's); B3's: the dense bf16 serves.
+    # (minitron-4b's, its tiered rounds' and gemma3-12b's); B3's: the
+    # dense bf16 serves.
     b1_paths = ([paths["paged bf16"]] + list(spec_paths.values())
+                + list(tier_paths.values())
                 + [g3_paths["gemma3-12b paged"],
                    g3_paths["gemma3-12b paged, speculate_k 4"]])
     b3_paths = [paths["dense bfloat16"], g3_paths["gemma3-12b dense"]]

@@ -128,9 +128,11 @@ class ModelConfig:
     # preempted sequence below it parks as a recompute record
     # (re-admission + suppressed-output decode replay) instead of
     # spilling pages.  Only active in tiered mode (kv_host_tier_bytes >
-    # 0); the default sits at the measured restore/recompute TTFT
-    # crossover of the host_tier_rehit bench (restore wins from roughly
-    # two chunks of tokens upward).
+    # 0).  32 is the reference's default, kept for parity: on an H100
+    # (700 W) a T1 promote beat a chunk prefill of the same tokens at
+    # every n from 16 to 512 at minitron-4b's full width (chip_smoke's
+    # tiered serve phase; PERF.md), so on that card the crossover lies
+    # below 16 tokens.
     tier_restore_min_tokens: int = 32
     # reserve decode pages up-front at admission (plen + max_new) instead
     # of the default lazy growth (prompt pages only; decode pages are

@@ -13,7 +13,7 @@ The reference's TPU VMEM sizing helpers (``block_shape_2d``,
 here.
 """
 
-from .stream import Stream, UnboundedStream, StreamClosed
+from .stream import Stream, UnboundedStream, StreamClosed, stream_all
 from .dataflow import DataflowContext, DataflowError, PE, run_cyclic_dataflow
 from .datapack import (DataPack, LANE, round_up, pad_to_lanes, padded_vocab,
                        padding_waste, assert_lane_aligned)

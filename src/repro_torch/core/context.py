@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +53,12 @@ class MemoryBank:
         raise NotImplementedError(
             f"MemoryBank.sharded{axes}: placement over several devices "
             "comes with tensor-parallel serving (A13 in ROADMAP.md)")
+
+    @classmethod
+    def replicated(cls) -> "MemoryBank":
+        """The one-device bank: on one device a replicated placement is
+        the context's device, as ``bank0`` is."""
+        return cls("bank0")
 
 
 MemoryBank.bank0 = MemoryBank("bank0")  # type: ignore[attr-defined]
@@ -79,7 +85,11 @@ class Buffer:
         if self.access == Access.read:
             raise PermissionError("buffer is read-only for the device; "
                                   "host rewrite not allowed")
-        self.tensor.copy_(torch.as_tensor(np.asarray(src)))
+        # rebind, as the reference's ``device_put`` does: the buffer takes
+        # the host data's shape and dtype (no broadcast, no cast).  Bound
+        # kernels read ``tensor`` at execute time, so they see the new one.
+        self.tensor = torch.as_tensor(np.asarray(src)).to(
+            self.tensor.device, copy=True)
         return self
 
     @property
@@ -125,7 +135,11 @@ class Program:
         self.ctx = ctx
         self.fns = dict(fns)
 
-    def MakeKernel(self, name: str, *args) -> Kernel:
+    def MakeKernel(self, name: str, *args, donate: Sequence[int] = ()
+                   ) -> Kernel:
+        """``donate`` names argument positions whose buffers the caller
+        gives up (the reference's XLA donation).  Eager torch has no
+        donation: it is accepted and ignored."""
         if name not in self.fns:
             raise KeyError(f"no kernel named {name!r}; have {list(self.fns)}")
         return Kernel(self.ctx, self.fns[name], args, name)

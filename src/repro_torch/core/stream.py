@@ -19,7 +19,7 @@ import time
 import warnings
 from collections import deque
 from dataclasses import dataclass
-from typing import Deque, Generic, List, Optional, TypeVar
+from typing import Deque, Generic, Iterable, List, Optional, TypeVar
 
 T = TypeVar("T")
 
@@ -187,3 +187,13 @@ class UnboundedStream(Stream[T]):
 
     def Full(self) -> bool:
         return False
+
+
+def stream_all(values: Iterable[T], depth: int = DEFAULT_DEPTH,
+               name: str = "") -> Stream[T]:
+    """Build a stream pre-loaded with ``values`` (depth grows to fit)."""
+    vals = list(values)
+    s: Stream[T] = Stream(depth=max(depth, len(vals), 1), name=name)
+    for v in vals:
+        s.Push(v)
+    return s

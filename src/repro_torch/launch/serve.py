@@ -32,6 +32,20 @@ Paged serving also takes the prefix cache (``--prefix-cache``, with
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b \
         --smoke --device cpu --page-size 8 --prompt-len 24 --max-seq 64 \
         --prefix-cache --shared-prefix 16 --speculate
+
+Tiered KV memory and resilient serving: ``--host-tier-bytes`` (needs
+``--prefix-cache``) puts a host-RAM tier behind the page pool,
+``--tier-snapshot`` (needs ``--host-tier-bytes``) loads and saves its
+on-disk snapshot, ``--tier-restore-min`` sets the recompute-vs-restore
+crossover; ``--schedule``, ``--overload``, ``--queue-depth``,
+``--deadline-ms`` and ``--klass`` set the SLA lifecycle, ``--faults``
+injects deterministic faults and ``--supervise`` serves under the
+``ServeSupervisor``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b \
+        --smoke --device cpu --page-size 8 --pages 12 --prompt-len 24 \
+        --max-seq 64 --prefix-cache --shared-prefix 16 \
+        --host-tier-bytes 1048576 --faults step:3 --supervise
 """
 
 import argparse
@@ -46,6 +60,7 @@ from ..core.dataflow import DataflowContext
 from ..models import registry
 from ..models.transformer import torch_dtype
 from ..serve.batching import ContinuousBatcher, Request, RequestFailed, drain
+from ..serve.resilience import ServeSupervisor
 
 
 def main(argv=None):
@@ -83,6 +98,32 @@ def main(argv=None):
     ap.add_argument("--prefill-exact", action="store_true",
                     help="recompute prompt K/V at the final chunk so "
                          "chunked prefill is bit-exact vs dense")
+    ap.add_argument("--host-tier-bytes", type=int, default=0,
+                    help="host-RAM tier (T1) byte budget: evicted "
+                         "prefixes demote there and rehits restore "
+                         "instead of recomputing (needs --prefix-cache)")
+    ap.add_argument("--tier-snapshot", default="",
+                    help="on-disk snapshot (T2) path: loaded at start "
+                         "if present, saved at exit — cached prompts "
+                         "survive restarts (needs --host-tier-bytes)")
+    ap.add_argument("--tier-restore-min", type=int, default=-1,
+                    help="recompute-vs-restore crossover in tokens "
+                         "(default: cfg.tier_restore_min_tokens)")
+    ap.add_argument("--schedule", choices=("fifo", "sla"), default=None,
+                    help="admission order: arrival (fifo) or SLA class "
+                         "rank + deadline (sla)")
+    ap.add_argument("--overload", choices=("block", "reject"), default=None,
+                    help="full-queue policy: backpressure the producer "
+                         "(block) or shed with a typed rejection (reject)")
+    ap.add_argument("--queue-depth", type=int, default=0,
+                    help="request queue depth (0 = 2*slots)")
+    ap.add_argument("--faults", default="",
+                    help="deterministic fault-injection spec, e.g. "
+                         "'step:3;t1_d2h:1+' (see serve.resilience)")
+    ap.add_argument("--supervise", action="store_true",
+                    help="run under ServeSupervisor: watchdog heartbeat "
+                         "+ journaled crash recovery on fatal step "
+                         "faults (paged mode)")
     ap.add_argument("--speculate-k", type=int, default=0,
                     help="speculative decode: n-gram drafter proposes up "
                          "to K tokens/slot, one batched verify call "
@@ -94,11 +135,23 @@ def main(argv=None):
                     help="re-probe period for self-disabled drafter "
                          "slots in steps (0 = sticky disable; default: "
                          "config value)")
+    ap.add_argument("--deadline-ms", type=float, default=0,
+                    help="per-request deadline in ms (0 = none); "
+                         "expired requests are cancelled, pages freed")
+    ap.add_argument("--klass", choices=("latency", "standard", "batch"),
+                    default="standard",
+                    help="SLA class stamped on every generated request")
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
+    if args.tier_snapshot and not args.host_tier_bytes:
+        ap.error("--tier-snapshot needs the host tier: pass "
+                 "--host-tier-bytes as well")
+    if args.host_tier_bytes and not args.prefix_cache:
+        ap.error("--host-tier-bytes needs --prefix-cache (demotion is "
+                 "keyed by the prefix index)")
     page = args.page_size or cfg.kv_page_size
     speculate_k = args.speculate_k or (4 if args.speculate else 0)
     if args.prefix_cache and not page:
@@ -110,9 +163,13 @@ def main(argv=None):
     kw = dict(kv_page_size=page, decode_flash=args.decode_flash,
               kv_cache_dtype=args.kv_cache_dtype,
               prefix_cache=args.prefix_cache,
-              prefill_exact=args.prefill_exact, speculate_k=speculate_k)
+              prefill_exact=args.prefill_exact, speculate_k=speculate_k,
+              kv_host_tier_bytes=args.host_tier_bytes,
+              kv_tier_snapshot=args.tier_snapshot)
     if args.speculate_probe >= 0:
         kw["speculate_probe"] = args.speculate_probe
+    if args.tier_restore_min >= 0:
+        kw["tier_restore_min_tokens"] = args.tier_restore_min
     cfg = dataclasses.replace(cfg, **kw)
     # bf16 weights are drawn in bf16 directly; forward casts to cfg.dtype.
     params = registry.init(cfg, args.seed, device=args.device,
@@ -121,14 +178,20 @@ def main(argv=None):
     batcher = ContinuousBatcher(cfg, params, n_slots=args.slots,
                                 max_seq=args.max_seq,
                                 n_pages=args.pages or None,
+                                schedule=args.schedule,
+                                overload=args.overload,
+                                queue_depth=args.queue_depth or None,
+                                faults=args.faults or None,
                                 device=args.device)
+    supervisor = ServeSupervisor(batcher) if args.supervise else None
     sysp = rng.integers(0, cfg.vocab_size,
                         min(args.shared_prefix,
                             args.prompt_len)).astype(np.int32)
     reqs = [Request(rid=i, prompt=np.concatenate([sysp, rng.integers(
                 0, cfg.vocab_size,
                 args.prompt_len - len(sysp)).astype(np.int32)]),
-                    max_new=args.max_new)
+                    max_new=args.max_new, klass=args.klass,
+                    deadline_ms=args.deadline_ms or None)
             for i in range(args.requests)]
 
     t0 = time.time()
@@ -146,14 +209,17 @@ def main(argv=None):
                     pass
             batcher.requests.close()
         df.function(producer, name="producer")
-        df.function(batcher.run, len(reqs), name="batcher")
+        run = supervisor.run if supervisor is not None else batcher.run
+        df.function(run, len(reqs), name="batcher")
     dt = time.time() - t0
 
     total_tokens = 0
+    failed = 0
     for r in reqs:
         try:
             out = drain(r)
         except RequestFailed as e:
+            failed += 1
             print(f"req {r.rid}: {type(e).__name__}: {e.reason} "
                   f"({len(e.tokens)} token(s) streamed)")
             continue
@@ -187,8 +253,41 @@ def main(argv=None):
                   f"rolled back {sp['rolled_back']}, "
                   f"verify steps {sp['verify_steps']}, "
                   f"decode steps saved {sp['decode_steps_saved']}")
+        if "tiers" in st:
+            t = st["tiers"]
+            print(f"kv tiers: T1 {t['t1_entries']} entries / "
+                  f"{t['t1_bytes']}B of {t['t1_budget_bytes']}B "
+                  f"({t['t1_evictions']} evicted), "
+                  f"demotions {t['demotions']} "
+                  f"(+{t['demote_skips']} cached), "
+                  f"rehits {t['rehits']} ({t['rehit_tokens']} tokens "
+                  f"restored), recomputes {t['recomputes']}, "
+                  f"recompute-resumes {t['recompute_resumes']}, "
+                  f"transfers {t['staged_gathers']}G/"
+                  f"{t['staged_scatters']}S "
+                  f"({t['d2h_bytes']}B down, {t['h2d_bytes']}B up)")
+        if batcher._tiers is not None and batcher.tier_snapshot:
+            n = batcher.save_tier_snapshot()
+            print(f"kv tiers: snapshot saved to {n}")
     else:
         mode = "dense"
+    st = batcher.stats()
+    if (failed or st["rejections"] or st["expired"] or st["errored"]
+            or st["cancelled"] or st.get("restarts")
+            or st.get("tier_disabled") or args.supervise):
+        rej = ",".join(f"{k}:{v}" for k, v in sorted(
+            st["rejections"].items())) or "none"
+        extra = ""
+        if supervisor is not None:
+            rep = supervisor.report
+            extra = (f", supervisor restarts {rep.restarts} "
+                     f"(recovered {rep.recovered_requests} requests, "
+                     f"{rep.stalls} stalls)")
+        print(f"resilience: rejections [{rej}], expired {st['expired']}, "
+              f"errored {st['errored']}, cancelled {st['cancelled']}, "
+              f"tier faults {st.get('tier_faults', 0)}"
+              f"{' (tier DISABLED)' if st.get('tier_disabled') else ''}"
+              f"{extra}")
     print(f"{len(reqs)} requests, {total_tokens} tokens in {dt:.2f}s "
           f"({total_tokens/dt:.1f} tok/s, {batcher.steps} decode steps, "
           f"{mode}, "

@@ -59,11 +59,39 @@ plain greedy decode's.  A per-slot acceptance EWMA self-disables
 drafting on text that does not repeat, with re-probes on a backed-off
 step grid.
 
-This slice runs both modes with FIFO admission and the blocking
-overload policy, bf16 or int8 KV; dense-slot mode switches the prefix
-cache and speculation off, as the reference does.  Host tiers, SLA
-scheduling, fault injection, telemetry and mesh sharding come with later
-slices; the constructor raises if asked for them.
+Tiered KV memory (paged, prefix cache, ``host_tier_bytes``): a bounded
+host-RAM tier (``serve.kv_tiers``) sits behind the page pool.  Prefix
+eviction demotes the evicted node's pages to the host store through the
+batcher's one ``StagedTransferEngine`` (which also carries every
+preemption spill and restore); a later prompt that misses the device
+index but hits the host store promotes the block chain back (pages
+allocated, payloads scattered in one staged transfer, blocks re-inserted
+into the index) and then admits as an ordinary shared-page hit, catch-up
+chunk only, bit-identical to the cold run.  ``tier_snapshot`` persists the
+host store across batcher restarts (T2).  ``tier_restore_min`` is the
+recompute-vs-restore policy: shorter spans recompute from tokens (short
+rehits prefill; short preempted sequences park as recompute records that
+re-admit and replay their emitted tokens with output pushes suppressed).
+
+Resilience (``serve.resilience``): every request ends in exactly one
+terminal outcome, retired or a typed ``TerminalEvent`` pushed into its
+stream before the close, which ``drain`` re-raises as the matching
+``RequestFailed`` subclass.  ``Request.klass`` maps onto preemption rank
+and, with ``schedule="sla"``, admission order; ``deadline_ms`` expires
+queued work and cancels in-flight work, its pages freed at once.
+``overload="reject"`` sheds at a full queue.  A seeded ``FaultPlan``
+fires at the sites ``step``, ``chunk``, ``verify``, ``alloc``, ``t1_d2h``,
+``t1_h2d``, ``snapshot_corrupt`` and ``snapshot_truncate``.  Transfer
+faults take the degradation ladder (retry with capped backoff, then
+recompute, then tier-off after ``tier_fault_limit`` failures); a step,
+verify or stall fault is fatal (``BatcherFault``), and under a
+``ServeSupervisor`` the batcher journals its in-flight requests, rebuilds
+its pools (``recover``) and replays them bit-identically.
+
+Dense-slot mode switches the prefix cache, the tiers and speculation off,
+as the reference does.  Telemetry, reserve-at-admission and mesh
+sharding come with later slices; the constructor raises if asked for
+them.
 """
 
 from __future__ import annotations
@@ -71,7 +99,10 @@ from __future__ import annotations
 import bisect
 import collections
 import dataclasses
-from typing import Any, Deque, Dict, List, Optional, Tuple
+import os
+import time
+import warnings
+from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,7 +112,12 @@ from ..core.stream import Stream, StreamClosed
 from ..models import params as PP
 from ..models import registry
 from ..models.cache_layouts import get_layout
+from .kv_tiers import KVTierManager, SnapshotCorruptError, StagedTransferEngine
 from .prefix_cache import PageAllocator, PrefixIndex
+from .resilience import (BatcherFault, FaultPlan, InjectedFault,
+                         StallFault, TerminalEvent, class_rank)
+# re-exported: ``drain``'s callers catch ``RequestFailed`` from here.
+from .resilience import RequestFailed  # noqa: F401
 from .serve_loop import (advance_slots, make_chunk_prefill_step,
                          make_paged_decode_step, make_spec_verify_step)
 
@@ -90,11 +126,7 @@ _MIN_CHUNK = 16            # smallest auto-selected prefill chunk
 
 # constructor keywords of the reference that belong to later slices.
 _LATER_KWARGS = {
-    "host_tier_bytes": "tiered-memory",
-    "tier_snapshot": "tiered-memory", "tier_restore_min": "tiered-memory",
-    "schedule": "resilience", "overload": "resilience",
-    "queue_depth": "resilience", "faults": "resilience",
-    "clock": "resilience", "telemetry": "telemetry",
+    "telemetry": "telemetry",
     "reserve_decode": "serving-benchmarks",
 }
 
@@ -171,22 +203,19 @@ def _scatter_rows(cache, cache1, rows, slots, axis: int) -> None:
             c[lead + (slots,)] = cache1[name][lead + (rows,)]
 
 
-class RequestFailed(RuntimeError):
-    """A request that ended without its tokens: rejected at admission or
-    failed in flight.  ``drain`` raises it with the tokens streamed."""
-
-    def __init__(self, rid: int, reason: str):
-        super().__init__(f"request {rid}: {reason}")
-        self.rid, self.reason = rid, reason
-        self.tokens: List[int] = []
-
-
 @dataclasses.dataclass
 class Request:
     rid: int
     prompt: np.ndarray           # (prompt_len,) int32
     max_new: int
     priority: int = 0            # higher = preempted later
+    # SLA lifecycle (serve.resilience): the class maps onto preemption
+    # rank (latency > standard > batch) and, with schedule="sla",
+    # admission order; ``deadline_ms`` is wall time from submit() after
+    # which the request is expired (queued) or cancelled (in flight).
+    klass: str = "standard"      # "latency" | "standard" | "batch"
+    deadline_ms: Optional[float] = None
+    submitted_at: float = 0.0    # stamped by submit() / first pop
     out: Stream = dataclasses.field(
         default_factory=lambda: Stream(depth=4096, name="resp"))
 
@@ -197,7 +226,10 @@ class _Admission:
     ``start`` is the first prompt position the catch-up prefill computes
     (0 for a cold request); ``cache_offset`` the read-only boundary below
     which the slot's pages are shared with the prefix cache (the matched
-    token count)."""
+    token count).  ``resume`` marks a recompute-mode resume: the final
+    chunk pushes no first token (it was emitted before the preemption),
+    restores the parked decode budget and arms the suppressed-output
+    replay of the already-emitted tokens."""
     req: Request
     slot: int
     plen: int
@@ -205,6 +237,7 @@ class _Admission:
     n_chunks: int
     start: int = 0
     cache_offset: int = 0
+    resume: Optional["_Preempted"] = None
 
 
 @dataclasses.dataclass
@@ -215,7 +248,15 @@ class _Preempted:
     group.  ``shared`` lists the leading prefix-cache pages the slot
     still references: never spilled (immutable while shared), the record
     keeps the slot's references and resume re-attaches them.  ``hist`` is
-    the slot's token history, parked for the drafter."""
+    the slot's token history, parked for the drafter.
+
+    ``mode == "recompute"`` (tiered memory below ``tier_restore_min``, a
+    failed spill or restore, or crash recovery): nothing was spilled;
+    resume re-admits the prompt (prefix hits recover surviving blocks)
+    and replays the ``pos - plen`` emitted decode steps with output
+    pushes suppressed, so the cache bits and every later token equal the
+    uncontended run.  ``skip`` counts replay pushes still owed
+    suppression when the slot was preempted mid-replay."""
     req: Request
     pos: int
     last_tok: int
@@ -224,6 +265,8 @@ class _Preempted:
     counts: Dict[str, int]
     seq: int                     # admission order (preemption tie-break)
     shared: Dict[str, List[int]] = dataclasses.field(default_factory=dict)
+    mode: str = "restore"        # "restore" (spilled pages) | "recompute"
+    skip: int = 0
     hist: List[int] = dataclasses.field(default_factory=list)
 
 
@@ -238,8 +281,13 @@ class ContinuousBatcher:
     when a page size is given (or the config's ``kv_page_size``) and the
     family has a pageable layout, dense slots otherwise.  ``device`` is
     where the caches and slot state live; the parameters must already be
-    there.  ``prefix_cache``, ``prefix_block`` and ``prefill_exact``
-    override the config's fields of those names (paged mode only)."""
+    there.  ``prefix_cache``, ``prefix_block``, ``prefill_exact``,
+    ``host_tier_bytes``, ``tier_snapshot``, ``tier_restore_min``,
+    ``schedule``, ``overload`` and ``queue_depth`` override the config's
+    fields of those names; ``faults`` is a ``FaultPlan`` or its spec
+    (then ``REPRO_FAULTS``, then ``cfg.fault_plan``); ``clock`` is the
+    time base of deadlines and transfer timings (wall time by
+    default)."""
 
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int,
                  max_seq: int, n_pages=None,
@@ -249,6 +297,16 @@ class ContinuousBatcher:
                  prefix_cache: Optional[bool] = None,
                  prefix_block: Optional[int] = None,
                  prefill_exact: Optional[bool] = None,
+                 host_tier_bytes: Optional[int] = None,
+                 tier_snapshot: Optional[str] = None,
+                 tier_restore_min: Optional[int] = None,
+                 schedule: Optional[str] = None,
+                 overload: Optional[str] = None,
+                 queue_depth: Optional[int] = None,
+                 faults=None,
+                 clock: Optional[Callable[[], float]] = None,
+                 transfer_retries: int = 2,
+                 tier_fault_limit: int = 3,
                  device="cuda", **later):
         for k, v in later.items():
             if k not in _LATER_KWARGS:
@@ -257,12 +315,7 @@ class ContinuousBatcher:
                 raise NotImplementedError(
                     f"{k}= comes with the {_LATER_KWARGS[k]} slice")
         psz = int(page_size or cfg.kv_page_size)
-        for on, what in ((cfg.kv_host_tier_bytes or cfg.kv_tier_snapshot,
-                          "tiered KV memory"),
-                         (cfg.kv_reserve_decode, "reserve-at-admission"),
-                         (cfg.serve_schedule != "fifo"
-                          or cfg.serve_overload != "block" or cfg.fault_plan,
-                          "SLA scheduling, shedding and fault injection"),
+        for on, what in ((cfg.kv_reserve_decode, "reserve-at-admission"),
                          (cfg.mesh_shape, "mesh-sharded serving")):
             if on:
                 raise NotImplementedError(
@@ -273,9 +326,44 @@ class ContinuousBatcher:
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.device = torch.device(device)
-        self.requests: Stream = Stream(
-            depth=cfg.serve_queue_depth or 2 * n_slots, name="requests")
+        # resilience: deterministic fault plan, SLA scheduling knobs,
+        # explicit bounded-queue overload policy, one time base.
+        self._fault: FaultPlan = FaultPlan.resolve(faults, cfg.fault_plan)
+        self.schedule = str(schedule or cfg.serve_schedule)
+        if self.schedule not in ("fifo", "sla"):
+            raise ValueError(f"schedule must be fifo|sla, got "
+                             f"{self.schedule!r}")
+        self.overload = str(overload or cfg.serve_overload)
+        if self.overload not in ("block", "reject"):
+            raise ValueError(f"overload must be block|reject, got "
+                             f"{self.overload!r}")
+        qd = int(cfg.serve_queue_depth if queue_depth is None
+                 else queue_depth)
+        self._clock = clock or time.monotonic
+        self.requests: Stream = Stream(depth=qd or 2 * n_slots,
+                                       name="requests")
+        # lifecycle counters; ``rejections`` is keyed by the typed
+        # rejection reason a consumer sees in its RequestRejected.
         self.rejections: Dict[str, int] = {}
+        self.expired = 0
+        self.errored = 0
+        self.cancelled = 0
+        self.tier_faults = 0
+        self.tier_disabled = False
+        self.restarts = 0
+        self.snapshot_cold_start = False
+        self.transfer_retries = int(transfer_retries)
+        self.tier_fault_limit = int(tier_fault_limit)
+        self._ewma_step_s = 0.0      # smoothed decode-step wall time
+        self._ewma_step_tok = 0.0    # smoothed tokens retired per step
+        # supervisor wiring (ServeSupervisor sets these).
+        self._heartbeat = None
+        self._supervised = False
+        self._stalled = False
+        # any request in the system carrying a deadline? (keeps the
+        # per-step expiry sweep off the hot path when nobody uses them)
+        self._deadlines_live = False
+        self.recompute_resumes = 0
         self.steps = 0
         self.retired = 0
         self.prefill_chunks = 0
@@ -293,9 +381,12 @@ class ContinuousBatcher:
         self.spec_accepted = 0
         self.spec_rolled_back = 0
         self.spec_verify_steps = 0
-        # dense slots: no shared pages and no block tables to roll back.
+        # dense slots: no shared pages, no tiers and no block tables to
+        # roll back.
         self.prefix_cache = False
         self._prefix: Optional[PrefixIndex] = None
+        self._tiers: Optional[KVTierManager] = None
+        self._xfer: Optional[StagedTransferEngine] = None
         self.speculate_k = 0
 
         # host mirror: which Request occupies each decoding slot.
@@ -320,6 +411,9 @@ class ContinuousBatcher:
         self._host_pos = [0] * n_slots
         self._host_last_tok = [0] * n_slots
         self._host_remaining = [0] * n_slots
+        # decode steps left to replay with output pushes suppressed
+        # (recompute-mode resume re-emits already-delivered tokens).
+        self._replay_skip = [0] * n_slots
 
         if not self.paged:
             self.cache = PP.init_params(
@@ -369,6 +463,37 @@ class ContinuousBatcher:
         if self.prefix_cache:
             self._prefix = PrefixIndex([g.name for g in self.layout.groups],
                                        self.page_size, self.prefix_block)
+        # Tiered KV memory: ONE staged-transfer engine carries every
+        # device<->host page movement (preemption spill/resume and the
+        # host tier's demote/promote); the T1 store only exists with a
+        # byte budget AND the prefix cache (demotion is keyed by the
+        # prefix index's token paths).
+        self._xfer = StagedTransferEngine(self.layout, faults=self._fault,
+                                          clock=self._clock)
+        self.tier_restore_min = int(
+            cfg.tier_restore_min_tokens if tier_restore_min is None
+            else tier_restore_min)
+        htb = int(cfg.kv_host_tier_bytes if host_tier_bytes is None
+                  else host_tier_bytes)
+        self.host_tier_bytes = htb if self.prefix_cache else 0
+        if self.host_tier_bytes > 0:
+            self._tiers = KVTierManager(self.layout, self.page_size,
+                                        self.prefix_block,
+                                        self.host_tier_bytes, self._xfer)
+        self.tier_snapshot = str(
+            cfg.kv_tier_snapshot if tier_snapshot is None
+            else tier_snapshot) if self._tiers is not None else ""
+        if self.tier_snapshot and os.path.exists(self.tier_snapshot):
+            try:
+                self._tiers.load(self.tier_snapshot)
+            except SnapshotCorruptError as e:
+                # storage rot is an availability event, not a config
+                # error: log it and serve cold.  (A geometry mismatch,
+                # ValueError, still raises: the snapshot is intact but
+                # belongs to another layout.)
+                warnings.warn(f"kv tier snapshot unusable, serving "
+                              f"from cold start: {e}")
+                self.snapshot_cold_start = True
         self.pools = PP.init_params(
             registry.paged_cache_decls(cfg, self.n_pages, self.page_size),
             device=self.device)
@@ -411,30 +536,57 @@ class ContinuousBatcher:
 
     def _next_request(self) -> Optional[Request]:
         if self._pending:
-            return self._pending.popleft()
-        return self.requests.TryPop()
+            r = self._pending.popleft()
+        else:
+            r = self.requests.TryPop()
+        if r is not None:
+            if r.submitted_at == 0.0:      # direct Push (bypassed submit)
+                r.submitted_at = self._clock()
+            if r.deadline_ms is not None:
+                self._deadlines_live = True
+        return r
 
-    def _fail_request(self, r: Request, reason: str) -> None:
-        """End a request with an in-band ``RequestFailed`` + close, so its
-        consumer's ``drain`` raises instead of waiting out a timeout."""
+    def _fail_request(self, r: Request, event: TerminalEvent) -> None:
+        """End a request with a typed in-band event pushed before the
+        close, so its consumer's ``drain`` re-raises the cause instead of
+        waiting out a timeout.  A full or closed stream degrades to
+        close-only."""
         try:
-            r.out.Push(RequestFailed(r.rid, reason), timeout=1.0)
+            r.out.Push(event, timeout=1.0)
         except (TimeoutError, StreamClosed):
             pass
         r.out.close()
+        if event.kind == "rejected":
+            self.rejections[event.reason] = \
+                self.rejections.get(event.reason, 0) + 1
+        elif event.kind == "expired":
+            self.expired += 1
+        elif event.kind == "errored":
+            self.errored += 1
+        else:
+            self.cancelled += 1
 
     def _reject(self, r: Request, reason: str = "unservable") -> None:
-        self._fail_request(r, f"rejected: {reason}")
-        self.rejections[reason] = self.rejections.get(reason, 0) + 1
+        """Unservable request (bypassed submit() validation, or needs more
+        pages than the whole pool): typed rejection + close."""
+        self._fail_request(r, TerminalEvent.rejected(r.rid, reason))
         self.retired += 1
+
+    def _expiry_left_ms(self, r: Request) -> float:
+        """Milliseconds of deadline budget left (+inf when none)."""
+        if r.deadline_ms is None:
+            return float("inf")
+        return r.deadline_ms - (self._clock() - r.submitted_at) * 1e3
 
     def total_used_pages(self) -> int:
         return sum(a.used_pages for a in self._alloc.values())
 
     def stats(self) -> Dict[str, Any]:
-        """Scheduling counters; paged mode adds per-group pool occupancy,
-        the shared-page and copy-on-write counts, the speculation
-        counters and, with the prefix cache, its hit counters."""
+        """Scheduling and lifecycle counters; paged mode adds the ladder's
+        counters, per-group pool occupancy, the shared-page and
+        copy-on-write counts, the transfer engine's and speculation's
+        counters and, with the prefix cache, its hit counters (and the
+        tiers', when the host tier is on)."""
         s: Dict[str, Any] = {
             "paged": self.paged,
             "steps": self.steps, "retired": self.retired,
@@ -442,9 +594,16 @@ class ContinuousBatcher:
             "prefill_chunks": self.prefill_chunks,
             "peak_pages": self.peak_pages,
             "rejections": dict(self.rejections),
+            "expired": self.expired, "errored": self.errored,
+            "cancelled": self.cancelled,
         }
         if not self.paged:
             return s
+        s["tier_faults"] = self.tier_faults
+        s["tier_disabled"] = self.tier_disabled
+        s["restarts"] = self.restarts
+        s["snapshot_cold_start"] = self.snapshot_cold_start
+        s["transfers"] = self._xfer.stats()
         s["pools"] = {name: {"free": a.free_pages, "used": a.used_pages,
                              "shared": a.shared_pages}
                       for name, a in self._alloc.items()}
@@ -464,6 +623,9 @@ class ContinuousBatcher:
             "decode_steps_saved": self.spec_accepted,
             "accept_ewma": list(self._accept_ewma),
         }
+        if self._tiers is not None:
+            s["tiers"] = {**self._tiers.stats(),
+                          "recompute_resumes": self.recompute_resumes}
         if self.prefix_cache:
             s["prefix_lookups"] = self.prefix_lookups
             s["prefix_hits"] = self.prefix_hits
@@ -533,6 +695,16 @@ class ContinuousBatcher:
         total = min(len(r.prompt) + r.max_new, self.max_seq)
         return self.layout.blocks_for(group, total, self.max_seq)
 
+    def _admit_pages_needed(self, r: Request, group: str,
+                            cover: Optional[int] = None) -> int:
+        """Pages reserved at admission: the prompt's.  ``cover`` raises
+        the floor to a token position (a recompute-mode resume reserves
+        through ``pos + 1`` so the re-admitted slot can replay and emit
+        at least one token before it can be preempted again, the
+        headroom rule of the restore path)."""
+        tokens = max(len(r.prompt), cover or 0)
+        return self.layout.blocks_for(group, tokens, self.max_seq)
+
     def _set_table_row(self, group: str, slot: int, pages: List[int]) -> None:
         row = np.full((self.n_blocks[group],), self.n_pages[group], np.int32)
         row[:len(pages)] = pages
@@ -541,25 +713,152 @@ class ContinuousBatcher:
     def _note_peak(self) -> None:
         self.peak_pages = max(self.peak_pages, self.total_used_pages())
 
+    def _tier_op(self, what: str, fn: Callable[[], Any],
+                 backoff: float = 0.005) -> Tuple[bool, Any]:
+        """Run a tier transfer with capped-backoff retries — rung 1 of
+        the degradation ladder.  Returns ``(ok, result)``; on final
+        failure the caller falls through to its recompute path (rung 2),
+        and after ``tier_fault_limit`` failed operations the host tier is
+        disabled (rung 3, tier-off).  Only ``RuntimeError`` (which
+        includes ``InjectedFault``) is retried: anything else is a bug
+        and propagates."""
+        err: Optional[BaseException] = None
+        for attempt in range(self.transfer_retries + 1):
+            if attempt:
+                time.sleep(min(backoff * (2 ** (attempt - 1)), 0.05))
+            try:
+                return True, fn()
+            except RuntimeError as e:
+                err = e
+        self.tier_faults += 1
+        warnings.warn(f"tier {what} failed after "
+                      f"{self.transfer_retries + 1} attempts: {err}")
+        if (self.tier_faults >= self.tier_fault_limit
+                and self._tiers is not None):
+            self._tiers = None
+            self.tier_disabled = True
+            warnings.warn(f"host KV tier disabled after "
+                          f"{self.tier_faults} transfer faults "
+                          f"(degraded to recompute-only)")
+        return False, None
+
     def _alloc_evict(self, name: str, n: int) -> Optional[List[int]]:
         """Alloc ``n`` pages, evicting LRU cached prefixes under pressure.
         Cached prefixes are worth less than any live request, so they are
         released (decref'd: pages still shared by live slots survive
         through those references) before admission backpressures or any
-        live slot is preempted."""
+        live slot is preempted.  With the host tier, each evicted node's
+        payload is demoted to T1 first, while its pages are still live."""
+        if self._fault.fire("alloc"):
+            # simulated pool exhaustion: the caller takes its dry-pool
+            # path (backpressure / preemption).
+            return None
         got = self._alloc[name].alloc(n)
         while got is None and self._prefix is not None \
                 and self._prefix.n_nodes:
             evicted = self._prefix.evict_lru()
             if evicted is None:
                 break
-            for gname, pgs in evicted[1].items():
+            path_toks, pages = evicted
+            if self._tiers is not None:
+                # a failed demote only loses the T1 copy; the eviction
+                # proceeds (a rehit will recompute).
+                self._tier_op("demote", lambda: self._tiers.demote(
+                    path_toks, pages, self.pools))
+            for gname, pgs in pages.items():
                 self._alloc[gname].free(pgs)
             self.prefix_evictions += 1
             got = self._alloc[name].alloc(n)
         return got
 
-    def _try_admit_paged(self, r: Request, slot: int) -> bool:
+    def _tier_promote(self, prompt: np.ndarray) -> int:
+        """Restore the longest T1 block chain the device index is missing
+        for this prompt: allocate pages per group, scatter the host
+        payloads back in one staged transfer, and insert the blocks into
+        the ``PrefixIndex``, so the admission's match attaches them like
+        any cached prefix.  Returns tokens promoted.  Chains shorter than
+        ``tier_restore_min`` recompute instead.  Allocation pressure can
+        evict blocks of this very prompt (demoting them); the promote
+        then re-anchors against the new tree state."""
+        tiers = self._tiers
+        for _ in range(2):
+            nb = self._prefix.matched_blocks(prompt)
+            chain = tiers.match(prompt, start_block=nb)
+            if not chain:
+                return 0
+            if len(chain) * tiers.block < self.tier_restore_min:
+                tiers.recomputes += 1
+                return 0
+            bpp = tiers.bpp
+            new_pages: Dict[str, List[int]] = {g.name: []
+                                               for g in self.layout.groups}
+            taken = 0
+            for _entry in chain:                 # leading blocks, best effort
+                grabbed: Dict[str, List[int]] = {}
+                ok = True
+                for g in self.layout.groups:
+                    got = self._alloc_evict(g.name, bpp)
+                    if got is None:
+                        ok = False
+                        break
+                    grabbed[g.name] = got
+                if not ok:
+                    for gname, pgs in grabbed.items():
+                        self._alloc[gname].free(pgs)
+                    break
+                for gname in new_pages:
+                    new_pages[gname].extend(grabbed[gname])
+                taken += 1
+            if not taken or taken * tiers.block < self.tier_restore_min:
+                # nothing allocatable, or pool pressure cut the chain
+                # below the recompute crossover.
+                for gname, pgs in new_pages.items():
+                    if pgs:
+                        self._alloc[gname].free(pgs)
+                if taken:
+                    tiers.recomputes += 1
+                return 0
+            if self._prefix.matched_blocks(prompt) != nb:
+                # our own allocation pressure evicted on-path blocks;
+                # hand the pages back and re-anchor (they are in T1 now).
+                for gname, pgs in new_pages.items():
+                    if pgs:
+                        self._alloc[gname].free(pgs)
+                continue
+            ok, pools = self._tier_op(
+                "promote", lambda: tiers.restore_chain(
+                    self.pools, chain[:taken], new_pages))
+            if not ok:
+                # promotion failed: hand the pages back and recompute
+                # (rung 2).
+                for gname, pgs in new_pages.items():
+                    if pgs:
+                        self._alloc[gname].free(pgs)
+                tiers.recomputes += 1
+                return 0
+            self.pools = pools
+            total = (nb + taken) * tiers.block
+            # blocks below nb already exist in the tree: insert walks past
+            # them and absorbs only ours, so their placeholder ids (-1)
+            # are never read, freed or written to a table.
+            pages_arg = {gname: [-1] * (nb * bpp) + pgs
+                         for gname, pgs in new_pages.items()}
+            absorbed = set(self._prefix.insert(
+                np.asarray(prompt[:total], np.int32), pages_arg))
+            assert all(i >= nb * bpp for i in absorbed)
+            dup = [i for i in range(nb * bpp, (nb + taken) * bpp)
+                   if i not in absorbed]
+            for gname in new_pages:              # defensive: racing insert
+                pgs = [pages_arg[gname][i] for i in dup]
+                if pgs:
+                    self._alloc[gname].free(pgs)
+            tiers.rehits += 1
+            tiers.rehit_tokens += taken * tiers.block
+            return taken * tiers.block
+        return 0
+
+    def _try_admit_paged(self, r: Request, slot: int,
+                         resume: Optional[_Preempted] = None) -> bool:
         """Reserve the prompt's pages + a slot and start chunked prefill.
         Returns False (leaving ``r`` to the caller) when any group's pool
         is dry — all-or-nothing across page groups.
@@ -571,13 +870,22 @@ class ContinuousBatcher:
         fully cached prompt prefills one chunk.  A partially matched page
         on the divergence boundary is copied (copy-on-write) into the
         first private page when the catch-up prefill will write past the
-        match."""
+        match.  With the host tier, T1 blocks missing from the index are
+        promoted first, so the match sees them.
+
+        ``resume`` re-admits a recompute-mode preempted request: the same
+        path (prefix hits on its own blocks included), but the final
+        chunk restores the parked decode budget and arms the
+        suppressed-output replay instead of emitting a first token."""
         plen = len(r.prompt)
         m = 0
         shared: Dict[str, List[int]] = {g.name: [] for g in self.layout.groups}
         if self.prefix_cache:
             self.prefix_lookups += 1
-            m, shared = self._prefix.match(np.asarray(r.prompt, np.int32))
+            prompt_i32 = np.asarray(r.prompt, np.int32)
+            if self._tiers is not None:
+                self._tier_promote(prompt_i32)
+            m, shared = self._prefix.match(prompt_i32)
         n_matched = _ceil_div(m, self.page_size)
         cow = bool(m % self.page_size) and m < plen
         n_attach = n_matched - (1 if cow else 0)
@@ -593,7 +901,8 @@ class ContinuousBatcher:
                 self._alloc[name].incref(pgs)
         grabbed: Dict[str, List[int]] = {}
         for g in self.layout.groups:
-            need = self.layout.blocks_for(g.name, plen, self.max_seq)
+            need = self._admit_pages_needed(
+                r, g.name, cover=(resume.pos + 1) if resume else None)
             if g.shareable:
                 need -= n_attach
             pages = self._alloc_evict(g.name, max(need, 0))
@@ -634,12 +943,15 @@ class ContinuousBatcher:
         # recomputed as queries, their writes suppressed (cache_offset).
         start = min(m, plen - 1)
         start -= start % self.chunk
-        self._slot_seq[slot] = self._admit_seq
-        self._admit_seq += 1
+        if resume is None:
+            self._slot_seq[slot] = self._admit_seq
+            self._admit_seq += 1
+        else:                  # keep the original admission order (victim
+            self._slot_seq[slot] = resume.seq      # tie-breaks stay stable)
         self._admitting.append(_Admission(
             req=r, slot=slot, plen=plen, next_chunk=0,
             n_chunks=max(1, _ceil_div(plen - start, self.chunk)),
-            start=start, cache_offset=m))
+            start=start, cache_offset=m, resume=resume))
         return True
 
     def _prefill_step(self) -> None:
@@ -648,8 +960,28 @@ class ContinuousBatcher:
         final chunk for one pow2-bucketed pass over the whole remaining
         span ``[start, plen)``, so every prompt position's K/V is
         recomputed with full-precision own-chunk attention and the
-        installed cache does not depend on the chunking."""
+        installed cache does not depend on the chunking.
+
+        A request whose deadline passed, or whose chunk takes an injected
+        ``chunk`` fault (checked before the call touches the pools), ends
+        alone with a typed event; a genuine failure inside the call is
+        fatal (``BatcherFault``)."""
         a = self._admitting[0]
+        if self._deadlines_live and self._expiry_left_ms(a.req) <= 0:
+            self._admitting.popleft()
+            self._fail_request(a.req, TerminalEvent.expired(
+                a.req.rid, "deadline passed during prefill"))
+            self._release_slot(a.slot)
+            self.retired += 1
+            return
+        try:
+            self._fault.check("chunk")
+        except InjectedFault as e:
+            self._admitting.popleft()
+            self._fail_request(a.req, TerminalEvent.errored(a.req.rid, e))
+            self._release_slot(a.slot)
+            self.retired += 1
+            return
         C, c = self.chunk, a.next_chunk
         final = c == a.n_chunks - 1
         base = a.start + c * C
@@ -664,14 +996,21 @@ class ContinuousBatcher:
         seg[0, :len(part)] = part
         last_in_chunk = (a.plen - 1 - base) if final else (C - 1)
         dev = self.device
-        (self.pools, self.last_tok, self.pos, self.remaining, self.active,
-         tok0) = fn(
-            self.params, self.pools, self.block_tab, self.last_tok,
-            self.pos, self.remaining, self.active,
-            torch.from_numpy(seg).to(dev),
-            torch.full((1,), base, dtype=torch.int32, device=dev),
-            torch.full((1,), last_in_chunk, dtype=torch.int32, device=dev),
-            a.slot, final, a.plen, a.req.max_new, a.cache_offset)
+        # a resume needs no special budget: pos + remaining == plen +
+        # max_new - 1 at every step, so installing max_new - 1 again
+        # leaves exactly (replay steps + parked remaining) on the device.
+        try:
+            (self.pools, self.last_tok, self.pos, self.remaining,
+             self.active, tok0) = fn(
+                self.params, self.pools, self.block_tab, self.last_tok,
+                self.pos, self.remaining, self.active,
+                torch.from_numpy(seg).to(dev),
+                torch.full((1,), base, dtype=torch.int32, device=dev),
+                torch.full((1,), last_in_chunk, dtype=torch.int32,
+                           device=dev),
+                a.slot, final, a.plen, a.req.max_new, a.cache_offset)
+        except Exception as e:
+            raise BatcherFault(e) from e
         self.prefill_chunks += 1
         a.next_chunk += 1
         if not final:
@@ -682,6 +1021,18 @@ class ContinuousBatcher:
         # first sampled token); invariant len == pos + 1.
         self._history[a.slot] = [int(t) for t in a.req.prompt] + [tok0]
         self._reset_drafter(a.slot)
+        if a.resume is not None:
+            # the first token reached the consumer before the preemption:
+            # arm the suppressed-output replay instead.
+            replay = a.resume.pos - a.plen
+            self._slot_req[a.slot] = a.req
+            self._host_pos[a.slot] = a.plen
+            self._host_last_tok[a.slot] = tok0
+            self._host_remaining[a.slot] = a.resume.remaining + replay
+            self._replay_skip[a.slot] = replay + a.resume.skip
+            self.resumes += 1
+            self.recompute_resumes += 1
+            return
         a.req.out.Push(tok0)
         if a.req.max_new > 1 and a.plen < self.max_seq - 1:
             self._slot_req[a.slot] = a.req
@@ -725,36 +1076,67 @@ class ContinuousBatcher:
     # -- lazy decode growth + preemption ------------------------------------------------
 
     def _pick_victim(self) -> Optional[int]:
-        """Lowest-priority decoding slot, ties toward the most recently
-        admitted."""
+        """Lowest-ranked decoding slot: SLA class first (batch parks
+        before standard before latency), then the priority knob, ties
+        toward the most recently admitted."""
         cands = [i for i, r in enumerate(self._slot_req) if r is not None]
         if not cands:
             return None
-        return min(cands, key=lambda i: (self._slot_req[i].priority,
+        return min(cands, key=lambda i: (class_rank(self._slot_req[i].klass),
+                                         self._slot_req[i].priority,
                                          -self._slot_seq[i]))
 
     def _preempt(self, slot: int) -> None:
         """Spill the slot's PRIVATE pages to the host, free them, park the
         request.  Pages still shared with the prefix cache are not
         spilled (immutable while shared): the record keeps the slot's
-        references and resume re-attaches the same physical pages."""
+        references and resume re-attaches the same physical pages.  The
+        spill is ONE staged transfer for all groups, leaf dtypes kept.
+
+        Tiered recompute policy: a sequence with fewer than
+        ``tier_restore_min`` positions is cheaper to re-prefill than to
+        stage through host RAM, so nothing is spilled; its prompt blocks
+        retire into the prefix index and resume re-admits and replays.
+        A spill that fails (rung 2) parks a recompute record too."""
         r = self._slot_req[slot]
-        data, counts, shared = {}, {}, {}
-        for g in self.layout.groups:
-            pages = self._slot_pages[g.name][slot]
-            ns = self._slot_nshared[g.name][slot]
-            shared[g.name] = pages[:ns]
-            data[g.name] = self.layout.spill(self.pools, g.name, pages[ns:])
-            counts[g.name] = len(pages) - ns
+        pos = self._host_pos[slot]
+        recompute = self._tiers is not None and pos < self.tier_restore_min
+        if not recompute:
+            counts: Dict[str, int] = {}
+            shared: Dict[str, List[int]] = {}
+            priv: Dict[str, List[int]] = {}
+            for g in self.layout.groups:
+                pages = self._slot_pages[g.name][slot]
+                ns = self._slot_nshared[g.name][slot]
+                shared[g.name] = pages[:ns]
+                priv[g.name] = pages[ns:]
+                counts[g.name] = len(pages) - ns
+            ok, gathered = self._tier_op(
+                "spill", lambda: self._xfer.gather_host(self.pools, priv))
+            if ok:
+                data = {name: gathered.get(name) for name in priv}
+                self._preempted.append(_Preempted(
+                    req=r, pos=pos, last_tok=self._host_last_tok[slot],
+                    remaining=self._host_remaining[slot], data=data,
+                    counts=counts, seq=self._slot_seq[slot], shared=shared,
+                    skip=self._replay_skip[slot],
+                    hist=list(self._history[slot])))
+                self._replay_skip[slot] = 0
+                self.active[slot] = False
+                self._slot_req[slot] = None
+                self._release_slot(slot, keep_shared=True)
+                self.preemptions += 1
+                self.preempted_rids.append(r.rid)
+                return
         self._preempted.append(_Preempted(
-            req=r, pos=self._host_pos[slot],
-            last_tok=self._host_last_tok[slot],
-            remaining=self._host_remaining[slot], data=data, counts=counts,
-            seq=self._slot_seq[slot], shared=shared,
-            hist=list(self._history[slot])))
+            req=r, pos=pos, last_tok=self._host_last_tok[slot],
+            remaining=self._host_remaining[slot], data={}, counts={},
+            seq=self._slot_seq[slot], mode="recompute",
+            skip=self._replay_skip[slot]))
+        self._replay_skip[slot] = 0
         self.active[slot] = False
         self._slot_req[slot] = None
-        self._release_slot(slot, keep_shared=True)
+        self._release_slot(slot, prompt=r.prompt)
         self.preemptions += 1
         self.preempted_rids.append(r.rid)
 
@@ -804,10 +1186,13 @@ class ContinuousBatcher:
         return True
 
     def _try_resume(self) -> int:
-        """Restore preempted requests into free slots, highest priority
-        (then oldest) first; all page groups alloc-or-nothing.  Shared
-        prefix pages re-attach as they were (the record kept the slot's
-        references); the private ones are restored into fresh pages."""
+        """Restore preempted requests into free slots, highest rank (then
+        oldest) first; all page groups alloc-or-nothing.  Restore mode
+        re-attaches the shared prefix pages (the record kept the slot's
+        references) and scatters every group's spilled payload into
+        fresh pages in one staged transfer; recompute mode re-admits the
+        prompt and replays.  A failed restore converts the record to
+        recompute (rung 2)."""
         resumed = 0
         while self._preempted:
             busy = {a.slot for a in self._admitting}
@@ -816,10 +1201,29 @@ class ContinuousBatcher:
             if not free:
                 break
             idx = min(range(len(self._preempted)),
-                      key=lambda i: (-self._preempted[i].req.priority,
+                      key=lambda i: (-class_rank(self._preempted[i].req.klass),
+                                     -self._preempted[i].req.priority,
                                      self._preempted[i].seq))
             rec = self._preempted[idx]
             slot = free[0]
+            if self._expiry_left_ms(rec.req) <= 0:
+                # expired while parked: drop its shared refs and end the
+                # consumer; no slot spent on a dead SLA.
+                self._preempted.pop(idx)
+                for name, pgs in rec.shared.items():
+                    if pgs:
+                        self._alloc[name].free(pgs)
+                self._fail_request(rec.req, TerminalEvent.expired(
+                    rec.req.rid, "deadline passed while preempted"))
+                self.retired += 1
+                continue
+            if rec.mode == "recompute":
+                self._preempted.pop(idx)
+                if self._try_admit_paged(rec.req, slot, resume=rec):
+                    resumed += 1
+                    continue
+                self._preempted.insert(idx, rec)   # pool dry: park again
+                break
             grabbed: Dict[str, List[int]] = {}
             for g in self.layout.groups:
                 # headroom: also cover the next decode write, so a resumed
@@ -838,11 +1242,29 @@ class ContinuousBatcher:
                     self._alloc[name].free(pgs)
                 break
             self._preempted.pop(idx)
+            ok, pools = self._tier_op(
+                "restore", lambda: self._xfer.scatter_device(
+                    self.pools,
+                    {name: rec.data[name] for name in grabbed
+                     if rec.counts[name]},
+                    {name: grabbed[name][:rec.counts[name]]
+                     for name in grabbed if rec.counts[name]}))
+            if not ok:
+                # drop the payload and convert to a recompute record: the
+                # replay regenerates the same KV from tokens.  Our refs
+                # on shared prefix pages go back; the re-admission's
+                # match re-attaches them.
+                for name, pgs in grabbed.items():
+                    self._alloc[name].free(pgs)
+                for name, pgs in rec.shared.items():
+                    if pgs:
+                        self._alloc[name].free(pgs)
+                rec.mode = "recompute"
+                rec.data, rec.counts, rec.shared = {}, {}, {}
+                self._preempted.insert(idx, rec)
+                continue
+            self.pools = pools
             for name, priv in grabbed.items():
-                n = rec.counts[name]
-                if n:
-                    self.layout.restore(self.pools, name, rec.data[name],
-                                        priv[:n])
                 pages = rec.shared.get(name, []) + priv
                 self._set_table_row(name, slot, pages)
                 self._slot_pages[name][slot] = list(pages)
@@ -857,22 +1279,167 @@ class ContinuousBatcher:
             self._host_pos[slot] = rec.pos
             self._host_last_tok[slot] = rec.last_tok
             self._host_remaining[slot] = rec.remaining
+            self._replay_skip[slot] = rec.skip
             self._history[slot] = list(rec.hist)
             self._reset_drafter(slot)
             self.resumes += 1
             resumed += 1
         return resumed
 
+    # -- fatal faults: shutdown vs crash recovery --------------------------------------
+
+    def fail_inflight(self, cause: BaseException) -> int:
+        """Terminate every request the batcher still owes an outcome —
+        active slots, mid-admission, parked, queued — with typed events
+        (Errored for work in flight, Cancelled for work never admitted)
+        so no consumer waits out a drain timeout.  Touches no device
+        state.  Returns the number of requests terminated."""
+        n = 0
+        for i, r in enumerate(self._slot_req):
+            if r is not None:
+                self._fail_request(r, TerminalEvent.errored(r.rid, cause))
+                self._slot_req[i] = None
+                self.retired += 1
+                n += 1
+        while self._admitting:
+            a = self._admitting.popleft()
+            self._fail_request(a.req, TerminalEvent.errored(a.req.rid, cause))
+            self.retired += 1
+            n += 1
+        while self._preempted:
+            rec = self._preempted.pop()
+            self._fail_request(rec.req,
+                               TerminalEvent.errored(rec.req.rid, cause))
+            self.retired += 1
+            n += 1
+        while True:
+            r = self._pending.popleft() if self._pending \
+                else self.requests.TryPop()
+            if r is None:
+                break
+            self._fail_request(r, TerminalEvent.cancelled(
+                r.rid, "batcher shut down before admission"))
+            self.retired += 1
+            n += 1
+        return n
+
+    def _rebuild_paged_state(self) -> None:
+        """Fresh device pools, allocators, block tables and slot state
+        after a fatal step fault.  The host tier survives (its payloads
+        are host copies taken before the fault); the prefix index is
+        rebuilt empty (its pages died with the pools)."""
+        n_slots, dev, i32 = self.n_slots, self.device, torch.int32
+        self._alloc = {name: PageAllocator(n)
+                       for name, n in self.n_pages.items()}
+        self._slot_pages = {name: [[] for _ in range(n_slots)]
+                            for name in self.n_pages}
+        self._slot_nshared = {name: [0] * n_slots for name in self.n_pages}
+        if self._prefix is not None:
+            self._prefix = PrefixIndex([g.name for g in self.layout.groups],
+                                       self.page_size, self.prefix_block)
+        self.pools = PP.init_params(
+            registry.paged_cache_decls(self.cfg, self.n_pages,
+                                       self.page_size), device=dev)
+        self.block_tab = {
+            name: torch.full((n_slots, self.n_blocks[name]),
+                             self.n_pages[name], dtype=i32, device=dev)
+            for name in self.n_pages}
+        self.last_tok = torch.zeros((n_slots,), dtype=i32, device=dev)
+        self.pos = torch.zeros((n_slots,), dtype=i32, device=dev)
+        self.remaining = torch.zeros((n_slots,), dtype=i32, device=dev)
+        self.active = torch.zeros((n_slots,), dtype=torch.bool, device=dev)
+        self._host_pos = [0] * n_slots
+        self._host_last_tok = [0] * n_slots
+        self._host_remaining = [0] * n_slots
+        self._slot_seq = [0] * n_slots
+        self._replay_skip = [0] * n_slots
+        self._history = [[] for _ in range(n_slots)]
+        self._accept_ewma = [1.0] * n_slots
+        self._probe_at = [0] * n_slots
+        self._probe_gap = [0] * n_slots
+        self._ng_idx = [{} for _ in range(n_slots)]
+        self._ng_done = [0] * n_slots
+        self._admitting.clear()
+        self._preempted = []
+
+    def recover(self) -> int:
+        """Crash recovery after a fatal step fault (``ServeSupervisor``
+        calls this between run() attempts): journal every in-flight
+        request as a recompute-mode record, rebuild the device pools and
+        resubmit the journal.  Greedy decode is deterministic and the
+        replay suppresses already-emitted tokens, so every surviving
+        stream is bit-identical to a fault-free run.  Returns the number
+        of requests resubmitted."""
+        if not self.paged:
+            raise RuntimeError("recover() requires the paged batcher; "
+                               "the dense path has no journaled replay")
+        journal: List[_Preempted] = []
+        for slot, r in enumerate(self._slot_req):
+            if r is None:
+                continue
+            journal.append(_Preempted(
+                req=r, pos=self._host_pos[slot],
+                last_tok=self._host_last_tok[slot],
+                remaining=self._host_remaining[slot],
+                data={}, counts={}, seq=self._slot_seq[slot],
+                mode="recompute", skip=self._replay_skip[slot]))
+            self._slot_req[slot] = None
+        # mid-admission: a resume re-journals its (recompute) record; a
+        # fresh admission emitted nothing yet and re-queues, in order.
+        fresh: List[Request] = []
+        while self._admitting:
+            a = self._admitting.popleft()
+            if a.resume is not None:
+                journal.append(a.resume)
+            else:
+                fresh.append(a.req)
+        # parked records' shared pages referenced the dead pools: every
+        # record becomes recompute (deterministic replay is exact).
+        for rec in self._preempted:
+            rec.mode = "recompute"
+            rec.data, rec.counts, rec.shared = {}, {}, {}
+            journal.append(rec)
+        self._rebuild_paged_state()
+        self._preempted = journal
+        self._pending.extendleft(reversed(fresh))
+        self.restarts += 1
+        self._stalled = False
+        return len(journal) + len(fresh)
+
+    # -- T2 snapshots -------------------------------------------------------------------
+
+    def save_tier_snapshot(self, path: Optional[str] = None
+                           ) -> Optional[str]:
+        """Persist the host tier to disk (T2), the live device index
+        flushed through ``demote`` first, so a new batcher constructed
+        with the same ``tier_snapshot`` serves its first system-prompt
+        hit with only the catch-up chunk.  Returns the path written, or
+        None when the tier is off."""
+        if self._tiers is None:
+            return None
+        p = path or self.tier_snapshot
+        if not p:
+            raise ValueError("no snapshot path: pass one or set "
+                             "cfg.kv_tier_snapshot / tier_snapshot=")
+        self._tiers.save(p, index=self._prefix, pools=self.pools)
+        return p
+
     # -- producer / scheduler ------------------------------------------------------------
 
     def submit(self, req: Request) -> bool:
-        """Validate + enqueue (blocking while the queue is full).
-        Degenerate requests are rejected here, in the producer's thread:
-        a prompt that leaves no room to decode, ``max_new <= 1``, or, for
-        the recurrent families, a prompt shorter than the conv window's
-        K - 1 inputs (its prefill would raise inside ``run()`` and end
-        the batcher with the requests queued beside it).  The rejection
-        is also pushed into ``req.out`` so its consumer ends."""
+        """Validate + enqueue; returns True iff the request entered the
+        queue.  Degenerate requests are rejected here, in the producer's
+        thread: a prompt that leaves no room to decode, ``max_new <= 1``,
+        or, for the recurrent families, a prompt shorter than the conv
+        window's K - 1 inputs (its prefill would raise inside ``run()``
+        and end the batcher with the requests queued beside it).  The
+        ``ValueError`` is paired with a typed rejection pushed into
+        ``req.out`` so its consumer ends.
+
+        At a full queue, ``overload="block"`` backpressures the producer
+        and ``"reject"`` sheds with a typed ``queue_full`` rejection and
+        returns False (a shed request does not count toward
+        ``retired``)."""
         reason = None
         conv = self.cfg.ssm_conv - 1
         if len(req.prompt) >= self.max_seq - 1:
@@ -887,17 +1454,80 @@ class ContinuousBatcher:
             reason = (f"max_new={req.max_new} <= 1 would retire at "
                       f"admission; request at least 2 tokens")
         if reason is not None:
-            self._fail_request(req, f"invalid: {reason}")
+            self._fail_request(req, TerminalEvent.rejected(
+                req.rid, f"invalid: {reason}"))
             raise ValueError(f"request {req.rid}: {reason}")
-        self.requests.Push(req)
+        req.submitted_at = self._clock()
+        if req.deadline_ms is not None:
+            self._deadlines_live = True
+        if self.overload == "reject":
+            if not self.requests.TryPush(req):
+                self._fail_request(req, TerminalEvent.rejected(
+                    req.rid, "queue_full"))
+                return False
+        else:
+            self.requests.Push(req)
         return True
+
+    def _schedule_pending(self) -> None:
+        """SLA mode: drain every queued arrival into ``_pending`` and keep
+        it ordered by (class rank desc, deadline asc, submit order), so a
+        latency-class arrival overtakes queued batch work; equal-SLA
+        requests still serve FIFO."""
+        while True:
+            r = self.requests.TryPop()
+            if r is None:
+                break
+            if r.submitted_at == 0.0:
+                r.submitted_at = self._clock()
+            if r.deadline_ms is not None:
+                self._deadlines_live = True
+            self._pending.append(r)
+        if len(self._pending) > 1:
+            self._pending = collections.deque(sorted(
+                self._pending,
+                key=lambda r: (-class_rank(r.klass),
+                               r.deadline_ms if r.deadline_ms is not None
+                               else float("inf"),
+                               r.submitted_at, r.rid)))
+
+    def _backlog_tokens(self) -> int:
+        """Tokens of work owed ahead of a new admission (active decode
+        budgets + admitting prefill remainders + parked work)."""
+        t = sum(self._host_remaining[i]
+                for i, r in enumerate(self._slot_req) if r is not None)
+        t += sum((a.n_chunks - a.next_chunk) * self.chunk + a.req.max_new
+                 for a in self._admitting)
+        t += sum(rec.remaining for rec in self._preempted)
+        return t
+
+    def _note_rate(self, dt: float, toks: int) -> None:
+        """Fold one decode/verify step (wall time and tokens retired)
+        into the smoothed throughput model."""
+        self._ewma_step_s = (dt if self._ewma_step_s == 0.0
+                             else 0.8 * self._ewma_step_s + 0.2 * dt)
+        self._ewma_step_tok = (float(toks) if self._ewma_step_tok == 0.0
+                               else 0.8 * self._ewma_step_tok + 0.2 * toks)
+
+    def _projected_delay_ms(self) -> float:
+        """Projected queueing delay of a new admission: backlog tokens at
+        the smoothed measured throughput (tokens retired per step)."""
+        return (self._ewma_step_s * 1e3
+                * self._backlog_tokens() / max(self._ewma_step_tok, 1.0))
 
     def admit(self) -> int:
         """Fill free slots.  Dense: pop the request stream and run one
         batched padded prefill per bucket.  Paged: resume preempted
         requests first, then pop the request stream; each placed request
         reserves its prompt pages (or waits at the FIFO head — admission
-        backpressure) and enters chunked prefill."""
+        backpressure) and enters chunked prefill.
+
+        Lifecycle gates run before any slot or page is spent: a request
+        whose deadline passed in the queue expires, and (paged, SLA)
+        batch-class work whose deadline budget is below the projected
+        queue delay is shed with a typed ``deadline_unmeetable``."""
+        if self.schedule == "sla":
+            self._schedule_pending()
         if not self.paged:
             free = [i for i, r in enumerate(self._slot_req) if r is None]
             pairs = []
@@ -905,6 +1535,11 @@ class ContinuousBatcher:
                 r = self._next_request()
                 if r is None:
                     break
+                if self._expiry_left_ms(r) <= 0:
+                    self._fail_request(r, TerminalEvent.expired(
+                        r.rid, "deadline passed in queue"))
+                    self.retired += 1
+                    continue
                 pairs.append((free[len(pairs)], r))
             if pairs:
                 self._admit_batch(pairs)
@@ -918,6 +1553,18 @@ class ContinuousBatcher:
             r = self._next_request()
             if r is None:
                 break
+            left = self._expiry_left_ms(r)
+            if left <= 0:
+                self._fail_request(r, TerminalEvent.expired(
+                    r.rid, "deadline passed in queue"))
+                self.retired += 1
+                continue
+            if (self.schedule == "sla" and r.klass == "batch"
+                    and left < self._projected_delay_ms()):
+                self._fail_request(r, TerminalEvent.rejected(
+                    r.rid, "deadline_unmeetable"))
+                self.retired += 1
+                continue
             if len(r.prompt) >= self.max_seq or r.max_new < 1:
                 self._reject(r)    # bypassed submit() validation
                 continue
@@ -931,6 +1578,24 @@ class ContinuousBatcher:
             fi += 1
             admitted += 1
         return admitted
+
+    def _cancel_expired_slots(self) -> int:
+        """Cancel in-flight requests whose deadline passed: typed Expired
+        event (with the tokens already streamed), pages freed at once."""
+        n = 0
+        for i, r in enumerate(self._slot_req):
+            if r is None or self._expiry_left_ms(r) > 0:
+                continue
+            self._fail_request(r, TerminalEvent.expired(
+                r.rid, "deadline passed mid-decode"))
+            self.active[i] = False
+            self._slot_req[i] = None
+            if self.paged:
+                self._release_slot(i)
+                self._replay_skip[i] = 0
+            self.retired += 1
+            n += 1
+        return n
 
     # -- speculative decode (draft / verify / commit-or-rollback) ----------------------
 
@@ -1141,31 +1806,41 @@ class ContinuousBatcher:
             tokens[i, 1 + len(d):] = tokens[i, len(d)]   # pad (masked)
             n_draft[i] = len(d)
         dev = self.device
+        t0 = time.monotonic()
         try:
+            # an injected verify fault fires AFTER scratch setup: the
+            # unwind below must leave the allocator consistent.
+            self._fault.check("verify")
             (self.pools, self.last_tok, self.pos, self.remaining,
              self.active, out) = self._verify(
                 self.params, self.pools, self.block_tab,
                 torch.from_numpy(tokens).to(dev),
                 torch.from_numpy(n_draft).to(dev),
                 self.pos, self.remaining, self.active, *xfer)
-        except BaseException:
+        except Exception as e:
             self._spec_unwind(swaps)
-            raise
+            raise BatcherFault(e) from e
+        dt = time.monotonic() - t0
         out = out.cpu().numpy()                # the ONLY per-step transfer
         preds, commit, finished = out[:k], out[k], out[k + 1]
         self._spec_resolve(swaps, commit)
         done = 0
+        committed = 0
         for i, r in enumerate(self._slot_req):
             if r is None:
                 continue
             c = int(commit[i])
             for t in range(c):
                 tok = int(preds[t, i])
-                r.out.Push(tok)
+                if self._replay_skip[i] > 0:
+                    self._replay_skip[i] -= 1
+                else:
+                    r.out.Push(tok)
                 self._history[i].append(tok)
             self._host_last_tok[i] = int(preds[c - 1, i])
             self._host_pos[i] += c
             self._host_remaining[i] -= c
+            committed += c
             nd = int(n_draft[i])
             if nd:
                 self._note_acceptance(i, nd, c - 1)
@@ -1177,6 +1852,7 @@ class ContinuousBatcher:
         self.spec_verify_steps += 1
         self.steps += 1
         self.retired += done
+        self._note_rate(dt, committed)
         return done
 
     def _note_acceptance(self, i: int, nd: int, acc: int) -> None:
@@ -1211,7 +1887,12 @@ class ContinuousBatcher:
         retired.  Paged: every decoding slot's block table first grows to
         cover its next write position (preempting if the pool is dry);
         with ``speculate_k`` a step whose slots drafted runs as one
-        verify step instead."""
+        verify step instead.  A failure inside (or injected before) the
+        step call is fatal and surfaces as ``BatcherFault``; under a
+        ``ServeSupervisor`` the batcher journals, rebuilds and replays
+        (``recover``)."""
+        if self._deadlines_live:
+            self._cancel_expired_slots()
         if self.paged:
             for slot in range(self.n_slots):
                 if self._slot_req[slot] is not None:
@@ -1224,23 +1905,35 @@ class ContinuousBatcher:
                 swaps, xfer = self._spec_setup(drafts)
                 if drafts:       # setup may prune drafts (dry pool)
                     return self._spec_step(drafts, swaps, xfer)
-        if self.paged:
-            (self.pools, self.last_tok, self.pos, self.remaining,
-             self.active, out) = self._step(
-                self.params, self.pools, self.block_tab, self.last_tok,
-                self.pos, self.remaining, self.active)
-        else:
-            (self.cache, self.last_tok, self.pos, self.remaining,
-             self.active, out) = self._step(
-                self.params, self.cache, self.last_tok, self.pos,
-                self.remaining, self.active)
+        n_live = sum(1 for r in self._slot_req if r is not None)
+        t0 = time.monotonic()
+        try:
+            self._fault.check("step")
+            if self.paged:
+                (self.pools, self.last_tok, self.pos, self.remaining,
+                 self.active, out) = self._step(
+                    self.params, self.pools, self.block_tab, self.last_tok,
+                    self.pos, self.remaining, self.active)
+            else:
+                (self.cache, self.last_tok, self.pos, self.remaining,
+                 self.active, out) = self._step(
+                    self.params, self.cache, self.last_tok, self.pos,
+                    self.remaining, self.active)
+        except Exception as e:
+            raise BatcherFault(e) from e
+        self._note_rate(time.monotonic() - t0, n_live)
         out = out.cpu().numpy()                # the ONLY per-step transfer
         toks, finished = out[0], out[1]
         done = 0
         for i, r in enumerate(self._slot_req):
             if r is None:
                 continue
-            r.out.Push(int(toks[i]))
+            if self._replay_skip[i] > 0:
+                # recompute-mode replay: this token reached the consumer
+                # before the preemption; the step only rebuilds its KV.
+                self._replay_skip[i] -= 1
+            else:
+                r.out.Push(int(toks[i]))
             self._host_last_tok[i] = int(toks[i])
             self._host_pos[i] += 1
             self._host_remaining[i] -= 1
@@ -1258,21 +1951,6 @@ class ContinuousBatcher:
         self.retired += done
         return done
 
-    def _fail_inflight(self, cause: BaseException) -> None:
-        """End every request the batcher still owes an outcome, so no
-        consumer waits out a drain timeout after a fatal error."""
-        owed = [r for r in self._slot_req if r is not None]
-        owed += [a.req for a in self._admitting]
-        owed += [rec.req for rec in self._preempted]
-        owed += list(self._pending)
-        while True:
-            r = self.requests.TryPop()
-            if r is None:
-                break
-            owed.append(r)
-        for r in owed:
-            self._fail_request(r, f"failed: {type(cause).__name__}: {cause}")
-
     def run(self, total_requests: int, *, poll_timeout: float = 1.0) -> None:
         """Batcher PE: admit + decode until ``total_requests`` retire.
 
@@ -1280,10 +1958,23 @@ class ContinuousBatcher:
         chunks, so a long admission never freezes in-flight slots.  When
         everything is idle the batcher blocks on the request stream with a
         timeout and re-checks; a closed stream ends the loop.  Preempted
-        requests count as pending work."""
+        requests count as pending work.  Each iteration beats the
+        supervisor's heartbeat and turns a watchdog stall into a
+        ``BatcherFault``.
+
+        A fault escaping the loop is fatal: unsupervised, every in-flight
+        request is errored (typed events, no consumer hangs) before it
+        propagates; under a ``ServeSupervisor`` a ``BatcherFault``
+        propagates as-is and the supervisor drives ``recover`` or
+        ``fail_inflight``."""
         decodes_since_chunk = 0
         try:
             while self.retired < total_requests:
+                if self._heartbeat is not None:
+                    self._heartbeat.beat("batcher")
+                if self._stalled:
+                    raise BatcherFault(StallFault(
+                        "batcher run loop missed its heartbeat window"))
                 self.admit()
                 busy = any(r is not None for r in self._slot_req)
                 if self._admitting:
@@ -1306,14 +1997,22 @@ class ContinuousBatcher:
                 except StreamClosed:
                     return
                 self._pending.appendleft(r)
+        except BatcherFault as e:
+            if not self._supervised:
+                self.fail_inflight(e.cause)
+            raise
         except BaseException as e:
-            self._fail_inflight(e)
+            if not self._supervised:
+                self.fail_inflight(e)
             raise
 
 
 def drain(req: Request, timeout: float = 30.0) -> List[int]:
-    """Consumer helper: collect a request's full output stream.  A
-    ``RequestFailed`` in the stream is raised with the tokens received."""
+    """Consumer helper: collect a request's full output stream.  A typed
+    ``TerminalEvent`` in the stream re-raises as the matching
+    ``RequestFailed`` subclass, carrying the tokens received and chaining
+    the original cause; a timeout means the batcher stalled without
+    managing to say so."""
     out: List[int] = []
     while True:
         try:
@@ -1324,7 +2023,6 @@ def drain(req: Request, timeout: float = 30.0) -> List[int]:
             raise TimeoutError(
                 f"drain(rid={req.rid}) timed out after {timeout:.0f}s with "
                 f"{len(out)} token(s) received — batcher stalled or died")
-        if isinstance(v, RequestFailed):
-            v.tokens = out
-            raise v
+        if isinstance(v, TerminalEvent):
+            raise v.to_error(out) from v.cause
         out.append(v)

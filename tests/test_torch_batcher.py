@@ -258,11 +258,25 @@ def test_submit_rejects_degenerate_requests(model):
     {"cfg": {"serve_overload": "reject"}},
 ])
 def test_later_slice_options_raise(model, kw):
+    """Options of slices still to come (telemetry, reserve-at-admission,
+    mesh sharding) raise; the tiers' and resilience's are accepted and
+    reach the batcher."""
     cfg, tp, _, _ = model
     kw = dict(kw)
-    c = dataclasses.replace(_paged(cfg), **kw.pop("cfg", {}))
-    with pytest.raises(NotImplementedError):
-        ContinuousBatcher(c, tp, n_slots=2, max_seq=32, device="cpu", **kw)
+    cf = kw.pop("cfg", {})
+    c = dataclasses.replace(_paged(cfg), **cf)
+    if "telemetry" in kw or {"mesh_shape", "kv_reserve_decode"} & set(cf):
+        with pytest.raises(NotImplementedError):
+            ContinuousBatcher(c, tp, n_slots=2, max_seq=32, device="cpu",
+                              **kw)
+        return
+    bat = ContinuousBatcher(c, tp, n_slots=2, max_seq=32, device="cpu",
+                            **kw)
+    assert bat.paged and bat._tiers is None      # no prefix cache: no T1
+    assert bat.schedule == kw.get("schedule", "fifo")
+    assert bat.overload == cf.get("serve_overload", "block")
+    assert bat.requests.depth == kw.get("queue_depth", 4)
+    assert bat._fault.spec == kw.get("faults", cf.get("fault_plan", ""))
 
 
 def test_unknown_keyword_is_a_type_error(model):

@@ -26,10 +26,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import context as jcontext
 from repro.core import health as jhealth
 from repro.core import pipeline as jpipe
+from repro.core.stream import stream_all as jstream_all
 from repro_torch.core import (Access, Context, Heartbeat, MemoryBank,
-                              StragglerDetector)
+                              StragglerDetector, stream_all)
 from repro_torch.core import pipeline as tpipe
 from repro_torch.examples import quickstart as tquick
 
@@ -114,6 +116,62 @@ def test_context_defaults_to_the_card_and_sharding_waits():
     with pytest.raises(TypeError):
         Context("cpu").MakeBuffer(torch.float32, Access.read,
                                   MemoryBank.bank0, "x")
+
+
+def test_stream_all():
+    """``tests/test_stream.py::test_stream_all`` on the port, and the
+    pre-loaded stream's depth grows to hold its values, as the
+    reference's does."""
+    s = stream_all([1, 2, 3])
+    assert [s.Pop() for _ in range(3)] == [1, 2, 3]
+    for vals, depth in (([1, 2, 3], 2), ([], 2), (list(range(9)), 16)):
+        t, j = stream_all(vals, depth=depth), jstream_all(vals, depth=depth)
+        assert (t.depth, t.Size()) == (j.depth, j.Size())
+
+
+@pytest.mark.parametrize("src", [
+    np.asarray([7.0], np.float32),               # (1,) into a (4,) buffer
+    np.arange(6, dtype=np.int32).reshape(2, 3),  # int into a float buffer
+    np.asarray([1.5, -2.0, 3.25, 0.0], np.float32),
+])
+def test_copy_from_host_rebinds_like_the_reference(src):
+    """``CopyFromHost`` takes the host array's shape and dtype (the
+    reference's ``device_put`` rebinding): no broadcast of a (1,) array
+    over the buffer, no cast of ints to the buffer's float dtype, and a
+    kernel bound to the buffer sees the new data."""
+    jctx = jcontext.Context()
+    jb = jctx.MakeBuffer(jnp.float32, jcontext.Access.write,
+                         jcontext.MemoryBank.bank0, 4).CopyFromHost(src)
+    b = Context("cpu").MakeBuffer(torch.float32, Access.write,
+                                  MemoryBank.bank0, 4)
+    k = b.ctx.MakeProgram({"twice": lambda x: x * 2}).MakeKernel("twice", b)
+    assert b.CopyFromHost(src) is b
+    want = np.array(jb.CopyToHost())
+    assert b.shape == tuple(jb.shape) == src.shape
+    assert str(b.CopyToHost().dtype) == str(want.dtype) == str(src.dtype)
+    np.testing.assert_array_equal(b.CopyToHost(), want)
+    np.testing.assert_array_equal(k.ExecuteTask().numpy(), src * 2)
+    src[...] = 0                                 # the buffer holds a copy
+    np.testing.assert_array_equal(b.CopyToHost(), want)
+
+
+def test_replicated_bank_and_donate_keyword():
+    """``MemoryBank.replicated()`` is the one-device bank; ``MakeKernel``
+    takes the reference's ``donate=`` and ignores it (eager torch has no
+    buffer donation), so the donated buffer stays readable."""
+    assert MemoryBank.replicated() == MemoryBank.bank0
+    assert jcontext.MemoryBank.replicated() == jcontext.MemoryBank.bank0
+    ctx = Context("cpu")
+    b = ctx.MakeBuffer(torch.float32, Access.read_write,
+                       MemoryBank.replicated(), np.arange(4, dtype=np.float32))
+    prog = ctx.MakeProgram({"inc": lambda x: x + 1})
+    k = prog.MakeKernel("inc", b, donate=(0,))
+    np.testing.assert_array_equal(k.ExecuteTask().numpy(), np.arange(1, 5))
+    np.testing.assert_array_equal(b.CopyToHost(), np.arange(4))
+    jk = jcontext.Context().MakeProgram({"inc": lambda x: x + 1}).MakeKernel(
+        "inc", jnp.arange(4, dtype=jnp.float32), donate=())
+    np.testing.assert_array_equal(np.asarray(jk.ExecuteTask()),
+                                  k.ExecuteTask().numpy())
 
 
 @pytest.mark.parametrize("n_micro,n_stages", [(6, 4), (1, 3), (8, 1)])

@@ -266,8 +266,9 @@ def test_short_prompt_is_rejected_and_its_neighbour_served(name):
 
 
 def test_serve_cli_reports_a_short_recurrent_prompt():
-    """``--prompt-len 2`` on mamba2: every request is reported rejected,
-    and the CLI ends normally with its summary line."""
+    """``--prompt-len 2`` on mamba2: every request is reported rejected
+    (a typed ``RequestRejected``), and the CLI ends normally with its
+    summary line."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT / "src")
     out = subprocess.run(
@@ -279,7 +280,7 @@ def test_serve_cli_reports_a_short_recurrent_prompt():
     assert out.returncode == 0, out.stderr
     lines = out.stdout.splitlines()
     rejected = [ln for ln in lines if ln.startswith("req ")
-                and "RequestFailed" in ln and "conv window" in ln]
+                and "RequestRejected" in ln and "conv window" in ln]
     assert len(rejected) == 3, out.stdout
     assert lines[-1].startswith("3 requests, 0 tokens in"), out.stdout
 
