@@ -133,7 +133,24 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    peak pages, the speculation counters beside the draftable steps of
    plain decode and token identity to the paged run printed; one decode
    step's logits through the kernels vs the plain path and its time
-   split, paged and dense.
+   split, paged and dense;
+8. telemetry and sampling — at smoke width (fp32): telemetry off and on
+   (tracing and ``torch.profiler`` ranges) give the same tokens on paged
+   pools with the prefix cache and ``speculate_k`` 4, on dense slots
+   (bf16, int8) and on int8 pages that preempt, B1 / B3 launched steps x
+   layers and B2 exactly, the trace giving back the batcher's counters;
+   the ``cuda`` generator's samples fixed by the seed and T 1e-6 equal to
+   greedy; reserve-at-admission admitting 2 slots where lazy growth
+   admits 8 at one pool, with the same tokens.  At full width,
+   minitron-4b's shared-prompt traffic paged with the prefix cache and
+   ``speculate_k`` 4, served with telemetry off, on, on, off (tokens/s
+   of each; on: a live ``/metrics`` scrape that validates, with
+   ``serve_steps_total`` equal to the steps, the trace giving back the
+   counters, the decode-step histogram's p50 in the bucket of the
+   host-timed median step), then a ``torch.profiler`` window in which
+   each ``serve.*`` range counts its calls, B1 runs 32 times under each
+   ``serve.decode_step`` and ``serve.verify`` range, and each kind's
+   device ms per range is printed.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -3283,6 +3300,449 @@ def phase_hlslib_path(seed):
     return launches
 
 
+# --- telemetry and sampling ------------------------------------------------------------
+
+
+def trace_counts(tel, bat, outs, label):
+    """The JSONL trace alone gives back the batcher's counters: one token
+    event per streamed token of each request, one first_token and one
+    retire per request, the spec_verify events' sums, one prefill_chunk
+    span per chunk and one decode_step / verify_round span per step,
+    each equal to its histogram's count.  Returns the events by name."""
+    evs = [json.loads(line) for line in tel.tracer.to_jsonl().splitlines()]
+    names = {}
+    for e in evs:
+        names[e["name"]] = names.get(e["name"], 0) + 1
+    for rid, out in enumerate(outs):
+        n = sum(1 for e in evs if e["rid"] == rid and e["name"] == "token")
+        check(n == len(out), f"[{label}] rid {rid}: {n} token events for "
+              f"{len(out)} tokens")
+    spec = [e["args"] for e in evs if e["name"] == "spec_verify"]
+    check(sum(a["drafted"] for a in spec) == bat.spec_drafted
+          and sum(a["accepted"] for a in spec) == bat.spec_accepted,
+          f"[{label}] spec_verify events {spec} != counters "
+          f"{bat.spec_drafted} / {bat.spec_accepted}")
+    check(names.get("first_token", 0) == names.get("retire", 0)
+          == tel.h_ttft.count == len(outs),
+          f"[{label}] first_token / retire events {names}")
+    check(names.get("prefill_chunk", 0) == tel.h_chunk.count
+          == bat.prefill_chunks, f"[{label}] chunk spans {names}, "
+          f"{bat.prefill_chunks} chunks")
+    check(names.get("verify_round", 0) == tel.h_verify.count
+          == bat.spec_verify_steps and names.get("decode_step", 0)
+          == tel.h_step.count == bat.steps - bat.spec_verify_steps,
+          f"[{label}] step spans {names}, {bat.steps} steps "
+          f"({bat.spec_verify_steps} verify)")
+    return names
+
+
+def telemetry_smoke(seed):
+    """Smoke width on the card (fp32 compute, weights drawn on the host
+    from the seed): telemetry off and on (tracing and profiler ranges)
+    give the same tokens on paged pools with the prefix cache and
+    ``speculate_k`` 4 (bf16), on dense slots (bf16 and int8) and on int8
+    pages that preempt, each with B1 / B3 launched steps x layers and
+    B2's launches exact, and the trace gives back the counters; the
+    ``cuda`` generator's samples are fixed by the seed, and a vanishing
+    temperature samples the greedy tokens; reserve-at-admission admits 2
+    slots where lazy growth admits 8 at an 8-page pool, with the same
+    tokens."""
+    from repro_torch.configs import get
+    from repro_torch.configs.base import smoke_variant
+    from repro_torch.models import params as PP
+    from repro_torch.models import registry
+    from repro_torch.serve.batching import ContinuousBatcher, Request, drain
+    from repro_torch.serve.serve_loop import greedy_generate
+    from repro_torch.serve.telemetry import ServeTelemetry
+    base = smoke_variant(get("minitron-4b"))
+    params = PP.tree_map(lambda _, a: a.to(DEVICE),
+                         registry.init(base, seed, device="cpu"))
+    counts = kernel_counts()
+    rng = np.random.default_rng(seed + 22)
+    prompts = motif_prompts([9, 14, 6, 12], base.vocab_size, rng)
+    prompts += prompts[:2]
+    paged = dict(kv_page_size=8, prefill_chunk=8, decode_flash=True)
+    cases = {
+        "paged bf16, prefix cache + speculate_k 4": (dataclasses.replace(
+            base, prefix_cache=True, speculate_k=4, speculate_ngram=1,
+            **paged), {}),
+        "dense bf16": (dataclasses.replace(base, decode_flash=True), {}),
+        "dense int8": (dataclasses.replace(base, decode_flash=True,
+                                           kv_cache_dtype="int8"), {}),
+        "paged int8, 5-page pool": (dataclasses.replace(
+            base, kv_cache_dtype="int8", **paged), {"n_pages": 5}),
+    }
+    for label, (cfg, kw) in cases.items():
+        outs = {}
+        for on in (False, True):
+            tel = ServeTelemetry(profile=True) if on else None
+            reset_counts(counts)
+            outs[on], bat = run_batcher(cfg, params, prompts,
+                                        [16] * len(prompts), n_slots=2,
+                                        max_seq=48, telemetry=tel, **kw)
+            n = read_counts(counts)
+            attn = ("flash_attention_decode_paged" if bat.paged
+                    else "flash_attention_decode")
+            check(n[attn] == bat.steps * cfg.n_layers,
+                  f"[{label}, telemetry {on}] {attn} launches {n[attn]} != "
+                  f"steps {bat.steps} x layers")
+            if cfg.kv_cache_dtype == "int8":
+                want = b2_launches_expected(cfg, bat)
+                check({k: n[k] for k in want} == want,
+                      f"[{label}, telemetry {on}] B2 launches {n} != {want}")
+            if bat.paged:
+                empty_index(bat)
+        check(outs[True] == outs[False], f"[{label}] telemetry on "
+              f"{outs[True]} != off {outs[False]}")
+        if "5-page" in label:
+            check(bat.preemptions > 0, f"[{label}] no preemption")
+        if "speculate" in label:
+            check(bat.spec_verify_steps > 0 and bat.prefix_hits > 0,
+                  f"[{label}] no verify step or prefix hit")
+        names = trace_counts(tel, bat, outs[True], label)
+        print(f"smoke telemetry [{label}]: on == off, {bat.steps} steps "
+              f"({bat.spec_verify_steps} verify), {bat.preemptions} "
+              f"preemptions, launches {json.dumps(n)}; trace events "
+              + json.dumps(names))
+
+    p = {"tokens": prompts[1][None]}
+    draw = lambda t, s: greedy_generate(base, params, p, steps=12, max_seq=48,
+                                        temperature=t, seed=s, device=DEVICE)
+    greedy = draw(0.0, 0)
+    a, b, c = draw(1.0, 3), draw(1.0, 3), draw(1.0, 4)
+    check(np.array_equal(a, b) and not np.array_equal(a, c),
+          f"cuda generator: seed 3 {a} / {b}, seed 4 {c}")
+    check(((a >= 0) & (a < base.padded_vocab)).all(), "sample out of range")
+    check(np.array_equal(draw(1e-6, 5), greedy), "T 1e-6 != greedy")
+    print(f"smoke sampling [cuda generator]: seed 3 twice {a[0].tolist()}, "
+          f"seed 4 {c[0].tolist()}; T 1e-6 == greedy {greedy[0].tolist()}")
+
+    def fill(reserve):
+        c = dataclasses.replace(base, kv_reserve_decode=reserve, **paged)
+        bat = ContinuousBatcher(c, params, n_slots=8, max_seq=64,
+                                n_pages=8, device=DEVICE)
+        reqs = [Request(rid=i, prompt=prompts[0][:4], max_new=28)
+                for i in range(8)]
+        for r in reqs:
+            bat.submit(r)
+        progress = True
+        while progress:
+            progress = bat.admit() > 0
+            while bat._admitting:
+                bat._prefill_step()
+                progress = True
+        inflight = sum(r is not None for r in bat._slot_req)
+        bat.run(len(reqs))
+        outs = [drain(r) for r in reqs]
+        check(bat.total_used_pages() == 0, "pages leaked")
+        return inflight, outs, bat
+
+    lazy, lazy_out, lazy_bat = fill(False)
+    res, res_out, res_bat = fill(True)
+    check((lazy, res) == (8, 2), f"admitted lazy {lazy}, reserve {res}")
+    check(res_out == lazy_out, "reserve tokens != lazy tokens")
+    check(res_bat.preemptions == 0, "reserve preempted")
+    print(f"smoke reserve-at-admission [8 pages, 1-page prompts, 4-page "
+          f"worst case]: admitted {res} slots (lazy {lazy}, "
+          f"{lazy_bat.preemptions} preemptions); tokens equal")
+    del params
+    torch.cuda.empty_cache()
+
+
+def bucket_of(v):
+    """Index of the telemetry histogram bucket that holds ``v``."""
+    import bisect
+    from repro_torch.serve.telemetry import DEFAULT_TIME_BUCKETS
+    return bisect.bisect_left(DEFAULT_TIME_BUCKETS, v)
+
+
+def serve_with_telemetry(cfg, params, prompts, counts, telemetry):
+    """The shared-prompt traffic through ``ContinuousBatcher`` under
+    ``DataflowContext``, as ``serve_full_width`` serves it, with
+    ``telemetry`` (or none).  With telemetry, a ``MetricsServer`` on a
+    free port is scraped every 0.25 s while the batcher runs, each scrape
+    validated, and once more after the run, where ``serve_steps_total``
+    must equal the batcher's steps.  Each plain decode step is timed on
+    the host (the step's call to its return, which follows the host read
+    of its tokens).  Returns (summary, launches, batcher, outputs,
+    decode step seconds)."""
+    import threading
+    import urllib.request
+    from repro_torch.core.dataflow import DataflowContext
+    from repro_torch.serve.batching import ContinuousBatcher, Request, drain
+    from repro_torch.serve.telemetry import MetricsServer, validate_exposition
+    reqs = [Request(rid=i, prompt=p, max_new=MAX_NEW)
+            for i, p in enumerate(prompts)]
+    bat = ContinuousBatcher(cfg, params, n_slots=N_SLOTS, max_seq=MAX_SEQ,
+                            telemetry=telemetry, device=DEVICE)
+    step_s = []
+    inner_step = bat.step
+
+    def timed_step():
+        steps, verify = bat.steps, bat.spec_verify_steps
+        t0 = time.perf_counter()
+        n = inner_step()
+        if bat.steps > steps and bat.spec_verify_steps == verify:
+            step_s.append(time.perf_counter() - t0)
+        return n
+
+    bat.step = timed_step
+    server, scrapes, done = None, [], threading.Event()
+
+    def scrape():
+        with urllib.request.urlopen(server.url, timeout=10) as rsp:
+            return validate_exposition(rsp.read().decode())
+
+    def scraper():
+        while not done.wait(0.25):
+            scrapes.append(scrape()["serve_steps_total"])
+
+    if telemetry is not None:
+        server = MetricsServer(telemetry, port=0).start()
+        watcher = threading.Thread(target=scraper, daemon=True)
+        watcher.start()
+    reset_counts(counts)
+    t0 = time.perf_counter()
+    try:
+        with DataflowContext() as df:
+            df.function(lambda: [bat.submit(r) for r in reqs],
+                        name="producer")
+            df.function(bat.run, len(reqs), name="batcher")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(counts)
+        final = None
+        if server is not None:
+            done.set()
+            watcher.join(timeout=30)
+            check(not watcher.is_alive(), "metrics scraper did not stop")
+            final = scrape()
+    finally:
+        done.set()
+        if server is not None:
+            server.stop()
+    outs = [drain(r) for r in reqs]
+    check(all(len(o) == MAX_NEW for o in outs),
+          f"token counts {[len(o) for o in outs]} != {MAX_NEW}")
+    empty_index(bat)
+    tokens = sum(len(o) for o in outs)
+    summary = {"tokens_per_s": tokens / wall, "wall_s": wall,
+               "steps": bat.steps, "verify_steps": bat.spec_verify_steps,
+               "prefill_chunks": bat.prefill_chunks,
+               "prefix_hits": bat.prefix_hits,
+               "median_decode_step_ms": statistics.median(step_s) * 1e3}
+    if final is not None:
+        check(final["serve_steps_total"] == bat.steps,
+              f"scraped serve_steps_total {final['serve_steps_total']} != "
+              f"steps {bat.steps}")
+        live = [s for s in scrapes if 0 < s < bat.steps]
+        check(live, f"no scrape while the batcher ran: {scrapes}")
+        summary["live_scrapes"] = len(live)
+        summary["scraped_serve_steps_total"] = final["serve_steps_total"]
+    return summary, launches, bat, outs, step_s
+
+
+def profile_serve_window(cfg, params, prompts, counts):
+    """The same traffic with ``profile=True``, in this thread, a
+    ``torch.profiler`` window opened at the 16th decode or verify step
+    and closed at the first step or chunk after it holds at least 12
+    decode steps, a verify step and a chunk (or 64 calls): each kind of
+    ``serve.*`` range counts the calls of its kind in the window, B1's
+    wrapper counts 32 launches inside each ``serve.decode_step`` and
+    ``serve.verify`` range and none inside a ``serve.prefill_chunk``
+    range (counted as each range opens and closes), and the profile holds
+    that many B1 kernels.
+
+    Device ms per range: a kernel counts with the range whose start is
+    the last before the kernel's start on the card (every step and chunk
+    ends in a host read of its tokens; kernels launched between ranges,
+    the block-table updates, count with the range before them).  The
+    profiler links kernels launched through the C interface to no host
+    event, and its device clock drifts from the host's by up to a few
+    kernels over a long process, so these sums are a split, not a count.
+    Returns the window's counts and each kind's device ms per range."""
+    import bisect
+    import contextlib
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.batching import ContinuousBatcher, Request, drain
+    from repro_torch.serve.telemetry import ServeTelemetry
+    tel = ServeTelemetry(trace=False, profile=True)
+    bat = ContinuousBatcher(cfg, params, n_slots=N_SLOTS, max_seq=MAX_SEQ,
+                            queue_depth=N_REQ, telemetry=tel, device=DEVICE)
+    reqs = [Request(rid=i, prompt=p, max_new=MAX_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        bat.submit(r)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    win = {"open": False, "done": False, "calls": 0}
+    b1 = counts["flash_attention_decode_paged"]
+    inside = dict.fromkeys(("serve.decode_step", "serve.verify",
+                            "serve.prefill_chunk"), 0)
+    annotate = tel.annotate
+
+    @contextlib.contextmanager
+    def counted(name, step=None):
+        before = b1.launches
+        with annotate(name, step):
+            yield
+        if win["open"] and not win["done"]:
+            inside[name] += b1.launches - before
+
+    tel.annotate = counted
+
+    def taken():
+        return {"serve.decode_step": bat.steps - bat.spec_verify_steps,
+                "serve.verify": bat.spec_verify_steps,
+                "serve.prefill_chunk": bat.prefill_chunks}
+
+    def gate():
+        if win["done"]:
+            return
+        if not win["open"] and bat.steps >= 16:
+            torch.cuda.synchronize()
+            reset_counts(counts)
+            win.update(open=True, at=taken())
+            prof.start()
+        elif win["open"]:
+            win["calls"] += 1
+            got = {k: v - win["at"][k] for k, v in taken().items()}
+            if win["calls"] >= 64 or (got["serve.decode_step"] >= 12
+                                      and got["serve.verify"] >= 1
+                                      and got["serve.prefill_chunk"] >= 1):
+                torch.cuda.synchronize()
+                prof.stop()
+                win.update(done=True, taken=got, launches=read_counts(counts))
+
+    for name in ("step", "_prefill_step"):
+        inner = getattr(bat, name)
+
+        def gated(inner=inner):
+            gate()
+            return inner()
+
+        setattr(bat, name, gated)
+    bat.run(len(reqs))
+    [drain(r) for r in reqs]
+    check(win["done"], f"the profiler window never closed: {win}")
+    got = win["taken"]
+    n_b1 = win["launches"]["flash_attention_decode_paged"]
+    want_b1 = (got["serve.decode_step"] + got["serve.verify"]) * cfg.n_layers
+    check(n_b1 == want_b1, f"B1 launches in the window {n_b1} != {want_b1}")
+    spans = {k: [] for k in got}
+    for ev in prof.events():
+        kind = ev.name.split("#")[0]
+        if kind in spans and ev.device_type == DeviceType.CPU:
+            spans[kind].append(ev)
+    counted = {k: len(v) for k, v in spans.items()}
+    check(counted == got, f"ranges {counted} != calls in the window {got}")
+    opened = sorted((ev.time_range.start, kind)
+                    for kind, evs in spans.items() for ev in evs)
+    starts = [t for t, _ in opened]
+    busy_us = dict.fromkeys(spans, 0.0)
+    b1_in = dict.fromkeys(spans, 0)
+    for ev in prof.events():
+        if (ev.device_type != DeviceType.CUDA
+                or ev.name.startswith(("serve.", "Memcpy", "Memset"))):
+            continue
+        i = bisect.bisect_right(starts, ev.time_range.start) - 1
+        if i < 0:
+            continue
+        kind = opened[i][1]
+        busy_us[kind] += ev.time_range.elapsed_us()
+        b1_in[kind] += "flash_decode_paged_kernel" in ev.name
+    device_ms = {k: busy_us[k] / 1e3 / counted[k] if counted[k] else None
+                 for k in spans}
+    want = {k: (v * cfg.n_layers if k != "serve.prefill_chunk" else 0)
+            for k, v in got.items()}
+    check(inside == want, f"B1 launches inside the ranges {inside} != "
+          f"{want}")
+    check(sum(b1_in.values()) == n_b1, f"B1 kernels in the profile "
+          f"{sum(b1_in.values())} != launches {n_b1}")
+    empty_index(bat)
+    return {"window_calls": got, "ranges": counted,
+            "b1_launches": n_b1, "b1_launches_inside_ranges": inside,
+            "b1_kernels_in_profile": sum(b1_in.values()),
+            "device_ms_per_range": device_ms}
+
+
+def telemetry_full_width(seed):
+    """Full-width minitron-4b, bf16, paged through B1 (page 16, chunk
+    128, 8 slots, max_seq 1024) with the prefix cache, ``prefill_exact``
+    and ``speculate_k`` 4 on the shared-prompt traffic: served with
+    telemetry off, on, on, off (on: tracing, profiler ranges and a live
+    ``/metrics`` scrape), B1 launched (decode + verify steps) x 32 in
+    each, the trace giving back the counters, the decode-step
+    histogram's p50 in the bucket of the host-timed median decode step;
+    then a profiler window over the same serve.  Returns {path:
+    launches}."""
+    from repro_torch.configs import get
+    from repro_torch.models import registry
+    from repro_torch.serve.telemetry import ServeTelemetry
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(
+        get("minitron-4b"), decode_flash=True, kv_page_size=PAGE,
+        prefill_chunk=CHUNK, prefix_cache=True, prefill_exact=True,
+        speculate_k=SPEC_K, speculate_ngram=1)
+    params = registry.init(cfg, seed, device=DEVICE, dtype=torch.bfloat16)
+    counts = kernel_counts()
+    prompts = shared_prompt_traffic(cfg.vocab_size,
+                                    np.random.default_rng(seed + 19))
+    paths, runs, outs = {}, [], []
+    for i, on in enumerate((False, True, True, False)):
+        tel = ServeTelemetry(profile=True) if on else None
+        summary, launches, bat, out, step_s = serve_with_telemetry(
+            cfg, params, prompts, counts, tel)
+        check(launches["flash_attention_decode_paged"]
+              == bat.steps * cfg.n_layers,
+              f"[telemetry {on}] B1 launches {launches} != steps "
+              f"{bat.steps} x {cfg.n_layers}")
+        check(bat.spec_verify_steps > 0 and bat.prefix_hits > 0,
+              f"[telemetry {on}] no verify step or prefix hit")
+        if on:
+            summary["trace_events"] = trace_counts(tel, bat, out,
+                                                   "full width")
+            p50 = tel.h_step.quantile(0.5)
+            med = statistics.median(step_s)
+            summary["decode_step_p50_ms"] = p50 * 1e3
+            summary["decode_step_histogram"] = tel.h_step.summary()
+            check(bucket_of(p50) == bucket_of(med),
+                  f"decode-step p50 {p50} s and the host-timed median "
+                  f"{med} s fall in different buckets")
+        summary["telemetry"] = on
+        runs.append(summary)
+        outs.append(out)
+        paths[f"paged bf16 shared prompt, speculate_k 4, telemetry run "
+              f"{i + 1}"] = launches
+        print(f"full-width telemetry [run {i + 1}, telemetry "
+              f"{'on' if on else 'off'}]: " + json.dumps(summary))
+        del bat
+    same = [sum(x == y for x, y in zip(outs[0], o)) for o in outs[1:]]
+    on_tps = [r["tokens_per_s"] for r in runs if r["telemetry"]]
+    off_tps = [r["tokens_per_s"] for r in runs if not r["telemetry"]]
+    print(f"full-width telemetry cost: tokens/s on {on_tps}, off {off_tps}; "
+          f"mean on / off {statistics.mean(on_tps) / statistics.mean(off_tps):.4f}"
+          f" (reported, not claimed); requests token-identical to run 1: "
+          f"{same} of {N_REQ}")
+    window = profile_serve_window(cfg, params, prompts, counts)
+    print("full-width profiler window [telemetry profile=True]: "
+          + json.dumps(window))
+    print(f"full-width telemetry phase: {time.perf_counter() - t_phase:.1f}s")
+    del params
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_telemetry_sampling(seed):
+    """Telemetry (A10c) and sampling with reserve-at-admission (A11):
+    ``telemetry_smoke`` at smoke width, then ``telemetry_full_width``.
+    Returns {path: launches} of the full-width serves."""
+    t = time.perf_counter()
+    telemetry_smoke(seed)
+    print(f"smoke telemetry and sampling: {time.perf_counter() - t:.1f}s")
+    return telemetry_full_width(seed)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3345,6 +3805,7 @@ def main():
     paths["hlslib ops"] = phase_hlslib_path(args.seed)
     paths.update(phase_recurrent_full_width(args.seed))
     g3_paths = phase_gemma3_full_width(args.seed)
+    tel_paths = phase_telemetry_sampling(args.seed)
 
     # each kernel's row: its launches on the full-width path that runs it,
     # its numbers at that path's shapes (B2: the store at the decode rows
@@ -3352,10 +3813,10 @@ def main():
     # dequantize at the full slot cache each step reads back).
     d_rows = b2["full cache (8*8*1024 x 128, bf16)"]
     # B1's launches: every paged bf16 serve, decode and verify steps
-    # (minitron-4b's, its tiered rounds' and gemma3-12b's); B3's: the
-    # dense bf16 serves.
+    # (minitron-4b's, its tiered rounds', its telemetry runs' and
+    # gemma3-12b's); B3's: the dense bf16 serves.
     b1_paths = ([paths["paged bf16"]] + list(spec_paths.values())
-                + list(tier_paths.values())
+                + list(tier_paths.values()) + list(tel_paths.values())
                 + [g3_paths["gemma3-12b paged"],
                    g3_paths["gemma3-12b paged, speculate_k 4"]])
     b3_paths = [paths["dense bfloat16"], g3_paths["gemma3-12b dense"]]

@@ -46,6 +46,20 @@ injects deterministic faults and ``--supervise`` serves under the
         --smoke --device cpu --page-size 8 --pages 12 --prompt-len 24 \
         --max-seq 64 --prefix-cache --shared-prefix 16 \
         --host-tier-bytes 1048576 --faults step:3 --supervise
+
+Telemetry: ``--metrics-port P`` serves the Prometheus exposition on
+``http://127.0.0.1:P/metrics`` while the batcher runs (0 picks a free
+port; the URL is printed), ``--trace-out PATH`` writes the request
+lifecycle trace at exit (``.json``: a Chrome trace, else JSONL), and
+``--profile`` wraps the three serving steps in ``torch.profiler``
+ranges (``serve.prefill_chunk``, ``serve.decode_step#N``,
+``serve.verify``) for a profiler the caller runs around the serve; with
+any of the three the run ends with a ``latency:`` line (TTFT and
+inter-token p50 / p99 from the histograms):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b \
+        --smoke --device cpu --page-size 8 --metrics-port 0 \
+        --trace-out trace.json
 """
 
 import argparse
@@ -61,6 +75,7 @@ from ..models import registry
 from ..models.transformer import torch_dtype
 from ..serve.batching import ContinuousBatcher, Request, RequestFailed, drain
 from ..serve.resilience import ServeSupervisor
+from ..serve.telemetry import MetricsServer, ServeTelemetry
 
 
 def main(argv=None):
@@ -141,6 +156,18 @@ def main(argv=None):
     ap.add_argument("--klass", choices=("latency", "standard", "batch"),
                     default="standard",
                     help="SLA class stamped on every generated request")
+    ap.add_argument("--metrics-port", type=int, default=-1,
+                    help="serve Prometheus text exposition on "
+                         "http://127.0.0.1:PORT/metrics (0 = ephemeral "
+                         "port, printed at startup; -1 = off)")
+    ap.add_argument("--trace-out", default="",
+                    help="write the request-lifecycle trace here at "
+                         "exit: .json => Chrome chrome://tracing "
+                         "format, anything else => JSONL events")
+    ap.add_argument("--profile", action="store_true",
+                    help="wrap the serve steps in torch.profiler "
+                         "record_function ranges so device profiles line "
+                         "up with the host trace spans")
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch)
@@ -175,6 +202,11 @@ def main(argv=None):
     params = registry.init(cfg, args.seed, device=args.device,
                            dtype=torch_dtype(cfg.dtype))
     rng = np.random.default_rng(args.seed)
+    telemetry = None
+    metrics_server = None
+    if args.metrics_port >= 0 or args.trace_out or args.profile:
+        telemetry = ServeTelemetry(trace=bool(args.trace_out),
+                                   profile=args.profile)
     batcher = ContinuousBatcher(cfg, params, n_slots=args.slots,
                                 max_seq=args.max_seq,
                                 n_pages=args.pages or None,
@@ -182,7 +214,12 @@ def main(argv=None):
                                 overload=args.overload,
                                 queue_depth=args.queue_depth or None,
                                 faults=args.faults or None,
+                                telemetry=telemetry,
                                 device=args.device)
+    if args.metrics_port >= 0:
+        metrics_server = MetricsServer(telemetry,
+                                       port=args.metrics_port).start()
+        print(f"metrics: {metrics_server.url}")
     supervisor = ServeSupervisor(batcher) if args.supervise else None
     sysp = rng.integers(0, cfg.vocab_size,
                         min(args.shared_prefix,
@@ -194,24 +231,29 @@ def main(argv=None):
                     deadline_ms=args.deadline_ms or None)
             for i in range(args.requests)]
 
-    t0 = time.time()
-    # The paper's Read/Compute/Write dataflow: producer PE feeds the
-    # request stream, the batcher PE decodes, consumers drain outputs.
-    with DataflowContext() as df:
-        def producer():
-            # a rejected request's failure is already in its stream;
-            # closing the request stream lets the batcher end once the
-            # accepted ones are served.
-            for r in reqs:
-                try:
-                    batcher.submit(r)
-                except ValueError:
-                    pass
-            batcher.requests.close()
-        df.function(producer, name="producer")
-        run = supervisor.run if supervisor is not None else batcher.run
-        df.function(run, len(reqs), name="batcher")
-    dt = time.time() - t0
+    try:
+        t0 = time.time()
+        # The paper's Read/Compute/Write dataflow: producer PE feeds the
+        # request stream, the batcher PE decodes, consumers drain outputs.
+        with DataflowContext() as df:
+            def producer():
+                # a rejected request's failure is already in its stream;
+                # closing the request stream lets the batcher end once the
+                # accepted ones are served.
+                for r in reqs:
+                    try:
+                        batcher.submit(r)
+                    except ValueError:
+                        pass
+                batcher.requests.close()
+            df.function(producer, name="producer")
+            run = supervisor.run if supervisor is not None else batcher.run
+            df.function(run, len(reqs), name="batcher")
+        dt = time.time() - t0
+    finally:
+        # the scrape endpoint lives as long as the batcher runs.
+        if metrics_server is not None:
+            metrics_server.stop()
 
     total_tokens = 0
     failed = 0
@@ -292,6 +334,23 @@ def main(argv=None):
           f"({total_tokens/dt:.1f} tok/s, {batcher.steps} decode steps, "
           f"{mode}, "
           f"slot-util {total_tokens/max(batcher.steps,1)/args.slots:.2f})")
+    if telemetry is not None:
+        lat = telemetry.latency_summary()
+        ttft, gap = lat["ttft"], lat["inter_token"]
+        if ttft["count"]:
+            print(f"latency: ttft p50 {ttft['p50']*1e3:.1f}ms / "
+                  f"p99 {ttft['p99']*1e3:.1f}ms, inter-token p50 "
+                  f"{gap['p50']*1e3:.1f}ms / p99 {gap['p99']*1e3:.1f}ms "
+                  f"(bucket-derived, n={int(ttft['count'])})")
+        if args.trace_out:
+            if args.trace_out.endswith(".json"):
+                n = telemetry.tracer.write_chrome(args.trace_out)
+                kind = "chrome trace"
+            else:
+                n = telemetry.tracer.write_jsonl(args.trace_out)
+                kind = "JSONL trace"
+            print(f"trace: {n} events -> {args.trace_out} ({kind}; "
+                  f"{telemetry.tracer.dropped} dropped)")
 
 
 if __name__ == "__main__":

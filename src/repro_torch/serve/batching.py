@@ -27,7 +27,10 @@ Admission reserves only the prompt's pages; decode grows a slot's table
 on demand, and when the pool runs dry the lowest-priority slot (ties:
 the most recently admitted) is preempted: its pages are spilled to the
 host, freed, and restored bit-identically — possibly into another slot
-— once pages free up.  A request whose prompt cannot get pages waits at
+— once pages free up.  ``reserve_decode`` (or ``cfg.kv_reserve_decode``)
+reserves the worst case (prompt + ``max_new``) at admission instead, so
+decode never grows a table or preempts; at equal pool size it admits
+fewer slots at once.  A request whose prompt cannot get pages waits at
 the head of the FIFO; one that could not fit even an empty pool is
 rejected.
 
@@ -88,10 +91,19 @@ verify or stall fault is fatal (``BatcherFault``), and under a
 ``ServeSupervisor`` the batcher journals its in-flight requests, rebuilds
 its pools (``recover``) and replays them bit-identically.
 
+Telemetry (``serve.telemetry``, ``telemetry=``): a ``ServeTelemetry``
+takes lifecycle events (submit, admit with its prefix-hit and
+copy-on-write detail, prefill chunks, first token, tokens, speculation
+counts, preempt / spill / restore / resume, retire or the typed
+terminal, the recover journal) and the latency histograms, at the
+reference's sites behind one ``if`` each; with ``profile`` the three
+serving steps run inside ``torch.profiler`` ranges.  Each step's stamp
+is taken once the host holds the step's tokens, so on the card it
+covers the device's work, not only the launches.
+
 Dense-slot mode switches the prefix cache, the tiers and speculation off,
-as the reference does.  Telemetry, reserve-at-admission and mesh
-sharding come with later slices; the constructor raises if asked for
-them.
+as the reference does.  Mesh sharding comes with a later slice; the
+constructor raises if asked for it.
 """
 
 from __future__ import annotations
@@ -120,15 +132,10 @@ from .resilience import (BatcherFault, FaultPlan, InjectedFault,
 from .resilience import RequestFailed  # noqa: F401
 from .serve_loop import (advance_slots, make_chunk_prefill_step,
                          make_paged_decode_step, make_spec_verify_step)
+from .telemetry import ServeTelemetry, _NULLCTX
 
 _MIN_BUCKET = 8            # smallest prefill bucket (pad-to-power-of-two)
 _MIN_CHUNK = 16            # smallest auto-selected prefill chunk
-
-# constructor keywords of the reference that belong to later slices.
-_LATER_KWARGS = {
-    "telemetry": "telemetry",
-    "reserve_decode": "serving-benchmarks",
-}
 
 
 def _next_pow2(n: int) -> int:
@@ -281,19 +288,22 @@ class ContinuousBatcher:
     when a page size is given (or the config's ``kv_page_size``) and the
     family has a pageable layout, dense slots otherwise.  ``device`` is
     where the caches and slot state live; the parameters must already be
-    there.  ``prefix_cache``, ``prefix_block``, ``prefill_exact``,
-    ``host_tier_bytes``, ``tier_snapshot``, ``tier_restore_min``,
-    ``schedule``, ``overload`` and ``queue_depth`` override the config's
-    fields of those names; ``faults`` is a ``FaultPlan`` or its spec
-    (then ``REPRO_FAULTS``, then ``cfg.fault_plan``); ``clock`` is the
-    time base of deadlines and transfer timings (wall time by
-    default)."""
+    there.  ``reserve_decode``, ``prefix_cache``, ``prefix_block``,
+    ``prefill_exact``, ``host_tier_bytes``, ``tier_snapshot``,
+    ``tier_restore_min``, ``schedule``, ``overload`` and ``queue_depth``
+    override the config's fields of those names; ``faults`` is a
+    ``FaultPlan`` or its spec (then ``REPRO_FAULTS``, then
+    ``cfg.fault_plan``); ``telemetry`` a ``ServeTelemetry`` that takes
+    the lifecycle events and histograms.  ``clock`` is the one time base
+    of deadlines, transfer timings and telemetry: an explicit ``clock``,
+    else the telemetry's, else wall time."""
 
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int,
                  max_seq: int, n_pages=None,
                  page_size: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  prefill_interleave: Optional[int] = None,
+                 reserve_decode: Optional[bool] = None,
                  prefix_cache: Optional[bool] = None,
                  prefix_block: Optional[int] = None,
                  prefill_exact: Optional[bool] = None,
@@ -305,21 +315,14 @@ class ContinuousBatcher:
                  queue_depth: Optional[int] = None,
                  faults=None,
                  clock: Optional[Callable[[], float]] = None,
+                 telemetry: Optional[ServeTelemetry] = None,
                  transfer_retries: int = 2,
                  tier_fault_limit: int = 3,
-                 device="cuda", **later):
-        for k, v in later.items():
-            if k not in _LATER_KWARGS:
-                raise TypeError(f"unexpected keyword argument {k!r}")
-            if v is not None:
-                raise NotImplementedError(
-                    f"{k}= comes with the {_LATER_KWARGS[k]} slice")
+                 device="cuda"):
+        if cfg.mesh_shape:
+            raise NotImplementedError(
+                "mesh-sharded serving comes with a later port slice")
         psz = int(page_size or cfg.kv_page_size)
-        for on, what in ((cfg.kv_reserve_decode, "reserve-at-admission"),
-                         (cfg.mesh_shape, "mesh-sharded serving")):
-            if on:
-                raise NotImplementedError(
-                    f"{what} comes with a later port slice")
         self.layout = get_layout(cfg, psz) if psz else None
         self.paged = self.layout is not None
         self.cfg, self.params = cfg, params
@@ -339,7 +342,20 @@ class ContinuousBatcher:
                              f"{self.overload!r}")
         qd = int(cfg.serve_queue_depth if queue_depth is None
                  else queue_depth)
-        self._clock = clock or time.monotonic
+        # one time base for scheduling and telemetry: an explicit clock
+        # wins, then the telemetry's (a fake-clocked ServeTelemetry makes
+        # the whole batcher deterministic), then wall time; the telemetry
+        # is re-bound to the choice.
+        if clock is not None:
+            self._clock = clock
+        elif telemetry is not None:
+            self._clock = telemetry.clock
+        else:
+            self._clock = time.monotonic
+        self._telemetry = telemetry
+        if telemetry is not None:
+            telemetry.bind_clock(self._clock)
+            telemetry.add_collector(self._sync_telemetry)
         self.requests: Stream = Stream(depth=qd or 2 * n_slots,
                                        name="requests")
         # lifecycle counters; ``rejections`` is keyed by the typed
@@ -423,6 +439,9 @@ class ContinuousBatcher:
             self._admit_fn = _make_admit_fn(cfg, max_seq)
             return
         self.page_size = psz
+        self.reserve_decode = bool(
+            cfg.kv_reserve_decode if reserve_decode is None
+            else reserve_decode)
         self.n_blocks = {g.name: self.layout.n_blocks(g.name, max_seq)
                          for g in self.layout.groups}
         # default pool = dense-equivalent capacity.
@@ -469,7 +488,8 @@ class ContinuousBatcher:
         # byte budget AND the prefix cache (demotion is keyed by the
         # prefix index's token paths).
         self._xfer = StagedTransferEngine(self.layout, faults=self._fault,
-                                          clock=self._clock)
+                                          clock=self._clock,
+                                          telemetry=telemetry)
         self.tier_restore_min = int(
             cfg.tier_restore_min_tokens if tier_restore_min is None
             else tier_restore_min)
@@ -542,6 +562,8 @@ class ContinuousBatcher:
         if r is not None:
             if r.submitted_at == 0.0:      # direct Push (bypassed submit)
                 r.submitted_at = self._clock()
+                if self._telemetry:
+                    self._telemetry.note_submit(r)
             if r.deadline_ms is not None:
                 self._deadlines_live = True
         return r
@@ -565,6 +587,8 @@ class ContinuousBatcher:
             self.errored += 1
         else:
             self.cancelled += 1
+        if self._telemetry:
+            self._telemetry.note_terminal(r.rid, event.kind, event.reason)
 
     def _reject(self, r: Request, reason: str = "unservable") -> None:
         """Unservable request (bypassed submit() validation, or needs more
@@ -597,6 +621,10 @@ class ContinuousBatcher:
             "expired": self.expired, "errored": self.errored,
             "cancelled": self.cancelled,
         }
+        if self._telemetry:
+            # bucket-derived p50/p90/p99 per latency histogram: the
+            # registry is the source, stats() a view.
+            s["latency"] = self._telemetry.latency_summary()
         if not self.paged:
             return s
         s["tier_faults"] = self.tier_faults
@@ -614,6 +642,12 @@ class ContinuousBatcher:
         # rolled_back counts draft tokens whose scratch KV was discarded.
         s["speculation"] = {
             "k": self.speculate_k,
+            # the names the Prometheus surface exports; the bare names
+            # beside them are the reference's aliases.
+            "tokens_drafted": self.spec_drafted,
+            "tokens_accepted": self.spec_accepted,
+            "tokens_rolled_back": self.spec_rolled_back,
+            "verify_rounds": self.spec_verify_steps,
             "drafted": self.spec_drafted,
             "accepted": self.spec_accepted,
             "rolled_back": self.spec_rolled_back,
@@ -636,6 +670,91 @@ class ContinuousBatcher:
             s["cached_prefixes"] = self._prefix.n_nodes
             s["cached_prefix_pages"] = self._prefix.n_pages
         return s
+
+    def _sync_telemetry(self) -> None:
+        """Collector: mirror the plain-attribute lifetime counters into
+        the telemetry registry.  Runs on every registry read (scrape or
+        snapshot), not per event, so the hot paths keep bumping plain
+        ints."""
+        tel = self._telemetry
+        if tel is None:
+            return
+        m = tel.metrics
+        c, g = m.counter, m.gauge
+        c("serve_steps_total", "batched decode jit calls").set(self.steps)
+        c("serve_retired_total", "requests fully finished (any outcome)"
+          ).set(self.retired)
+        c("serve_prefill_chunks_total", "chunked-prefill jit calls"
+          ).set(self.prefill_chunks)
+        c("serve_preemptions_total", "slots preempted").set(
+            self.preemptions)
+        c("serve_resumes_total", "preempted slots resumed").set(
+            self.resumes)
+        c("serve_expired_total", "requests expired past deadline"
+          ).set(self.expired)
+        c("serve_errored_total", "requests failed with an error").set(
+            self.errored)
+        c("serve_cancelled_total", "requests cancelled").set(
+            self.cancelled)
+        for reason, n in self.rejections.items():
+            c("serve_rejections_total", "requests rejected, by reason",
+              labels={"reason": reason}).set(n)
+        g("serve_queue_depth", "requests waiting in the admission queue"
+          ).set(len(self._pending) + self.requests.Size())
+        g("serve_slots_live", "slots with an active request").set(
+            sum(1 for r in self._slot_req if r is not None))
+        if not self.paged:
+            return
+        c("serve_restarts_total", "supervised crash recoveries").set(
+            self.restarts)
+        c("serve_tier_faults_total", "injected/real tier-transfer faults"
+          ).set(self.tier_faults)
+        g("serve_peak_pages", "high-water mark of used pages").set(
+            self.peak_pages)
+        for name, a in self._alloc.items():
+            for state, n in (("free", a.free_pages), ("used", a.used_pages),
+                             ("shared", a.shared_pages)):
+                g("serve_pool_pages", "page-pool occupancy by group/state",
+                  labels={"group": name, "state": state}).set(n)
+        c("serve_spec_tokens_drafted_total", "speculative tokens drafted"
+          ).set(self.spec_drafted)
+        c("serve_spec_tokens_accepted_total",
+          "speculative tokens accepted (decode steps saved)").set(
+            self.spec_accepted)
+        c("serve_spec_tokens_rolled_back_total",
+          "speculative tokens rolled back").set(self.spec_rolled_back)
+        c("serve_spec_verify_rounds_total", "speculative verify rounds"
+          ).set(self.spec_verify_steps)
+        c("serve_transfer_gathers_total", "staged D2H gathers").set(
+            self._xfer.gathers)
+        c("serve_transfer_scatters_total", "staged H2D scatters").set(
+            self._xfer.scatters)
+        c("serve_transfer_d2h_bytes_total", "bytes spilled to host").set(
+            self._xfer.d2h_bytes)
+        c("serve_transfer_h2d_bytes_total", "bytes restored to device"
+          ).set(self._xfer.h2d_bytes)
+        if self.prefix_cache:
+            c("serve_prefix_lookups_total", "prefix-cache lookups").set(
+                self.prefix_lookups)
+            c("serve_prefix_hits_total", "prefix-cache hits").set(
+                self.prefix_hits)
+            c("serve_prefix_hit_tokens_total",
+              "prompt tokens served from cached prefixes").set(
+                self.prefix_hit_tokens)
+            c("serve_cow_copies_total", "copy-on-write page copies").set(
+                self.cow_copies)
+            c("serve_prefix_evictions_total", "prefix nodes evicted"
+              ).set(self.prefix_evictions)
+        if self._tiers is not None:
+            t = self._tiers
+            g("serve_t1_bytes", "host-tier resident bytes").set(
+                t.store.nbytes)
+            c("serve_t1_demotions_total", "prefix blocks demoted to T1"
+              ).set(t.demotions)
+            c("serve_t1_rehits_total", "T1 promote-back hits").set(
+                t.rehits)
+            c("serve_t1_recomputes_total",
+              "tier misses recomputed from tokens").set(t.recomputes)
 
     # -- dense bucketed admission -------------------------------------------------------
 
@@ -680,13 +799,19 @@ class ContinuousBatcher:
                 torch.from_numpy(lens).to(dev), rows, slots,
                 torch.from_numpy(max_new).to(dev))
             tok0 = tok0.cpu().numpy()
+            tel = self._telemetry
             for row, (slot, r) in enumerate(grp):
                 r.out.Push(int(tok0[row]))
+                if tel:
+                    tel.note_first_token(r.rid, slot, tel.clock(),
+                                         pos=len(r.prompt))
                 if r.max_new > 1 and len(r.prompt) < self.max_seq - 1:
                     self._slot_req[slot] = r
                 else:                          # retired at admission
                     r.out.close()
                     self.retired += 1
+                    if tel:
+                        tel.note_retire(r.rid, slot)
 
     # -- paged admission (chunked prefill, prefix hits) ------------------------------
 
@@ -697,11 +822,14 @@ class ContinuousBatcher:
 
     def _admit_pages_needed(self, r: Request, group: str,
                             cover: Optional[int] = None) -> int:
-        """Pages reserved at admission: the prompt's.  ``cover`` raises
-        the floor to a token position (a recompute-mode resume reserves
+        """Pages reserved at admission: the prompt's under lazy growth,
+        the worst case under ``reserve_decode``.  ``cover`` raises the
+        floor to a token position (a recompute-mode resume reserves
         through ``pos + 1`` so the re-admitted slot can replay and emit
         at least one token before it can be preempted again, the
         headroom rule of the restore path)."""
+        if self.reserve_decode:
+            return self._full_pages_needed(r, group)
         tokens = max(len(r.prompt), cover or 0)
         return self.layout.blocks_for(group, tokens, self.max_seq)
 
@@ -870,8 +998,10 @@ class ContinuousBatcher:
         fully cached prompt prefills one chunk.  A partially matched page
         on the divergence boundary is copied (copy-on-write) into the
         first private page when the catch-up prefill will write past the
-        match.  With the host tier, T1 blocks missing from the index are
-        promoted first, so the match sees them.
+        match, or under ``reserve_decode``, when decode will (it never
+        reaches ``_grow_slot``'s copy-on-write).  With the host tier, T1
+        blocks missing from the index are promoted first, so the match
+        sees them.
 
         ``resume`` re-admits a recompute-mode preempted request: the same
         path (prefix hits on its own blocks included), but the final
@@ -887,7 +1017,7 @@ class ContinuousBatcher:
                 self._tier_promote(prompt_i32)
             m, shared = self._prefix.match(prompt_i32)
         n_matched = _ceil_div(m, self.page_size)
-        cow = bool(m % self.page_size) and m < plen
+        cow = bool(m % self.page_size) and (m < plen or self.reserve_decode)
         n_attach = n_matched - (1 if cow else 0)
         # Pin the matched pages BEFORE anything can evict: _alloc_evict
         # below may evict the very nodes just matched, and without this
@@ -948,10 +1078,14 @@ class ContinuousBatcher:
             self._admit_seq += 1
         else:                  # keep the original admission order (victim
             self._slot_seq[slot] = resume.seq      # tie-breaks stay stable)
+        n_chunks = max(1, _ceil_div(plen - start, self.chunk))
         self._admitting.append(_Admission(
-            req=r, slot=slot, plen=plen, next_chunk=0,
-            n_chunks=max(1, _ceil_div(plen - start, self.chunk)),
+            req=r, slot=slot, plen=plen, next_chunk=0, n_chunks=n_chunks,
             start=start, cache_offset=m, resume=resume))
+        if self._telemetry:
+            self._telemetry.note_admit(
+                r, slot, prefix_hit_tokens=m, cow=cow, start=start,
+                n_chunks=n_chunks, resume=resume is not None)
         return True
 
     def _prefill_step(self) -> None:
@@ -999,18 +1133,30 @@ class ContinuousBatcher:
         # a resume needs no special budget: pos + remaining == plen +
         # max_new - 1 at every step, so installing max_new - 1 again
         # leaves exactly (replay steps + parked remaining) on the device.
+        tel = self._telemetry
+        t0 = tel.clock() if tel else 0.0
         try:
-            (self.pools, self.last_tok, self.pos, self.remaining,
-             self.active, tok0) = fn(
-                self.params, self.pools, self.block_tab, self.last_tok,
-                self.pos, self.remaining, self.active,
-                torch.from_numpy(seg).to(dev),
-                torch.full((1,), base, dtype=torch.int32, device=dev),
-                torch.full((1,), last_in_chunk, dtype=torch.int32,
-                           device=dev),
-                a.slot, final, a.plen, a.req.max_new, a.cache_offset)
+            with (tel.annotate("serve.prefill_chunk",
+                               step=self.prefill_chunks)
+                  if tel else _NULLCTX):
+                (self.pools, self.last_tok, self.pos, self.remaining,
+                 self.active, tok0) = fn(
+                    self.params, self.pools, self.block_tab, self.last_tok,
+                    self.pos, self.remaining, self.active,
+                    torch.from_numpy(seg).to(dev),
+                    torch.full((1,), base, dtype=torch.int32, device=dev),
+                    torch.full((1,), last_in_chunk, dtype=torch.int32,
+                               device=dev),
+                    a.slot, final, a.plen, a.req.max_new, a.cache_offset)
         except Exception as e:
             raise BatcherFault(e) from e
+        if tel:
+            # stamped once the host holds the chunk's token (the
+            # reference stamps right after its asynchronous dispatch):
+            # on the card the span then covers the chunk's device work.
+            tok0 = int(tok0)
+            tel.note_chunk(a.req.rid, a.slot, c, t0, tel.clock(),
+                           base=base, final=final)
         self.prefill_chunks += 1
         a.next_chunk += 1
         if not final:
@@ -1032,8 +1178,12 @@ class ContinuousBatcher:
             self._replay_skip[a.slot] = replay + a.resume.skip
             self.resumes += 1
             self.recompute_resumes += 1
+            if tel:
+                tel.note_resume(a.req.rid, a.slot, "recompute")
             return
         a.req.out.Push(tok0)
+        if tel:
+            tel.note_first_token(a.req.rid, a.slot, tel.clock(), pos=a.plen)
         if a.req.max_new > 1 and a.plen < self.max_seq - 1:
             self._slot_req[a.slot] = a.req
             self._host_pos[a.slot] = a.plen
@@ -1043,6 +1193,8 @@ class ContinuousBatcher:
             a.req.out.close()
             self.retired += 1
             self._release_slot(a.slot, prompt=a.req.prompt)
+            if tel:
+                tel.note_retire(a.req.rid, a.slot)
 
     def _release_slot(self, slot: int, prompt: Optional[np.ndarray] = None,
                       keep_shared: bool = False) -> None:
@@ -1111,6 +1263,8 @@ class ContinuousBatcher:
                 shared[g.name] = pages[:ns]
                 priv[g.name] = pages[ns:]
                 counts[g.name] = len(pages) - ns
+            tel = self._telemetry
+            t0 = tel.clock() if tel else 0.0
             ok, gathered = self._tier_op(
                 "spill", lambda: self._xfer.gather_host(self.pools, priv))
             if ok:
@@ -1127,6 +1281,9 @@ class ContinuousBatcher:
                 self._release_slot(slot, keep_shared=True)
                 self.preemptions += 1
                 self.preempted_rids.append(r.rid)
+                if tel:
+                    tel.note_spill(r.rid, t0, tel.clock())
+                    tel.note_preempt(r.rid, slot, pos, "spill")
                 return
         self._preempted.append(_Preempted(
             req=r, pos=pos, last_tok=self._host_last_tok[slot],
@@ -1139,6 +1296,8 @@ class ContinuousBatcher:
         self._release_slot(slot, prompt=r.prompt)
         self.preemptions += 1
         self.preempted_rids.append(r.rid)
+        if self._telemetry:
+            self._telemetry.note_preempt(r.rid, slot, pos, "recompute")
 
     def _grow_slot(self, slot: int) -> bool:
         """Ensure every group holds a WRITABLE page for the slot's next
@@ -1242,6 +1401,8 @@ class ContinuousBatcher:
                     self._alloc[name].free(pgs)
                 break
             self._preempted.pop(idx)
+            tel = self._telemetry
+            t0 = tel.clock() if tel else 0.0
             ok, pools = self._tier_op(
                 "restore", lambda: self._xfer.scatter_device(
                     self.pools,
@@ -1284,6 +1445,9 @@ class ContinuousBatcher:
             self._reset_drafter(slot)
             self.resumes += 1
             resumed += 1
+            if tel:
+                tel.note_restore(rec.req.rid, t0, tel.clock())
+                tel.note_resume(rec.req.rid, slot, "restore")
         return resumed
 
     # -- fatal faults: shutdown vs crash recovery --------------------------------------
@@ -1404,6 +1568,15 @@ class ContinuousBatcher:
         self._pending.extendleft(reversed(fresh))
         self.restarts += 1
         self._stalled = False
+        if self._telemetry:
+            # the pre-fault events' rid: a replayed request's trace
+            # stitches to its original across the restart.
+            for rec in journal:
+                self._telemetry.note_recover_journal(
+                    rec.req.rid, rec.pos, "recompute", self.restarts)
+            for r in fresh:
+                self._telemetry.event(r.rid, "recover_requeue",
+                                      restart=self.restarts)
         return len(journal) + len(fresh)
 
     # -- T2 snapshots -------------------------------------------------------------------
@@ -1458,6 +1631,8 @@ class ContinuousBatcher:
                 req.rid, f"invalid: {reason}"))
             raise ValueError(f"request {req.rid}: {reason}")
         req.submitted_at = self._clock()
+        if self._telemetry:
+            self._telemetry.note_submit(req)
         if req.deadline_ms is not None:
             self._deadlines_live = True
         if self.overload == "reject":
@@ -1480,6 +1655,8 @@ class ContinuousBatcher:
                 break
             if r.submitted_at == 0.0:
                 r.submitted_at = self._clock()
+                if self._telemetry:
+                    self._telemetry.note_submit(r)
             if r.deadline_ms is not None:
                 self._deadlines_live = True
             self._pending.append(r)
@@ -1806,22 +1983,32 @@ class ContinuousBatcher:
             tokens[i, 1 + len(d):] = tokens[i, len(d)]   # pad (masked)
             n_draft[i] = len(d)
         dev = self.device
+        tel = self._telemetry
+        tel_t0 = tel.clock() if tel else 0.0
         t0 = time.monotonic()
         try:
             # an injected verify fault fires AFTER scratch setup: the
             # unwind below must leave the allocator consistent.
             self._fault.check("verify")
-            (self.pools, self.last_tok, self.pos, self.remaining,
-             self.active, out) = self._verify(
-                self.params, self.pools, self.block_tab,
-                torch.from_numpy(tokens).to(dev),
-                torch.from_numpy(n_draft).to(dev),
-                self.pos, self.remaining, self.active, *xfer)
+            with (tel.annotate("serve.verify") if tel else _NULLCTX):
+                (self.pools, self.last_tok, self.pos, self.remaining,
+                 self.active, out) = self._verify(
+                    self.params, self.pools, self.block_tab,
+                    torch.from_numpy(tokens).to(dev),
+                    torch.from_numpy(n_draft).to(dev),
+                    self.pos, self.remaining, self.active, *xfer)
         except Exception as e:
             self._spec_unwind(swaps)
             raise BatcherFault(e) from e
         dt = time.monotonic() - t0
         out = out.cpu().numpy()                # the ONLY per-step transfer
+        t_round = 0.0
+        if tel:
+            # stamped after the host read (the reference stamps before
+            # it): the round then ends when its tokens reach the host.
+            t_round = tel.clock()
+            tel.note_verify_round(tel_t0, t_round,
+                                  n_drafting=int((n_draft > 0).sum()))
         preds, commit, finished = out[:k], out[k], out[k + 1]
         self._spec_resolve(swaps, commit)
         done = 0
@@ -1836,6 +2023,10 @@ class ContinuousBatcher:
                     self._replay_skip[i] -= 1
                 else:
                     r.out.Push(tok)
+                    if tel:
+                        # a round's committed tokens arrive together.
+                        tel.note_token(r.rid, i, t_round,
+                                       pos=self._host_pos[i] + t)
                 self._history[i].append(tok)
             self._host_last_tok[i] = int(preds[c - 1, i])
             self._host_pos[i] += c
@@ -1843,12 +2034,16 @@ class ContinuousBatcher:
             committed += c
             nd = int(n_draft[i])
             if nd:
+                if tel:
+                    tel.note_spec(r.rid, i, nd, c - 1)
                 self._note_acceptance(i, nd, c - 1)
             if finished[i]:
                 r.out.close()
                 self._slot_req[i] = None
                 self._release_slot(i, prompt=r.prompt)
                 done += 1
+                if tel:
+                    tel.note_retire(r.rid, i)
         self.spec_verify_steps += 1
         self.steps += 1
         self.retired += done
@@ -1890,10 +2085,11 @@ class ContinuousBatcher:
         verify step instead.  A failure inside (or injected before) the
         step call is fatal and surfaces as ``BatcherFault``; under a
         ``ServeSupervisor`` the batcher journals, rebuilds and replays
-        (``recover``)."""
+        (``recover``).  Under ``reserve_decode`` every page was reserved
+        at admission, so no table grows."""
         if self._deadlines_live:
             self._cancel_expired_slots()
-        if self.paged:
+        if self.paged and not self.reserve_decode:
             for slot in range(self.n_slots):
                 if self._slot_req[slot] is not None:
                     self._grow_slot(slot)
@@ -1906,23 +2102,37 @@ class ContinuousBatcher:
                 if drafts:       # setup may prune drafts (dry pool)
                     return self._spec_step(drafts, swaps, xfer)
         n_live = sum(1 for r in self._slot_req if r is not None)
+        tel = self._telemetry
+        tel_t0 = tel.clock() if tel else 0.0
         t0 = time.monotonic()
         try:
             self._fault.check("step")
-            if self.paged:
-                (self.pools, self.last_tok, self.pos, self.remaining,
-                 self.active, out) = self._step(
-                    self.params, self.pools, self.block_tab, self.last_tok,
-                    self.pos, self.remaining, self.active)
-            else:
-                (self.cache, self.last_tok, self.pos, self.remaining,
-                 self.active, out) = self._step(
-                    self.params, self.cache, self.last_tok, self.pos,
-                    self.remaining, self.active)
+            with (tel.annotate("serve.decode_step", step=self.steps)
+                  if tel else _NULLCTX):
+                if self.paged:
+                    (self.pools, self.last_tok, self.pos, self.remaining,
+                     self.active, out) = self._step(
+                        self.params, self.pools, self.block_tab,
+                        self.last_tok, self.pos, self.remaining,
+                        self.active)
+                else:
+                    (self.cache, self.last_tok, self.pos, self.remaining,
+                     self.active, out) = self._step(
+                        self.params, self.cache, self.last_tok, self.pos,
+                        self.remaining, self.active)
         except Exception as e:
             raise BatcherFault(e) from e
         self._note_rate(time.monotonic() - t0, n_live)
         out = out.cpu().numpy()                # the ONLY per-step transfer
+        t_step = 0.0
+        if tel:
+            # stamped once the host holds the tokens, where the consumer
+            # sees them.  The reference stamps right after its
+            # asynchronous dispatch, before the read; on the card that
+            # would time the launches only and leave the device's tail
+            # out of the step histogram and every token stamp.
+            t_step = tel.clock()
+            tel.note_decode_step(tel_t0, t_step, n_live)
         toks, finished = out[0], out[1]
         done = 0
         for i, r in enumerate(self._slot_req):
@@ -1934,6 +2144,10 @@ class ContinuousBatcher:
                 self._replay_skip[i] -= 1
             else:
                 r.out.Push(int(toks[i]))
+                if tel:
+                    tel.note_token(
+                        r.rid, i, t_step,
+                        pos=self._host_pos[i] if self.paged else -1)
             self._host_last_tok[i] = int(toks[i])
             self._host_pos[i] += 1
             self._host_remaining[i] -= 1
@@ -1947,6 +2161,8 @@ class ContinuousBatcher:
                     # prefix cache (decref instead of free).
                     self._release_slot(i, prompt=r.prompt)
                 done += 1
+                if tel:
+                    tel.note_retire(r.rid, i)
         self.steps += 1
         self.retired += done
         return done

@@ -132,14 +132,18 @@ class StagedTransferEngine:
     spill/resume, prefix demote to T1, T1 promote back to device — so
     the transfer counters in ``stats()`` describe all tier traffic.
     ``clock`` is the batcher's injectable time base; every staged call
-    is timed with it into ``gather_seconds`` / ``scatter_seconds``.
+    is timed with it into ``gather_seconds`` / ``scatter_seconds`` and,
+    when a ``ServeTelemetry`` is attached, observed into the
+    ``serve_transfer_{gather,scatter}_seconds`` histograms.
     """
 
     def __init__(self, layout, faults: Optional[FaultPlan] = None,
-                 clock: Optional[Callable[[], float]] = None):
+                 clock: Optional[Callable[[], float]] = None,
+                 telemetry=None):
         self.layout = layout
         self.faults = faults or FaultPlan()
         self._clock = clock or time.monotonic
+        self._telemetry = telemetry
         self.gathers = 0             # staged spill/demote calls
         self.scatters = 0            # staged restore/promote calls
         self.d2h_bytes = 0
@@ -204,6 +208,8 @@ class StagedTransferEngine:
         self.gathers += 1
         self.d2h_bytes += sum(_tree_nbytes(t) for t in out.values())
         self.gather_s += dt
+        if self._telemetry:
+            self._telemetry.h_gather.observe(dt)
         return out
 
     def scatter_device(self, pools, data_by_group: Dict[str, Any],
@@ -254,6 +260,8 @@ class StagedTransferEngine:
         dt = self._clock() - t0
         self.scatters += 1
         self.scatter_s += dt
+        if self._telemetry:
+            self._telemetry.h_scatter.observe(dt)
         return pools
 
     def stats(self) -> Dict[str, Any]:

@@ -5,8 +5,9 @@ around the continuous batcher.
 The module is host Python throughout; the port keeps it line for line,
 so a ``FaultPlan`` spec and seed fire on the same call ordinals as the
 reference's (the per-site ``np.random.default_rng`` streams are seeded
-the same way).  The supervisor's telemetry events come with the
-telemetry slice.
+the same way).  The supervisor's ``supervisor_fault`` and
+``supervisor_restart`` events go to the batcher's telemetry under
+``ENGINE_RID``.
 
 The hlslib argument is that hardware-style pipelines earn their keep
 only with software-engineering discipline: failure modes must be
@@ -62,6 +63,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 
 from ..core.health import Heartbeat
+from .telemetry import ENGINE_RID
 
 # SLA class -> scheduling/preemption rank (higher = served first,
 # preempted last).  Unknown classes rank as "standard".
@@ -338,6 +340,12 @@ class ServeSupervisor:
                     return self.report
                 except BatcherFault as e:
                     self.report.faults += 1
+                    tel = getattr(self.batcher, "_telemetry", None)
+                    if tel:
+                        tel.event(ENGINE_RID, "supervisor_fault",
+                                  cause=f"{type(e.cause).__name__}: "
+                                        f"{e.cause}",
+                                  fault=self.report.faults)
                     if (self.report.restarts >= self.max_restarts
                             or not self.batcher.paged):
                         # out of recovery budget (or the dense path,
@@ -349,6 +357,9 @@ class ServeSupervisor:
                     self.heartbeat.beat("batcher")   # recovery takes time
                     self.report.recovered_requests += self.batcher.recover()
                     self.report.restarts += 1
+                    if tel:
+                        tel.event(ENGINE_RID, "supervisor_restart",
+                                  restart=self.report.restarts)
         finally:
             stop.set()
             # the watchdog wakes at least once a second; the bound keeps

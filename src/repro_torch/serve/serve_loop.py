@@ -1,8 +1,10 @@
 """Serving steps (port of ``serve/serve_loop.py``).
 
-* ``make_sampling_serve_steps`` — greedy prefill/decode over dense slot
-  caches, returning int32 token ids; ``greedy_generate`` drives it and is
-  the port's dense oracle for both batcher modes.
+* ``make_sampling_serve_steps`` — prefill/decode over dense slot caches
+  that sample on the device (argmax at temperature 0, else a categorical
+  of ``logits / T``) and return int32 token ids; ``greedy_generate``
+  drives it and, at temperature 0, is the port's dense oracle for both
+  batcher modes.
 * ``make_paged_decode_step`` — ONE batched call advances every slot of
   the continuous batcher over the page pools.
 * ``make_chunk_prefill_step`` — one prompt chunk for one slot against the
@@ -14,13 +16,13 @@
 The JAX steps are jitted with their pools donated; here they run eagerly
 and update the pools and slot-state tensors in place.  Pools and block
 tables are dicts keyed by the layout's page groups ({"kv"}, or gemma3's
-{"local", "global"}).  Decoding is greedy; sampling at a temperature
-above 0 comes with a later slice.
+{"local", "global"}).  The batcher's steps decode greedily, as the
+reference's do.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -30,26 +32,49 @@ from ..models import registry
 from ..models.cache_layouts import get_layout
 
 
-def make_sampling_serve_steps(cfg: ModelConfig, max_seq: int):
-    """Greedy (temperature 0) step functions over dense slot caches:
+def _sample_last(logits_last: torch.Tensor,
+                 generator: Optional[torch.Generator],
+                 temperature: float) -> torch.Tensor:
+    """On-device sampling of the last position's logits (b, Vp) -> (b,)
+    int32.  Temperature 0: argmax (``generator`` unused).  Above 0: a
+    categorical of ``logits / T`` over all ``Vp`` columns, drawn as
+    ``jax.random.categorical`` draws it (Gumbel-max: the argmax of
+    ``logits / T + g`` with ``g = -log(-log(u))``, ``u`` uniform on
+    ``[tiny, 1)``), the uniforms from ``generator`` on the logits'
+    device.  No host read."""
+    if temperature > 0:
+        u = torch.rand(logits_last.shape, generator=generator,
+                       device=logits_last.device, dtype=torch.float32)
+        g = -torch.log(-torch.log(u.clamp_(min=torch.finfo(u.dtype).tiny)))
+        return torch.argmax(logits_last.float() / temperature + g,
+                            -1).to(torch.int32)
+    return torch.argmax(logits_last, -1).to(torch.int32)
 
-    * ``prefill(params, batch_in, last_pos)`` -> (tokens, cache)
-    * ``decode(params, cache, tokens, pos)``  -> (tokens, cache)
 
-    Both return int32 token ids of shape (b,).  ``decode`` writes the
-    cache in place; ``pos`` is a (b,) position tensor (or a host int for
-    every row)."""
+def make_sampling_serve_steps(cfg: ModelConfig, max_seq: int,
+                              temperature: float = 0.0):
+    """Sample-in-step functions over dense slot caches:
 
-    def prefill(params, batch_in, last_pos):
+    * ``prefill(params, batch_in, last_pos, generator=None)`` ->
+      (tokens, cache)
+    * ``decode(params, cache, tokens, pos, generator=None)`` ->
+      (tokens, cache)
+
+    Both return int32 token ids of shape (b,), sampled on the device by
+    ``_sample_last`` at ``temperature`` (argmax at 0, where
+    ``generator`` is unused).  ``decode`` writes the cache in place;
+    ``pos`` is a (b,) position tensor (or a host int for every row)."""
+
+    def prefill(params, batch_in, last_pos, generator=None):
         logits, cache = registry.forward(cfg, params, batch_in,
                                          mode="prefill", cache_len=max_seq,
                                          last_pos=last_pos)
-        return torch.argmax(logits[:, -1], -1).to(torch.int32), cache
+        return _sample_last(logits[:, -1], generator, temperature), cache
 
-    def decode(params, cache, tokens, pos):
+    def decode(params, cache, tokens, pos, generator=None):
         logits, cache = registry.forward(cfg, params, dict(tokens),
                                          mode="decode", cache=cache, pos=pos)
-        return torch.argmax(logits[:, -1], -1).to(torch.int32), cache
+        return _sample_last(logits[:, -1], generator, temperature), cache
 
     return prefill, decode
 
@@ -217,22 +242,27 @@ def make_chunk_prefill_step(cfg: ModelConfig, chunk: int, max_seq: int,
 
 
 def greedy_generate(cfg: ModelConfig, params, prompt_batch: Dict,
-                    steps: int, max_seq: int, *, device="cuda"):
-    """Greedy generation over dense slot caches (the port's dense
-    oracle): prefill the prompt batch, then ``steps`` decode steps.
-    Returns an (b, steps) int32 numpy array."""
+                    steps: int, max_seq: int, temperature: float = 0.0,
+                    seed: int = 0, *, device="cuda"):
+    """Generation over dense slot caches: prefill the prompt batch, then
+    ``steps`` decode steps, each token sampled on the device at
+    ``temperature`` from one generator seeded with ``seed`` (greedy at
+    0: the port's dense oracle).  Returns an (b, steps) int32 numpy
+    array."""
     tok = torch.as_tensor(np.asarray(prompt_batch["tokens"]),
                           device=device).long()
     b, prompt_len = tok.shape
-    pre, dec = make_sampling_serve_steps(cfg, max_seq)
+    pre, dec = make_sampling_serve_steps(cfg, max_seq, temperature)
+    gen = (torch.Generator(device=tok.device).manual_seed(seed)
+           if temperature > 0 else None)
     last_pos = torch.full((b,), prompt_len - 1, dtype=torch.int64,
                           device=device)
-    nxt, cache = pre(params, {"tokens": tok}, last_pos)
+    nxt, cache = pre(params, {"tokens": tok}, last_pos, gen)
     out = []
     pos = torch.full((b,), prompt_len, dtype=torch.int32, device=device)
     for _ in range(steps):
         tokens = nxt.reshape(b, 1)
         out.append(tokens.cpu().numpy())
-        nxt, cache = dec(params, cache, {"tokens": tokens.long()}, pos)
+        nxt, cache = dec(params, cache, {"tokens": tokens.long()}, pos, gen)
         pos = pos + 1
     return np.concatenate(out, axis=1)

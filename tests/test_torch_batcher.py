@@ -29,6 +29,7 @@ from repro_torch.serve.batching import (ContinuousBatcher, Request,
                                         RequestFailed, drain)
 from repro_torch.serve.prefix_cache import PageAllocator
 from repro_torch.serve.serve_loop import greedy_generate
+from repro_torch.serve.telemetry import ServeTelemetry
 
 torch.set_num_threads(2)
 
@@ -252,20 +253,22 @@ def test_submit_rejects_degenerate_requests(model):
 
 @pytest.mark.parametrize("kw", [
     {"tier_snapshot": "x"}, {"host_tier_bytes": 1 << 20},
-    {"schedule": "sla"}, {"faults": "step:1"}, {"telemetry": object()},
+    {"schedule": "sla"}, {"faults": "step:1"}, {"telemetry": ServeTelemetry},
     {"queue_depth": 4}, {"cfg": {"mesh_shape": (2,)}},
     {"cfg": {"fault_plan": "step:1"}}, {"cfg": {"kv_reserve_decode": True}},
     {"cfg": {"serve_overload": "reject"}},
 ])
 def test_later_slice_options_raise(model, kw):
-    """Options of slices still to come (telemetry, reserve-at-admission,
-    mesh sharding) raise; the tiers' and resilience's are accepted and
+    """Options of slices still to come (mesh sharding) raise; the tiers',
+    resilience's, telemetry's and reserve-at-admission's are accepted and
     reach the batcher."""
     cfg, tp, _, _ = model
     kw = dict(kw)
     cf = kw.pop("cfg", {})
+    if "telemetry" in kw:
+        kw["telemetry"] = kw["telemetry"]()
     c = dataclasses.replace(_paged(cfg), **cf)
-    if "telemetry" in kw or {"mesh_shape", "kv_reserve_decode"} & set(cf):
+    if "mesh_shape" in cf:
         with pytest.raises(NotImplementedError):
             ContinuousBatcher(c, tp, n_slots=2, max_seq=32, device="cpu",
                               **kw)
@@ -277,6 +280,11 @@ def test_later_slice_options_raise(model, kw):
     assert bat.overload == cf.get("serve_overload", "block")
     assert bat.requests.depth == kw.get("queue_depth", 4)
     assert bat._fault.spec == kw.get("faults", cf.get("fault_plan", ""))
+    assert bat._telemetry is kw.get("telemetry")
+    if bat._telemetry is not None:               # the batcher's time base
+        assert bat._telemetry.clock is bat._clock
+        assert bat._xfer._telemetry is bat._telemetry
+    assert bat.reserve_decode is cf.get("kv_reserve_decode", False)
 
 
 def test_unknown_keyword_is_a_type_error(model):

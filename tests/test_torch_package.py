@@ -3,8 +3,10 @@ import neither ``jax`` nor anything of ``repro``, and the port's serving
 CLI runs end to end on the CPU."""
 
 import ast
+import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -105,6 +107,45 @@ def test_serve_cli_gemma3(extra):
         else ", dense,"
     assert mode in lines[-1]
     assert not any(line.startswith("prefix-cache:") for line in lines)
+
+
+@pytest.mark.parametrize("extra", [
+    ("--page-size", "8", "--metrics-port", "0", "--trace-out", "t.json"),
+    ("--page-size", "8", "--trace-out", "t.jsonl", "--profile"),
+    ("--metrics-port", "0",),                 # dense slots, no trace
+])
+def test_serve_cli_telemetry(tmp_path, extra):
+    """The telemetry flags: ``metrics:`` with the URL first, then the
+    summary, the ``latency:`` line over the 4 requests and the ``trace:``
+    line; the trace file holds that many events, one submit per
+    request."""
+    extra = [str(tmp_path / a) if a.startswith("t.") else a for a in extra]
+    out = _serve(*extra)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("metrics: http://127.0.0.1:") == (
+        "--metrics-port" in extra)
+    summary = next(i for i, line in enumerate(lines)
+                   if line.startswith("4 requests, 20 tokens in"))
+    latency = lines[summary + 1]
+    assert latency.startswith("latency: ttft p50 ")
+    assert latency.endswith("(bucket-derived, n=4)")
+    trace = [a for a in extra if a.startswith(str(tmp_path))]
+    if not trace:
+        assert len(lines) == summary + 2
+        return
+    m = re.fullmatch(r"trace: (\d+) events -> (.+) \((chrome|JSONL) trace; "
+                     r"0 dropped\)", lines[summary + 2])
+    assert m and m.group(2) == trace[0]
+    text = pathlib.Path(trace[0]).read_text()
+    if m.group(3) == "chrome":
+        events = json.loads(text)["traceEvents"]
+        rids = [e["args"]["rid"] for e in events if e["name"] == "submit"]
+    else:
+        events = [json.loads(line) for line in text.splitlines()]
+        rids = [e["rid"] for e in events if e["name"] == "submit"]
+    assert len(events) == int(m.group(1))
+    assert sorted(rids) == [0, 1, 2, 3]
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
