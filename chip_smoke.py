@@ -20,8 +20,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    layers' ring of 65 pages with ``page_base`` under a 1024 window at
    positions 1100-1560, its verify span at sq = 5 on the 66-page ring,
    int8 pages, the global layers' flat table; B3: the rolled ring of
-   S == window == 1024 and the global 2048), timed beside SDPA on the
-   same pre-gathered K/V with the same mask,
+   S == window == 1024 and the global 2048), both at phi3.5-moe's served
+   shapes, 32 / 8 heads of 128 (a GQA group of 4; B1 also at its verify
+   span sq = 5), timed beside SDPA on the same pre-gathered K/V with the
+   same mask,
    ``kv_quantize``/``kv_dequantize`` (B2) bit for bit at decode, prefill
    and full-cache shapes, B2's quantize-and-store entry
    ``kv_quantize_store`` bit for bit (every cache leaf after the store) at
@@ -72,7 +74,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    supervisor keeps every survivor bit-identical to the fault-free run
    with only the affected request errored and every allocator
    consistent (step:2 recovered by a supervised restart); fault-free
-   runs show no tier fault and no supervisor fault or restart;
+   runs show no tier fault and no supervisor fault or restart; the moe
+   family (fp32, 2 layers): phi3.5-moe paged through B1 gives its dense
+   slots' tokens through B3 (launches steps x layers), deepseek on MLA
+   latent pages its dense slots', a prefix hit the cold run's,
+   ``speculate_k`` 4 plain decode's and a preempting pool the
+   unpreempted run's, and 12 dense slots at capacity factor 0.05 (each
+   row its own MoE capacity) each request's tokens served alone;
 4. full-width serve — minitron-4b at full width, random bf16 weights
    from the seed, 16 requests through ``ContinuousBatcher`` under
    ``DataflowContext``: paged through B1, then dense slots through B3 with
@@ -134,7 +142,19 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    plain decode and token identity to the paged run printed; one decode
    step's logits through the kernels vs the plain path and its time
    split, paged and dense;
-8. telemetry and sampling — at smoke width (fp32): telemetry off and on
+8. the moe family at full width — deepseek-v2-lite-16b (all 27
+   layers, MLA on latent pages, 64 experts top-6 plus 2 shared) and
+   phi3.5-moe (full widths, 16 of its 32 layers: the whole model does
+   not fit beside a KV pool), random bf16 weights from the seed, phase
+   4's traffic served paged (phi3.5: B1 at a GQA group of 4) and from
+   dense slots (phi3.5: B3), launches steps x 16 exactly; tokens/s,
+   step and TTFT times, peak memory and pages, paged-vs-dense token
+   identity as a share; one paged and one dense decode step each
+   profiled (kernels per step, idle share, device time as attention
+   kernel / matmul / MoE dispatch and combine / MLA glue / other), and
+   phi3.5's step logits through the kernels vs the plain path (reported:
+   top-k routing amplifies a one-ulp change);
+9. telemetry and sampling — at smoke width (fp32): telemetry off and on
    (tracing and ``torch.profiler`` ranges) give the same tokens on paged
    pools with the prefix cache and ``speculate_k`` 4, on dense slots
    (bf16, int8) and on int8 pages that preempt, B1 / B3 launched steps x
@@ -158,6 +178,7 @@ repository around it, it exits non-zero and prints no result.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -516,6 +537,13 @@ def phase_kernel(gen, card, flush):
         "main verify (8 seqs, sq=5, pos <= 1k, bf16)": dict(main, sq=5),
         "main verify (8 seqs, sq=5, pos <= 1k, int8 + bf16 scales)": dict(
             main, sq=5, quant=True),
+        # phi3.5-moe's served shapes: 32 / 8 heads of 128 (a GQA group of
+        # 4), decode and the verify span (20 rows per sequence and kv head).
+        "main phi3.5 decode (8 seqs, hq 32 / hkv 8, d 128, pos <= 1k, "
+        "bf16)": dict(main, hq=32),
+        "main phi3.5 verify (8 seqs, sq=5, hq 32 / hkv 8, d 128, pos <= 1k, "
+        "bf16)": dict(main, hq=32, sq=5),
+        "phi3.5 decode, int8 + bf16 scales": dict(main, hq=32, quant=True),
         "window=256": dict(main, window=256),
         "ring page_base, window=100": dict(
             main, n_blocks=-(-100 // 16) + 1, window=100, ring=True),
@@ -631,6 +659,9 @@ def phase_dense_kernel(gen, card, flush):
     ring_pos = [10, 100, 255, 256, 300, 1000, 4000, 200]
     cases = {
         "main (8 slots x 1024, pos 128-1023, bf16)": {},
+        # phi3.5-moe's dense slots: 32 / 8 heads of 128, a group of 4.
+        "main phi3.5 (8 slots x 1024, hq 32 / hkv 8, d 128, pos 128-1023, "
+        "bf16)": dict(hq=32),
         "long (32 slots x 4096, bf16)": dict(b=32, S=4096, max_pos=4096),
         "f32 q": dict(q_dtype=torch.float32),
         "band window=256": dict(window=256),
@@ -1852,10 +1883,14 @@ def serve_full_width(cfg, params, seed, counts, prompts=None,
     return summary, launches, bat, outs
 
 
-def compare_logits(cfg, params, cache, tokens, pos, label):
+def compare_logits(cfg, params, cache, tokens, pos, label, hold=True):
     """One decode step's logits through the kernels vs the plain path
     (``decode_flash`` off), each step on its own copy of the cache (a
-    step writes its K/V row and advances recurrent state in place)."""
+    step writes its K/V row and advances recurrent state in place).
+    ``hold=False`` reports without holding: behind an MoE block a
+    one-ulp change of the attention output can flip a token's top-k
+    experts, which moves its logits by far more than the kernel's
+    error (the kernel itself is held at the served shapes in phase 2)."""
     from repro_torch.models import params as PP
     from repro_torch.models import registry
     logits = {}
@@ -1872,8 +1907,8 @@ def compare_logits(cfg, params, cache, tokens, pos, label):
           f"{err:.4g} (max |logit| {scale:.4g}, rel tol {TOL_LOGITS_REL}), "
           f"argmax agreement {agree:.3f}")
     check(torch.isfinite(a).all().item(), f"non-finite logits [{label}]")
-    check(err <= TOL_LOGITS_REL * scale, f"full-width logits disagree "
-          f"[{label}]")
+    check(err <= TOL_LOGITS_REL * scale or not hold,
+          f"full-width logits disagree [{label}]")
 
 
 def prefill_pools(cfg, params, rng, max_seq=MAX_SEQ, plens=(100, 900)):
@@ -2765,6 +2800,322 @@ def phase_gemma3_full_width(seed):
     del bat, params
     torch.cuda.empty_cache()
     print(f"full-width gemma3-12b phase: {time.perf_counter() - t_phase:.1f}s")
+    return paths
+
+
+# --- the moe family: phi3.5-moe and deepseek (MLA latent pages) ----------------------------
+
+
+def phase_moe_exactness(seed):
+    """phi3.5-moe and deepseek-v2-lite at smoke width (2 layers, fp32
+    compute, bf16 caches) on the card, weights drawn on the host from the
+    seed: phi3.5 paged through B1 gives its dense slots' tokens through
+    B3, each launched steps x layers; deepseek on latent pages gives its
+    dense slots' tokens, a prefix hit the cold run's, speculative decode
+    (``speculate_k`` 4) plain decode's, and a pool small enough to
+    preempt the unpreempted run's; per-row capacity: 12 dense slots at
+    capacity factor 0.05 (a shared step would drop copies, 24 over 4
+    experts at 8 each) give each request's tokens served alone."""
+    from repro_torch.configs import get
+    from repro_torch.configs.base import smoke_variant
+    from repro_torch.models import params as PP
+    from repro_torch.models import registry
+    from repro_torch.serve.batching import ContinuousBatcher
+    t_phase = time.perf_counter()
+    counts = kernel_counts()
+    rng = np.random.default_rng(seed + 30)
+    plens, max_news = [5, 12, 21], [8, 6, 8]
+    for arch in ("phi3p5-moe-42b", "deepseek-v2-lite-16b"):
+        base = dataclasses.replace(smoke_variant(get(arch)),
+                                   decode_flash=True)
+        params = PP.tree_map(lambda _, a: a.to(DEVICE),
+                             registry.init(base, seed, device="cpu"))
+        L = base.n_layers
+        prompts = [rng.integers(0, base.vocab_size, n).astype(np.int32)
+                   for n in plens]
+        reset_counts(counts)
+        dense, bat = run_batcher(base, params, prompts, max_news, n_slots=2,
+                                 max_seq=48)
+        n = read_counts(counts)
+        b3 = 0 if base.mla else bat.steps * L
+        check(not bat.paged and n["flash_attention_decode"] == b3,
+              f"{arch} dense B3 launches {n} != {b3}")
+        reset_counts(counts)
+        paged = dataclasses.replace(base, kv_page_size=8)
+        got, bat = run_batcher(paged, params, prompts, max_news, n_slots=2,
+                               max_seq=48, prefill_chunk=32)
+        n = read_counts(counts)
+        b1 = 0 if base.mla else bat.steps * L
+        check(got == dense, f"{arch} paged {got} != dense {dense}")
+        check(n["flash_attention_decode_paged"] == b1,
+              f"{arch} paged B1 launches {n} != {b1}")
+        empty_index(bat)
+        print(f"moe smoke exactness [{arch}]: paged "
+              f"({'/'.join(g.name for g in bat.layout.groups)} pages) == "
+              f"dense slots, {bat.steps} paged steps, B1 {b1} / B3 {b3} "
+              "launches = steps x layers (none on MLA)")
+        if not base.mla:
+            del params
+            continue
+        # deepseek's latent pages: prefix hit == cold, spec == plain,
+        # preempt/resume == never preempted.
+        P = rng.integers(0, base.vocab_size, 24).astype(np.int32)
+        pcfg = dataclasses.replace(paged, prefix_cache=True)
+        bat = ContinuousBatcher(pcfg, params, n_slots=2, max_seq=64,
+                                device=DEVICE)
+        cold, hit = serve_seq(bat, [P, P], 5)
+        check(hit == cold and bat.prefix_hits == 1,
+              f"deepseek prefix hit {hit} != cold {cold} "
+              f"({bat.prefix_hits} hits)")
+        empty_index(bat)
+        mp = motif_prompts([9, 14, 6, 12], base.vocab_size,
+                           np.random.default_rng(seed + 31))
+        c = dataclasses.replace(paged, prefill_chunk=8, speculate_ngram=1)
+        outs = {}
+        for k in (0, 4):
+            outs[k], bat = run_batcher(dataclasses.replace(c, speculate_k=k),
+                                       params, mp, [16] * 4, n_slots=2,
+                                       max_seq=48)
+            empty_index(bat)
+        sp = bat.stats()["speculation"]
+        check(outs[4] == outs[0] and sp["drafted"] > 0,
+              f"deepseek spec {outs[4]} != plain {outs[0]} ({sp})")
+        big, _ = run_batcher(c, params, mp, [14, 12, 14, 10], n_slots=2,
+                             max_seq=48)
+        small, bat = run_batcher(c, params, mp, [14, 12, 14, 10], n_slots=2,
+                                 max_seq=48, n_pages=5)
+        check(bat.preemptions > 0 and small == big,
+              f"deepseek preempted {small} != unpreempted {big} "
+              f"({bat.preemptions} preemptions)")
+        empty_index(bat)
+        print(f"moe smoke exactness [deepseek latent pages]: prefix hit == "
+              f"cold; speculate_k 4 == plain (drafted {sp['drafted']}, "
+              f"accepted {sp['accepted']}); a 5-page pool "
+              f"({bat.preemptions} preemptions) == unpreempted")
+        del params
+
+    # per-row capacity on dense slots.
+    base = dataclasses.replace(smoke_variant(get("phi3p5-moe-42b")),
+                               capacity_factor=0.05, decode_flash=True)
+    params = PP.tree_map(lambda _, a: a.to(DEVICE),
+                         registry.init(base, seed, device="cpu"))
+    prompts = [rng.integers(0, base.vocab_size, 12).astype(np.int32)
+               for _ in range(12)]
+    max_news = [3 + i % 5 for i in range(12)]
+    got, bat = run_batcher(base, params, prompts, max_news, n_slots=12,
+                           max_seq=32)
+    for i, (p, m) in enumerate(zip(prompts, max_news)):
+        alone, _ = run_batcher(base, params, [p], [m], n_slots=1, max_seq=32)
+        check(got[i] == alone[0], f"per-row capacity: request {i} on 12 "
+              f"slots {got[i]} != alone {alone[0]}")
+    print(f"moe smoke exactness [per-row capacity]: 12 requests on 12 dense "
+          f"slots (capacity factor 0.05, {bat.steps} steps) == each served "
+          f"alone on one slot")
+    del params
+    torch.cuda.empty_cache()
+    print(f"moe smoke exactness phase: {time.perf_counter() - t_phase:.1f}s")
+
+
+# the time split of a moe-family decode step: the kernels launched
+# inside these functions of ``models/layers.py`` (other than matrix
+# products) are MoE dispatch and combine, or MLA glue.
+MOE_RANGES = {"_moe_dispatch": "moe_dispatch_combine",
+              "_moe_combine": "moe_dispatch_combine",
+              "mla_apply": "mla_glue", "mla_apply_paged": "mla_glue"}
+
+
+def profile_classes(fn, n: int):
+    """``profile_window`` of ``fn``, plus the device time per call split
+    as attention kernel (B1/B3) / matmul / MoE dispatch and combine / MLA
+    glue / other: each kernel is charged to the class of the innermost
+    ``MOE_RANGES`` function it was launched in (a ``record_function``
+    range around each, set only for the profiled calls).  The profiler
+    links kernels launched through the C interface (B1, B3) to no host
+    event, so their time is ``profile_window``'s, from the device
+    timeline by kernel name."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import layers
+    out = profile_window(fn, n)
+    saved = {name: getattr(layers, name) for name in MOE_RANGES}
+
+    def ranged(name, f):
+        def g(*a, **kw):
+            with record_function(f"moe_range::{name}"):
+                return f(*a, **kw)
+        return g
+
+    for name, f in saved.items():
+        setattr(layers, name, ranged(name, f))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+    finally:
+        for name, f in saved.items():
+            setattr(layers, name, f)
+    gemm = dict(SPLIT)["matmul"]
+    split = dict.fromkeys(("matmul", "moe_dispatch_combine", "mla_glue",
+                           "other"), 0.0)
+    for ev in prof.events():
+        if not getattr(ev, "kernels", None):
+            continue
+        cls, p = None, ev
+        while p is not None and cls is None:
+            if p.name.startswith("moe_range::"):
+                cls = MOE_RANGES[p.name.split("::", 1)[1]]
+            p = p.cpu_parent
+        for k in ev.kernels:
+            key = ("matmul" if any(pat in k.name for pat in gemm)
+                   else cls or "other")
+            split[key] += k.duration
+    if not sum(split.values()) or "matmul_ms" not in out:
+        out["split_ms"] = "not measured"
+        return out
+    out["split_ms"] = {"attention_kernel": out["B1_flash_decode_paged_ms"]
+                       + out["B3_flash_decode_ms"],
+                       **{k: v / n / 1e3 for k, v in split.items()}}
+    return out
+
+
+@contextlib.contextmanager
+def count_moe_drops():
+    """Count the expert copies MoE dispatch drops at capacity, on the
+    device (no host read until the end); yields a function giving the
+    dropped share of all copies routed."""
+    from repro_torch.models import layers
+    inner = layers._moe_dispatch
+    tally = torch.zeros(2, dtype=torch.int64, device=DEVICE)
+
+    def counted(*a, **kw):
+        disp, meta = inner(*a, **kw)
+        keep = meta[2]
+        tally[0] += keep.numel()
+        tally[1] += keep.numel() - keep.sum()
+        return disp, meta
+
+    layers._moe_dispatch = counted
+    try:
+        yield lambda: (tally[1] / tally[0].clamp(min=1)).item()
+    finally:
+        layers._moe_dispatch = inner
+
+
+# phi3.5-moe at full widths: 16 of its 32 layers (41.88 B parameters in
+# all, 83.8 GB in bf16, leave no room for a KV pool on one 80 GB card).
+PHI_LAYERS = 16
+
+
+def phase_moe_full_width(seed):
+    """deepseek-v2-lite-16b at full width and depth (27 layers) and
+    phi3.5-moe at full widths with ``PHI_LAYERS`` layers, random bf16
+    weights from the seed, the minitron cell's traffic (16 requests of
+    256-512 prompt tokens, 64 new, 8 slots, max_seq 1024, page 16, chunk
+    128): each served paged (phi3.5 with ``decode_flash``: B1) and from
+    dense slots (phi3.5: B3), B1 / B3 launched steps x 16 exactly; per
+    serve tokens/s, the median decode step, TTFT, peak memory and pages;
+    per model one paged and one dense decode step profiled (launches,
+    idle share, the device time split by ``profile_classes``), the share
+    of expert copies dropped at capacity per serve, phi3.5's
+    step logits through the kernels vs the plain path (reported, not
+    held: top-k routing amplifies one-ulp differences), and
+    paged-vs-dense token identity as a share.  Returns {path:
+    launches}."""
+    from repro_torch.configs import get
+    from repro_torch.models import params as PP
+    from repro_torch.models import registry
+    from repro_torch.serve.batching import ContinuousBatcher, Request
+    from repro_torch.serve.serve_loop import make_paged_decode_step
+    t_phase = time.perf_counter()
+    counts = kernel_counts()
+    paths = {}
+    for arch, n_layers in (("deepseek-v2-lite-16b", None),
+                           ("phi3p5-moe-42b", PHI_LAYERS)):
+        torch.cuda.empty_cache()
+        base = dataclasses.replace(get(arch), decode_flash=True)
+        if n_layers:
+            base = dataclasses.replace(base, n_layers=n_layers)
+        t = time.perf_counter()
+        params = registry.init(base, seed, device=DEVICE,
+                               dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in PP.tree_leaves(params))
+        print(f"full width: {arch}, {base.n_layers} layers, {n_params} bf16 "
+              f"parameters ({torch.cuda.memory_allocated() / 1e9:.2f} GB on "
+              f"the card) drawn in {time.perf_counter() - t:.2f}s")
+        L = base.n_layers
+        paged = dataclasses.replace(base, kv_page_size=PAGE,
+                                    prefill_chunk=CHUNK)
+        outs = {}
+        for label, cfg in (("paged", paged), ("dense", base)):
+            with count_moe_drops() as drops:
+                summary, launches, bat, outs[label] = serve_full_width(
+                    cfg, params, seed, counts)
+            summary["moe_copies_dropped_share"] = drops()
+            kernel = ("flash_attention_decode_paged" if bat.paged
+                      else "flash_attention_decode")
+            want = 0 if base.mla else bat.steps * L
+            check(launches[kernel] == want, f"{arch} [{label}] {kernel} "
+                  f"launches {launches[kernel]} != {want}")
+            print(f"full-width serve [{arch}, {label}]: "
+                  + json.dumps(summary))
+            paths[f"{arch} {label}"] = launches
+            del bat
+            torch.cuda.empty_cache()
+        same = sum(x == y for x, y in zip(outs["paged"], outs["dense"]))
+        share = float(np.mean([x == y for u, v in zip(outs["paged"],
+                                                       outs["dense"])
+                               for x, y in zip(u, v)]))
+        print(f"full-width {arch}, paged vs dense token identity (bf16: MoE "
+              f"routing and GEMM shapes may flip a rounding; reported, not "
+              f"held): {same} of {N_REQ} requests, {share:.4f} of tokens")
+
+        # one paged decode step on pools prefilled at 100-900 positions.
+        rng = np.random.default_rng(seed + 40)
+        pools, bt, state, _, _ = prefill_pools(paged, params, rng)
+        last_tok, pos = state[0], state[1]
+        if not base.mla:
+            compare_logits(paged, params, {"pages": pools, "block_tab": bt},
+                           last_tok, pos, f"{arch} paged, not held",
+                           hold=False)
+        step = make_paged_decode_step(paged, MAX_SEQ, PAGE)
+        active = torch.ones(N_SLOTS, dtype=torch.bool, device=DEVICE)
+        rem = state[2] + 1000
+
+        def paged_once():
+            *_, out = step(params, pools, bt, last_tok, pos, rem, active)
+            out.cpu()
+
+        paged_once()
+        prof = {"paged_decode_step": profile_classes(paged_once, 5)}
+        del pools, step, state
+        torch.cuda.empty_cache()
+
+        # one dense decode step: 8 slots admitted at 100-900 positions.
+        bat = ContinuousBatcher(base, params, n_slots=N_SLOTS,
+                                max_seq=MAX_SEQ, device=DEVICE)
+        for i, plen in enumerate(rng.integers(100, 900, N_SLOTS)):
+            bat.requests.Push(Request(rid=i, prompt=rng.integers(
+                0, base.vocab_size, int(plen)).astype(np.int32), max_new=4))
+        bat.admit()
+        check(all(r is not None for r in bat._slot_req), "slots not filled")
+        if not base.mla:
+            compare_logits(base, params, bat.cache, bat.last_tok, bat.pos,
+                           f"{arch} dense, not held", hold=False)
+        dpos, drem = bat.pos.clone(), bat.remaining + 1000
+
+        def dense_once():
+            *_, out = bat._step(params, bat.cache, bat.last_tok, dpos, drem,
+                                active)
+            out.cpu()
+
+        dense_once()
+        prof["dense_decode_step"] = profile_classes(dense_once, 5)
+        print(f"time split [{arch}] (8 slots at 100-900 positions): "
+              + json.dumps(prof))
+        del bat, params
+        torch.cuda.empty_cache()
+    print(f"full-width moe phase: {time.perf_counter() - t_phase:.1f}s")
     return paths
 
 
@@ -3799,12 +4150,14 @@ def main():
     phase_recurrent_exactness(args.seed)
     phase_gemma3_exactness(args.seed)
     phase_tier_resilience_exactness(args.seed)
+    phase_moe_exactness(args.seed)
     paths = phase_full_width(args.seed)
     spec_paths = phase_prefix_spec_full_width(args.seed)
     tier_paths = phase_tiered_full_width(args.seed)
     paths["hlslib ops"] = phase_hlslib_path(args.seed)
     paths.update(phase_recurrent_full_width(args.seed))
     g3_paths = phase_gemma3_full_width(args.seed)
+    moe_paths = phase_moe_full_width(args.seed)
     tel_paths = phase_telemetry_sampling(args.seed)
 
     # each kernel's row: its launches on the full-width path that runs it,
@@ -3814,12 +4167,14 @@ def main():
     d_rows = b2["full cache (8*8*1024 x 128, bf16)"]
     # B1's launches: every paged bf16 serve, decode and verify steps
     # (minitron-4b's, its tiered rounds', its telemetry runs' and
-    # gemma3-12b's); B3's: the dense bf16 serves.
+    # gemma3-12b's and phi3.5-moe's); B3's: the dense bf16 serves.
     b1_paths = ([paths["paged bf16"]] + list(spec_paths.values())
                 + list(tier_paths.values()) + list(tel_paths.values())
                 + [g3_paths["gemma3-12b paged"],
                    g3_paths["gemma3-12b paged, speculate_k 4"]])
-    b3_paths = [paths["dense bfloat16"], g3_paths["gemma3-12b dense"]]
+    b3_paths = [paths["dense bfloat16"], g3_paths["gemma3-12b dense"],
+                moe_paths["phi3p5-moe-42b dense"]]
+    b1_paths.append(moe_paths["phi3p5-moe-42b paged"])
     b1_paths.append(g3_paths["gemma3-12b paged, speculate_k 4, 2 scratch "
                              "pages per slot"])
     rows = {

@@ -24,6 +24,13 @@ with the prefix cache off, as the reference does:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
         --smoke --device cpu --page-size 8 --prompt-len 24 --max-seq 48
 
+The moe family serves paged and dense: phi3.5-moe (``--arch
+phi3p5-moe-42b``, GQA attention) on the flat layout, deepseek (``--arch
+deepseek-v2-lite-16b``, MLA) on latent pages, which take the prefix
+cache, speculation and the host tier; in dense slots each slot's MoE
+tokens have their own capacity.  paligemma and musicgen are a later
+slice's and raise.
+
 Paged serving also takes the prefix cache (``--prefix-cache``, with
 ``--shared-prefix N`` giving every request the same first N tokens, and
 ``--prefill-exact``) and speculative decode (``--speculate-k K`` or

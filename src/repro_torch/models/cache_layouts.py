@@ -15,8 +15,11 @@ page, 1) when ``cfg.kv_cache_dtype == "int8"``.  gemma3's
 layers with a window-bounded ring of pages (the table wraps and pages
 are reused in place), ``global`` the full-attention layers, growing
 with the sequence; its leaves are (G, per_kind, n_pages, hkv, page, hd).
-Every primitive below walks all leaves of a group, so scale pages move
-with their pages.  MLA's latent pages come with a later slice.
+MLA's ``LatentLayout`` has one ``latent`` group whose pools nest,
+{"first": {c_kv, k_rope}, "rest": {...}}, leaves (L, n_pages, page,
+lora | rope) with no per-head axis.  Every primitive below walks all
+leaves of a group, nested or not, so scale pages move with their pages
+and latent pages with their rope heads.
 
 Each ``PageGroup`` declares whether its pages may be aliased across
 sequences (the prefix cache): flat groups are, since a page holds a
@@ -34,7 +37,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from . import layers as L
-from .params import stack_decls as _stack_decls, tree_map
+from .params import stack_decls as _stack_decls, tree_leaves, tree_map
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -150,8 +153,11 @@ class CacheLayout:
         pool exactly: a silent cast would corrupt the pages, so a
         mismatch raises."""
         ax = self.page_axis(name)
-        for leaf, a in pools[name].items():
-            d = data[leaf]
+
+        def put(path, a):
+            d = data
+            for key in path:
+                d = d[key]
             if d.dtype != a.dtype:
                 raise TypeError(
                     f"restore_pages({name!r}): payload dtype {d.dtype} != "
@@ -160,6 +166,8 @@ class CacheLayout:
             idx = torch.as_tensor(list(pages), dtype=torch.int64,
                                   device=a.device)
             a.index_copy_(ax, idx, d.to(a.device))
+
+        tree_map(put, pools[name])
         return pools
 
     def spill(self, pools, name: str, pages: Sequence[int]):
@@ -183,10 +191,11 @@ class CacheLayout:
         place on the card: one ``index_select`` and one ``index_copy_``
         per pool leaf, no host round trip.  Returns the pools dict."""
         ax = self.page_axis(name)
-        dev = next(iter(pools[name].values())).device
-        si, di = (torch.as_tensor(list(p), dtype=torch.int64, device=dev)
+        leaves = tree_leaves(pools[name])
+        si, di = (torch.as_tensor(list(p), dtype=torch.int64,
+                                  device=leaves[0].device)
                   for p in (src, dst))
-        for a in pools[name].values():
+        for a in leaves:
             a.index_copy_(ax, di, a.index_select(ax, si))
         return pools
 
@@ -217,16 +226,33 @@ class LocalGlobalLayout(CacheLayout):
         return 2                      # leaves are (G, per_kind, n_pages, ...)
 
 
+class LatentLayout(CacheLayout):
+    """MLA (deepseek): pages over the compressed latent rows — each page
+    holds ``(page, kv_lora_rank)`` plus the shared rope head, no
+    per-head axis at all (the MLA memory win, paged).  One shareable
+    ``latent`` group; its pools nest {"first", "rest"} over the two
+    layer stacks, leaves (L, n_pages, page, ...)."""
+
+    @property
+    def groups(self) -> Tuple[PageGroup, ...]:
+        return (PageGroup("latent"),)
+
+    def pool_decls(self, n_pages: Dict[str, int]):
+        cfg = self.cfg
+        Ld = cfg.first_dense_layers
+        base = L.mla_paged_cache_decl(cfg, n_pages["latent"], self.page)
+        return {"latent": {"first": _stack_decls(base, Ld),
+                           "rest": _stack_decls(base, cfg.n_layers - Ld)}}
+
+
 @functools.lru_cache(maxsize=64)
 def get_layout(cfg, page_size: int) -> Optional[CacheLayout]:
     """The layout registry.  ``None`` = the family has no pageable cache
-    in the reference either (recurrent state, and the vlm/audio stubs);
-    MLA's latent layout, a later slice's, raises."""
+    in the reference either (recurrent state, and the vlm/audio stubs)."""
     if cfg.family not in ("dense", "moe"):
         return None
     if cfg.mla:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA latent pages come with the MLA slice")
+        return LatentLayout(cfg, page_size)
     if cfg.local_global_pattern:
         return LocalGlobalLayout(cfg, page_size)
     return CacheLayout(cfg, page_size)

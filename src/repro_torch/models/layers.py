@@ -16,9 +16,13 @@ row, in the dense cache and in the page pools alike.
 Paged attention also scores speculative-decode verify spans
 (``attention_apply_paged(verify=True)``) and reads gemma3's local layers
 through a ring of pages (``ring=True``, bases from ``ring_page_base``).
-Not in this slice: MLA attention (the MLA slice), MoE (the MoE slice).
-Their parameter declarations are here, so every architecture's parameter
-tree can be built.
+
+MLA (deepseek-v2): ``mla_apply`` for train, prefill and dense decode on
+the compressed latent cache, ``mla_apply_paged`` for chunk, decode and
+verify on latent pages.  MoE: ``moe_apply``, top-k routing with
+capacity-bounded dispatch; ``row_capacity`` gives each batch row its own
+capacity (the dense-slot steps, where the reference vmaps one row).
+Neither has a hand-written kernel, in the reference or here.
 """
 
 from __future__ import annotations
@@ -561,7 +565,7 @@ def _from_cache(leaves: Dict[str, torch.Tensor], dtype
             for n in ("k", "v")}
 
 
-# --- MLA (deepseek-v2): declarations only in this slice -----------------------------
+# --- MLA (deepseek-v2) ---------------------------------------------------------------
 
 
 def mla_decls(cfg, stack: Tuple[int, ...] = ()) -> Dict[str, Decl]:
@@ -577,6 +581,193 @@ def mla_decls(cfg, stack: Tuple[int, ...] = ()) -> Dict[str, Decl]:
         "w_uk": Decl(stack + (lora, hq * nope), ax + ("lora", "heads")),
         "w_uv": Decl(stack + (lora, hq * vd), ax + ("lora", "heads")),
         "wo": Decl(stack + (hq * vd, d), ax + ("heads", "embed")),
+    }
+
+
+def mla_latent(cfg, p, x):
+    """Projections of a block input x (b, s, d): ``q`` (b, s, hq, nope +
+    rope) before rotary, the latent rows ``c_kv`` (b, s, lora) and the
+    un-rotated shared rope head (b, s, rope)."""
+    b, s, _ = x.shape
+    lora = cfg.kv_lora_rank
+    h = rmsnorm(x, p["norm"])
+    q = (h @ p["wq"]).reshape(b, s, cfg.n_heads,
+                              cfg.qk_nope_dim + cfg.qk_rope_dim)
+    dkv = h @ p["w_dkv"]
+    return q, rmsnorm(dkv[..., :lora], p["kv_norm"]), dkv[..., lora:]
+
+
+def _mla_absorbed(cfg, p, q_nope, q_rope, CC, CR, valid, dtype):
+    """Absorbed attention on the latent rows: q_nope (b, s, hq, nope) is
+    folded through w_uk into the latent space, scored against CC (b, S,
+    lora) fp32 plus q_rope against the shared rope head CR (b, S, rope),
+    masked by ``valid`` (b, s, S) and read back through w_uv.  Returns
+    (b, s, hq * vd) in ``dtype``."""
+    hq, nope, lora, vd = (cfg.n_heads, cfg.qk_nope_dim, cfg.kv_lora_rank,
+                          cfg.v_head_dim)
+    b, s = q_nope.shape[:2]
+    w_uk = p["w_uk"].reshape(lora, hq, nope).to(F32)
+    q_eff = torch.einsum("bshn,lhn->bshl", q_nope.to(F32), w_uk)
+    logits = (torch.einsum("bshl,bSl->bhsS", q_eff, CC)
+              + torch.einsum("bshr,bSr->bhsS", q_rope.to(F32), CR)) \
+        / float(np.sqrt(nope + cfg.qk_rope_dim))
+    logits = logits.masked_fill(~valid[:, None], float("-inf"))
+    probs = torch.softmax(logits, -1)
+    ctx = torch.einsum("bhsS,bSl->bshl", probs, CC)
+    w_uv = p["w_uv"].reshape(lora, hq, vd).to(F32)
+    o = torch.einsum("bshl,lhv->bshv", ctx, w_uv).to(dtype)
+    return o.reshape(b, s, hq * vd)
+
+
+def mla_apply(cfg, p, x, *, cache: Optional[Dict[str, torch.Tensor]] = None,
+              pos=None):
+    """Pre-norm MLA attention with residual.  Train/prefill when cache is
+    None (the latent rows expanded to per-head K/V, causal attention);
+    else absorbed single-token decode on the compressed cache: ``cache``
+    holds c_kv (b, S, lora) and k_rope (b, S, rope), bf16, written in
+    place at ``decode_slot`` (clamped, as the reference's
+    dynamic_update_slice), and ``pos`` is a (b,) tensor or a host int —
+    each row decodes at its own position, keys ``<= pos`` valid, as the
+    reference's vmap over slots does.  Returns (y, cache)."""
+    b, s, _ = x.shape
+    hq, nope, rp, vd = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                        cfg.v_head_dim)
+    q, c_kv, k_rope_raw = mla_latent(cfg, p, x)
+    if cache is None:
+        positions = torch.arange(s, device=x.device)
+        q_nope, q_rope = q[..., :nope], rope(q[..., nope:], positions,
+                                             cfg.rope_theta)
+        k_rope = rope(k_rope_raw, positions, cfg.rope_theta)
+        k_nope = (c_kv @ p["w_uk"]).reshape(b, s, hq, nope)
+        vv = (c_kv @ p["w_uv"]).reshape(b, s, hq, vd)
+        qq = torch.cat([q_nope, q_rope], -1).transpose(1, 2)
+        kk = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, hq, rp)],
+                       -1).transpose(1, 2)
+        o = attention_xla(qq, kk, vv.transpose(1, 2), causal=True,
+                          scale=1.0 / np.sqrt(nope + rp))
+        o = o.transpose(1, 2).reshape(b, s, -1)
+        new_cache = None
+    else:
+        pos = decode_pos(pos, b, x.device)
+        q_nope = q[..., :nope]
+        q_rope = rope(q[..., nope:], pos[:, None, None], cfg.rope_theta)
+        k_rope = rope(k_rope_raw, pos[:, None], cfg.rope_theta)  # (b, 1, rp)
+        cc, cr = cache["c_kv"], cache["k_rope"]
+        S = cc.shape[1]
+        rows = torch.arange(b, device=x.device)
+        slot = decode_slot(pos, S)
+        cc[rows, slot] = c_kv[:, 0].to(cc.dtype)
+        cr[rows, slot] = k_rope[:, 0].to(cr.dtype)
+        valid = (torch.arange(S, device=x.device)[None, :]
+                 <= pos[:, None])[:, None, :]              # (b, 1, S)
+        o = _mla_absorbed(cfg, p, q_nope, q_rope, cc.to(F32), cr.to(F32),
+                          valid, x.dtype)
+        new_cache = cache
+    return x + o @ p["wo"], new_cache
+
+
+def mla_prefill_latent(cfg, p, x, cache_len: Optional[int] = None):
+    """The latent cache rows a prefill emits: c_kv (b, Sc, lora) and the
+    rotated k_rope (b, Sc, rope), bf16, zero past the prompt (recomputed
+    from the block input, as the reference does)."""
+    s = x.shape[1]
+    _, c_kv, k_rope = mla_latent(cfg, p, x)
+    k_rope = rope(k_rope, torch.arange(s, device=x.device), cfg.rope_theta)
+    Sc = cache_len or s
+    if Sc > s:
+        c_kv = F.pad(c_kv, (0, 0, 0, Sc - s))
+        k_rope = F.pad(k_rope, (0, 0, 0, Sc - s))
+    return {"c_kv": c_kv.to(torch.bfloat16),
+            "k_rope": k_rope.to(torch.bfloat16)}
+
+
+def mla_apply_paged(cfg, p, x, *, pages: Dict[str, torch.Tensor],
+                    block_tab: torch.Tensor, pos: torch.Tensor,
+                    last_idx: Optional[torch.Tensor] = None,
+                    cache_offset: Optional[torch.Tensor] = None,
+                    verify: bool = False, write_idx=None):
+    """MLA absorbed attention against a *paged* latent cache.
+
+    ``pages``: this layer's {"c_kv" (n_pages, page, lora), "k_rope"
+    (n_pages, page, rope)} bf16 pools, written in place — no per-head
+    axis (the MLA memory win, page-granular).  x: (b, s, d) — s == 1 a
+    decode step, s > 1 a prefill chunk at positions pos..pos+s-1, or
+    with ``verify`` a speculative span.  The PRE-write pool is gathered
+    (table entries clamped into ``[0, n_pages)``) and the chunk's own
+    latent rows overlaid: a chunk reads them at full precision, a decode
+    step or verify span pool-rounded (what sequential decode reads back),
+    so spec == plain and paged == dense hold bit for bit.  The append
+    writes only the kept rows (``paged_write_index``; ``write_idx`` is
+    its result when the caller computed it once per forward) where the
+    reference scatters every row with ``mode="drop"``.  The latent pool
+    is never sharded here (``lora_local == lora``).  Returns (y, pages).
+    """
+    b, s, _ = x.shape
+    nope = cfg.qk_nope_dim
+    q, c_kv, k_rope_raw = mla_latent(cfg, p, x)
+    positions = pos.to(torch.int64)[:, None] + torch.arange(
+        s, device=x.device)                                    # (b, s)
+    k_rope = rope(k_rope_raw, positions, cfg.rope_theta)
+    q_nope = q[..., :nope]
+    q_rope = rope(q[..., nope:], positions[:, :, None], cfg.rope_theta)
+
+    cp, rpool = pages["c_kv"], pages["k_rope"]
+    n_pages, page, lora = cp.shape
+    n_blocks = block_tab.shape[1]
+    if write_idx is None:
+        write_idx = paged_write_index(block_tab, pos, s, page, n_pages,
+                                      last_idx, cache_offset)
+
+    # read: pre-write pool gather + own-chunk overlay.
+    bt = block_tab.to(torch.int64).clamp(0, n_pages - 1)
+    S = n_blocks * page
+    cc = cp[bt].reshape(b, S, lora).to(F32)
+    cr = rpool[bt].reshape(b, S, -1).to(F32)
+    if s == 1 or verify:                             # pool-rounded own rows
+        cl = c_kv.to(cp.dtype).to(F32)
+        rl = k_rope.to(rpool.dtype).to(F32)
+    else:
+        cl, rl = c_kv.to(F32), k_rope.to(F32)
+    CC = torch.cat([cc, cl], dim=1)                  # (b, S + s, lora)
+    CR = torch.cat([cr, rl], dim=1)
+    kpos = torch.arange(S, device=x.device).expand(b, S)
+    kpos_cat = torch.cat([kpos, positions], dim=1)
+    pre_ok = torch.cat([kpos < positions[:, :1],
+                        torch.ones((b, s), dtype=torch.bool,
+                                   device=x.device)], dim=1)
+    valid = (kpos_cat[:, None, :] <= positions[:, :, None]) \
+        & pre_ok[:, None, :]                         # (b, s, S + s)
+    o = _mla_absorbed(cfg, p, q_nope, q_rope, CC, CR, valid, x.dtype)
+
+    # append: the kept latent rows into the pools.
+    rows_b, rows_s, wp, wo = write_idx
+    cp[wp, wo] = c_kv[rows_b, rows_s].to(cp.dtype)
+    rpool[wp, wo] = k_rope[rows_b, rows_s].to(rpool.dtype)
+    return x + o @ p["wo"], pages
+
+
+def mla_paged_cache_decl(cfg, n_pages: int, page_size: int
+                         ) -> Dict[str, Decl]:
+    """One MLA layer's latent page pool: (n_pages, page, lora) rows of the
+    compressed cache plus the shared rope head (n_pages, page, rope),
+    bf16 whatever ``kv_cache_dtype`` says (as in the reference)."""
+    return {
+        "c_kv": Decl((n_pages, page_size, cfg.kv_lora_rank),
+                     (None, None, "lora"), torch.bfloat16, init="zeros"),
+        "k_rope": Decl((n_pages, page_size, cfg.qk_rope_dim),
+                       (None, None, None), torch.bfloat16, init="zeros"),
+    }
+
+
+def mla_cache_decl(cfg, batch: int, max_seq: int) -> Dict[str, Decl]:
+    """Dense slot latent cache: c_kv (batch, max_seq, lora) and k_rope
+    (batch, max_seq, rope), bf16."""
+    seq_ax = "seq_sharded" if batch == 1 else None
+    return {
+        "c_kv": Decl((batch, max_seq, cfg.kv_lora_rank),
+                     ("batch", seq_ax, "lora"), torch.bfloat16, init="zeros"),
+        "k_rope": Decl((batch, max_seq, cfg.qk_rope_dim),
+                       ("batch", seq_ax, None), torch.bfloat16, init="zeros"),
     }
 
 
@@ -624,3 +815,93 @@ def moe_decls(cfg, stack: Tuple[int, ...] = ()) -> Dict[str, Decl]:
             "sh_down": Decl(stack + (fs, d), ax + ("ff", "embed")),
         })
     return decls
+
+
+def _moe_dispatch(cfg, p, xg, dtype):
+    """Capacity-bounded dispatch of G token groups at once (the
+    reference's ``_moe_dispatch_combine``, vmapped over groups when G >
+    1).  xg: (G, T, d).  Returns the dispatch tensor (E, G * cap, d) —
+    expert-major, so the expert products are one batched matmul over the
+    experts whatever G is — and the routing (flat_e, safe_pos, keep,
+    gates), each (G, T * k) but gates (G, T, k), as the reference's.
+
+    Top-k: the first k of a stable descending sort, so tied logits pick
+    the lower expert index, as ``lax.top_k`` does.  Copies are numbered
+    token-major (``jnp.repeat(x, k)``); each expert's kept copies are its
+    first ``cap`` in that order.  Kept (expert, slot) pairs are unique,
+    so each is written once, no accumulation; dropped copies go to one
+    spare row past the tensor, never read."""
+    G, T, d = xg.shape
+    E, k = cfg.n_experts, cfg.top_k
+    logits = (xg @ p["router"]).to(F32)                      # (G, T, E)
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    gates = torch.softmax(vals[..., :k], dim=-1).to(dtype)   # (G, T, k)
+    cap = int(np.ceil(T * k / E * cfg.capacity_factor))
+    cap = -(-max(cap, 8) // 8) * 8
+
+    flat_e = idx[..., :k].reshape(G, T * k)                  # (G, T·k)
+    onehot = F.one_hot(flat_e, E)                            # (G, T·k, E)
+    pos_in_e = torch.gather(onehot.cumsum(dim=1) - 1, 2,
+                            flat_e[..., None])[..., 0]
+    keep = pos_in_e < cap
+    safe_pos = torch.where(keep, pos_in_e, cap - 1)
+
+    row = _expert_rows(flat_e, safe_pos, cap)
+    spare = E * G * cap
+    buf = torch.zeros((spare + 1, d), dtype=dtype, device=xg.device)
+    buf[torch.where(keep, row, spare).reshape(-1)] = \
+        xg.to(dtype).repeat_interleave(k, dim=1).reshape(-1, d)
+    disp = buf[:spare].view(E, G * cap, d)
+    return disp, (flat_e, safe_pos, keep, gates)
+
+
+def _expert_rows(flat_e, safe_pos, cap: int) -> torch.Tensor:
+    """Row of each (group, copy) in the expert-major (E, G, cap) layout,
+    flattened."""
+    G = flat_e.shape[0]
+    g = torch.arange(G, device=flat_e.device)[:, None]
+    return (flat_e * G + g) * cap + safe_pos
+
+
+def _moe_combine(out_e, meta, dtype):
+    """Gather each copy's expert output (zero where dropped), weight it
+    by its gate, sum over the k copies, cast: the reference's rounding
+    points.  out_e: (E, G * cap, d) -> (G, T, d)."""
+    flat_e, safe_pos, keep, gates = meta
+    G, T, k = gates.shape
+    d = out_e.shape[-1]
+    row = _expert_rows(flat_e, safe_pos, out_e.shape[1] // G)
+    y_rep = out_e.reshape(-1, d)[row.reshape(-1)].reshape(G, T * k, d) \
+        * keep[..., None].to(out_e.dtype)
+    return (y_rep.reshape(G, T, k, d) * gates[..., None]).sum(2).to(dtype)
+
+
+def moe_groups(cfg, b: int, s: int, row_capacity: bool = False) -> int:
+    """Token groups of one MoE call on x (b, s, d), each with its own
+    capacity.  Shared capacity (one batched call, as the reference's
+    paged steps and ``greedy_generate``): ``cfg.moe_groups`` when it
+    divides the b·s tokens into groups of at least 8, else 1.
+    ``row_capacity`` (the dense-slot steps, where the reference vmaps a
+    single-row forward): each row on its own, that row's s tokens split
+    by the same rule."""
+    G = cfg.moe_groups
+    T = s if row_capacity else b * s
+    per = G if (G and T % G == 0 and T // G >= 8) else 1
+    return per * b if row_capacity else per
+
+
+def moe_apply(cfg, p, x, row_capacity: bool = False):
+    """Top-k MoE with capacity-bounded scatter dispatch, SwiGLU experts
+    and gate-weighted combine, plus ``n_shared_experts`` always-on
+    experts; groups of tokens (``moe_groups``) each have their own
+    capacity.  Returns x + y."""
+    b, s, d = x.shape
+    h = rmsnorm(x, p["norm"])
+    G = moe_groups(cfg, b, s, row_capacity)
+    disp, meta = _moe_dispatch(cfg, p, h.reshape(G, b * s // G, d), x.dtype)
+    hh = swiglu(torch.bmm(disp, p["w_gate"]), torch.bmm(disp, p["w_up"]))
+    out_e = torch.bmm(hh, p["w_down"])                       # (E, G·cap, d)
+    y = _moe_combine(out_e, meta, x.dtype).reshape(b, s, d)
+    if cfg.n_shared_experts:
+        y = y + (swiglu(h @ p["sh_gate"], h @ p["sh_up"]) @ p["sh_down"])
+    return x + y

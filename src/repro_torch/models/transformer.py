@@ -29,8 +29,16 @@ the slot axis at 2, or page pools read through per-group block tables, the local
 group a ring of pages.  Recurrent caches are slot-dense (nothing to
 page): ssm's is {"conv", "ssd"} stacked over the layers, hybrid's
 {"ssm": that, "attn": the shared block's K/V stacked over its
-application sites}; every leaf has its slot axis at 1.  MoE, MLA, vlm
-and audio come with later slices and raise here.
+application sites}; every leaf has its slot axis at 1.
+
+The moe family runs in every mode: phi3.5-moe's GQA attention with an
+MoE block in place of the MLP, and deepseek's MLA attention over a
+compressed latent cache, one dense-MLP layer ("first") then MLA + MoE
+layers with shared experts ("rest"); its caches are {"first", "rest"} of
+{"c_kv", "k_rope"} leaves (slot axis 1), its page pools the "latent"
+group's.  ``row_capacity`` gives each batch row its own MoE capacity (the
+dense-slot steps, where the reference vmaps a one-row forward).  vlm and
+audio come with a later slice and raise here.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ import torch
 
 from . import layers as L
 from . import ssm as S
-from .params import Decl, stack_decls, tree_map
+from .params import Decl, stack_decls, tree_leaves, tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -127,10 +135,10 @@ def model_decls(cfg) -> Dict[str, Any]:
 
 
 def _check_forward_family(cfg) -> None:
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): forward comes with the "
-            "remaining-families slice")
+            f"{cfg.name} ({cfg.family}): forward comes with the vlm and "
+            "audio slice (paligemma, then musicgen)")
 
 
 def _n_shared(cfg) -> int:
@@ -141,7 +149,9 @@ def _n_shared(cfg) -> int:
 def cache_decls(cfg, batch: int, max_seq: int):
     """Dense slot caches: {"k", "v"} of (n_layers, batch, hkv, S, hd),
     bf16, or int8 plus bf16 {"k_scale", "v_scale"} of (n_layers, batch,
-    hkv, S, 1) when ``cfg.kv_cache_dtype == "int8"``.  ssm: {"conv"
+    hkv, S, 1) when ``cfg.kv_cache_dtype == "int8"``.  deepseek (MLA):
+    {"first", "rest"} of {"c_kv" (L, batch, max_seq, lora), "k_rope" (L,
+    batch, max_seq, rope)}, bf16 whatever ``kv_cache_dtype``.  ssm: {"conv"
     (n_layers, batch, K-1, C), "ssd" (n_layers, batch, h, ds, hd)}, fp32;
     hybrid: {"ssm": those, "attn": the K/V leaves stacked over the shared
     block's application sites}; gemma3: {"local": (G, n_local, batch,
@@ -155,6 +165,11 @@ def cache_decls(cfg, batch: int, max_seq: int):
         glo = L.attention_cache_decl(cfg, batch, max_seq, None)
         return stack_decls({"local": stack_decls(loc, n_local),
                             "global": stack_decls(glo, per - n_local)}, G)
+    if cfg.family == "moe" and cfg.mla:
+        base = L.mla_cache_decl(cfg, batch, max_seq)
+        Ld = cfg.first_dense_layers
+        return {"first": stack_decls(base, Ld),
+                "rest": stack_decls(base, cfg.n_layers - Ld)}
     if cfg.family in ("ssm", "hybrid"):
         ssm = stack_decls(S.mamba2_cache_decl(cfg, batch), cfg.n_layers)
         if cfg.family == "ssm":
@@ -175,7 +190,9 @@ def paged_cache_decls(cfg, n_pages, page_size: int):
     """Per-group, per-layer shared page pools, stacked over layers —
     (n_layers, n_pages, hkv, page_size, head_dim) per k/v leaf of the
     flat layout's "kv" group, (G, per_kind, n_pages, ...) for gemma3's
-    "local" and "global".  ``n_pages``: int or {group_name: int}."""
+    "local" and "global", {"first", "rest"} of (L, n_pages, page_size,
+    lora | rope) for MLA's "latent".  ``n_pages``: int or {group_name:
+    int}."""
     from .cache_layouts import get_layout
     layout = get_layout(cfg, page_size)
     if layout is None:
@@ -231,14 +248,16 @@ def forward(cfg, params, batch, mode: str = "train",
             cache: Optional[Any] = None, pos=None,
             cache_len: Optional[int] = None,
             last_pos: Optional[torch.Tensor] = None,
-            cache_offset: Optional[torch.Tensor] = None):
+            cache_offset: Optional[torch.Tensor] = None,
+            row_capacity: bool = False):
     """train -> logits (b, s, Vp); prefill -> (last logits, cache);
     decode/chunk/verify -> (logits, cache).
 
     ``last_pos`` (prefill/chunk): (b,) index of the true last token; the
     returned logits are gathered there.  Paged serving: pass
     ``cache={"pages": pools, "block_tab": bt}`` with pools and tables
-    keyed by page group ({"kv"}, or gemma3's {"local", "global"}).
+    keyed by page group ({"kv"}, gemma3's {"local", "global"}, MLA's
+    {"latent"}).
     ``pos`` (decode/chunk) is a (b,) position tensor, one position per
     row; dense decode also takes a host int for every row.  ``cache_offset`` (chunk mode): (b,) position
     below which the cache is read-only.  The pools or the dense cache
@@ -248,7 +267,12 @@ def forward(cfg, params, batch, mode: str = "train",
     pos..pos+k-1 against the paged cache, like a batched k-token decode
     step, returning FULL (b, k, Vp) logits (no last-position gather) so
     the caller scores every span position in one call.  The span's own
-    K/V is read pool-rounded, as sequential decode would read it."""
+    K/V is read pool-rounded, as sequential decode would read it.
+
+    ``row_capacity``: every MoE layer gives each batch row its own
+    capacity (``layers.moe_groups``), as the reference's dense-slot
+    batcher gets by vmapping a one-row forward; otherwise the b·s tokens
+    share it, as in the reference's batched paged steps."""
     if mode not in ("train", "prefill", "decode", "chunk", "verify"):
         raise NotImplementedError(f"unknown forward mode {mode!r}")
     dtype = torch_dtype(cfg.dtype)
@@ -274,6 +298,9 @@ def forward(cfg, params, batch, mode: str = "train",
     if cfg.family in ("ssm", "hybrid"):
         x, new_cache = _recurrent_layers(cfg, blocks, x, mode, cache, pos,
                                          cache_len, last_pos)
+    elif cfg.mla:
+        x, new_cache = _mla_layers(cfg, blocks, x, mode, cache, pools,
+                                   block_tab, span, cache_len, row_capacity)
     elif cfg.local_global_pattern:
         x, new_cache = _gemma3_layers(cfg, blocks, x, mode, cache, pools,
                                       block_tab, span, cache_len, last_pos)
@@ -295,7 +322,7 @@ def forward(cfg, params, batch, mode: str = "train",
             else:
                 x = _attn_dense(cfg, p["attn"], x, mode, cache, i, pos, w,
                                 theta, cl, last_pos, emitted, store_rows)
-            x = L.mlp_apply(cfg, p["mlp"], x)
+            x = _ffn(cfg, p, x, row_capacity)
         new_cache = _stack_emitted(emitted) if mode == "prefill" else None
 
     x = L.rmsnorm(x, params["final_norm"])
@@ -314,6 +341,59 @@ def forward(cfg, params, batch, mode: str = "train",
     if block_tab is not None:
         return logits, pools
     return logits, cache
+
+
+def _ffn(cfg, p, x, row_capacity):
+    """A layer's MLP, or its MoE block where it has one."""
+    if "moe" in p:
+        return L.moe_apply(cfg, p["moe"], x, row_capacity)
+    return L.mlp_apply(cfg, p["mlp"], x)
+
+
+def _mla_layers(cfg, blocks, x, mode, cache, pools, block_tab, span,
+                cache_len, row_capacity):
+    """deepseek's stack: the "first" layers (MLA + dense MLP), then the
+    "rest" (MLA + MoE with shared experts), each layer reading its slice
+    of its part's stacked parameters and caches.  Paged, every layer
+    reads and writes its slice of the "latent" group's pools through the
+    one block table (the rows it writes computed once per forward).
+    Returns (x, the {"first", "rest"} cache a prefill emits, else
+    None)."""
+    pos = span["pos"]
+    write_idx = None
+    if block_tab is not None:
+        bt, latent = block_tab["latent"], pools["latent"]
+        n_pages, page = latent["first"]["c_kv"].shape[1:3]
+        write_idx = L.paged_write_index(
+            bt, pos, x.shape[1], page, n_pages, span["last_idx"],
+            span["cache_offset"])
+    emitted = {}
+    for part in ("first", "rest"):
+        emitted[part] = []
+        stack = blocks[part]
+        for i in range(tree_leaves(stack)[0].shape[0]):
+            p = _tree_idx(stack, i)
+            if block_tab is not None:
+                x, _ = L.mla_apply_paged(
+                    cfg, p["attn"], x,
+                    pages={n: a[i] for n, a in latent[part].items()},
+                    block_tab=bt, pos=pos, last_idx=span["last_idx"],
+                    cache_offset=span["cache_offset"],
+                    verify=mode == "verify", write_idx=write_idx)
+            elif mode == "decode":
+                x, _ = L.mla_apply(
+                    cfg, p["attn"], x, pos=pos,
+                    cache={n: c[i] for n, c in cache[part].items()})
+            else:
+                if mode == "prefill":
+                    emitted[part].append(L.mla_prefill_latent(
+                        cfg, p["attn"], x, cache_len))
+                x, _ = L.mla_apply(cfg, p["attn"], x)
+            x = _ffn(cfg, p, x, row_capacity)
+    if mode != "prefill":
+        return x, None
+    return x, {part: _stack_emitted(layers)
+               for part, layers in emitted.items()}
 
 
 def _stack_emitted(emitted):

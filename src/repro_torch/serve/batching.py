@@ -155,12 +155,14 @@ def _make_step_fn(cfg: ModelConfig, max_seq: int):
     single-slot forward).  ``step(params, cache, last_tok, pos, remaining,
     active)`` returns ``(cache, last_tok, pos, remaining, active, out)``,
     the cache written in place.  Inactive slots run too; what they write
-    is replaced when the slot is next admitted."""
+    is replaced when the slot is next admitted.  Each slot's MoE tokens
+    have their own capacity (``row_capacity``), so an idle slot never
+    takes a live slot's expert place."""
 
     def step_fn(params, cache, last_tok, pos, remaining, active):
         logits, cache = registry.forward(
             cfg, params, {"tokens": last_tok[:, None].long()}, mode="decode",
-            cache=cache, pos=pos)
+            cache=cache, pos=pos, row_capacity=True)
         return (cache,) + advance_slots(logits, last_tok, pos, remaining,
                                         active, max_seq)
 
@@ -176,13 +178,15 @@ def _make_admit_fn(cfg: ModelConfig, max_seq: int):
     ``rows[j]`` lands in slot ``slots[j]``.  The reference scatters every
     row and drops the unplaced ones through the slot id ``n_slots``; here
     only the placed rows are written (a masked write, no drop-mode
-    scatter).  Returns the updated state and ``tok0`` (n_rows,) int32."""
+    scatter).  Every row's MoE tokens have their own capacity, as under
+    the reference's vmap.  Returns the updated state and ``tok0``
+    (n_rows,) int32."""
 
     def admit_fn(params, cache, last_tok, pos, remaining, active, prompts,
                  lens, rows, slots, max_new):
         logits, cache1 = registry.forward(
             cfg, params, {"tokens": prompts.long()}, mode="prefill",
-            cache_len=max_seq, last_pos=lens - 1)
+            cache_len=max_seq, last_pos=lens - 1, row_capacity=True)
         tok0 = torch.argmax(logits[:, -1], -1).to(torch.int32)
         _scatter_rows(cache, cache1, rows, slots,
                       2 if cfg.local_global_pattern else 1)

@@ -15,8 +15,8 @@
 
 The JAX steps are jitted with their pools donated; here they run eagerly
 and update the pools and slot-state tensors in place.  Pools and block
-tables are dicts keyed by the layout's page groups ({"kv"}, or gemma3's
-{"local", "global"}).  The batcher's steps decode greedily, as the
+tables are dicts keyed by the layout's page groups ({"kv"}, gemma3's
+{"local", "global"}, or MLA's {"latent"}, whose pools nest).  The batcher's steps decode greedily, as the
 reference's do.
 """
 
@@ -30,6 +30,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..models import registry
 from ..models.cache_layouts import get_layout
+from ..models.params import tree_leaves
 
 
 def _sample_last(logits_last: torch.Tensor,
@@ -109,7 +110,8 @@ def make_paged_decode_step(cfg: ModelConfig, max_seq: int, page_size: int):
     def step(params, pools, block_tab, last_tok, pos, remaining, active):
         bt = {}
         for g in layout.groups:
-            n_pages = pools[g.name]["k"].shape[layout.page_axis(g.name)]
+            n_pages = tree_leaves(pools[g.name])[0].shape[
+                layout.page_axis(g.name)]
             bt[g.name] = torch.where(active[:, None], block_tab[g.name],
                                      n_pages)
         cache = {"pages": pools, "block_tab": bt}
@@ -165,7 +167,7 @@ def make_spec_verify_step(cfg: ModelConfig, k: int, max_seq: int,
         bt = {}
         for g in layout.groups:
             ax = layout.page_axis(g.name)
-            n_pages = pools[g.name]["k"].shape[ax]
+            n_pages = tree_leaves(pools[g.name])[0].shape[ax]
             dst, src = _kept(copy_dst[g.name], n_pages, copy_src[g.name])
             if len(dst):
                 layout.copy_pages(pools, g.name, src.tolist(), dst.tolist())

@@ -264,14 +264,23 @@ def test_int8_kv_greedy_exact():
 
 
 def test_families_without_a_forward_still_raise(model):
-    """Families whose forward is a later slice's (deepseek, asked for the
-    MLA latent pages it does not have yet; the MoE family in dense
-    slots): the constructor raises instead of serving.  The recurrent
-    families (``tests/test_torch_recurrent.py``) and gemma3
+    """Families whose forward is a later slice's (paligemma, musicgen):
+    the constructor raises instead of serving, paged or in dense slots.
+    The moe family constructs both ways (deepseek's latent pages,
+    phi3.5's flat pages); the recurrent families
+    (``tests/test_torch_recurrent.py``) and gemma3
     (``tests/test_torch_gemma3.py``) serve."""
-    _, tp, _, _ = model
-    for arch, page in (("deepseek-v2-lite-16b", 8), ("phi3p5-moe-42b", 0)):
+    for arch, page in (("paligemma-3b", 8), ("musicgen-medium", 0),
+                       ("paligemma-3b", 0)):
         cfg = tsmoke(tconfigs.get(arch))
         with pytest.raises(NotImplementedError):
             ContinuousBatcher(dataclasses.replace(cfg, kv_page_size=page),
-                              tp, n_slots=2, max_seq=32, device="cpu")
+                              {}, n_slots=2, max_seq=32, device="cpu")
+    for arch in ("deepseek-v2-lite-16b", "phi3p5-moe-42b"):
+        cfg = tsmoke(tconfigs.get(arch))
+        params = tregistry.init(cfg, 0, device="cpu")
+        for page in (8, 0):
+            bat = ContinuousBatcher(
+                dataclasses.replace(cfg, kv_page_size=page), params,
+                n_slots=2, max_seq=32, device="cpu")
+            assert bat.paged == bool(page)

@@ -200,21 +200,28 @@ def test_greedy_generate_tokens_identical(model, window, plens):
 
 
 def test_later_slices_raise(model):
+    """paligemma (vlm) and musicgen (audio) raise, naming the later
+    slice; verify needs pages; deepseek and phi3.5 (the moe family) page
+    and run."""
     _, tcfg, _, tp = model
-    with pytest.raises(NotImplementedError, match="MLA"):
-        tregistry.paged_cache_decls(
-            tsmoke(tconfigs.get("deepseek-v2-lite-16b")), 4, 8)
-    with pytest.raises(NotImplementedError, match="remaining-families"):
+    with pytest.raises(NotImplementedError, match="paligemma, then musicgen"):
         tregistry.cache_decls(tsmoke(tconfigs.get("musicgen-medium")), 1, 8)
     with pytest.raises(NotImplementedError, match="verify"):
         tregistry.forward(tcfg, tp, {"tokens": torch.zeros(1, 2).long()},
                           mode="verify")
-    for arch in ("phi3p5-moe-42b", "paligemma-3b"):
+    for arch in ("paligemma-3b", "musicgen-medium"):
         cfg = tsmoke(tconfigs.get(arch))
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="vlm and audio slice"):
             tregistry.forward(cfg, {}, {"tokens": torch.zeros(1, 2).long()})
-    with pytest.raises(NotImplementedError, match="MLA"):
-        tregistry.paged_supported(tsmoke(tconfigs.get("deepseek-v2-lite-16b")))
+        assert not tregistry.paged_supported(cfg)
+    for arch in ("deepseek-v2-lite-16b", "phi3p5-moe-42b"):
+        cfg = tsmoke(tconfigs.get(arch))
+        assert tregistry.paged_supported(cfg)
+        assert tregistry.paged_cache_decls(cfg, 4, 8)
+        params = tregistry.init(cfg, 0, device="cpu")
+        logits = tregistry.forward(cfg, params,
+                                   {"tokens": torch.zeros(1, 2).long()})
+        assert logits.shape == (1, 2, cfg.padded_vocab)
     assert tregistry.paged_supported(tcfg)
     assert tregistry.paged_supported(tsmoke(tconfigs.get("gemma3-12b")))
     assert not tregistry.paged_supported(tsmoke(tconfigs.get("zamba2-1p2b")))

@@ -109,6 +109,28 @@ def test_serve_cli_gemma3(extra):
     assert not any(line.startswith("prefix-cache:") for line in lines)
 
 
+@pytest.mark.parametrize("arch,extra", [
+    ("phi3p5-moe-42b", ("--page-size", "8", "--decode-flash")),
+    ("phi3p5-moe-42b", ("--kv-cache-dtype", "int8", "--decode-flash")),
+    ("deepseek-v2-lite-16b", ("--page-size", "8", "--prefix-cache",
+                              "--speculate")),
+    ("deepseek-v2-lite-16b", ()),             # dense slots
+])
+def test_serve_cli_moe_family(arch, extra):
+    """phi3.5-moe and deepseek (MLA latent pages) serve through the CLI,
+    paged and from dense slots."""
+    out = _serve(*extra, arch=arch, prompt_len=12)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert sum(line.startswith("req ") for line in lines) == 4
+    assert "4 requests, 20 tokens in" in lines[-1]
+    mode = "paged(page=8,pool=" if "--page-size" in extra else ", dense,"
+    assert mode in lines[-1]
+    if arch.startswith("deepseek") and "--page-size" in extra:
+        assert "pool=latent:" in lines[-1]
+        assert any(line.startswith("prefix-cache:") for line in lines)
+
+
 @pytest.mark.parametrize("extra", [
     ("--page-size", "8", "--metrics-port", "0", "--trace-out", "t.json"),
     ("--page-size", "8", "--trace-out", "t.jsonl", "--profile"),
