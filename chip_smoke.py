@@ -22,8 +22,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    int8 pages, the global layers' flat table; B3: the rolled ring of
    S == window == 1024 and the global 2048), both at phi3.5-moe's served
    shapes, 32 / 8 heads of 128 (a GQA group of 4; B1 also at its verify
-   span sq = 5), timed beside SDPA on the same pre-gathered K/V with the
-   same mask,
+   span sq = 5), B3 at paligemma-3b's (8 / 1 heads of 256, S 512) and
+   musicgen-medium's (24 / 24 heads of 64, S 512), timed beside SDPA on
+   the same pre-gathered K/V with the same mask,
    ``kv_quantize``/``kv_dequantize`` (B2) bit for bit at decode, prefill
    and full-cache shapes, B2's quantize-and-store entry
    ``kv_quantize_store`` bit for bit (every cache leaf after the store) at
@@ -80,7 +81,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    latent pages its dense slots', a prefix hit the cold run's,
    ``speculate_k`` 4 plain decode's and a preempting pool the
    unpreempted run's, and 12 dense slots at capacity factor 0.05 (each
-   row its own MoE capacity) each request's tokens served alone;
+   row its own MoE capacity) each request's tokens served alone; the
+   vlm and audio families (fp32, 2 layers): paligemma-3b's and
+   musicgen-medium's ``greedy_generate`` tokens through B3 equal the
+   plain decode's and the argmax of the train forward at each position
+   (B3 launched steps x layers), and the batcher refuses both;
 4. full-width serve — minitron-4b at full width, random bf16 weights
    from the seed, 16 requests through ``ContinuousBatcher`` under
    ``DataflowContext``: paged through B1, then dense slots through B3 with
@@ -127,16 +132,17 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    through the random-weight layers amplifies any change of summation
    order past the tolerance: the plain scan at half the chunk is printed
    beside it as that noise floor);
-7. gemma3-12b at full width — random bf16 weights from the seed, 16
+7. gemma3-12b at full width, 24 of its 48 layers (4 of its 8
+   local/global groups) — random bf16 weights from the seed, 16
    requests of 1100-1500 prompt tokens (past the 1024 window) and 64 new
    tokens on 8 slots, max_seq 2048, page 16, chunk 128, ``decode_flash``:
-   served paged (B1 with the ring's ``page_base`` on the 40 local layers,
-   flat on the 8 global), paged with ``speculate_k`` 4 and the
+   served paged (B1 with the ring's ``page_base`` on the 20 local layers,
+   flat on the 4 global), paged with ``speculate_k`` 4 and the
    single-token drafter (verify spans at sq = 5 on a 66-page ring; once
    with the default pool, whose local group is exactly the 8 rings, and
    once with 2 scratch pages per slot beyond them), and from dense slots
    (B3 on the rolled window and the full cache); B1 / B3 launched steps
-   x 48 exactly, the local group's peak pages within the rings (and the
+   x 24 exactly, the local group's peak pages within the rings (and the
    scratch); tokens/s, step and TTFT times, peak memory, each group's
    peak pages, the speculation counters beside the draftable steps of
    plain decode and token identity to the paged run printed; one decode
@@ -153,7 +159,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    profiled (kernels per step, idle share, device time as attention
    kernel / matmul / MoE dispatch and combine / MLA glue / other), and
    phi3.5's step logits through the kernels vs the plain path (reported:
-   top-k routing amplifies a one-ulp change);
+   top-k routing amplifies a one-ulp change); then the vlm and audio
+   families at full width and depth through ``greedy_generate`` (the
+   batcher refuses them, as the reference's does), bf16,
+   ``decode_flash``: paligemma-3b two batches of 8 (256 bf16 patches of
+   1152 + 64 / 128 text tokens, 64 new) and musicgen-medium one of 8
+   (64 x 1536 conditioning rows, 8 frames of 4 codebooks, 256 new),
+   max_seq 512; B3 launched steps x layers exactly; tokens/s (frames/s),
+   prefill time, median decode step and peak memory; per model one
+   decode step's logits through B3 vs the plain path (held) and its time
+   split (attention kernel / matmul / cross-attention glue / other);
 9. telemetry and sampling — at smoke width (fp32): telemetry off and on
    (tracing and ``torch.profiler`` ranges) give the same tokens on paged
    pools with the prefix cache and ``speculate_k`` 4, on dense slots
@@ -703,6 +718,16 @@ def phase_dense_kernel(gen, card, flush):
         "gemma3 local ring, positions before and at the wrap": dict(
             hq=16, hkv=8, d=256, S=1024, window=1024, ring=True,
             pos=[0, 1, 700, 1022, 1023, 1024, 1025, 2047]),
+        # the vlm and audio families' served shapes (phase_vlm_audio_*):
+        # paligemma-3b, MQA with a group of 8 over one kv head of 256,
+        # 256 patches + 64 or 128 text tokens + 64 new; musicgen-medium,
+        # MHA (group 1) at d 64, 8 frames + 256 new.
+        "main paligemma (8 slots, hq 8 / hkv 1, d 256, S 512, pos "
+        "320-447, bf16)": dict(hq=8, hkv=1, d=256, S=512,
+                               pos=[320, 447, 383, 384, 351, 416, 329, 440]),
+        "main musicgen (8 slots, hq 24 / hkv 24, d 64, S 512, pos 8-263, "
+        "bf16)": dict(hq=24, hkv=24, d=64, S=512,
+                      pos=[8, 263, 135, 136, 71, 200, 9, 250]),
     }
 
     def yardstick(c):
@@ -1883,21 +1908,24 @@ def serve_full_width(cfg, params, seed, counts, prompts=None,
     return summary, launches, bat, outs
 
 
-def compare_logits(cfg, params, cache, tokens, pos, label, hold=True):
+def compare_logits(cfg, params, cache, tokens, pos, label, hold=True,
+                   inputs=None):
     """One decode step's logits through the kernels vs the plain path
     (``decode_flash`` off), each step on its own copy of the cache (a
     step writes its K/V row and advances recurrent state in place).
     ``hold=False`` reports without holding: behind an MoE block a
     one-ulp change of the attention output can flip a token's top-k
     experts, which moves its logits by far more than the kernel's
-    error (the kernel itself is held at the served shapes in phase 2)."""
+    error (the kernel itself is held at the served shapes in phase 2).
+    ``inputs``: the step's other inputs (musicgen's ``cond``)."""
     from repro_torch.models import params as PP
     from repro_torch.models import registry
     logits = {}
     for flash in (True, False):
         c = dataclasses.replace(cfg, decode_flash=flash)
         logits[flash], _ = registry.forward(
-            c, params, {"tokens": tokens[:, None].long()}, mode="decode",
+            c, params, {"tokens": tokens[:, None].long(), **(inputs or {})},
+            mode="decode",
             cache=PP.tree_map(lambda _, a: a.clone(), cache), pos=pos)
     a, b = logits[True].float(), logits[False].float()
     err = (a - b).abs().max().item()
@@ -2669,16 +2697,19 @@ def phase_gemma3_exactness(seed):
 # gemma3-12b at full width: 8 slots, max_seq 2048, page 16, chunk 128;
 # 16 requests of 1100-1500 prompt tokens (past the 1024 window, so the
 # local ring wraps during prefill and decode), MAX_NEW new tokens each.
-G3_MAX_SEQ, G3_PLENS = 2048, (1100, 1501)
+# Depth cut to G3_LAYERS of 48 (4 of the 8 local/global groups; widths,
+# window, ring and traffic unchanged) to keep the whole run in time.
+G3_MAX_SEQ, G3_PLENS, G3_LAYERS = 2048, (1100, 1501), 24
 
 
 def phase_gemma3_full_width(seed):
-    """gemma3-12b at full width, random bf16 weights from the seed,
-    ``decode_flash``: the traffic above served paged (B1 with the ring's
-    ``page_base`` on 40 local layers, flat on 8 global), paged with
-    ``speculate_k`` 4 and the single-token drafter (verify spans at sq =
-    5; the ring 66 pages), and from dense slots (B3 on the rolled window
-    of 1024 and the flat 2048); launches = steps x 48 in each, the local
+    """gemma3-12b at full width and ``G3_LAYERS`` layers, random bf16
+    weights from the seed, ``decode_flash``: the traffic above served
+    paged (B1 with the ring's ``page_base`` on 20 local layers, flat on 4
+    global), paged with ``speculate_k`` 4 and the single-token drafter
+    (verify spans at sq = 5; the ring 66 pages), and from dense slots (B3
+    on the rolled window of 1024 and the flat 2048); launches = steps x
+    24 in each, the local
     group's peak pages within 8 x the ring's width; one decode step's
     logits through the kernels vs the plain path, paged and dense, and
     each one's time split.  Returns {path: launches}."""
@@ -2690,12 +2721,14 @@ def phase_gemma3_full_width(seed):
     from repro_torch.serve.serve_loop import make_paged_decode_step
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    base = dataclasses.replace(get("gemma3-12b"), decode_flash=True)
+    base = dataclasses.replace(get("gemma3-12b"), decode_flash=True,
+                               n_layers=G3_LAYERS)
     t = time.perf_counter()
     params = registry.init(base, seed, device=DEVICE, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in PP.tree_leaves(params))
-    print(f"full width: gemma3-12b, {n_params} bf16 parameters "
+    print(f"full width: gemma3-12b, {base.n_layers} layers, {n_params} bf16 "
+          "parameters "
           f"({torch.cuda.memory_allocated() / 1e9:.2f} GB on the card) drawn "
           f"in {time.perf_counter() - t:.2f}s")
     counts = kernel_counts()
@@ -2916,18 +2949,20 @@ def phase_moe_exactness(seed):
     print(f"moe smoke exactness phase: {time.perf_counter() - t_phase:.1f}s")
 
 
-# the time split of a moe-family decode step: the kernels launched
-# inside these functions of ``models/layers.py`` (other than matrix
-# products) are MoE dispatch and combine, or MLA glue.
+# the time split of a moe-family (or musicgen) decode step: the kernels
+# launched inside these functions of ``models/layers.py`` (other than
+# matrix products) are MoE dispatch and combine, MLA glue, or musicgen's
+# cross-attention glue.
 MOE_RANGES = {"_moe_dispatch": "moe_dispatch_combine",
               "_moe_combine": "moe_dispatch_combine",
-              "mla_apply": "mla_glue", "mla_apply_paged": "mla_glue"}
+              "mla_apply": "mla_glue", "mla_apply_paged": "mla_glue",
+              "cross_attention_apply": "cross_attention_glue"}
 
 
 def profile_classes(fn, n: int):
     """``profile_window`` of ``fn``, plus the device time per call split
     as attention kernel (B1/B3) / matmul / MoE dispatch and combine / MLA
-    glue / other: each kernel is charged to the class of the innermost
+    glue / cross-attention glue / other: each kernel is charged to the class of the innermost
     ``MOE_RANGES`` function it was launched in (a ``record_function``
     range around each, set only for the profiled calls).  The profiler
     links kernels launched through the C interface (B1, B3) to no host
@@ -2956,7 +2991,7 @@ def profile_classes(fn, n: int):
             setattr(layers, name, f)
     gemm = dict(SPLIT)["matmul"]
     split = dict.fromkeys(("matmul", "moe_dispatch_combine", "mla_glue",
-                           "other"), 0.0)
+                           "cross_attention_glue", "other"), 0.0)
     for ev in prof.events():
         if not getattr(ev, "kernels", None):
             continue
@@ -3116,6 +3151,247 @@ def phase_moe_full_width(seed):
         del bat, params
         torch.cuda.empty_cache()
     print(f"full-width moe phase: {time.perf_counter() - t_phase:.1f}s")
+    return paths
+
+
+# --- the vlm and audio families: paligemma-3b and musicgen-medium -------------------------
+
+
+def vlm_audio_prompt(cfg, b, plen, rng):
+    """A prompt batch as the reference's ``registry.make_batch`` makes it,
+    as tensors on the host: ``plen`` text tokens (audio: (b, plen, K)
+    codebook frames) and N(0, 1) bf16 rows, the vlm's
+    ``vision_patches`` patch embeddings or the audio's ``cond_len``
+    conditioning rows."""
+    shape = (b, plen) + ((cfg.n_codebooks,) if cfg.family == "audio"
+                         else ())
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, shape).astype(np.int64))}
+    key, rows, width = (("patches", cfg.vision_patches, cfg.vision_dim)
+                        if cfg.family == "vlm"
+                        else ("cond", cfg.cond_len, cfg.d_model))
+    batch[key] = torch.from_numpy(rng.standard_normal(
+        (b, rows, width)).astype(np.float32)).to(torch.bfloat16)
+    return batch
+
+
+def phase_vlm_audio_exactness(seed):
+    """paligemma-3b (vlm) and musicgen-medium (audio) at smoke width (2
+    layers, fp32 compute, bf16 caches) on the card, weights drawn on the
+    host from the seed: ``greedy_generate`` with ``decode_flash`` (B3)
+    gives the plain decode's tokens, B3 launched decode steps x layers
+    (musicgen's cross-attention launches none) and not at all without
+    it; the decode tokens equal the argmax of the train forward over
+    prompt + generated tokens at each position (offset by the patches
+    for the vlm); the batcher refuses both families."""
+    from repro_torch.configs import get
+    from repro_torch.configs.base import smoke_variant
+    from repro_torch.models import params as PP
+    from repro_torch.models import registry
+    from repro_torch.serve.batching import ContinuousBatcher
+    from repro_torch.serve.serve_loop import greedy_generate
+    t_phase = time.perf_counter()
+    counts = kernel_counts()
+    rng = np.random.default_rng(seed + 50)
+    steps, plen = 8, 7
+    for arch in ("paligemma-3b", "musicgen-medium"):
+        base = smoke_variant(get(arch))
+        params = PP.tree_map(lambda _, a: a.to(DEVICE),
+                             registry.init(base, seed, device="cpu"))
+        prompt = vlm_audio_prompt(base, 2, plen, rng)
+        off = base.vision_patches
+        toks = {}
+        for flash in (False, True):
+            reset_counts(counts)
+            toks[flash] = greedy_generate(
+                dataclasses.replace(base, decode_flash=flash), params,
+                prompt, steps=steps, max_seq=off + plen + steps + 2,
+                device=DEVICE)
+            n = read_counts(counts)["flash_attention_decode"]
+            want = steps * base.n_layers if flash else 0
+            check(n == want, f"{arch} decode_flash={flash}: B3 launches "
+                  f"{n} != {want}")
+        check(np.array_equal(toks[True], toks[False]),
+              f"{arch}: B3 tokens {toks[True].tolist()} != plain "
+              f"{toks[False].tolist()}")
+        batch = {k: v.to(DEVICE) for k, v in prompt.items()}
+        batch["tokens"] = torch.cat([batch["tokens"], torch.from_numpy(
+            toks[True]).to(DEVICE).long()], dim=1)
+        logits = registry.forward(base, params, batch, mode="train")
+        first = off + plen - 1
+        forced = logits[:, first:first + steps].argmax(-1).cpu().numpy()
+        check(np.array_equal(forced, toks[True]),
+              f"{arch}: decode {toks[True].tolist()} != teacher-forced "
+              f"argmax {forced.tolist()}")
+        try:
+            ContinuousBatcher(base, params, n_slots=2, max_seq=32,
+                              device=DEVICE)
+            refused = ""
+        except NotImplementedError as e:
+            refused = str(e)
+        check(refused == "batcher demo covers LM families",
+              f"{arch}: the batcher did not refuse the {base.family} family")
+        print(f"vlm/audio smoke exactness [{arch}]: tokens {toks[True].shape}"
+              f" through B3 == plain decode, B3 launches {steps} steps x "
+              f"{base.n_layers} layers, == teacher-forced argmax, batcher "
+              "refuses")
+        del params
+    torch.cuda.empty_cache()
+    print(f"vlm/audio smoke exactness phase: "
+          f"{time.perf_counter() - t_phase:.1f}s")
+
+
+@contextlib.contextmanager
+def timed_sampling_steps():
+    """Time each prefill and decode call that ``greedy_generate`` makes,
+    on the host clock up to a synchronize (the loop copies each step's
+    tokens to the host anyway); yields {"prefill": [s], "decode": [s]}."""
+    from repro_torch.serve import serve_loop
+    inner = serve_loop.make_sampling_serve_steps
+    times = {"prefill": [], "decode": []}
+
+    def timed(fn, key):
+        def g(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - t0)
+            return out
+        return g
+
+    def make(*a, **kw):
+        pre, dec = inner(*a, **kw)
+        return timed(pre, "prefill"), timed(dec, "decode")
+
+    serve_loop.make_sampling_serve_steps = make
+    try:
+        yield times
+    finally:
+        serve_loop.make_sampling_serve_steps = inner
+
+
+def generate_full_width(cfg, params, prompt, steps, counts, label):
+    """One ``greedy_generate`` batch at ``VA_MAX_SEQ``: kernel counts set
+    to 0 just before and read just after, B3 launched steps x layers,
+    the tokens' shape and range held; prints tokens/s (frames/s for
+    audio), the prefill time (the batch's TTFT), the median decode step
+    and peak memory.  Returns the launches."""
+    from repro_torch.serve.serve_loop import greedy_generate
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counts)
+    with timed_sampling_steps() as times:
+        t0 = time.perf_counter()
+        out = greedy_generate(cfg, params, prompt, steps=steps,
+                              max_seq=VA_MAX_SEQ, device=DEVICE)
+        wall = time.perf_counter() - t0
+    launches = read_counts(counts)
+    b = prompt["tokens"].shape[0]
+    audio = cfg.family == "audio"
+    want = (b, steps) + ((cfg.n_codebooks,) if audio else ())
+    check(out.shape == want and (out >= 0).all()
+          and (out < cfg.padded_vocab).all(),
+          f"{label}: tokens {out.shape}, range [{out.min()}, {out.max()}]")
+    n = launches["flash_attention_decode"]
+    check(n == steps * cfg.n_layers,
+          f"{label}: B3 launches {n} != {steps} steps x {cfg.n_layers}")
+    summary = {"batch": b, "new": steps, "wall_s": wall,
+               ("frames_per_s" if audio else "tokens_per_s"): b * steps / wall,
+               "prefill_s": times["prefill"][0],
+               "median_decode_step_ms":
+                   statistics.median(times["decode"]) * 1e3,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "B3_launches": n}
+    if audio:
+        summary["tokens_per_s"] = b * steps * cfg.n_codebooks / wall
+    print(f"full-width generate [{label}]: " + json.dumps(summary))
+    return launches
+
+
+def profile_generate_step(cfg, params, prompt, pos, label):
+    """Prefill ``prompt`` at ``VA_MAX_SEQ``, then one decode step at
+    ``pos`` (every row): its logits through B3 vs the plain path
+    (``compare_logits``) and its time split (``profile_classes``)."""
+    from repro_torch.serve.serve_loop import make_sampling_serve_steps
+    pre, dec = make_sampling_serve_steps(cfg, VA_MAX_SEQ)
+    batch = {k: v.to(DEVICE) for k, v in prompt.items()}
+    b, s = batch["tokens"].shape[:2]
+    s += cfg.vision_patches if cfg.family == "vlm" else 0
+    nxt, cache = pre(params, batch, torch.full((b,), s - 1, device=DEVICE))
+    extras = {k: v for k, v in batch.items() if k == "cond"}
+    pos = torch.full((b,), pos, dtype=torch.int32, device=DEVICE)
+    compare_logits(cfg, params, cache, nxt, pos, label, inputs=extras)
+    step_in = {"tokens": nxt.reshape((b, 1) + nxt.shape[1:]).long(),
+               **extras}
+
+    def once():
+        tok, _ = dec(params, cache, step_in, pos)
+        tok.cpu()
+
+    once()
+    return profile_classes(once, 5)
+
+
+# the vlm and audio cells: 8 rows a batch, max_seq 512.  paligemma: 256
+# patches + VLM_TEXT text tokens (one batch each), VLM_NEW new tokens;
+# musicgen: AUDIO_PROMPT frames of 4 codebooks, AUDIO_NEW new frames
+# (about 5 s of audio at EnCodec's 50 Hz).
+VA_BATCH, VA_MAX_SEQ = 8, 512
+VLM_TEXT, VLM_NEW = (64, 128), 64
+AUDIO_PROMPT, AUDIO_NEW = 8, 256
+
+
+def phase_vlm_audio_full_width(seed):
+    """paligemma-3b and musicgen-medium at full width and full depth
+    (nothing cut), random bf16 weights from the seed, ``decode_flash``,
+    generated through ``greedy_generate`` (the batcher refuses both, as
+    the reference's does): paligemma two batches of 8 (256 N(0, 1) bf16
+    patches of 1152 + 64 and + 128 text tokens, 64 new), musicgen one of
+    8 (64 x 1536 conditioning rows, 8 frames, 256 new); per batch
+    tokens/s, the prefill time, the median decode step, peak memory and
+    B3's launches (steps x layers, held); per model one decode step's
+    logits through B3 vs the plain path (held, ``compare_logits``) and
+    its time split.  Returns {path: launches}."""
+    from repro_torch.configs import get
+    from repro_torch.models import params as PP
+    from repro_torch.models import registry
+    t_phase = time.perf_counter()
+    counts = kernel_counts()
+    rng = np.random.default_rng(seed + 60)
+    paths = {}
+    for arch in ("paligemma-3b", "musicgen-medium"):
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get(arch), decode_flash=True)
+        t = time.perf_counter()
+        params = registry.init(cfg, seed, device=DEVICE,
+                               dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in PP.tree_leaves(params))
+        print(f"full width: {arch}, {cfg.n_layers} layers, {n_params} bf16 "
+              f"parameters ({torch.cuda.memory_allocated() / 1e9:.2f} GB on "
+              f"the card) drawn in {time.perf_counter() - t:.2f}s")
+        if cfg.family == "vlm":
+            batches = [(f"{arch}, {VLM_TEXT[0]} text tokens", VLM_TEXT[0],
+                        VLM_NEW),
+                       (f"{arch}, {VLM_TEXT[1]} text tokens", VLM_TEXT[1],
+                        VLM_NEW)]
+        else:
+            batches = [(arch, AUDIO_PROMPT, AUDIO_NEW)]
+        for label, plen, new in batches:
+            prompt = vlm_audio_prompt(cfg, VA_BATCH, plen, rng)
+            paths[label] = generate_full_width(cfg, params, prompt, new,
+                                               counts, label)
+        # one decode step: after the longest prompt (vlm), or halfway
+        # through the new frames (audio; the cache rows past the prompt
+        # are zero, as many keys read as at that point of generation).
+        at = (cfg.vision_patches + plen if cfg.family == "vlm"
+              else plen + new // 2)
+        prof = profile_generate_step(cfg, params, prompt, at, arch)
+        print(f"time split [{arch}] (8 rows at position {at}): "
+              + json.dumps({"decode_step": prof}))
+        del params
+        torch.cuda.empty_cache()
+    print(f"full-width vlm/audio phase: {time.perf_counter() - t_phase:.1f}s")
     return paths
 
 
@@ -4151,6 +4427,7 @@ def main():
     phase_gemma3_exactness(args.seed)
     phase_tier_resilience_exactness(args.seed)
     phase_moe_exactness(args.seed)
+    phase_vlm_audio_exactness(args.seed)
     paths = phase_full_width(args.seed)
     spec_paths = phase_prefix_spec_full_width(args.seed)
     tier_paths = phase_tiered_full_width(args.seed)
@@ -4158,6 +4435,7 @@ def main():
     paths.update(phase_recurrent_full_width(args.seed))
     g3_paths = phase_gemma3_full_width(args.seed)
     moe_paths = phase_moe_full_width(args.seed)
+    va_paths = phase_vlm_audio_full_width(args.seed)
     tel_paths = phase_telemetry_sampling(args.seed)
 
     # each kernel's row: its launches on the full-width path that runs it,
@@ -4167,13 +4445,14 @@ def main():
     d_rows = b2["full cache (8*8*1024 x 128, bf16)"]
     # B1's launches: every paged bf16 serve, decode and verify steps
     # (minitron-4b's, its tiered rounds', its telemetry runs' and
-    # gemma3-12b's and phi3.5-moe's); B3's: the dense bf16 serves.
+    # gemma3-12b's and phi3.5-moe's); B3's: the dense bf16 serves and
+    # the vlm / audio generations.
     b1_paths = ([paths["paged bf16"]] + list(spec_paths.values())
                 + list(tier_paths.values()) + list(tel_paths.values())
                 + [g3_paths["gemma3-12b paged"],
                    g3_paths["gemma3-12b paged, speculate_k 4"]])
     b3_paths = [paths["dense bfloat16"], g3_paths["gemma3-12b dense"],
-                moe_paths["phi3p5-moe-42b dense"]]
+                moe_paths["phi3p5-moe-42b dense"]] + list(va_paths.values())
     b1_paths.append(moe_paths["phi3p5-moe-42b paged"])
     b1_paths.append(g3_paths["gemma3-12b paged, speculate_k 4, 2 scratch "
                              "pages per slot"])

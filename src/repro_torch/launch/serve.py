@@ -28,8 +28,12 @@ The moe family serves paged and dense: phi3.5-moe (``--arch
 phi3p5-moe-42b``, GQA attention) on the flat layout, deepseek (``--arch
 deepseek-v2-lite-16b``, MLA) on latent pages, which take the prefix
 cache, speculation and the host tier; in dense slots each slot's MoE
-tokens have their own capacity.  paligemma and musicgen are a later
-slice's and raise.
+tokens have their own capacity.  paligemma (``--arch paligemma-3b``) and
+musicgen (``--arch musicgen-medium``) are refused with the reference's
+``NotImplementedError("batcher demo covers LM families")``, as its CLI
+refuses them: the batcher's requests carry no image patches or
+conditioning.  Both generate through ``serve.serve_loop.greedy_generate``
+instead.
 
 Paged serving also takes the prefix cache (``--prefix-cache``, with
 ``--shared-prefix N`` giving every request the same first N tokens, and

@@ -13,6 +13,9 @@ int8 KV caches (``cfg.kv_cache_dtype == "int8"``) quantize through
 ``kernels.kv_quant`` (kernel B2), one bf16 scale per (head, position)
 row, in the dense cache and in the page pools alike.
 
+``cross_attention_apply`` is musicgen's block over its conditioning
+rows.
+
 Paged attention also scores speculative-decode verify spans
 (``attention_apply_paged(verify=True)``) and reads gemma3's local layers
 through a ring of pages (``ring=True``, bases from ``ring_page_base``).
@@ -264,6 +267,24 @@ def attention_apply(cfg, p, x, *, window: Optional[int] = None,
         new_cache = cache
     y = o.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
     return x + y, new_cache
+
+
+def cross_attention_apply(cfg, p, x, cond):
+    """musicgen's cross-attention block with residual (the reference's
+    ``cross_apply``): x is RMS-normed, ``cond`` (b, lc, d) is not; no
+    rope; K/V projected from ``cond`` on every call (prefill and each
+    decode step alike), every query attending every cond row through the
+    plain ``attention_decode`` (no kernel, in the reference either)."""
+    b, s, _ = x.shape
+    lc = cond.shape[1]
+    hq, hd = cfg.n_heads, cfg.head_dim
+    h = rmsnorm(x, p["norm"])
+    q = (h @ p["wq"]).reshape(b, s, hq, hd).transpose(1, 2)
+    k = (cond @ p["wk"]).reshape(b, lc, hq, hd).transpose(1, 2)
+    v = (cond @ p["wv"]).reshape(b, lc, hq, hd).transpose(1, 2)
+    o = attention_decode(q, k, v, torch.ones(lc, dtype=torch.bool,
+                                             device=x.device))
+    return x + o.transpose(1, 2).reshape(b, s, hq * hd) @ p["wo"]
 
 
 def decode_pos(pos, b: int, device) -> torch.Tensor:

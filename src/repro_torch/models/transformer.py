@@ -37,8 +37,17 @@ compressed latent cache, one dense-MLP layer ("first") then MLA + MoE
 layers with shared experts ("rest"); its caches are {"first", "rest"} of
 {"c_kv", "k_rope"} leaves (slot axis 1), its page pools the "latent"
 group's.  ``row_capacity`` gives each batch row its own MoE capacity (the
-dense-slot steps, where the reference vmaps a one-row forward).  vlm and
-audio come with a later slice and raise here.
+dense-slot steps, where the reference vmaps a one-row forward).
+
+vlm (paligemma) and audio (musicgen) run in modes ``train``, ``prefill``
+and ``decode`` over dense slot caches (neither has a page layout, in the
+reference either).  paligemma is the dense stack behind an input of
+``vision_patches`` projected patch embeddings (``batch["patches"]``,
+prefill and train) put before the text; musicgen's layers add a
+cross-attention block over ``batch["cond"]`` (every mode, K/V projected
+from it on every call) between self-attention and its ungated GELU MLP,
+its tokens are (b, s, K) over ``n_codebooks`` and its logits (b, s, K,
+Vp).
 """
 
 from __future__ import annotations
@@ -134,13 +143,6 @@ def model_decls(cfg) -> Dict[str, Any]:
     return decls
 
 
-def _check_forward_family(cfg) -> None:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): forward comes with the vlm and "
-            "audio slice (paligemma, then musicgen)")
-
-
 def _n_shared(cfg) -> int:
     """Application sites of zamba2's shared block (one per full group)."""
     return cfg.n_layers // cfg.shared_attn_every
@@ -156,8 +158,7 @@ def cache_decls(cfg, batch: int, max_seq: int):
     hybrid: {"ssm": those, "attn": the K/V leaves stacked over the shared
     block's application sites}; gemma3: {"local": (G, n_local, batch,
     hkv, min(max_seq, window), hd), "global": (G, per - n_local, batch,
-    hkv, max_seq, hd)} per leaf."""
-    _check_forward_family(cfg)
+    hkv, max_seq, hd)} per leaf; vlm and audio: the dense stack's."""
     if cfg.local_global_pattern:
         G, per = cfg.group_layout
         n_local, w = cfg.local_global_pattern, cfg.sliding_window
@@ -208,13 +209,27 @@ def paged_cache_decls(cfg, n_pages, page_size: int):
 
 
 def _embed_input(cfg, params, batch) -> torch.Tensor:
-    _check_forward_family(cfg)
-    x = params["embed"][batch["tokens"]]
-    if cfg.local_global_pattern:
+    dtype = torch_dtype(cfg.dtype)
+    tok = batch["tokens"]
+    if cfg.family == "audio":
+        # (b, s, K): the codebooks' embeddings added in codebook order in
+        # the model dtype, rounding after every add as the reference's
+        # ``sum`` does.
+        emb = params["embed"]                          # (K, Vp, d)
+        x = emb[0][tok[..., 0]]
+        for c in range(1, cfg.n_codebooks):
+            x = x + emb[c][tok[..., c]]
+        return x.to(dtype)
+    x = params["embed"][tok]
+    if cfg.local_global_pattern or cfg.family == "vlm":
         # gemma scaling: the reference multiplies by an np.float32 scalar,
         # which promotes to float32, and rounds to the model dtype after.
         x = x.to(torch.float32) * float(np.float32(np.sqrt(cfg.d_model)))
-    return x.to(torch_dtype(cfg.dtype))
+    if cfg.family == "vlm" and "patches" in batch:
+        # the projected patches go before the text, joined in float32.
+        pre = batch["patches"].to(dtype) @ params["vis_proj"]
+        x = torch.cat([pre.to(torch.float32), x.to(torch.float32)], dim=1)
+    return x.to(dtype)
 
 
 def _prefill_kv(cfg, p, x, window, theta, cache_len, last_pos):
@@ -251,7 +266,10 @@ def forward(cfg, params, batch, mode: str = "train",
             cache_offset: Optional[torch.Tensor] = None,
             row_capacity: bool = False):
     """train -> logits (b, s, Vp); prefill -> (last logits, cache);
-    decode/chunk/verify -> (logits, cache).
+    decode/chunk/verify -> (logits, cache).  audio: tokens (b, s, K),
+    logits (b, s, K, Vp), ``batch["cond"]`` in every mode; vlm:
+    ``batch["patches"]`` (train, prefill) put before the text, so
+    positions and ``last_pos`` count the patches.
 
     ``last_pos`` (prefill/chunk): (b,) index of the true last token; the
     returned logits are gathered there.  Paged serving: pass
@@ -295,6 +313,9 @@ def forward(cfg, params, batch, mode: str = "train",
     w, theta = cfg.sliding_window, cfg.rope_theta
     cl = min(cache_len, w) if (w and cache_len) else cache_len
     blocks = params["blocks"]
+    cond = batch.get("cond")
+    if cond is not None:
+        cond = cond.to(dtype)
     if cfg.family in ("ssm", "hybrid"):
         x, new_cache = _recurrent_layers(cfg, blocks, x, mode, cache, pos,
                                          cache_len, last_pos)
@@ -322,6 +343,8 @@ def forward(cfg, params, batch, mode: str = "train",
             else:
                 x = _attn_dense(cfg, p["attn"], x, mode, cache, i, pos, w,
                                 theta, cl, last_pos, emitted, store_rows)
+            if "cross" in p:                          # musicgen
+                x = L.cross_attention_apply(cfg, p["cross"], x, cond)
             x = _ffn(cfg, p, x, row_capacity)
         new_cache = _stack_emitted(emitted) if mode == "prefill" else None
 
@@ -333,7 +356,10 @@ def forward(cfg, params, batch, mode: str = "train",
             x = torch.gather(x, 1, idx)
         else:
             x = x[:, -1:]
-    logits = x @ params["unembed"]
+    if cfg.family == "audio":
+        logits = torch.einsum("bsd,kdv->bskv", x, params["unembed"])
+    else:
+        logits = x @ params["unembed"]
     if mode == "train":
         return logits
     if mode == "prefill":

@@ -323,6 +323,11 @@ class ContinuousBatcher:
                  transfer_retries: int = 2,
                  tier_fault_limit: int = 3,
                  device="cuda"):
+        # paligemma and musicgen generate through serve_loop's
+        # greedy_generate; the batcher refuses them, as the reference's
+        # does (its requests carry no image or conditioning).
+        if cfg.family in ("vlm", "audio"):
+            raise NotImplementedError("batcher demo covers LM families")
         if cfg.mesh_shape:
             raise NotImplementedError(
                 "mesh-sharded serving comes with a later port slice")

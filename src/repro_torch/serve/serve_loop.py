@@ -30,15 +30,16 @@ import torch
 from ..configs.base import ModelConfig
 from ..models import registry
 from ..models.cache_layouts import get_layout
-from ..models.params import tree_leaves
+from ..models.params import params_from_numpy, tree_leaves
 
 
 def _sample_last(logits_last: torch.Tensor,
                  generator: Optional[torch.Generator],
                  temperature: float) -> torch.Tensor:
     """On-device sampling of the last position's logits (b, Vp) -> (b,)
-    int32.  Temperature 0: argmax (``generator`` unused).  Above 0: a
-    categorical of ``logits / T`` over all ``Vp`` columns, drawn as
+    int32, or (b, K, Vp) -> (b, K) for audio's codebooks.  Temperature 0:
+    argmax (``generator`` unused).  Above 0: a categorical of ``logits /
+    T`` over all ``Vp`` columns, one uniform per logit, drawn as
     ``jax.random.categorical`` draws it (Gumbel-max: the argmax of
     ``logits / T + g`` with ``g = -log(-log(u))``, ``u`` uniform on
     ``[tiny, 1)``), the uniforms from ``generator`` on the logits'
@@ -61,10 +62,12 @@ def make_sampling_serve_steps(cfg: ModelConfig, max_seq: int,
     * ``decode(params, cache, tokens, pos, generator=None)`` ->
       (tokens, cache)
 
-    Both return int32 token ids of shape (b,), sampled on the device by
-    ``_sample_last`` at ``temperature`` (argmax at 0, where
-    ``generator`` is unused).  ``decode`` writes the cache in place;
-    ``pos`` is a (b,) position tensor (or a host int for every row)."""
+    Both return int32 token ids of shape (b,), or (b, K) for audio,
+    sampled on the device by ``_sample_last`` at ``temperature`` (argmax
+    at 0, where ``generator`` is unused).  Both pass their input dict
+    through whole: ``patches`` (vlm) at prefill, ``cond`` (audio) at
+    both.  ``decode`` writes the cache in place; ``pos`` is a (b,)
+    position tensor (or a host int for every row)."""
 
     def prefill(params, batch_in, last_pos, generator=None):
         logits, cache = registry.forward(cfg, params, batch_in,
@@ -249,22 +252,32 @@ def greedy_generate(cfg: ModelConfig, params, prompt_batch: Dict,
     """Generation over dense slot caches: prefill the prompt batch, then
     ``steps`` decode steps, each token sampled on the device at
     ``temperature`` from one generator seeded with ``seed`` (greedy at
-    0: the port's dense oracle).  Returns an (b, steps) int32 numpy
-    array."""
-    tok = torch.as_tensor(np.asarray(prompt_batch["tokens"]),
-                          device=device).long()
-    b, prompt_len = tok.shape
+    0: the port's dense oracle).  ``prompt_batch`` holds numpy arrays
+    (bf16 ones too) or tensors: "tokens" (b, s), or (b, s, K) for
+    audio, and the family's inputs, "patches" (vlm; the prompt's
+    positions count its ``vision_patches``) and "cond" (audio; passed to
+    every decode step).  Returns an (b, steps) int32 numpy array, (b,
+    steps, K) for audio."""
+    batch = {k: v.to(device) if torch.is_tensor(v)
+             else params_from_numpy(v, device)
+             for k, v in prompt_batch.items()}
+    tok = batch["tokens"] = batch["tokens"].long()
+    b = tok.shape[0]
+    prompt_len = tok.shape[1] + (cfg.vision_patches
+                                 if cfg.family == "vlm" else 0)
     pre, dec = make_sampling_serve_steps(cfg, max_seq, temperature)
     gen = (torch.Generator(device=tok.device).manual_seed(seed)
            if temperature > 0 else None)
     last_pos = torch.full((b,), prompt_len - 1, dtype=torch.int64,
                           device=device)
-    nxt, cache = pre(params, {"tokens": tok}, last_pos, gen)
+    nxt, cache = pre(params, batch, last_pos, gen)
+    extras = {k: v for k, v in batch.items() if k == "cond"}
     out = []
     pos = torch.full((b,), prompt_len, dtype=torch.int32, device=device)
     for _ in range(steps):
-        tokens = nxt.reshape(b, 1)
+        tokens = nxt.reshape((b, 1) + nxt.shape[1:])
         out.append(tokens.cpu().numpy())
-        nxt, cache = dec(params, cache, {"tokens": tokens.long()}, pos, gen)
+        nxt, cache = dec(params, cache, {"tokens": tokens.long(), **extras},
+                         pos, gen)
         pos = pos + 1
     return np.concatenate(out, axis=1)

@@ -264,18 +264,27 @@ def test_int8_kv_greedy_exact():
 
 
 def test_families_without_a_forward_still_raise(model):
-    """Families whose forward is a later slice's (paligemma, musicgen):
-    the constructor raises instead of serving, paged or in dense slots.
+    """paligemma (vlm) and musicgen (audio) run ``forward`` and generate
+    through ``greedy_generate`` (``tests/test_torch_paligemma.py``,
+    ``tests/test_torch_musicgen.py``), but the batcher refuses them,
+    paged or in dense slots, with the reference's message, as the JAX
+    batcher does: its requests carry no image patches or conditioning.
     The moe family constructs both ways (deepseek's latent pages,
     phi3.5's flat pages); the recurrent families
     (``tests/test_torch_recurrent.py``) and gemma3
     (``tests/test_torch_gemma3.py``) serve."""
     for arch, page in (("paligemma-3b", 8), ("musicgen-medium", 0),
-                       ("paligemma-3b", 0)):
+                       ("paligemma-3b", 0), ("musicgen-medium", 8)):
         cfg = tsmoke(tconfigs.get(arch))
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError,
+                           match="^batcher demo covers LM families$"):
             ContinuousBatcher(dataclasses.replace(cfg, kv_page_size=page),
                               {}, n_slots=2, max_seq=32, device="cpu")
+        jcfg = dataclasses.replace(jsmoke(jconfigs.get(arch)),
+                                   kv_page_size=page)
+        with pytest.raises(NotImplementedError,
+                           match="^batcher demo covers LM families$"):
+            jbatching.ContinuousBatcher(jcfg, {}, n_slots=2, max_seq=32)
     for arch in ("deepseek-v2-lite-16b", "phi3p5-moe-42b"):
         cfg = tsmoke(tconfigs.get(arch))
         params = tregistry.init(cfg, 0, device="cpu")

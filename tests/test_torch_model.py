@@ -200,20 +200,30 @@ def test_greedy_generate_tokens_identical(model, window, plens):
 
 
 def test_later_slices_raise(model):
-    """paligemma (vlm) and musicgen (audio) raise, naming the later
-    slice; verify needs pages; deepseek and phi3.5 (the moe family) page
-    and run."""
+    """paligemma (vlm) and musicgen (audio) run ``forward`` and build
+    their dense ``cache_decls`` (the dense stack's K/V), but have no page
+    layout, as in the reference; verify needs pages; deepseek and phi3.5
+    (the moe family) page and run."""
     _, tcfg, _, tp = model
-    with pytest.raises(NotImplementedError, match="paligemma, then musicgen"):
-        tregistry.cache_decls(tsmoke(tconfigs.get("musicgen-medium")), 1, 8)
     with pytest.raises(NotImplementedError, match="verify"):
         tregistry.forward(tcfg, tp, {"tokens": torch.zeros(1, 2).long()},
                           mode="verify")
-    for arch in ("paligemma-3b", "musicgen-medium"):
+    for arch, tok, extra, shape in (
+            ("paligemma-3b", (1, 2), ("patches", (1, 8, 64)), (1, 10)),
+            ("musicgen-medium", (1, 2, 4), ("cond", (1, 8, 128)), (1, 2, 4))):
         cfg = tsmoke(tconfigs.get(arch))
-        with pytest.raises(NotImplementedError, match="vlm and audio slice"):
-            tregistry.forward(cfg, {}, {"tokens": torch.zeros(1, 2).long()})
+        params = tregistry.init(cfg, 0, device="cpu")
+        batch = {"tokens": torch.zeros(tok).long(),
+                 extra[0]: torch.randn(extra[1])}
+        logits = tregistry.forward(cfg, params, batch)
+        assert logits.shape == shape + (cfg.padded_vocab,)
+        decls = tregistry.cache_decls(cfg, 2, 16)
+        assert {n: d.shape for n, d in decls.items()} == {
+            n: (cfg.n_layers, 2, cfg.n_kv_heads, 16, cfg.head_dim)
+            for n in ("k", "v")}
         assert not tregistry.paged_supported(cfg)
+        with pytest.raises(NotImplementedError, match="paged KV unsupported"):
+            tregistry.paged_cache_decls(cfg, 4, 8)
     for arch in ("deepseek-v2-lite-16b", "phi3p5-moe-42b"):
         cfg = tsmoke(tconfigs.get(arch))
         assert tregistry.paged_supported(cfg)

@@ -170,6 +170,28 @@ def test_serve_cli_telemetry(tmp_path, extra):
     assert sorted(rids) == [0, 1, 2, 3]
 
 
+@pytest.mark.parametrize("arch", ["paligemma-3b", "musicgen-medium"])
+def test_serve_cli_refuses_vlm_and_audio(arch):
+    """The port's CLI refuses the vlm and audio families as the
+    reference's CLI does: a non-zero exit with the batcher's
+    ``NotImplementedError`` as the last line of standard error, and no
+    request served."""
+    outs = [subprocess.run(
+        [sys.executable, "-m", f"{pkg}.launch.serve", "--arch", arch,
+         "--smoke", "--requests", "2", "--slots", "2", "--prompt-len", "4",
+         "--max-new", "2", "--max-seq", "16", *extra],
+        env=dict(_env(), JAX_PLATFORMS="cpu"), capture_output=True,
+        text=True, timeout=120, cwd=ROOT)
+        for pkg, extra in (("repro_torch", ("--device", "cpu")),
+                           ("repro", ()))]
+    for out in outs:
+        assert out.returncode == 1, out.stderr
+        assert out.stderr.strip().splitlines()[-1] == (
+            "NotImplementedError: batcher demo covers LM families")
+        assert not any(line.startswith("req ")
+                       for line in out.stdout.splitlines())
+
+
 def test_chip_smoke_refuses_to_run_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: chip_smoke.py would run")

@@ -8,7 +8,8 @@ seeds other streams, temperature -> 0 equal to greedy, temperature 0 the
 argmax path bit for bit, and the drawn frequencies of a fixed row within
 4 sigma of ``softmax(logits / T)``.  Reserve-at-admission admits the JAX
 batcher's counts at the same pool and streams the lazy batcher's tokens;
-the ``serve_lm`` twin prints the reference example's summary.
+the ``serve_lm`` twin prints the reference example's summary.  The
+audio family samples (b, steps, K) tokens under the same properties.
 """
 
 import dataclasses
@@ -103,6 +104,32 @@ def test_temperature_to_zero_is_greedy(model):
     assert nxt.dtype == torch.int32
     assert torch.equal(nxt, torch.argmax(logits[:, -1], -1).int())
     assert torch.equal(nxt, _sample_last(logits[:, -1], None, 0.0))
+
+
+def test_audio_codebooks_sample(model):
+    """musicgen (the audio family) at T = 1: (b, steps, K) tokens over its
+    four codebooks in ``[0, padded_vocab)``, the Gumbel draw covering
+    every (row, codebook) logit; one seed one stream, another seed
+    another (JAX's RNG cannot be reproduced, so properties only)."""
+    jcfg = jsmoke(jconfigs.get("musicgen-medium"))
+    cfg = tsmoke(tconfigs.get("musicgen-medium"))
+    params = tparams.params_from_numpy(tparams.tree_map(
+        lambda _, a: np.asarray(a), jregistry.init(jcfg, 0)), "cpu")
+    prompt = {k: np.asarray(v) for k, v in
+              jregistry.make_batch(jcfg, "prefill", 2, 5, seed=2).items()}
+
+    def sample(seed):
+        return greedy_generate(cfg, params, prompt, steps=6, max_seq=16,
+                               temperature=1.0, seed=seed, device="cpu")
+
+    a = sample(3)
+    assert a.shape == (2, 6, cfg.n_codebooks) and a.dtype == np.int32
+    assert (a >= 0).all() and (a < cfg.padded_vocab).all()
+    np.testing.assert_array_equal(a, sample(3))
+    assert not np.array_equal(a, sample(4))
+    # the codebooks draw their own columns, not one draw repeated.
+    assert not all(np.array_equal(a[..., 0], a[..., c])
+                   for c in range(1, cfg.n_codebooks))
 
 
 @pytest.mark.parametrize("temperature", [0.7, 1.0, 2.5])
