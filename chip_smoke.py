@@ -185,7 +185,24 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    host-timed median step), then a ``torch.profiler`` window in which
    each ``serve.*`` range counts its calls, B1 runs 32 times under each
    ``serve.decode_step`` and ``serve.verify`` range, and each kind's
-   device ms per range is printed.
+   device ms per range is printed;
+10. training — at smoke width (minitron-4b, fp32): the card's losses
+   and gradient norms over 5 steps equal the port's CPU run to the CPU
+   tests' tolerance, ``grad_accum`` 2 equals 1 (gradient norm to 1e-4,
+   parameters to the reference's tolerance at an lr that moves them),
+   ``TrainSupervisor`` with failures before steps 6 and 10 ends in the
+   uninterrupted state bit for bit, a checkpoint round trip (bf16
+   parameters) and remat none / dots / full change no bit; then
+   minitron-4b at full width and depth (bf16 weights and gradients, fp32
+   AdamW moments, remat dots), its memory reckoned first (a depth that
+   does not fit is cut and printed, never a width), 4 steps at batch 1 x
+   seq 1024 through ``launch.train.main``: per step wall ms, loss and
+   gradient norm (finite), tokens/s, 6·N·tokens over the step time
+   beside 989 TFLOP/s (N without the embedding table: a lookup does no
+   matmul), peak memory and one profiled step's device time
+   as matmul / blocked attention / optimizer / other.  Training launches
+   no kernel of the port (none of the reference's Pallas kernels is on
+   its path).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -193,8 +210,10 @@ repository around it, it exits non-zero and prints no result.
 """
 
 import argparse
+import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -3395,6 +3414,343 @@ def phase_vlm_audio_full_width(seed):
     return paths
 
 
+# --- training (A14) -------------------------------------------------------------------------
+
+# losses and gradient norms of the card's smoke-width steps against the
+# port's CPU run: the tolerances the CPU tests hold the port to against
+# the JAX package (tests/test_torch_train_parity.py).
+TRAIN_LOSS_ATOL = 1e-4
+TRAIN_GNORM_RTOL = 1e-4
+# grad_accum 2 against 1 on the card: the fp32 sum of two microbatches'
+# gradients, then the divide, against one batch's gradient.
+ACCUM_GNORM_RTOL = 1e-4
+
+
+def _bits_equal(a, b) -> bool:
+    """Two training states (nested dicts and tuples of tensors) hold the
+    same bits, dtypes and devices."""
+    from repro_torch.train.optimizer import sorted_leaves
+    la, lb = sorted_leaves(a), sorted_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.device == y.device and torch.equal(
+            x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
+            y.view(torch.int16) if y.dtype == torch.bfloat16 else y)
+        for x, y in zip(la, lb))
+
+
+def phase_train_exactness(seed):
+    """Training at smoke width (minitron-4b, fp32), weights drawn on the
+    host from the seed: the card's losses and gradient norms over 5
+    steps equal the port's CPU run to the CPU tests' tolerance;
+    ``grad_accum=2`` equals ``grad_accum=1``: the gradient norm to
+    ACCUM_GNORM_RTOL (a dropped divide doubles it), the parameters to the
+    reference's tolerance at lr 1e-3 with warmup 1, where the step moves
+    an element by ~1e-3 (a lost microbatch flips signs); ``TrainSupervisor`` with failures before steps 6 and 10
+    ends in the uninterrupted run's state bit for bit; a checkpoint
+    round trip (bf16 parameters, fp32 moments) gives the state back bit
+    for bit on the card; remat none / dots / full give the same loss and
+    gradients bit for bit.  The train path launches no kernel of the
+    port."""
+    import tempfile
+    from repro_torch.configs import get
+    from repro_torch.configs.base import smoke_variant
+    from repro_torch.models import params as PP
+    from repro_torch.models import registry
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import data as D
+    from repro_torch.train import fault as F
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_loop as TL
+    t_phase = time.perf_counter()
+    counts = kernel_counts()
+    reset_counts(counts)
+    cfg = smoke_variant(get("minitron-4b"))
+    host = registry.init(cfg, seed, device="cpu")
+    tcfg = TL.TrainCfg(opt=OPT.OptCfg(lr=1e-3, warmup_steps=2,
+                                      total_steps=10))
+    dcfg = D.DataCfg(global_batch=4, seq_len=32, seed=seed)
+
+    def batch(step, device=DEVICE, d=dcfg):
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in D.make_batch(cfg, d, step).items()}
+
+    def fresh(device=DEVICE):
+        p = PP.tree_map(lambda _, a: a.to(device).clone(), host)
+        return p, OPT.init(p)
+
+    def run(device, steps, tc=tcfg):
+        p, o = fresh(device)
+        step = TL.make_train_step(cfg, tc)
+        out = []
+        for s in range(steps):
+            p, o, m = step(p, o, batch(s, device))
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        return p, out
+
+    _, on_cpu = run("cpu", 5)
+    _, on_card = run(DEVICE, 5)
+    for s, ((lc, gc), (lg, gg)) in enumerate(zip(on_cpu, on_card)):
+        check(abs(lc - lg) < TRAIN_LOSS_ATOL
+              and abs(gc - gg) <= TRAIN_GNORM_RTOL * abs(gc),
+              f"train step {s}: card loss {lg} / norm {gg} != CPU {lc} / "
+              f"{gc}")
+    print("train smoke exactness: 5 steps, card vs CPU (loss, grad norm): "
+          + json.dumps({"cpu": on_cpu, "card": on_card}))
+
+    one = batch(0)
+    acc = {}
+    for n in (1, 2):
+        p, o = fresh()
+        p, o, m = TL.make_train_step(cfg, TL.TrainCfg(
+            opt=OPT.OptCfg(lr=1e-3, warmup_steps=1, total_steps=10),
+            grad_accum=n, compress_grads=False))(p, o, one)
+        acc[n] = (p, float(m["loss"]), float(m["grad_norm"]))
+    pairs = list(zip(OPT.sorted_leaves(acc[1][0]),
+                     OPT.sorted_leaves(acc[2][0])))
+    worst = max((a - b).abs().max().item() for a, b in pairs)
+    moved = max((a - h.to(DEVICE)).abs().max().item() for a, h in
+                zip(OPT.sorted_leaves(acc[1][0]), OPT.sorted_leaves(host)))
+    gnorm_rel = abs(acc[2][2] - acc[1][2]) / acc[1][2]
+    check(abs(acc[1][1] - acc[2][1]) < 5e-3 and gnorm_rel <= ACCUM_GNORM_RTOL
+          and moved > 5e-4
+          and all(torch.allclose(a, b, rtol=2e-2, atol=2e-4)
+                  for a, b in pairs),
+          f"grad_accum 2 vs 1: loss {acc[2][1]} vs {acc[1][1]}, grad norm "
+          f"{acc[2][2]} vs {acc[1][2]}, params differ by {worst}, the "
+          f"step moved them by {moved}")
+
+    step = TL.make_train_step(cfg, TL.TrainCfg())
+
+    def wrapped(state, b):
+        p, o, m = step(*state, b)
+        return (p, o), m
+
+    sup_dcfg = D.DataCfg(global_batch=2, seq_len=16, seed=seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        sups = {}
+        for label, fail_at in (("uninterrupted", ()), ("fail 6, 10", (6, 10))):
+            sup = F.TrainSupervisor(wrapped, fresh(),
+                                    os.path.join(tmp, label), save_every=4)
+            rep = sup.run(lambda s: batch(s, d=sup_dcfg), num_steps=12,
+                          fail_at=fail_at)
+            sups[label] = (sup.state, rep)
+        rep = sups["fail 6, 10"][1]
+        check(rep.restarts == 2 and rep.steps_run == 16,
+              f"supervisor: {rep.restarts} restarts, {rep.steps_run} steps")
+        check(_bits_equal(sups["fail 6, 10"][0], sups["uninterrupted"][0]),
+              "supervisor: the state after failures at 6 and 10 differs "
+              "from the uninterrupted run's")
+
+        p = PP.tree_map(lambda _, a: a.to(torch.bfloat16), fresh()[0])
+        state = {"params": p, "opt": OPT.init(p)}
+        state["opt"].m["embed"].normal_()
+        CK.save(os.path.join(tmp, "rt"), 3, state)
+        back, at, _ = CK.restore(os.path.join(tmp, "rt"), state)
+        check(at == 3 and _bits_equal(back, state),
+              "checkpoint round trip changed the state")
+
+    rb = registry.make_batch(cfg, "train", 2, 32, seed=seed, device=DEVICE)
+    grads = {r: TL.value_and_grad(dataclasses.replace(cfg, remat=r),
+                                  fresh()[0], rb)
+             for r in ("none", "dots", "full")}
+    for r in ("dots", "full"):
+        check(torch.equal(grads[r][0], grads["none"][0])
+              and _bits_equal(grads[r][1], grads["none"][1]),
+              f"remat {r}: loss or gradients differ from remat none")
+    launched = read_counts(counts)
+    check(not any(launched.values()),
+          f"the train path launched kernels of the port: {launched}")
+    print(f"train smoke exactness: grad_accum 2 == 1 (grad norm "
+          f"{acc[2][2]} vs {acc[1][2]}, relative {gnorm_rel:.3g}; params "
+          f"within {worst:.3g} of a step of {moved:.3g}), supervisor with failures at 6 and 10 == "
+          "uninterrupted (2 restarts, bit for bit), checkpoint round trip "
+          "bit for bit (bf16 params), remat none == dots == full bit for "
+          f"bit; {time.perf_counter() - t_phase:.1f}s")
+
+
+# the full-width training cell: minitron-4b, batch 1 x seq 1024, bf16
+# weights and gradients, fp32 moments, remat "dots", 4 steps.
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "minitron-4b", 1, 1024, 4
+# the card's memory the reckoning may plan for (the rest: the allocator's
+# slack and the CUDA context).
+TRAIN_MEM_SHARE = 0.92
+
+
+def train_memory_gb(cfg, n_layers, b, s):
+    """The bytes a full-width step needs at its peak, from the shapes:
+    bf16 parameters and gradients, fp32 moments, the matmul outputs
+    remat "dots" keeps per layer (q, k, v, wo, gate, up, down) with the
+    layer's input, the bf16 logits and their fp32 copy, and the fp32
+    logits' gradient with its bf16 cast."""
+    from repro_torch.models import registry
+    n = registry.num_params(dataclasses.replace(cfg, n_layers=n_layers))
+    tok = b * s
+    kv = cfg.n_kv_heads * cfg.head_dim
+    layer = 2 * tok * (cfg.n_heads * cfg.head_dim + 2 * kv + cfg.d_model
+                       + 2 * cfg.d_ff + cfg.d_model + cfg.d_model)
+    logits = tok * cfg.padded_vocab * (2 + 4 + 4 + 2)
+    return {"params": 2 * n / 1e9, "grads": 2 * n / 1e9,
+            "moments": 8 * n / 1e9, "saved": n_layers * layer / 1e9,
+            "logits": logits / 1e9}
+
+
+def phase_train_full_width(seed):
+    """minitron-4b at full width (32 layers, d 3072, 24 / 8 heads of
+    128, d_ff 9216, vocab 256 000), random bf16 weights from the seed,
+    fp32 AdamW moments, remat "dots", trained 4 steps at batch 1 x seq
+    1024 through ``launch.train.main`` on the card.  The memory is
+    reckoned first; a depth that does not fit is cut (never a width) and
+    the cut printed.  Prints per step the wall ms, loss and gradient
+    norm (all finite, held), tokens/s, 6·N·tokens over the step time
+    beside 989 TFLOP/s with N the parameters of the matmuls (the
+    embedding table left out), peak memory, and one profiled step's device busy
+    ms and its split: matmul / blocked attention (forward, recompute and
+    backward, from ``record_function`` ranges) / optimizer / other."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.configs import get
+    from repro_torch.launch import train as LT
+    from repro_torch.models import layers
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_loop as TL
+    t_phase = time.perf_counter()
+    counts = kernel_counts()
+    gc.collect()                 # what earlier phases left unreferenced
+    torch.cuda.empty_cache()
+    cfg = get(TRAIN_ARCH)
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    depth = cfg.n_layers
+    while sum(train_memory_gb(cfg, depth, TRAIN_BATCH, TRAIN_SEQ).values()) \
+            > TRAIN_MEM_SHARE * total:
+        depth -= 1
+    need = train_memory_gb(cfg, depth, TRAIN_BATCH, TRAIN_SEQ)
+    print(f"full-width training [{TRAIN_ARCH}]: memory reckoned "
+          + json.dumps({k: round(v, 3) for k, v in need.items()})
+          + f" = {sum(need.values()):.2f} GB of {total:.2f} GB; "
+          + (f"depth cut to {depth} of {cfg.n_layers} layers (widths and "
+             "vocab whole)" if depth < cfg.n_layers else
+             f"all {cfg.n_layers} layers"))
+    run_cfg = dataclasses.replace(cfg, n_layers=depth)
+    check(run_cfg.remat == "dots" and run_cfg.dtype == "bfloat16",
+          f"{TRAIN_ARCH}: remat {run_cfg.remat}, dtype {run_cfg.dtype}")
+
+    # one profiled step (the last): device time by class from ranges
+    # around the blocked attention's forward / backward and the update.
+    prof_out = {}
+    real_make, real_get = TL.make_train_step, LT.get_arch
+    real_fwd = layers.BlockedAttention.forward
+    real_bwd = layers.BlockedAttention.backward
+    real_update = OPT.update
+
+    def ranged(name, f):
+        def g(*a, **kw):
+            with record_function(f"train_range::{name}"):
+                return f(*a, **kw)
+        return g
+
+    def make_step(c, t):
+        step = real_make(c, t)
+        calls = [0]
+
+        def timed(p, o, b):
+            calls[0] += 1
+            if calls[0] < TRAIN_STEPS:
+                return step(p, o, b)
+            layers.BlockedAttention.forward = staticmethod(
+                ranged("attention", real_fwd))
+            layers.BlockedAttention.backward = staticmethod(
+                ranged("attention", real_bwd))
+            OPT.update = ranged("optimizer", real_update)
+            try:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    out = step(p, o, b)
+                    torch.cuda.synchronize()
+            finally:
+                layers.BlockedAttention.forward = staticmethod(real_fwd)
+                layers.BlockedAttention.backward = staticmethod(real_bwd)
+                OPT.update = real_update
+            prof_out["prof"] = prof
+            return out
+        return timed
+
+    TL.make_train_step = make_step
+    LT.get_arch = lambda name: run_cfg
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counts)
+    try:
+        out = LT.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                       "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                       "--seed", str(seed), "--log-every", "1",
+                       "--device", DEVICE])
+    finally:
+        TL.make_train_step, LT.get_arch = real_make, real_get
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launched = read_counts(counts)
+    check(not any(launched.values()),
+          f"the train path launched kernels of the port: {launched}")
+    steps = out["steps"]
+    check(len(steps) == TRAIN_STEPS and all(
+        np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
+        for s in steps), f"full-width training: non-finite {steps}")
+    n_params = sum(p.numel() for p in OPT.sorted_leaves(out["params"]))
+    n_embed = out["params"]["embed"].numel()
+    check(all(p.dtype == torch.bfloat16
+              for p in OPT.sorted_leaves(out["params"])),
+          "full-width training: parameters left bf16")
+    del out
+    torch.cuda.empty_cache()
+
+    gemm = dict(SPLIT)["matmul"]
+    split = dict.fromkeys(("matmul", "attention", "optimizer", "other"), 0.0)
+    others = collections.Counter()
+    n_kernels = 0
+    for ev in prof_out["prof"].events():
+        if not getattr(ev, "kernels", None):
+            continue
+        cls, p = None, ev
+        while p is not None and cls is None:
+            if p.name.startswith("train_range::"):
+                cls = p.name.split("::", 1)[1]
+            p = p.cpu_parent
+        for k in ev.kernels:
+            n_kernels += 1
+            key = cls or ("matmul" if any(pat in k.name for pat in gemm)
+                          else "other")
+            split[key] += k.duration / 1e3
+            if key == "other":
+                others[f"{ev.name} > {k.name[:60]}"] += k.duration / 1e3
+    busy = sum(split.values())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # steady steps: not the first (warm-up) and not the profiled last.
+    steady = statistics.median(s["seconds"] for s in steps[1:-1])
+    flops = 6 * (n_params - n_embed) * tokens
+    report = {
+        "card": torch.cuda.get_device_name(0), "layers": depth,
+        "parameters": n_params, "embedding_parameters": n_embed,
+        "matmul_parameters": n_params - n_embed,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "step_wall_ms": [s["seconds"] * 1e3 for s in steps],
+        "loss": [s["loss"] for s in steps],
+        "grad_norm": [s["grad_norm"] for s in steps],
+        "lr": [s["lr"] for s in steps],
+        "steady_step_ms": steady * 1e3, "tokens_per_s": tokens / steady,
+        "model_tflop_per_s": flops / steady / 1e12,
+        "share_of_989_tflop_per_s": flops / steady / PEAK_BF16,
+        "peak_memory_gb": peak, "reckoned_gb": sum(need.values()),
+        "profiled_step": {
+            "wall_ms": steps[-1]["seconds"] * 1e3,
+            "device_busy_ms": busy if busy else "not measured",
+            "kernels": n_kernels,
+            "split_ms": split if busy else "not measured",
+            "other_top_ms": dict(others.most_common(8))},
+        # the profiled step's busy time over the median unprofiled
+        # step's wall: two different runs, so an estimate.
+        "idle_share_estimate": 1.0 - busy / (steady * 1e3)
+        if busy else "not measured"}
+    print(f"full-width training [{TRAIN_ARCH}]: " + json.dumps(report))
+    print(f"full-width training phase: {time.perf_counter() - t_phase:.1f}s")
+
+
 # --- tiered KV memory and resilient serving (A10a, A10b) ------------------------------------
 
 
@@ -4428,6 +4784,7 @@ def main():
     phase_tier_resilience_exactness(args.seed)
     phase_moe_exactness(args.seed)
     phase_vlm_audio_exactness(args.seed)
+    phase_train_exactness(args.seed)
     paths = phase_full_width(args.seed)
     spec_paths = phase_prefix_spec_full_width(args.seed)
     tier_paths = phase_tiered_full_width(args.seed)
@@ -4437,6 +4794,7 @@ def main():
     moe_paths = phase_moe_full_width(args.seed)
     va_paths = phase_vlm_audio_full_width(args.seed)
     tel_paths = phase_telemetry_sampling(args.seed)
+    phase_train_full_width(args.seed)
 
     # each kernel's row: its launches on the full-width path that runs it,
     # its numbers at that path's shapes (B2: the store at the decode rows

@@ -11,7 +11,11 @@ the CPU tests import this module on machines without ``nvcc``.
 
 The dispatch rule (``on_cpu``): tensors that all lie on the CPU run the
 wrapper's plain twin; tensors on one CUDA device launch the kernel or
-raise.  There is no fallback from the card to the twin.
+raise.  There is no fallback from the card to the twin.  The kernels
+have no backward: on the card a wrapper refuses an input that requires
+grad while autograd records (``GradientError``), rather than return a
+result with no ``grad_fn``; the plain twins on the CPU are
+differentiable.
 """
 
 from __future__ import annotations
@@ -105,15 +109,25 @@ def require(fn: str, cond: bool, msg: str) -> None:
         raise ValueError(f"{fn}: {msg}")
 
 
+class GradientError(RuntimeError):
+    """A kernel was asked for a result that needs a gradient."""
+
+
 def on_cpu(fn: str, *tensors) -> bool:
     """True when every tensor lies on the CPU (run the plain twin); False
     when all lie on one CUDA device (launch the kernel); raises
-    otherwise."""
+    otherwise, and ``GradientError`` when autograd is recording and an
+    input requires grad (the kernel has no backward)."""
     devices = {t.device for t in tensors}
     if devices == {torch.device("cpu")}:
         return True
     require(fn, len(devices) == 1 and tensors[0].device.type == "cuda",
             f"all tensors must be on one CUDA device (got {devices})")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise GradientError(
+            f"{fn}: an input requires grad, and the CUDA kernel has no "
+            "backward; call it under torch.no_grad() or on detached "
+            "tensors, or take the plain path (use_pallas=False)")
     return False
 
 

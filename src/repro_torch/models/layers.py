@@ -30,6 +30,7 @@ Neither has a hand-written kernel, in the reference or here.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -109,6 +110,226 @@ def attention_xla(q, k, v, causal=True, window=None, scale=None):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqc,bhcv->bhgqv", p, v.to(F32))
     return o.reshape(b, hq, sq, dv).to(q.dtype)
+
+
+# --- training attention: blocked online softmax with a flash-style backward -------
+
+
+def _attn_pad(q, k, v, block_q: int, block_k: int):
+    """Pad the sequence axes of q and k, v up to whole blocks (blocks no
+    longer than the sequences)."""
+    sq, sk = q.shape[2], k.shape[2]
+    block_q, block_k = min(block_q, sq), min(block_k, sk)
+    pq, pk = -sq % block_q, -sk % block_k
+    if pq:
+        q = F.pad(q, (0, 0, 0, pq))
+    if pk:
+        k, v = F.pad(k, (0, 0, 0, pk)), F.pad(v, (0, 0, 0, pk))
+    return q, k, v, block_q, block_k
+
+
+def _blk_mask(qi, ki, block_q, block_k, q_off, sk, causal, window, device):
+    """(block_q, block_k) mask of the live (query, key) pairs of a tile."""
+    qpos = q_off + qi * block_q + torch.arange(block_q, device=device)[:, None]
+    kpos = ki * block_k + torch.arange(block_k, device=device)[None, :]
+    m = kpos < sk
+    if causal:
+        m = m & (kpos <= qpos)
+    if window is not None:
+        m = m & (kpos > qpos - window)
+    return m
+
+
+def _ki_range(qi, nk, causal, window, block_q, block_k, q_off, block_skip):
+    """The kv blocks query block ``qi`` visits: all of them, or with
+    ``block_skip`` (causal) only the causally live, banded ones."""
+    if not (block_skip and causal):
+        return 0, nk
+    q_lo = q_off + qi * block_q
+    q_hi = q_off + (qi + 1) * block_q - 1
+    lo = 0 if window is None else max(0, (q_lo - window + 1) // block_k)
+    return lo, min(nk - 1, q_hi // block_k) + 1
+
+
+def _qi_range(ki, nq, causal, window, block_q, block_k, q_off, block_skip):
+    """The query blocks that can see kv block ``ki`` (backward pass 2)."""
+    if not (block_skip and causal):
+        return 0, nq
+    qlo = max(0, (ki * block_k - q_off) // block_q)
+    qhi = nq - 1
+    if window is not None:
+        k_hi_pos = (ki + 1) * block_k - 1
+        qhi = min(nq - 1, (k_hi_pos + window - 1 - q_off) // block_q)
+    return qlo, qhi + 1
+
+
+def _where_finite(x, y):
+    """y where x is finite, else 0."""
+    return torch.where(torch.isfinite(x), y, torch.zeros((), dtype=y.dtype,
+                                                         device=y.device))
+
+
+def _attention_blocked_fwd(q, k, v, causal, window, scale, block_q, block_k,
+                           block_skip, p_bf16):
+    """Blocked online-softmax forward over ``block_q`` x ``block_k``
+    tiles, fp32, carrying only one query block's (m, l, acc).  Returns
+    (out in q's dtype, lse (b, hq, sq, 1) fp32)."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, dv = v.shape
+    g = hq // hkv
+    q, k, v, block_q, block_k = _attn_pad(q, k, v, block_q, block_k)
+    sqp, skp = q.shape[2], k.shape[2]
+    nq, nk = sqp // block_q, skp // block_k
+    q_off = sk - sq
+    qg = q.reshape(b, hkv, g, sqp, d).to(F32) * scale
+    kf, vf = k.to(F32), v.to(F32)
+    outs, lses = [], []
+    for qi in range(nq):
+        qb = qg[:, :, :, qi * block_q:(qi + 1) * block_q]
+        m = torch.full((b, hkv, g, block_q, 1), float("-inf"), dtype=F32,
+                       device=q.device)
+        l = torch.zeros((b, hkv, g, block_q, 1), dtype=F32, device=q.device)
+        o = torch.zeros((b, hkv, g, block_q, dv), dtype=F32, device=q.device)
+        lo, hi = _ki_range(qi, nk, causal, window, block_q, block_k, q_off,
+                           block_skip)
+        for ki in range(lo, hi):
+            kb = kf[:, :, ki * block_k:(ki + 1) * block_k]
+            vb = vf[:, :, ki * block_k:(ki + 1) * block_k]
+            s = torch.einsum("bhgqd,bhcd->bhgqc", qb, kb)
+            mask = _blk_mask(qi, ki, block_q, block_k, q_off, sk, causal,
+                             window, q.device)
+            s = s.masked_fill(~mask, float("-inf"))
+            m_n = torch.maximum(m, s.amax(-1, keepdim=True))
+            m_safe = _where_finite(m_n, m_n)
+            p = _where_finite(s, torch.exp(s - m_safe))
+            alpha = _where_finite(m, torch.exp(m - m_safe))
+            l = l * alpha + p.sum(-1, keepdim=True)
+            if p_bf16:
+                # bf16 probabilities and values into the PV product, fp32
+                # accumulation (products of bf16 values are exact in fp32).
+                pv = torch.einsum(
+                    "bhgqc,bhcv->bhgqv", p.to(torch.bfloat16).to(F32),
+                    vb.to(torch.bfloat16).to(F32))
+            else:
+                pv = torch.einsum("bhgqc,bhcv->bhgqv", p, vb)
+            o = o * alpha + pv
+            m = m_n
+        l_safe = torch.where(l == 0.0, torch.ones((), dtype=F32,
+                                                  device=l.device), l)
+        outs.append(o / l_safe)
+        lses.append(_where_finite(m, m) + torch.log(l_safe))
+    out = torch.cat(outs, dim=3)[:, :, :, :sq]
+    lse = torch.cat(lses, dim=3)[:, :, :, :sq]
+    return (out.reshape(b, hq, sq, dv).to(q.dtype),
+            lse.reshape(b, hq, sq, 1))
+
+
+def _attention_blocked_bwd(q, k, v, out, lse, do, causal, window, scale,
+                           block_q, block_k, block_skip):
+    """The flash-style backward: scores recomputed tile by tile from
+    (q, k, v, out, lse) with D = rowsum(dO·O); pass 1 gives dq per query
+    block, pass 2 dk and dv per kv block over the query blocks that see
+    it.  Returns (dq, dk, dv) in the inputs' dtypes."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, dv = v.shape
+    g = hq // hkv
+    qp, kp, vp, block_q, block_k = _attn_pad(q, k, v, block_q, block_k)
+    sqp, skp = qp.shape[2], kp.shape[2]
+    nq, nk = sqp // block_q, skp // block_k
+    q_off = sk - sq
+    qg = qp.reshape(b, hkv, g, sqp, d).to(F32)
+    kf, vf = kp.to(F32), vp.to(F32)
+    pad_q = (0, 0, 0, sqp - sq)
+    dog = F.pad(do.to(F32).reshape(b, hkv, g, sq, dv), pad_q)
+    og = F.pad(out.to(F32).reshape(b, hkv, g, sq, dv), pad_q)
+    lseg = F.pad(lse.to(F32).reshape(b, hkv, g, sq, 1), pad_q)
+    D = torch.sum(dog * og, dim=-1, keepdim=True)        # (b, hkv, g, sqp, 1)
+
+    def rows(t, i):
+        return t[:, :, :, i * block_q:(i + 1) * block_q]
+
+    def keys(t, j):
+        return t[:, :, j * block_k:(j + 1) * block_k]
+
+    def p_block(qi, ki):
+        s = torch.einsum("bhgqd,bhcd->bhgqc", rows(qg, qi) * scale,
+                         keys(kf, ki))
+        mask = _blk_mask(qi, ki, block_q, block_k, q_off, sk, causal, window,
+                         q.device)
+        s = s.masked_fill(~mask, float("-inf"))
+        return _where_finite(s, torch.exp(s - rows(lseg, qi)))
+
+    dq_blocks = []
+    for qi in range(nq):
+        dq_b = torch.zeros((b, hkv, g, block_q, d), dtype=F32, device=q.device)
+        lo, hi = _ki_range(qi, nk, causal, window, block_q, block_k, q_off,
+                           block_skip)
+        for ki in range(lo, hi):
+            p = p_block(qi, ki)
+            dp = torch.einsum("bhgqv,bhcv->bhgqc", rows(dog, qi), keys(vf, ki))
+            ds = p * (dp - rows(D, qi))
+            dq_b = dq_b + torch.einsum("bhgqc,bhcd->bhgqd", ds,
+                                       keys(kf, ki)) * scale
+        dq_blocks.append(dq_b)
+    dq = torch.cat(dq_blocks, dim=3)[:, :, :, :sq].reshape(b, hq, sq, d)
+
+    dk_blocks, dv_blocks = [], []
+    for ki in range(nk):
+        dk_b = torch.zeros((b, hkv, block_k, d), dtype=F32, device=q.device)
+        dv_b = torch.zeros((b, hkv, block_k, dv), dtype=F32, device=q.device)
+        lo, hi = _qi_range(ki, nq, causal, window, block_q, block_k, q_off,
+                           block_skip)
+        for qi in range(lo, hi):
+            p = p_block(qi, ki)
+            do_b = rows(dog, qi)
+            dv_b = dv_b + torch.einsum("bhgqc,bhgqv->bhcv", p, do_b)
+            dp = torch.einsum("bhgqv,bhcv->bhgqc", do_b, keys(vf, ki))
+            ds = p * (dp - rows(D, qi))
+            dk_b = dk_b + torch.einsum("bhgqc,bhgqd->bhcd", ds,
+                                       rows(qg, qi)) * scale
+        dk_blocks.append(dk_b)
+        dv_blocks.append(dv_b)
+    dk = torch.cat(dk_blocks, dim=2)[:, :, :sk]
+    dvv = torch.cat(dv_blocks, dim=2)[:, :, :sk]
+    return dq.to(q.dtype), dk.to(k.dtype), dvv.to(v.dtype)
+
+
+class BlockedAttention(torch.autograd.Function):
+    """Training attention, the twin of the reference's custom-VJP
+    ``_attention_xla_core``: the blocked online-softmax forward, saving
+    only (q, k, v, out, lse), and the two-pass backward that recomputes
+    the scores tile by tile — no (sq, sk) matrix is kept between forward
+    and backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, block_q, block_k,
+                block_skip, p_bf16):
+        out, lse = _attention_blocked_fwd(q, k, v, causal, window, scale,
+                                          block_q, block_k, block_skip,
+                                          p_bf16)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, scale, block_q, block_k, block_skip)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        dq, dk, dv = _attention_blocked_bwd(*ctx.saved_tensors, do, *ctx.args)
+        return (dq, dk, dv) + (None,) * 7
+
+
+def attention_blocked(q, k, v, causal=True, window=None, scale=None,
+                      block_q: int = 512, block_k: int = 512,
+                      block_skip: bool = False, p_bf16: bool = False):
+    """Differentiable blocked attention (``BlockedAttention``), the
+    reference's ``attention_xla``: q (b, hq, sq, d); k (b, hkv, sk, d);
+    v (b, hkv, sk, dv); query i at position ``sk - sq + i``.  A row with
+    no live key gives 0.  ``block_skip`` visits only the causally live
+    (banded, under a window) tiles; ``p_bf16`` rounds the probabilities
+    and values to bf16 for the PV product."""
+    scale = scale if scale is not None else 1.0 / np.sqrt(q.shape[-1])
+    return BlockedAttention.apply(q, k, v, bool(causal), window, float(scale),
+                                  int(block_q), int(block_k),
+                                  bool(block_skip), bool(p_bf16))
 
 
 def attention_decode(q, k, v, kv_valid, scale: Optional[float] = None):
@@ -205,9 +426,12 @@ def _qkv(cfg, p, x):
 def attention_apply(cfg, p, x, *, window: Optional[int] = None,
                     theta: Optional[float] = None,
                     cache: Optional[Dict[str, torch.Tensor]] = None,
-                    pos=None, store_rows: Optional[torch.Tensor] = None):
+                    pos=None, store_rows: Optional[torch.Tensor] = None,
+                    train: bool = False):
     """Pre-norm attention with residual.  Train/prefill when cache is
-    None; single-token decode otherwise: ``cache`` holds k, v of shape
+    None (``train``: the differentiable ``attention_blocked`` with the
+    config's tiles, ``attn_block_skip`` and ``attn_p_bf16``; prefill: the
+    plain ``attention_xla``); single-token decode otherwise: ``cache`` holds k, v of shape
     (b, hkv, S, hd) (int8 caches also k_scale, v_scale of (b, hkv, S,
     1)), written in place, and ``pos`` is a (b,) tensor (or a host int
     for every row) — each row decodes at its own position, as the
@@ -227,7 +451,13 @@ def attention_apply(cfg, p, x, *, window: Optional[int] = None,
                           theta, x.device)
         q, k = _rotate(q, *cs), _rotate(k, *cs)
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-        o = attention_xla(q, k, v, causal=True, window=window)
+        if train:
+            o = attention_blocked(
+                q, k, v, causal=True, window=window,
+                block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
+                block_skip=cfg.attn_block_skip, p_bf16=cfg.attn_p_bf16)
+        else:
+            o = attention_xla(q, k, v, causal=True, window=window)
         new_cache = None
     else:
         pos = decode_pos(pos, b, x.device)
@@ -641,9 +871,10 @@ def _mla_absorbed(cfg, p, q_nope, q_rope, CC, CR, valid, dtype):
 
 
 def mla_apply(cfg, p, x, *, cache: Optional[Dict[str, torch.Tensor]] = None,
-              pos=None):
+              pos=None, train: bool = False):
     """Pre-norm MLA attention with residual.  Train/prefill when cache is
-    None (the latent rows expanded to per-head K/V, causal attention);
+    None (the latent rows expanded to per-head K/V, causal attention;
+    ``train``: through ``attention_blocked`` with the config's tiles);
     else absorbed single-token decode on the compressed cache: ``cache``
     holds c_kv (b, S, lora) and k_rope (b, S, rope), bf16, written in
     place at ``decode_slot`` (clamped, as the reference's
@@ -664,8 +895,13 @@ def mla_apply(cfg, p, x, *, cache: Optional[Dict[str, torch.Tensor]] = None,
         qq = torch.cat([q_nope, q_rope], -1).transpose(1, 2)
         kk = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, hq, rp)],
                        -1).transpose(1, 2)
-        o = attention_xla(qq, kk, vv.transpose(1, 2), causal=True,
-                          scale=1.0 / np.sqrt(nope + rp))
+        attend = attention_xla
+        if train:
+            attend = functools.partial(
+                attention_blocked, block_q=cfg.attn_block_q,
+                block_k=cfg.attn_block_k, block_skip=cfg.attn_block_skip)
+        o = attend(qq, kk, vv.transpose(1, 2), causal=True,
+                   scale=1.0 / np.sqrt(nope + rp))
         o = o.transpose(1, 2).reshape(b, s, -1)
         new_cache = None
     else:

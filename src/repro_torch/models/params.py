@@ -7,7 +7,8 @@ package has the same paths and the same shapes.
 
 ``params_from_numpy`` carries weights across: it takes the JAX package's
 parameters as nested dicts of numpy arrays (``np.asarray`` of each leaf)
-and returns the port's tensors, bit for bit.
+and returns the port's tensors, bit for bit; ``opt_state_from_numpy``
+does the same for the reference's optimizer state.
 """
 
 from __future__ import annotations
@@ -136,3 +137,15 @@ def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
     """Nested dicts of numpy arrays -> the same tree of tensors on
     ``device``.  ``dtype`` (optional) recasts every floating leaf."""
     return tree_map(lambda _, a: _leaf_from_numpy(a, device, dtype), tree)
+
+
+def opt_state_from_numpy(step, m, v, device):
+    """The JAX package's ``OptState`` (``step`` an int or 0-d array; ``m``,
+    ``v`` nested dicts of numpy arrays, ``np.asarray`` of each leaf) ->
+    the port's ``train.optimizer.OptState`` on ``device``, bit for bit:
+    a run the reference began can go on in the port."""
+    from ..train.optimizer import OptState
+    return OptState(step=torch.tensor(int(np.asarray(step)),
+                                      dtype=torch.int32),
+                    m=params_from_numpy(m, device),
+                    v=params_from_numpy(v, device))

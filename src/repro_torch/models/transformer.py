@@ -2,7 +2,7 @@
 
 Parameter declarations exist for every family, so every architecture's
 tree can be built and counted.  ``forward`` runs the dense family in
-modes ``train`` (forward only), ``prefill``, ``decode``, ``chunk`` and
+modes ``train``, ``prefill``, ``decode``, ``chunk`` and
 ``verify`` -- gemma3 too: groups of ``local_global_pattern``
 sliding-window layers (θ ``rope_theta``) and one global layer (θ
 ``rope_theta_global``), parameters stacked (G, per) -- and the recurrent
@@ -12,7 +12,10 @@ Mamba2 layers with one shared attention+MLP block after every
 ``decode``; the JAX package's scan over stacked layers is a Python loop
 here, each layer reading its slice of the stacked parameters.
 
-* ``train``   — full-sequence causal forward, logits everywhere.
+* ``train``   — full-sequence causal forward, logits everywhere;
+  differentiable: attention through ``layers.attention_blocked`` (the
+  blocked online softmax with a flash-style backward) and, when autograd
+  records, each layer under ``cfg.remat`` (``_layer``).
 * ``prefill`` — same compute; every layer also emits its K/V (a ring,
   rolled mask-aware, for sliding-window caches); returns (last-position
   logits, cache).
@@ -52,6 +55,7 @@ Vp).
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -334,8 +338,8 @@ def forward(cfg, params, batch, mode: str = "train",
         else:
             store_rows = _dense_store_rows(cfg, mode, cache, pos, b, w,
                                            x.device)
-        for i in range(cfg.n_layers):
-            p = _tree_idx(blocks, i)
+
+        def layer(x, p, i):
             if block_tab is not None:
                 x = _attn_paged(cfg, p["attn"], x, w, theta,
                                 {n: a[i] for n, a in pools_kv.items()}, bt,
@@ -345,7 +349,10 @@ def forward(cfg, params, batch, mode: str = "train",
                                 theta, cl, last_pos, emitted, store_rows)
             if "cross" in p:                          # musicgen
                 x = L.cross_attention_apply(cfg, p["cross"], x, cond)
-            x = _ffn(cfg, p, x, row_capacity)
+            return _ffn(cfg, p, x, row_capacity)
+
+        for i in range(cfg.n_layers):
+            x = _layer(cfg, mode, layer, x, _tree_idx(blocks, i), i)
         new_cache = _stack_emitted(emitted) if mode == "prefill" else None
 
     x = L.rmsnorm(x, params["final_norm"])
@@ -367,6 +374,41 @@ def forward(cfg, params, batch, mode: str = "train",
     if block_tab is not None:
         return logits, pools
     return logits, cache
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of the products with no batch
+    dims (the reference's ``dots_with_no_batch_dims_saveable``: ``x @ W``
+    runs as ``mm``/``addmm``), recompute everything else.  ``bmm`` has a
+    batch dim: the attention's tile products and the MoE experts' are
+    recomputed, as in the reference."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _layer(cfg, mode, fn, x, p, *args):
+    """One layer, ``fn(x, p, *args)``.  In train mode, when autograd
+    records it (an input or a parameter requires grad), under
+    ``cfg.remat``: ``"none"`` keeps every activation the backward needs,
+    ``"full"`` keeps only the layer's inputs and recomputes the layer in
+    the backward, ``"dots"`` keeps the matmul outputs as well
+    (``_save_dots``).  Recomputation changes memory, never values."""
+    if (mode != "train" or cfg.remat == "none"
+            or not torch.is_grad_enabled()
+            or not (x.requires_grad
+                    or any(t.requires_grad for t in tree_leaves(p)))):
+        return fn(x, p, *args)
+    from torch.utils import checkpoint as ckpt
+    if cfg.remat == "full":
+        return ckpt.checkpoint(fn, x, p, *args, use_reentrant=False)
+    if cfg.remat == "dots":
+        return ckpt.checkpoint(
+            fn, x, p, *args, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"unknown remat {cfg.remat!r} (none | dots | full)")
 
 
 def _ffn(cfg, p, x, row_capacity):
@@ -394,28 +436,31 @@ def _mla_layers(cfg, blocks, x, mode, cache, pools, block_tab, span,
             bt, pos, x.shape[1], page, n_pages, span["last_idx"],
             span["cache_offset"])
     emitted = {}
+
+    def layer(x, p, part, i):
+        if block_tab is not None:
+            x, _ = L.mla_apply_paged(
+                cfg, p["attn"], x,
+                pages={n: a[i] for n, a in latent[part].items()},
+                block_tab=bt, pos=pos, last_idx=span["last_idx"],
+                cache_offset=span["cache_offset"],
+                verify=mode == "verify", write_idx=write_idx)
+        elif mode == "decode":
+            x, _ = L.mla_apply(
+                cfg, p["attn"], x, pos=pos,
+                cache={n: c[i] for n, c in cache[part].items()})
+        else:
+            if mode == "prefill":
+                emitted[part].append(L.mla_prefill_latent(
+                    cfg, p["attn"], x, cache_len))
+            x, _ = L.mla_apply(cfg, p["attn"], x, train=mode == "train")
+        return _ffn(cfg, p, x, row_capacity)
+
     for part in ("first", "rest"):
         emitted[part] = []
         stack = blocks[part]
         for i in range(tree_leaves(stack)[0].shape[0]):
-            p = _tree_idx(stack, i)
-            if block_tab is not None:
-                x, _ = L.mla_apply_paged(
-                    cfg, p["attn"], x,
-                    pages={n: a[i] for n, a in latent[part].items()},
-                    block_tab=bt, pos=pos, last_idx=span["last_idx"],
-                    cache_offset=span["cache_offset"],
-                    verify=mode == "verify", write_idx=write_idx)
-            elif mode == "decode":
-                x, _ = L.mla_apply(
-                    cfg, p["attn"], x, pos=pos,
-                    cache={n: c[i] for n, c in cache[part].items()})
-            else:
-                if mode == "prefill":
-                    emitted[part].append(L.mla_prefill_latent(
-                        cfg, p["attn"], x, cache_len))
-                x, _ = L.mla_apply(cfg, p["attn"], x)
-            x = _ffn(cfg, p, x, row_capacity)
+            x = _layer(cfg, mode, layer, x, _tree_idx(stack, i), part, i)
     if mode != "prefill":
         return x, None
     return x, {part: _stack_emitted(layers)
@@ -485,25 +530,29 @@ def _gemma3_layers(cfg, blocks, x, mode, cache, pools, block_tab, span,
             store_rows[kind] = _dense_store_rows(
                 cfg, mode, cache[kind], span["pos"], b, window, x.device)
     emitted = {"local": [], "global": []}
+
+    def layer(x, p, g, i):
+        kind, j = ("local", i) if i < n_local else ("global", i - n_local)
+        window, theta = kinds[kind]
+        if block_tab is not None:
+            x = _attn_paged(cfg, p["attn"], x, window, theta,
+                            {n: a[g, j] for n, a in pools[kind].items()},
+                            block_tab[kind], kind == "local",
+                            write_idx[kind], span)
+        else:
+            cl = (min(cache_len, window) if (window and cache_len)
+                  else cache_len)
+            ci = ({n: c[g] for n, c in cache[kind].items()}
+                  if mode == "decode" else None)
+            x = _attn_dense(cfg, p["attn"], x, mode, ci, j, span["pos"],
+                            window, theta, cl, last_pos, emitted[kind],
+                            store_rows.get(kind))
+        return L.mlp_apply(cfg, p["mlp"], x)
+
     for g in range(G):
         for i in range(per):
-            p = _tree_idx(_tree_idx(blocks, g), i)
-            kind, j = ("local", i) if i < n_local else ("global", i - n_local)
-            window, theta = kinds[kind]
-            if block_tab is not None:
-                x = _attn_paged(cfg, p["attn"], x, window, theta,
-                                {n: a[g, j] for n, a in pools[kind].items()},
-                                block_tab[kind], kind == "local",
-                                write_idx[kind], span)
-            else:
-                cl = (min(cache_len, window) if (window and cache_len)
-                      else cache_len)
-                ci = ({n: c[g] for n, c in cache[kind].items()}
-                      if mode == "decode" else None)
-                x = _attn_dense(cfg, p["attn"], x, mode, ci, j, span["pos"],
-                                window, theta, cl, last_pos, emitted[kind],
-                                store_rows.get(kind))
-            x = L.mlp_apply(cfg, p["mlp"], x)
+            x = _layer(cfg, mode, layer, x,
+                       _tree_idx(_tree_idx(blocks, g), i), g, i)
     if mode != "prefill":
         return x, None
     return x, {kind: {n: t.reshape((G, -1) + t.shape[1:])
@@ -523,7 +572,8 @@ def _attn_dense(cfg, p, x, mode, cache, i, pos, window, theta, cache_len,
                                  pos=pos, store_rows=store_rows)
         return x
     x_in = x
-    x, _ = L.attention_apply(cfg, p, x, window=window, theta=theta)
+    x, _ = L.attention_apply(cfg, p, x, window=window, theta=theta,
+                             train=mode == "train")
     if mode == "prefill":
         emitted.append(_prefill_kv(cfg, p, x_in, window, theta, cache_len,
                                    last_pos))
@@ -543,13 +593,8 @@ def _recurrent_layers(cfg, blocks, x, mode, cache, pos, cache_len,
     ssm_cache = (cache["ssm"] if hybrid else cache) if mode == "decode" \
         else None
     emitted_ssm, emitted_attn = [], []
-    for li in range(cfg.n_layers):
-        if not hybrid:
-            p = _tree_idx(blocks["ssm"], li)
-        elif li < G * k:
-            p = _tree_idx(_tree_idx(blocks["ssm_groups"], li // k), li % k)
-        else:
-            p = _tree_idx(blocks["ssm_tail"], li - G * k)
+
+    def layer(x, p, shared, li):
         if mode == "decode":
             x, _ = S.mamba2_apply(cfg, p, x, cache={
                 n: c[li] for n, c in ssm_cache.items()})
@@ -557,12 +602,26 @@ def _recurrent_layers(cfg, blocks, x, mode, cache, pos, cache_len,
             x, c = S.mamba2_apply(cfg, p, x, emit_cache=mode == "prefill")
             if c is not None:
                 emitted_ssm.append(c)
-        if hybrid and li < G * k and (li + 1) % k == 0:
-            x = _attn_dense(cfg, blocks["shared_attn"], x, mode,
+        if shared is not None:
+            x = _attn_dense(cfg, shared["attn"], x, mode,
                             cache["attn"] if mode == "decode" else None,
                             li // k, pos, None, cfg.rope_theta, cache_len,
                             last_pos, emitted_attn)
-            x = L.mlp_apply(cfg, blocks["shared_mlp"], x)
+            x = L.mlp_apply(cfg, shared["mlp"], x)
+        return x
+
+    for li in range(cfg.n_layers):
+        if not hybrid:
+            p = _tree_idx(blocks["ssm"], li)
+        elif li < G * k:
+            p = _tree_idx(_tree_idx(blocks["ssm_groups"], li // k), li % k)
+        else:
+            p = _tree_idx(blocks["ssm_tail"], li - G * k)
+        shared = None
+        if hybrid and li < G * k and (li + 1) % k == 0:
+            shared = {"attn": blocks["shared_attn"],
+                      "mlp": blocks["shared_mlp"]}
+        x = _layer(cfg, mode, layer, x, p, shared, li)
     if mode != "prefill":
         return x, None
     ssm = _stack_emitted(emitted_ssm)

@@ -477,3 +477,88 @@ def test_kv_quantize_store_kernel_bit_equal(card, layout, d, dtype, ties):
         kept = rows.reshape(-1)[rows.reshape(-1) >= 0][0]
         assert leaves["k"].view(-1, d)[kept, :8].tolist() == [
             2, -4, 0, 2, 0, 127, 4, -126]
+
+
+def _grad_cases(dev):
+    """(wrapper name, call) for every kernel wrapper and every
+    ``kernels/ops.py`` path to a kernel, with one float input that
+    requires grad."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil as st
+    f32 = dict(device=dev, dtype=torch.float32)
+
+    def leaf(*shape, dtype=torch.float32):
+        return torch.randn(shape, device=dev).to(dtype).requires_grad_()
+
+    q = leaf(1, 2, 1, 64, dtype=torch.bfloat16)
+    kv = torch.zeros((4, 2, 16, 64), device=dev, dtype=torch.bfloat16)
+    tab = torch.zeros((1, 4), device=dev, dtype=torch.int32)
+    pos = torch.zeros((1,), device=dev, dtype=torch.int32)
+    ssd_in = lambda: (leaf(1, 64, 2, 16), torch.rand((1, 64, 2), **f32),
+                      -torch.rand((2,), **f32), torch.randn((1, 64, 16), **f32),
+                      torch.randn((1, 64, 16), **f32))
+    dense = torch.zeros((1, 2, 64, 64), device=dev, dtype=torch.bfloat16)
+    i8 = torch.zeros((4, 2, 16, 64), device=dev, dtype=torch.int8)
+    sc = torch.ones((4, 2, 16, 1), device=dev, dtype=torch.bfloat16)
+    return [
+        ("ssd_scan", lambda: ssd_scan(*ssd_in(), chunk=64)),
+        ("ops.ssd", lambda: ops.ssd(*ssd_in(), chunk=64, use_pallas=True)),
+        ("flash_attention", lambda: fa.flash_attention(
+            leaf(1, 2, 64, 64, dtype=torch.bfloat16), dense, dense)),
+        ("ops.attention", lambda: ops.attention(
+            leaf(1, 2, 64, 64, dtype=torch.bfloat16), dense, dense,
+            use_pallas=True)),
+        ("flash_attention_decode_paged", lambda: fa.flash_attention_decode_paged(
+            q, kv, kv, tab, pos)),
+        ("ops.paged_decode_attention", lambda: ops.paged_decode_attention(
+            q, kv, kv, tab, pos, use_pallas=True)),
+        ("flash_attention_decode", lambda: fa.flash_attention_decode(
+            q, dense, dense, pos)),
+        ("kv_quantize", lambda: kq.kv_quantize(leaf(8, 64))),
+        ("ops.kv_quant", lambda: ops.kv_quant(leaf(8, 64), use_pallas=True)),
+        ("kv_quantize_store", lambda: kq.kv_quantize_store(
+            leaf(1, 2, 64), leaf(1, 2, 64), i8, i8, sc, sc,
+            torch.zeros((2,), device=dev, dtype=torch.int64))),
+        ("kv_dequantize", lambda: kq.kv_dequantize(i8, leaf(4, 2, 16, 1))),
+        ("rmsnorm", lambda: rk.rmsnorm(leaf(8, 64), torch.zeros(64, **f32))),
+        ("ops.fused_rmsnorm", lambda: ops.fused_rmsnorm(
+            leaf(8, 64), torch.zeros(64, **f32), use_pallas=True)),
+        ("stencil2d", lambda: st.stencil2d(leaf(64, 64))),
+        ("ops.stencil", lambda: ops.stencil(leaf(64, 64), use_pallas=True)),
+        ("stencil2d_iterated", lambda: st.stencil2d_iterated(leaf(64, 64), 2)),
+        ("tree_row_reduce", lambda: tk.tree_row_reduce(leaf(8, 64))),
+        ("ops.row_reduce", lambda: ops.row_reduce(leaf(8, 64),
+                                                  use_pallas=True)),
+    ]
+
+
+@pytest.mark.cuda
+def test_every_kernel_wrapper_refuses_an_input_that_requires_grad(card):
+    """The kernels have no backward: each wrapper (and each
+    ``kernels/ops.py`` path to one) raises ``GradientError`` before any
+    launch instead of returning a result with no ``grad_fn``.  Under
+    ``torch.no_grad()`` the same input passes that check."""
+    from repro_torch.kernels.build import GradientError
+    from repro_torch.kernels.ssd_scan import ssd_scan as wrapper
+    for name, call in _grad_cases(card):
+        with pytest.raises(GradientError, match="no backward"):
+            call()
+    before = wrapper.launches
+    with torch.no_grad():
+        y = _grad_cases(card)[0][1]()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1 and torch.isfinite(y).all()
+
+
+@pytest.mark.cuda
+def test_train_step_refuses_b6_on_the_card(card):
+    """A mamba2 or zamba2 train step with ``use_pallas`` (B6 in every
+    layer) is refused before anything runs."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.configs.base import smoke_variant
+    from repro_torch.train import train_loop as TL
+    for arch in ("mamba2-1p3b", "zamba2-1p2b"):
+        cfg = dataclasses.replace(smoke_variant(get(arch)), use_pallas=True)
+        with pytest.raises(NotImplementedError, match="no backward"):
+            TL.make_train_step(cfg)

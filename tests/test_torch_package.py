@@ -63,6 +63,22 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert int(out.stdout.strip()) >= 15
 
 
+TRAINING = ("train/optimizer.py", "train/train_loop.py", "train/data.py",
+            "train/checkpoint.py", "train/fault.py", "launch/train.py",
+            "examples/train_lm.py")
+
+
+def test_training_modules_exist_and_stand_alone():
+    """The training path's modules are in the package, so the two tests
+    above cover them: no import of ``jax`` or ``repro`` in their source,
+    and each imports with both blocked."""
+    files = set(PKG.rglob("*.py"))
+    for rel in TRAINING:
+        assert PKG / rel in files, rel
+        mods = set(_imported_modules(PKG / rel))
+        assert not {m.split(".")[0] for m in mods} & {"jax", "repro"}, rel
+
+
 def _serve(*extra, arch="minitron-4b", prompt_len=10):
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
