@@ -132,23 +132,23 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    through the random-weight layers amplifies any change of summation
    order past the tolerance: the plain scan at half the chunk is printed
    beside it as that noise floor);
-7. gemma3-12b at full width, 24 of its 48 layers (4 of its 8
+7. gemma3-12b at full width, 12 of its 48 layers (2 of its 8
    local/global groups) — random bf16 weights from the seed, 16
    requests of 1100-1500 prompt tokens (past the 1024 window) and 64 new
    tokens on 8 slots, max_seq 2048, page 16, chunk 128, ``decode_flash``:
-   served paged (B1 with the ring's ``page_base`` on the 20 local layers,
-   flat on the 4 global), paged with ``speculate_k`` 4 and the
+   served paged (B1 with the ring's ``page_base`` on the 10 local layers,
+   flat on the 2 global), paged with ``speculate_k`` 4 and the
    single-token drafter (verify spans at sq = 5 on a 66-page ring; once
    with the default pool, whose local group is exactly the 8 rings, and
    once with 2 scratch pages per slot beyond them), and from dense slots
    (B3 on the rolled window and the full cache); B1 / B3 launched steps
-   x 24 exactly, the local group's peak pages within the rings (and the
+   x 12 exactly, the local group's peak pages within the rings (and the
    scratch); tokens/s, step and TTFT times, peak memory, each group's
    peak pages, the speculation counters beside the draftable steps of
    plain decode and token identity to the paged run printed; one decode
    step's logits through the kernels vs the plain path and its time
    split, paged and dense;
-8. the moe family at full width — deepseek-v2-lite-16b (all 27
+8. the moe family at full width — deepseek-v2-lite-16b (14 of its 27
    layers, MLA on latent pages, 64 experts top-6 plus 2 shared) and
    phi3.5-moe (full widths, 16 of its 32 layers: the whole model does
    not fit beside a KV pool), random bf16 weights from the seed, phase
@@ -178,7 +178,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    greedy; reserve-at-admission admitting 2 slots where lazy growth
    admits 8 at one pool, with the same tokens.  At full width,
    minitron-4b's shared-prompt traffic paged with the prefix cache and
-   ``speculate_k`` 4, served with telemetry off, on, on, off (tokens/s
+   ``speculate_k`` 4, served with telemetry off, then on (tokens/s
    of each; on: a live ``/metrics`` scrape that validates, with
    ``serve_steps_total`` equal to the steps, the trace giving back the
    counters, the decode-step histogram's p50 in the bucket of the
@@ -202,7 +202,19 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    matmul), peak memory and one profiled step's device time
    as matmul / blocked attention / optimizer / other.  Training launches
    no kernel of the port (none of the reference's Pallas kernels is on
-   its path).
+   its path);
+11. the roofline (budget 120 s) — ``launch.dryrun.run_cell`` for every
+   (arch x shape) cell of ``dryrun.cells()`` at one H100, counted on fake
+   CPU tensors in parallel processes (no kernel launched, nothing
+   allocated on the card), one line per cell with its bound, bottleneck
+   and ``mfu_bound``, every cell required to pass; then the full-width
+   steps this run timed set beside the bound of their own count: the
+   minitron-4b train step (b 1 x s 1024, counted on fake tensors), and
+   the paged decode step, one 128-token prefill chunk and the dense
+   decode step at 8 slots (each counted in one extra call on the card's
+   real inputs, as their row masks depend on the data, B1 and B3 by
+   their formula), each with its measured ms, the share and the card's
+   name and power limit.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -2030,9 +2042,25 @@ def same_through_twin(label, step, cache):
           f"({len(after['kernel'])} leaves)")
 
 
-def phase_full_width(seed):
+def count_step(measured, label, fn, cfg, shape, prof):
+    """One more call of ``fn`` (a full-width step on the card's real
+    inputs, which its data-dependent row masks need) under the roofline
+    counter; kept in ``measured[label]`` beside the step's profiled wall
+    and busy ms for ``phase_roofline``.  ``shape``: (kind, seq, batch)."""
+    from repro_torch.roofline import count as C
+    with torch.no_grad(), C.Counter(scopes=False) as c:
+        fn()
+    torch.cuda.synchronize()
+    measured[label] = {"cfg": cfg, "shape": shape, "ms": prof["wall_ms"],
+                       "device_busy_ms": prof.get("device_busy_ms"),
+                       "costs": c.costs}
+
+
+def phase_full_width(seed, measured):
     """Full-width serves: paged through B1, then dense slots through B3
-    with a bf16 and an int8 (B2) cache.  Returns {path: launches}."""
+    with a bf16 and an int8 (B2) cache.  Returns {path: launches}; the
+    paged decode step, a prefill chunk and the dense bf16 decode step go
+    into ``measured`` with their counts (``count_step``)."""
     from repro_torch.configs import get
     from repro_torch.models import params as PP
     from repro_torch.models import registry
@@ -2094,6 +2122,12 @@ def phase_full_width(seed):
             "prefill_chunk_128": profile_window(chunk_once, 3)}
     print("time split [paged bf16] (8 slots at ~100-900 positions): "
           + json.dumps(prof))
+    count_step(measured, "minitron-4b paged decode step, 8 slots",
+               decode_once, cfg, ("decode", max_seq, n_slots),
+               prof["decode_step"])
+    count_step(measured, "minitron-4b paged prefill chunk, 128 tokens",
+               chunk_once, cfg, ("prefill", chunk, 1),
+               prof["prefill_chunk_128"])
     del pools, step, fn, state
     torch.cuda.empty_cache()
 
@@ -2141,6 +2175,9 @@ def phase_full_width(seed):
         prof = profile_window(dense_once, 5)
         print(f"time split [{label}] (decode step, 8 slots at ~100-900 "
               "positions): " + json.dumps(prof))
+        if dt == "bfloat16":
+            count_step(measured, "minitron-4b dense decode step, 8 slots",
+                       dense_once, cfg, ("decode", max_seq, n_slots), prof)
         del bat
         torch.cuda.empty_cache()
 
@@ -2716,19 +2753,19 @@ def phase_gemma3_exactness(seed):
 # gemma3-12b at full width: 8 slots, max_seq 2048, page 16, chunk 128;
 # 16 requests of 1100-1500 prompt tokens (past the 1024 window, so the
 # local ring wraps during prefill and decode), MAX_NEW new tokens each.
-# Depth cut to G3_LAYERS of 48 (4 of the 8 local/global groups; widths,
+# Depth cut to G3_LAYERS of 48 (2 of the 8 local/global groups; widths,
 # window, ring and traffic unchanged) to keep the whole run in time.
-G3_MAX_SEQ, G3_PLENS, G3_LAYERS = 2048, (1100, 1501), 24
+G3_MAX_SEQ, G3_PLENS, G3_LAYERS = 2048, (1100, 1501), 12
 
 
 def phase_gemma3_full_width(seed):
     """gemma3-12b at full width and ``G3_LAYERS`` layers, random bf16
     weights from the seed, ``decode_flash``: the traffic above served
-    paged (B1 with the ring's ``page_base`` on 20 local layers, flat on 4
+    paged (B1 with the ring's ``page_base`` on 10 local layers, flat on 2
     global), paged with ``speculate_k`` 4 and the single-token drafter
     (verify spans at sq = 5; the ring 66 pages), and from dense slots (B3
     on the rolled window of 1024 and the flat 2048); launches = steps x
-    24 in each, the local
+    12 in each, the local
     group's peak pages within 8 x the ring's width; one decode step's
     logits through the kernels vs the plain path, paged and dense, and
     each one's time split.  Returns {path: launches}."""
@@ -3057,11 +3094,13 @@ def count_moe_drops():
 
 # phi3.5-moe at full widths: 16 of its 32 layers (41.88 B parameters in
 # all, 83.8 GB in bf16, leave no room for a KV pool on one 80 GB card).
-PHI_LAYERS = 16
+# deepseek-v2-lite at full widths: 14 of its 27 layers (its dense first
+# layer and 13 MoE layers), to keep the whole run in time.
+PHI_LAYERS, DS_LAYERS = 16, 14
 
 
 def phase_moe_full_width(seed):
-    """deepseek-v2-lite-16b at full width and depth (27 layers) and
+    """deepseek-v2-lite-16b at full widths with ``DS_LAYERS`` layers and
     phi3.5-moe at full widths with ``PHI_LAYERS`` layers, random bf16
     weights from the seed, the minitron cell's traffic (16 requests of
     256-512 prompt tokens, 64 new, 8 slots, max_seq 1024, page 16, chunk
@@ -3083,7 +3122,7 @@ def phase_moe_full_width(seed):
     t_phase = time.perf_counter()
     counts = kernel_counts()
     paths = {}
-    for arch, n_layers in (("deepseek-v2-lite-16b", None),
+    for arch, n_layers in (("deepseek-v2-lite-16b", DS_LAYERS),
                            ("phi3p5-moe-42b", PHI_LAYERS)):
         torch.cuda.empty_cache()
         base = dataclasses.replace(get(arch), decode_flash=True)
@@ -3594,7 +3633,7 @@ def train_memory_gb(cfg, n_layers, b, s):
             "logits": logits / 1e9}
 
 
-def phase_train_full_width(seed):
+def phase_train_full_width(seed, measured):
     """minitron-4b at full width (32 layers, d 3072, 24 / 8 heads of
     128, d_ff 9216, vocab 256 000), random bf16 weights from the seed,
     fp32 AdamW moments, remat "dots", trained 4 steps at batch 1 x seq
@@ -3748,6 +3787,9 @@ def phase_train_full_width(seed):
         "idle_share_estimate": 1.0 - busy / (steady * 1e3)
         if busy else "not measured"}
     print(f"full-width training [{TRAIN_ARCH}]: " + json.dumps(report))
+    measured[f"{TRAIN_ARCH} train step, b {TRAIN_BATCH} x s {TRAIN_SEQ}"] = {
+        "cfg": run_cfg, "shape": ("train", TRAIN_SEQ, TRAIN_BATCH),
+        "ms": steady * 1e3, "device_busy_ms": busy if busy else None}
     print(f"full-width training phase: {time.perf_counter() - t_phase:.1f}s")
 
 
@@ -4653,7 +4695,7 @@ def telemetry_full_width(seed):
     """Full-width minitron-4b, bf16, paged through B1 (page 16, chunk
     128, 8 slots, max_seq 1024) with the prefix cache, ``prefill_exact``
     and ``speculate_k`` 4 on the shared-prompt traffic: served with
-    telemetry off, on, on, off (on: tracing, profiler ranges and a live
+    telemetry off, then on (on: tracing, profiler ranges and a live
     ``/metrics`` scrape), B1 launched (decode + verify steps) x 32 in
     each, the trace giving back the counters, the decode-step
     histogram's p50 in the bucket of the host-timed median decode step;
@@ -4672,7 +4714,7 @@ def telemetry_full_width(seed):
     prompts = shared_prompt_traffic(cfg.vocab_size,
                                     np.random.default_rng(seed + 19))
     paths, runs, outs = {}, [], []
-    for i, on in enumerate((False, True, True, False)):
+    for i, on in enumerate((False, True)):
         tel = ServeTelemetry(profile=True) if on else None
         summary, launches, bat, out, step_s = serve_with_telemetry(
             cfg, params, prompts, counts, tel)
@@ -4724,6 +4766,107 @@ def phase_telemetry_sampling(seed):
     telemetry_smoke(seed)
     print(f"smoke telemetry and sampling: {time.perf_counter() - t:.1f}s")
     return telemetry_full_width(seed)
+
+
+# --- the roofline (A16 at one device) ------------------------------------------------
+
+ROOFLINE_BUDGET_S = 120
+
+
+def count_cell(task):
+    """Count one step on fake CPU tensors in a worker process: a dry-run
+    cell (``dryrun.run_cell``), or with ``cfg`` given a full-width step as
+    the card ran it (bf16 parameters, one microbatch).  Returns (task,
+    roofline record or None, error or None, seconds)."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.set_num_threads(1)
+    from repro_torch.configs import SHAPES, ShapeCfg, get
+    from repro_torch.launch import dryrun
+    from repro_torch.models import registry
+    from repro_torch.roofline import analysis as RA
+    from repro_torch.train import train_loop as TL
+    t = time.perf_counter()
+    try:
+        if "cfg" in task:
+            cfg = task["cfg"]
+            shape = ShapeCfg(task["label"], *task["shape"])
+            costs, _ = dryrun.lower_cell(
+                cfg, shape, tcfg=TL.TrainCfg(), param_dtype=torch.bfloat16,
+                scopes=False)
+            rec = RA.analyze(costs, cfg, shape, dryrun.MESH_NAME,
+                             dryrun.N_CHIPS, registry.num_active_params(cfg)
+                             ).to_dict(dryrun.N_CHIPS)
+        else:
+            rec = dryrun.run_cell(get(task["arch"]), SHAPES[task["shape"]],
+                                  verbose=False, scopes=False)
+        return task, rec, None, time.perf_counter() - t
+    except Exception as e:                       # reported, then failed
+        return task, None, repr(e), time.perf_counter() - t
+
+
+def phase_roofline(card_line, measured):
+    """Every dry-run cell's roofline at one H100, then the bound of each
+    full-width step this run timed (``measured``) beside its measured ms.
+    The cells and the train step are counted on fake CPU tensors in
+    worker processes (spawned: the parent holds the card); the other
+    steps were counted on the card by ``count_step``."""
+    import concurrent.futures
+    import multiprocessing
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.launch import dryrun
+    from repro_torch.models import registry
+    from repro_torch.roofline import analysis as RA
+    t_phase = time.perf_counter()
+    print(f"roofline phase: budget {ROOFLINE_BUDGET_S} s (the whole script "
+          "within 1200 s)")
+    cells = [{"arch": cfg.name, "shape": shape.name}
+             for cfg, shape in dryrun.cells()]
+    # the longest (train) cells first, so the workers finish together.
+    cells.sort(key=lambda c: not c["shape"].startswith("train"))
+    tasks = [{"label": label, "cfg": m["cfg"], "shape": m["shape"]}
+             for label, m in measured.items() if m["shape"][0] == "train"]
+    workers = min(8, os.cpu_count() or 1)
+    done = {}
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        for task, rec, err, sec in ex.map(count_cell, tasks + cells):
+            key = task.get("label") or (task["arch"], task["shape"])
+            done[key] = (rec, err, sec)
+    failed = []
+    for c in cells:
+        rec, err, sec = done[(c["arch"], c["shape"])]
+        tag = f"{c['arch']} × {c['shape']} × {dryrun.MESH_NAME}"
+        if err:
+            failed.append(tag)
+            print(f"roofline FAIL {tag}: {err}")
+            continue
+        print(f"roofline PASS {tag}: bound {rec['t_bound_s'] * 1e3:.6g} ms "
+              f"({rec['bottleneck']}; compute {rec['t_compute_s'] * 1e3:.6g}"
+              f" ms, memory {rec['t_memory_s'] * 1e3:.6g} ms), mfu_bound "
+              f"{rec['mfu_bound']:.4f}, counted in {sec:.1f}s")
+    check(not failed, f"roofline: {len(failed)} cells failed: {failed}")
+    for label, m in measured.items():
+        if label in done:
+            rec, err, _ = done[label]
+            check(err is None, f"roofline [{label}]: {err}")
+        else:
+            shape = ShapeCfg(label, *m["shape"])
+            rec = RA.analyze(m["costs"], m["cfg"], shape, dryrun.MESH_NAME,
+                             dryrun.N_CHIPS,
+                             registry.num_active_params(m["cfg"])
+                             ).to_dict(dryrun.N_CHIPS)
+        bound_ms = rec["t_bound_s"] * 1e3
+        check(bound_ms > 0 and m["ms"] > 0, f"roofline [{label}]: {rec}")
+        print(f"roofline step [{label}]: measured {m['ms']:.6g} ms wall "
+              f"(device busy {m['device_busy_ms']} ms), bound "
+              f"{bound_ms:.6g} ms ({rec['bottleneck']}: "
+              f"{rec['flops_per_device']:.6g} FLOPs, "
+              f"{rec['bytes_per_device']:.6g} bytes), share of the bound "
+              f"{bound_ms / m['ms']:.4f}, model FLOPs "
+              f"{rec['model_flops_global']:.6g}; {card_line}")
+    print(f"roofline phase: {time.perf_counter() - t_phase:.1f}s "
+          f"({len(cells)} cells, {workers} workers)")
 
 
 def main():
@@ -4785,7 +4928,8 @@ def main():
     phase_moe_exactness(args.seed)
     phase_vlm_audio_exactness(args.seed)
     phase_train_exactness(args.seed)
-    paths = phase_full_width(args.seed)
+    measured = {}
+    paths = phase_full_width(args.seed, measured)
     spec_paths = phase_prefix_spec_full_width(args.seed)
     tier_paths = phase_tiered_full_width(args.seed)
     paths["hlslib ops"] = phase_hlslib_path(args.seed)
@@ -4794,7 +4938,8 @@ def main():
     moe_paths = phase_moe_full_width(args.seed)
     va_paths = phase_vlm_audio_full_width(args.seed)
     tel_paths = phase_telemetry_sampling(args.seed)
-    phase_train_full_width(args.seed)
+    phase_train_full_width(args.seed, measured)
+    phase_roofline(card_line, measured)
 
     # each kernel's row: its launches on the full-width path that runs it,
     # its numbers at that path's shapes (B2: the store at the decode rows

@@ -18,10 +18,16 @@ passes ``device="cpu"``.  ``Context`` hides
   ``ExecuteAsync`` returns as soon as the work is queued.
 
 PyTorch runs eagerly, so ``MakeKernel`` binds a callable to its arguments
-and compiles nothing.  The reference's XLA introspection
-(``cost_analysis``, ``memory_analysis``, ``hlo_text``), which serves its
-roofline layer, has no counterpart here yet.  Placement across several
-devices (``MemoryBank.sharded``) comes with tensor-parallel serving.
+and compiles nothing.  The reference's XLA introspection, which serves
+its roofline layer, comes from the port's roofline counter
+(``roofline/count.py``) run once on fake CPU tensors shaped like the
+bound arguments (nothing is computed, nothing written, no kernel
+launched): ``cost_analysis()`` gives ``{"flops", "bytes accessed"}``
+under the reference's byte model, ``memory_analysis()`` the argument,
+output and largest-temporary bytes, and ``hlo_text()`` the aten ops the
+callable dispatched (``aten.mm`` for a product) in place of XLA's HLO.
+Placement across several devices (``MemoryBank.sharded``) comes with
+tensor-parallel serving.
 """
 
 from __future__ import annotations
@@ -118,6 +124,7 @@ class Kernel:
         self.fn = fn
         self.name = name
         self.args = args
+        self._costs = None
 
     def ExecuteTask(self, *override_args) -> Any:
         out = self.ExecuteAsync(*override_args)
@@ -126,6 +133,45 @@ class Kernel:
 
     def ExecuteAsync(self, *override_args) -> Any:
         return self.fn(*_concrete(override_args or self.args))
+
+    def _counted(self):
+        """The callable counted once on fake CPU tensors shaped like its
+        bound arguments (``roofline.count``)."""
+        if self._costs is None:
+            from ..roofline import count as C
+            fake = C.fake_mode()
+
+            made = {}
+
+            def abstract(a):
+                if not isinstance(a, torch.Tensor):
+                    return a
+                if id(a) not in made:       # one fake per bound tensor
+                    with fake:
+                        made[id(a)] = torch.empty_strided(
+                            a.shape, a.stride(), dtype=a.dtype, device="cpu")
+                return made[id(a)]
+
+            args = [abstract(a) for a in _concrete(self.args)]
+            with fake:
+                _, self._costs = C.count(self.fn, *args)
+        return self._costs
+
+    def cost_analysis(self) -> Dict[str, float]:
+        c = self._counted()
+        return {"flops": c.flops, "bytes accessed": c.bytes}
+
+    def memory_analysis(self) -> Dict[str, int]:
+        c = self._counted()
+        return {"argument_size_in_bytes": c.argument_bytes,
+                "output_size_in_bytes": c.output_bytes,
+                "temp_size_in_bytes": c.largest_alloc}
+
+    def hlo_text(self) -> str:
+        """The aten ops the callable dispatched, one line each with its
+        count, in first-call order."""
+        return "\n".join(f"{op}  # {n} call(s)"
+                         for op, n in self._counted().ops.items())
 
 
 class Program:

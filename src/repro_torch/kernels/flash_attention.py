@@ -33,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..roofline import count as _count
 from .build import check_launch, library, on_cpu, require
 from .build import sm_count as _sm_count
 
@@ -50,6 +51,22 @@ def _masked_probs(s, valid):
     p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
     return p, torch.where(l == 0, torch.ones_like(l), l)
+
+
+def _active_pages(pos, sq, n_blocks, page, window, page_base):
+    """(start position of each table entry, whether the kernel visits
+    it): page-level skipping, exactly as the kernel decides it.  pos:
+    (b,) int64."""
+    b = pos.shape[0]
+    start = (page_base.to(torch.int64) if page_base is not None else
+             (torch.arange(n_blocks, device=pos.device) * page).expand(
+                 b, n_blocks))
+    active = start <= (pos + sq - 1)[:, None]
+    if page_base is not None:
+        active &= start >= 0
+    if window is not None:
+        active &= start + page - 1 > (pos - window)[:, None]
+    return start, active
 
 
 def flash_attention_decode_paged_plain(
@@ -83,14 +100,7 @@ def flash_attention_decode_paged_plain(
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kd)     # (b, hkv, g, sq, S)
 
     pos = pos.to(torch.int64).reshape(-1).expand(b)
-    start = (page_base.to(torch.int64) if page_base is not None else
-             (torch.arange(n_blocks, device=dev) * page).expand(b, n_blocks))
-    # page-level skipping, exactly as the kernel decides it.
-    active = start <= (pos + sq - 1)[:, None]
-    if page_base is not None:
-        active &= start >= 0
-    if window is not None:
-        active &= start + page - 1 > (pos - window)[:, None]
+    start, active = _active_pages(pos, sq, n_blocks, page, window, page_base)
     kpos = (start[:, :, None] + torch.arange(page, device=dev)).reshape(b, S)
     qpos = pos[:, None] + torch.arange(sq, device=dev)           # (b, sq)
     valid = (kpos[:, None, :] <= qpos[:, :, None]) \
@@ -136,6 +146,31 @@ def paged_splits(b: int, hkv: int, n_blocks: int, page: int,
 _require = functools.partial(require, "flash_attention_decode_paged")
 
 
+def _paged_work(q, k_pages, v_pages, block_tab, pos, window=None,
+                page_base=None, k_scale_pages=None, v_scale_pages=None,
+                scale=None):
+    """B1's work for the roofline counter: the pages the kernel visits
+    (its page-level skipping; every table entry on fake tensors, whose
+    positions are unknown), each page's K and V of every kv head (and
+    scales) read once."""
+    b, hq, sq, d = q.shape
+    n_blocks = block_tab.shape[1]
+    _, hkv, page, _ = k_pages.shape
+    if _count.is_fake(pos):
+        pages = b * n_blocks
+    else:
+        _, active = _active_pages(pos.to(torch.int64).reshape(-1).expand(b),
+                                  sq, n_blocks, page, window, page_base)
+        pages = int(active.sum())
+    row = hkv * d * (k_pages.element_size() + v_pages.element_size())
+    if k_scale_pages is not None:
+        row += hkv * (k_scale_pages.element_size()
+                      + v_scale_pages.element_size())
+    flops, nbytes = _count.decode_attention_work(q, pages * page, row)
+    return flops, nbytes + block_tab.numel() * block_tab.element_size()
+
+
+@_count.by_formula(_paged_work)
 def flash_attention_decode_paged(
         q, k_pages, v_pages, block_tab, pos, window: Optional[int] = None,
         page_base=None, k_scale_pages=None, v_scale_pages=None,
@@ -310,6 +345,27 @@ def dense_splits(b: int, hkv: int, S: int, n_sm: int) -> int:
     return max(1, min(n_tiles, -(-2 * n_sm // (b * hkv))))
 
 
+def _dense_work(q, k, v, pos, window=None, ring=False, scale=None):
+    """B3's work for the roofline counter: each row's live keys (keys <=
+    pos, inside the band; the whole ring once pos >= window; every slot
+    on fake tensors, whose positions are unknown), K and V of every kv
+    head read once per live key."""
+    b = q.shape[0]
+    _, hkv, S, d = k.shape
+    if not torch.is_tensor(pos):
+        pos = torch.full((b,), int(pos), dtype=torch.int64)
+    if _count.is_fake(pos):
+        keys = b * S
+    else:
+        live = (pos.to(torch.int64).reshape(-1).expand(b) + 1).clamp(max=S)
+        if window is not None:
+            live = live.clamp(max=int(window))
+        keys = int(live.sum())
+    row = hkv * d * (k.element_size() + v.element_size())
+    return _count.decode_attention_work(q, keys, row)
+
+
+@_count.by_formula(_dense_work)
 def flash_attention_decode(q, k, v, pos, window: Optional[int] = None,
                            ring: bool = False, scale: Optional[float] = None):
     """Single-step (sq == 1) decode attention over dense slot caches.

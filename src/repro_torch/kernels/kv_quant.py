@@ -28,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from ..roofline import count as _count
 from .build import check_launch, library, on_cpu, require, sm_count
 
 F32 = torch.float32
@@ -154,6 +155,27 @@ def _require_rows(fn: str, *xs: torch.Tensor) -> int:
     return d
 
 
+# B2's work for the roofline counter: no products (elementwise, 0 FLOPs
+# as the counter counts them); each input read once, each output row
+# written once.
+def _bytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _quantize_work(x):
+    return 0.0, _bytes(x) + x.numel() + 2 * (x.numel() // x.shape[-1])
+
+
+def _store_work(k, v, k_dst, v_dst, ks_dst, vs_dst, dst_row):
+    rows = 2 * (k.numel() // k.shape[-1])
+    return 0.0, _bytes(k, v, dst_row) + 2 * k.numel() + 2 * rows
+
+
+def _dequantize_work(q, s, dtype=torch.bfloat16):
+    return 0.0, _bytes(q, s) + q.numel() * dtype.itemsize
+
+
+@_count.by_formula(_quantize_work)
 def kv_quantize(x: torch.Tensor):
     """Per-row int8 quantization: x (rows, d) -> (int8 (rows, d), bf16
     (rows, 1)).
@@ -180,6 +202,12 @@ def kv_quantize(x: torch.Tensor):
     return q, s
 
 
+def _store_fake(*args):
+    """Nothing: the store only writes its arguments, which hold no data
+    on fake tensors (and its twin's row gather needs data)."""
+
+
+@_count.by_formula(_store_work, fake=_store_fake)
 def kv_quantize_store(k: torch.Tensor, v: torch.Tensor,
                       k_dst: torch.Tensor, v_dst: torch.Tensor,
                       ks_dst: torch.Tensor, vs_dst: torch.Tensor,
@@ -229,6 +257,7 @@ def kv_quantize_store(k: torch.Tensor, v: torch.Tensor,
     kv_quantize_store.launches += 1
 
 
+@_count.by_formula(_dequantize_work)
 def kv_dequantize(q: torch.Tensor, s: torch.Tensor,
                   dtype=torch.bfloat16) -> torch.Tensor:
     """q (rows, d) int8 times s (rows, 1) bf16 -> (rows, d) ``dtype``.

@@ -14,6 +14,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..roofline import count as _count
+
 F32 = torch.float32
 
 
@@ -107,6 +109,34 @@ def ssd_recurrence_ref(x, dt, A, B, C, state: Optional[torch.Tensor] = None
     return torch.stack(ys).to(x.dtype), S
 
 
+def _ssd_work(x, dt, A, B, C, chunk: int = 64, state=None):
+    """(FLOPs, bytes) of ``ssd_chunked_batch``'s loop over its chunks of
+    ``chunk`` for the roofline counter: per chunk its four products
+    (C·Bᵀ, the intra-chunk mix, C·S, the state update) and the cumsum,
+    each reading its operands and writing its result in fp32."""
+    b, s, h, dh = x.shape
+    ds, Q = B.shape[-1], chunk
+    n = -(-s // Q)
+    f4 = 4
+    flops = 2.0 * b * Q * (Q * ds + h * Q * dh + ds * h * dh + ds * h * dh)
+    xs, cs, st, qq = b * Q * h * dh, b * Q * ds, b * h * ds * dh, b * Q * Q
+    nbytes = f4 * ((2 * cs + qq) + (qq * h + 2 * xs) + (cs + st + xs)
+                   + (cs + xs + st) + 2 * b * Q * h)
+    return n * flops, n * nbytes
+
+
+def _ssd_backward_work(*args, **kwargs):
+    """Each product of the loop twice in the backward."""
+    return tuple(2 * w for w in _ssd_work(*args, **kwargs))
+
+
+def _ssd_fake(x, dt, A, B, C, chunk: int = 64, state=None):
+    b, s, h, dh = x.shape
+    return x.new_empty((b, s, h, dh)), x.new_empty((b, h, B.shape[-1], dh),
+                                                   dtype=F32)
+
+
+@_count.by_formula(_ssd_work, fake=_ssd_fake, backward=_ssd_backward_work)
 def ssd_chunked_batch(x, dt, A, B, C, chunk: int = 64,
                       state: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -30,7 +30,6 @@ Neither has a hand-written kernel, in the reference or here.
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -39,6 +38,7 @@ import torch.nn.functional as F
 
 from ..kernels.kv_quant import (kv_dequantize, kv_quantize,
                                 kv_quantize_store, kv_store_rows)
+from ..roofline import count as _count
 from .params import Decl
 
 F32 = torch.float32
@@ -89,14 +89,23 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 
 def attention_xla(q, k, v, causal=True, window=None, scale=None):
     """Forward attention: the reference's blocked online-softmax XLA path
-    as one plain masked softmax (equal up to rounding).
+    as one plain masked softmax (equal up to rounding).  The plain oracle
+    of the tests and the card's checks; the model attends through
+    ``attention_prefill`` / ``attention_blocked``, which never hold more
+    than one tile of scores.
 
     q: (b, hq, sq, d); k: (b, hkv, sk, d); v: (b, hkv, sk, dv).  Query i
     sits at position ``sk - sq + i``."""
+    scale = scale if scale is not None else 1.0 / np.sqrt(q.shape[-1])
+    return _softmax_attention(q, k, v, causal, window, scale)
+
+
+def _softmax_attention(q, k, v, causal, window, scale):
+    """One masked softmax over all (sq, sk) scores in fp32, normalised
+    before the PV product; out in q's dtype."""
     b, hq, sq, d = q.shape
     _, hkv, sk, dv = v.shape
     g = hq // hkv
-    scale = scale if scale is not None else 1.0 / np.sqrt(d)
     qg = q.reshape(b, hkv, g, sq, d).to(F32) * scale
     s = torch.einsum("bhgqd,bhcd->bhgqc", qg, k.to(F32))
     qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
@@ -128,9 +137,10 @@ def _attn_pad(q, k, v, block_q: int, block_k: int):
     return q, k, v, block_q, block_k
 
 
-def _blk_mask(qi, ki, block_q, block_k, q_off, sk, causal, window, device):
-    """(block_q, block_k) mask of the live (query, key) pairs of a tile."""
-    qpos = q_off + qi * block_q + torch.arange(block_q, device=device)[:, None]
+def _blk_mask(r0, rows, ki, block_k, q_off, sk, causal, window, device):
+    """(rows, block_k) mask of the live (query, key) pairs of query rows
+    r0 .. r0 + rows - 1 against kv block ``ki``."""
+    qpos = q_off + r0 + torch.arange(rows, device=device)[:, None]
     kpos = ki * block_k + torch.arange(block_k, device=device)[None, :]
     m = kpos < sk
     if causal:
@@ -152,7 +162,8 @@ def _ki_range(qi, nk, causal, window, block_q, block_k, q_off, block_skip):
 
 
 def _qi_range(ki, nq, causal, window, block_q, block_k, q_off, block_skip):
-    """The query blocks that can see kv block ``ki`` (backward pass 2)."""
+    """The query blocks that can see kv block ``ki`` (the forward's rows;
+    backward pass 2): the transpose of ``_ki_range``."""
     if not (block_skip and causal):
         return 0, nq
     qlo = max(0, (ki * block_k - q_off) // block_q)
@@ -169,11 +180,23 @@ def _where_finite(x, y):
                                                          device=y.device))
 
 
+def _blocked_fwd_fake(q, k, v, *args):
+    b, hq, sq, _ = q.shape
+    return (q.new_empty((b, hq, sq, v.shape[-1])),
+            q.new_empty((b, hq, sq, 1), dtype=F32))
+
+
+@_count.by_formula(_count.blocked_attention_work, fake=_blocked_fwd_fake)
 def _attention_blocked_fwd(q, k, v, causal, window, scale, block_q, block_k,
                            block_skip, p_bf16):
     """Blocked online-softmax forward over ``block_q`` x ``block_k``
-    tiles, fp32, carrying only one query block's (m, l, acc).  Returns
-    (out in q's dtype, lse (b, hq, sq, 1) fp32)."""
+    tiles, fp32: the kv blocks in order, each against the rows of every
+    query block that visits it (all of them, or with ``block_skip`` the
+    causally live band), carrying every row's (m, l, acc).  A row meets
+    its tiles in the order of the reference's loop over query blocks,
+    one step holds (visiting rows, block_k) scores, and the loop takes nk
+    steps, not nq x nk.  Returns (out in q's dtype, lse (b, hq, sq, 1)
+    fp32).  A roofline counter counts its tiles by formula."""
     b, hq, sq, d = q.shape
     _, hkv, sk, dv = v.shape
     g = hq // hkv
@@ -183,53 +206,58 @@ def _attention_blocked_fwd(q, k, v, causal, window, scale, block_q, block_k,
     q_off = sk - sq
     qg = q.reshape(b, hkv, g, sqp, d).to(F32) * scale
     kf, vf = k.to(F32), v.to(F32)
-    outs, lses = [], []
-    for qi in range(nq):
-        qb = qg[:, :, :, qi * block_q:(qi + 1) * block_q]
-        m = torch.full((b, hkv, g, block_q, 1), float("-inf"), dtype=F32,
-                       device=q.device)
-        l = torch.zeros((b, hkv, g, block_q, 1), dtype=F32, device=q.device)
-        o = torch.zeros((b, hkv, g, block_q, dv), dtype=F32, device=q.device)
-        lo, hi = _ki_range(qi, nk, causal, window, block_q, block_k, q_off,
+    m = torch.full((b, hkv, g, sqp, 1), float("-inf"), dtype=F32,
+                   device=q.device)
+    l = torch.zeros((b, hkv, g, sqp, 1), dtype=F32, device=q.device)
+    o = torch.zeros((b, hkv, g, sqp, dv), dtype=F32, device=q.device)
+    for ki in range(nk):
+        lo, hi = _qi_range(ki, nq, causal, window, block_q, block_k, q_off,
                            block_skip)
-        for ki in range(lo, hi):
-            kb = kf[:, :, ki * block_k:(ki + 1) * block_k]
-            vb = vf[:, :, ki * block_k:(ki + 1) * block_k]
-            s = torch.einsum("bhgqd,bhcd->bhgqc", qb, kb)
-            mask = _blk_mask(qi, ki, block_q, block_k, q_off, sk, causal,
-                             window, q.device)
-            s = s.masked_fill(~mask, float("-inf"))
-            m_n = torch.maximum(m, s.amax(-1, keepdim=True))
-            m_safe = _where_finite(m_n, m_n)
-            p = _where_finite(s, torch.exp(s - m_safe))
-            alpha = _where_finite(m, torch.exp(m - m_safe))
-            l = l * alpha + p.sum(-1, keepdim=True)
-            if p_bf16:
-                # bf16 probabilities and values into the PV product, fp32
-                # accumulation (products of bf16 values are exact in fp32).
-                pv = torch.einsum(
-                    "bhgqc,bhcv->bhgqv", p.to(torch.bfloat16).to(F32),
-                    vb.to(torch.bfloat16).to(F32))
-            else:
-                pv = torch.einsum("bhgqc,bhcv->bhgqv", p, vb)
-            o = o * alpha + pv
-            m = m_n
-        l_safe = torch.where(l == 0.0, torch.ones((), dtype=F32,
-                                                  device=l.device), l)
-        outs.append(o / l_safe)
-        lses.append(_where_finite(m, m) + torch.log(l_safe))
-    out = torch.cat(outs, dim=3)[:, :, :, :sq]
-    lse = torch.cat(lses, dim=3)[:, :, :, :sq]
+        if lo >= hi:
+            continue
+        r0, r1 = lo * block_q, hi * block_q
+        kb = kf[:, :, ki * block_k:(ki + 1) * block_k]
+        vb = vf[:, :, ki * block_k:(ki + 1) * block_k]
+        s = torch.einsum("bhgqd,bhcd->bhgqc", qg[:, :, :, r0:r1], kb)
+        mask = _blk_mask(r0, r1 - r0, ki, block_k, q_off, sk, causal, window,
+                         q.device)
+        s = s.masked_fill(~mask, float("-inf"))
+        m_p = m[:, :, :, r0:r1]
+        m_n = torch.maximum(m_p, s.amax(-1, keepdim=True))
+        m_safe = _where_finite(m_n, m_n)
+        p = _where_finite(s, torch.exp(s - m_safe))
+        alpha = _where_finite(m_p, torch.exp(m_p - m_safe))
+        l[:, :, :, r0:r1] = l[:, :, :, r0:r1] * alpha + p.sum(-1, keepdim=True)
+        if p_bf16:
+            # bf16 probabilities and values into the PV product, fp32
+            # accumulation (products of bf16 values are exact in fp32).
+            pv = torch.einsum(
+                "bhgqc,bhcv->bhgqv", p.to(torch.bfloat16).to(F32),
+                vb.to(torch.bfloat16).to(F32))
+        else:
+            pv = torch.einsum("bhgqc,bhcv->bhgqv", p, vb)
+        o[:, :, :, r0:r1] = o[:, :, :, r0:r1] * alpha + pv
+        m[:, :, :, r0:r1] = m_n
+    l_safe = torch.where(l == 0.0, torch.ones((), dtype=F32, device=l.device),
+                         l)
+    out = (o / l_safe)[:, :, :, :sq]
+    lse = (_where_finite(m, m) + torch.log(l_safe))[:, :, :, :sq]
     return (out.reshape(b, hq, sq, dv).to(q.dtype),
             lse.reshape(b, hq, sq, 1))
 
 
+def _blocked_bwd_fake(q, k, v, *args):
+    return tuple(map(torch.empty_like, (q, k, v)))
+
+
+@_count.by_formula(_count.blocked_attention_bwd_work, fake=_blocked_bwd_fake)
 def _attention_blocked_bwd(q, k, v, out, lse, do, causal, window, scale,
                            block_q, block_k, block_skip):
     """The flash-style backward: scores recomputed tile by tile from
     (q, k, v, out, lse) with D = rowsum(dO·O); pass 1 gives dq per query
     block, pass 2 dk and dv per kv block over the query blocks that see
-    it.  Returns (dq, dk, dv) in the inputs' dtypes."""
+    it.  Returns (dq, dk, dv) in the inputs' dtypes.  A roofline counter
+    counts its tiles by formula."""
     b, hq, sq, d = q.shape
     _, hkv, sk, dv = v.shape
     g = hq // hkv
@@ -254,8 +282,8 @@ def _attention_blocked_bwd(q, k, v, out, lse, do, causal, window, scale,
     def p_block(qi, ki):
         s = torch.einsum("bhgqd,bhcd->bhgqc", rows(qg, qi) * scale,
                          keys(kf, ki))
-        mask = _blk_mask(qi, ki, block_q, block_k, q_off, sk, causal, window,
-                         q.device)
+        mask = _blk_mask(qi * block_q, block_q, ki, block_k, q_off, sk,
+                         causal, window, q.device)
         s = s.masked_fill(~mask, float("-inf"))
         return _where_finite(s, torch.exp(s - rows(lseg, qi)))
 
@@ -330,6 +358,32 @@ def attention_blocked(q, k, v, causal=True, window=None, scale=None,
     return BlockedAttention.apply(q, k, v, bool(causal), window, float(scale),
                                   int(block_q), int(block_k),
                                   bool(block_skip), bool(p_bf16))
+
+
+def attention_prefill(q, k, v, *, window=None, scale=None,
+                      block_q: int = 512, block_k: int = 512,
+                      block_skip: bool = False, p_bf16: bool = False):
+    """Causal attention of a prefill (no cache, no gradient): the blocked
+    online-softmax forward of ``attention_blocked``, as the reference's
+    prefill runs it — tiles of ``block_q`` x ``block_k`` scores, never
+    the whole (sq, sk) matrix; ``block_skip`` visits only the causally
+    live (banded, under a window) tiles; a row with no live key gives 0.
+
+    Scores that fit one tile, in which every query sees at least its own
+    key, take one masked softmax of that tile (fp32 probabilities only:
+    ``p_bf16`` rounds them unnormalised, as the online softmax does): the
+    same tile in a few launches instead of the loop's two dozen, at the
+    prompt lengths a serving admission mostly sees."""
+    scale = scale if scale is not None else 1.0 / np.sqrt(q.shape[-1])
+    sq, sk = q.shape[2], k.shape[2]
+    one_tile = sq <= min(block_q, sk) and sk <= block_k
+    with torch.no_grad():
+        if one_tile and not p_bf16 and (window is None or window > 0):
+            return _softmax_attention(q, k, v, True, window, scale)
+        out, _ = _attention_blocked_fwd(q, k, v, True, window, float(scale),
+                                        int(block_q), int(block_k),
+                                        bool(block_skip), bool(p_bf16))
+    return out
 
 
 def attention_decode(q, k, v, kv_valid, scale: Optional[float] = None):
@@ -429,9 +483,10 @@ def attention_apply(cfg, p, x, *, window: Optional[int] = None,
                     pos=None, store_rows: Optional[torch.Tensor] = None,
                     train: bool = False):
     """Pre-norm attention with residual.  Train/prefill when cache is
-    None (``train``: the differentiable ``attention_blocked`` with the
-    config's tiles, ``attn_block_skip`` and ``attn_p_bf16``; prefill: the
-    plain ``attention_xla``); single-token decode otherwise: ``cache`` holds k, v of shape
+    None, both the blocked online softmax with the config's tiles,
+    ``attn_block_skip`` and ``attn_p_bf16`` (``train``: the
+    differentiable ``attention_blocked``; prefill: ``attention_prefill``);
+    single-token decode otherwise: ``cache`` holds k, v of shape
     (b, hkv, S, hd) (int8 caches also k_scale, v_scale of (b, hkv, S,
     1)), written in place, and ``pos`` is a (b,) tensor (or a host int
     for every row) — each row decodes at its own position, as the
@@ -441,7 +496,9 @@ def attention_apply(cfg, p, x, *, window: Optional[int] = None,
     same for every layer, so callers may compute it once per step).  With
     ``cfg.decode_flash`` the read goes through
     ``kernels.flash_attention.flash_attention_decode``.  Returns (y,
-    cache)."""
+    cache); without a cache, the second item is the block's rotated K and
+    V, {"k", "v"} of (b, hkv, s, hd), which a prefill emits (computed
+    once, as the reference's compiled prefill does)."""
     theta = theta if theta is not None else cfg.rope_theta
     b, s, d = x.shape
     h = rmsnorm(x, p["norm"])
@@ -451,14 +508,14 @@ def attention_apply(cfg, p, x, *, window: Optional[int] = None,
                           theta, x.device)
         q, k = _rotate(q, *cs), _rotate(k, *cs)
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        tiles = dict(window=window, block_q=cfg.attn_block_q,
+                     block_k=cfg.attn_block_k,
+                     block_skip=cfg.attn_block_skip, p_bf16=cfg.attn_p_bf16)
         if train:
-            o = attention_blocked(
-                q, k, v, causal=True, window=window,
-                block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
-                block_skip=cfg.attn_block_skip, p_bf16=cfg.attn_p_bf16)
+            o = attention_blocked(q, k, v, causal=True, **tiles)
         else:
-            o = attention_xla(q, k, v, causal=True, window=window)
-        new_cache = None
+            o = attention_prefill(q, k, v, **tiles)
+        new_cache = {"k": k, "v": v}
     else:
         pos = decode_pos(pos, b, x.device)
         cs = _rope_angles(pos[:, None, None], cfg.head_dim, theta, x.device)
@@ -873,14 +930,19 @@ def _mla_absorbed(cfg, p, q_nope, q_rope, CC, CR, valid, dtype):
 def mla_apply(cfg, p, x, *, cache: Optional[Dict[str, torch.Tensor]] = None,
               pos=None, train: bool = False):
     """Pre-norm MLA attention with residual.  Train/prefill when cache is
-    None (the latent rows expanded to per-head K/V, causal attention;
-    ``train``: through ``attention_blocked`` with the config's tiles);
+    None (the latent rows expanded to per-head K/V, causal attention in
+    the config's tiles and ``attn_block_skip``: ``train`` through
+    ``attention_blocked``, prefill through ``attention_prefill``; fp32
+    probabilities, as the reference's MLA never sets ``attn_p_bf16``);
     else absorbed single-token decode on the compressed cache: ``cache``
     holds c_kv (b, S, lora) and k_rope (b, S, rope), bf16, written in
     place at ``decode_slot`` (clamped, as the reference's
     dynamic_update_slice), and ``pos`` is a (b,) tensor or a host int —
     each row decodes at its own position, keys ``<= pos`` valid, as the
-    reference's vmap over slots does.  Returns (y, cache)."""
+    reference's vmap over slots does.  Returns (y, cache); without a
+    cache, the second item is the latent rows a prefill emits, {"c_kv"
+    (b, s, lora), "k_rope" (b, s, rope) rotated}, for
+    ``mla_emit_latent``."""
     b, s, _ = x.shape
     hq, nope, rp, vd = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
                         cfg.v_head_dim)
@@ -895,15 +957,16 @@ def mla_apply(cfg, p, x, *, cache: Optional[Dict[str, torch.Tensor]] = None,
         qq = torch.cat([q_nope, q_rope], -1).transpose(1, 2)
         kk = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, hq, rp)],
                        -1).transpose(1, 2)
-        attend = attention_xla
+        tiles = dict(scale=1.0 / np.sqrt(nope + rp),
+                     block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
+                     block_skip=cfg.attn_block_skip)
         if train:
-            attend = functools.partial(
-                attention_blocked, block_q=cfg.attn_block_q,
-                block_k=cfg.attn_block_k, block_skip=cfg.attn_block_skip)
-        o = attend(qq, kk, vv.transpose(1, 2), causal=True,
-                   scale=1.0 / np.sqrt(nope + rp))
+            o = attention_blocked(qq, kk, vv.transpose(1, 2), causal=True,
+                                  **tiles)
+        else:
+            o = attention_prefill(qq, kk, vv.transpose(1, 2), **tiles)
         o = o.transpose(1, 2).reshape(b, s, -1)
-        new_cache = None
+        new_cache = {"c_kv": c_kv, "k_rope": k_rope}
     else:
         pos = decode_pos(pos, b, x.device)
         q_nope = q[..., :nope]
@@ -923,13 +986,12 @@ def mla_apply(cfg, p, x, *, cache: Optional[Dict[str, torch.Tensor]] = None,
     return x + o @ p["wo"], new_cache
 
 
-def mla_prefill_latent(cfg, p, x, cache_len: Optional[int] = None):
-    """The latent cache rows a prefill emits: c_kv (b, Sc, lora) and the
-    rotated k_rope (b, Sc, rope), bf16, zero past the prompt (recomputed
-    from the block input, as the reference does)."""
-    s = x.shape[1]
-    _, c_kv, k_rope = mla_latent(cfg, p, x)
-    k_rope = rope(k_rope, torch.arange(s, device=x.device), cfg.rope_theta)
+def mla_emit_latent(latent, cache_len: Optional[int] = None):
+    """The latent cache rows a prefill emits from the rows that
+    ``mla_apply`` returns without a cache: c_kv (b, Sc, lora) and the
+    rotated k_rope (b, Sc, rope), bf16, zero past the prompt."""
+    c_kv, k_rope = latent["c_kv"], latent["k_rope"]
+    s = c_kv.shape[1]
     Sc = cache_len or s
     if Sc > s:
         c_kv = F.pad(c_kv, (0, 0, 0, Sc - s))

@@ -94,6 +94,29 @@ def init_params(decls, seed: int = 0, *, device="cuda",
     return tree_map(leaf, decls)
 
 
+def abstract_tensor(shape, dtype: torch.dtype, fake_mode=None):
+    """A tensor without storage (the reference's ``ShapeDtypeStruct``): a
+    fake CPU tensor made in ``fake_mode`` (a ``FakeTensorMode``; ops on
+    it run through the CPU code paths and allocate nothing), or a
+    ``meta`` tensor when it is None."""
+    if fake_mode is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    with fake_mode:
+        return torch.empty(shape, dtype=dtype, device="cpu")
+
+
+def abstract_params(decls, fake_mode=None,
+                    dtype: Optional[torch.dtype] = None):
+    """The tree of ``decls`` as tensors without storage
+    (``abstract_tensor``).  ``dtype`` overrides every floating leaf, as in
+    ``init_params``."""
+    def leaf(_, d: Decl):
+        dt = dtype if (dtype is not None and d.dtype.is_floating_point) \
+            else d.dtype
+        return abstract_tensor(d.shape, dt, fake_mode)
+    return tree_map(leaf, decls)
+
+
 def param_count(decls) -> int:
     return sum(int(np.prod(d.shape)) for d in tree_leaves(decls))
 

@@ -2,8 +2,10 @@
 
 ``make_batch`` draws the reference's synthetic batches from numpy with
 the same ``default_rng(seed)`` draws, so both packages get the same
-inputs bit for bit.  The dry-run helpers (``abstract``, ``specs``,
-``input_specs``, ``num_active_params``) wait for the roofline port.
+inputs bit for bit.  The dry-run helpers: ``abstract`` (the parameter
+tree without storage), ``input_specs`` (a cell's batch without storage)
+and ``num_active_params`` (the 6·N_active·D convention).  ``specs``
+(sharding specs of the parameters) waits for the tensor-parallel port.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeCfg
 from . import params as P
 from . import transformer as T
 
@@ -29,8 +31,36 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     return P.init_params(decls(cfg), seed, device=device, dtype=dtype)
 
 
+def abstract(cfg: ModelConfig, fake_mode=None):
+    """The parameter tree as fake tensors (made in ``fake_mode``) or
+    ``meta`` tensors: ``params.abstract_params`` of the decls."""
+    return P.abstract_params(decls(cfg), fake_mode)
+
+
 def num_params(cfg: ModelConfig) -> int:
     return P.param_count(decls(cfg))
+
+
+def num_active_params(cfg: ModelConfig) -> int:
+    """Active N for MoE (routed experts count only top_k/E of expert
+    params) — the 6·N_active·D roofline convention."""
+    if not cfg.n_experts:
+        return num_params(cfg)
+    d = decls(cfg)
+    total = P.param_count(d)
+
+    def expert_params(tree):
+        n = 0
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                n += expert_params(v)
+            elif k in ("w_gate", "w_up", "w_down") and len(v.shape) >= 3 \
+                    and v.shape[-3] == cfg.n_experts:
+                n += int(np.prod(v.shape))
+        return n
+
+    e = expert_params(d)
+    return total - e + int(e * cfg.top_k / cfg.n_experts)
 
 
 forward = T.forward
@@ -71,3 +101,37 @@ def make_batch(cfg: ModelConfig, shape_kind: str, batch: int, seq: int,
     if cfg.family == "audio":
         out["cond"] = normal_bf16((batch, cfg.cond_len, cfg.d_model))
     return out
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeCfg, fake_mode=None
+                ) -> Dict[str, torch.Tensor]:
+    """A cell's batch without storage (the reference's ShapeDtypeStruct
+    stand-ins): fake CPU tensors made in ``fake_mode``, or ``meta``
+    tensors when it is None.  int32 tokens (b, s), (b, s, K) for audio;
+    train adds ``labels``; vlm ``patches`` (b, P, vision_dim) bf16 with
+    ``s - vision_patches`` text tokens (train, prefill); audio ``cond``
+    (b, cond_len, d) bf16; decode one token per row."""
+    B, s = shape.global_batch, shape.seq_len
+
+    def spec(shp, dtype):
+        return P.abstract_tensor(shp, dtype, fake_mode)
+
+    def tok_spec(b, s):
+        if cfg.family == "audio":
+            return spec((b, s, cfg.n_codebooks), torch.int32)
+        return spec((b, s), torch.int32)
+
+    extras: Dict[str, torch.Tensor] = {}
+    if cfg.family == "audio":
+        extras["cond"] = spec((B, cfg.cond_len, cfg.d_model), torch.bfloat16)
+    if shape.kind in ("train", "prefill"):
+        s_text = s - cfg.vision_patches if cfg.family == "vlm" else s
+        batch = {"tokens": tok_spec(B, s_text)}
+        if shape.kind == "train":
+            batch["labels"] = tok_spec(B, s_text)
+        batch.update(extras)
+        if cfg.family == "vlm":
+            batch["patches"] = spec((B, cfg.vision_patches, cfg.vision_dim),
+                                    torch.bfloat16)
+        return batch
+    return {"tokens": tok_spec(B, 1), **extras}

@@ -236,22 +236,22 @@ def _embed_input(cfg, params, batch) -> torch.Tensor:
     return x.to(dtype)
 
 
-def _prefill_kv(cfg, p, x, window, theta, cache_len, last_pos):
-    """The K/V a prefill emits into a dense cache (recomputed from the
-    block input, as the reference does)."""
-    b, s, _ = x.shape
-    h = L.rmsnorm(x, p["norm"])
-    _, k, v = L._qkv(cfg, p, h)
-    k = L.rope(k, torch.arange(s, device=x.device), theta).transpose(1, 2)
-    v = v.transpose(1, 2)                              # (b, hkv, s, hd)
+def _emit_kv(cfg, kv, window, cache_len, last_pos):
+    """The K/V a prefill emits into a dense cache from the block's rotated
+    {"k", "v"} (b, hkv, s, hd), as ``attention_apply`` returns them
+    without a cache: padded to the cache length, or a ring for a
+    sliding-window cache."""
+    k, v = kv["k"], kv["v"]
+    b, s = k.shape[0], k.shape[2]
+    device = k.device
     Sc = cache_len or s
     if window is not None and Sc == window:
         # Mask-aware ring emission: slot j holds the key of the LAST true
         # position p <= last_pos with p % w == j.
         last = (last_pos.to(torch.int64) if last_pos is not None
                 else torch.full((b,), s - 1, dtype=torch.int64,
-                                device=x.device))
-        j = torch.arange(window, device=x.device)
+                                device=device))
+        j = torch.arange(window, device=device)
         pj = last[:, None] - ((last[:, None] - j[None, :]) % window)
         idx = pj.clamp(0, s - 1)[:, None, :, None].expand(
             b, k.shape[1], window, k.shape[3])
@@ -450,10 +450,9 @@ def _mla_layers(cfg, blocks, x, mode, cache, pools, block_tab, span,
                 cfg, p["attn"], x, pos=pos,
                 cache={n: c[i] for n, c in cache[part].items()})
         else:
+            x, rows = L.mla_apply(cfg, p["attn"], x, train=mode == "train")
             if mode == "prefill":
-                emitted[part].append(L.mla_prefill_latent(
-                    cfg, p["attn"], x, cache_len))
-            x, _ = L.mla_apply(cfg, p["attn"], x, train=mode == "train")
+                emitted[part].append(L.mla_emit_latent(rows, cache_len))
         return _ffn(cfg, p, x, row_capacity)
 
     for part in ("first", "rest"):
@@ -571,12 +570,10 @@ def _attn_dense(cfg, p, x, mode, cache, i, pos, window, theta, cache_len,
                                  cache={n: c[i] for n, c in cache.items()},
                                  pos=pos, store_rows=store_rows)
         return x
-    x_in = x
-    x, _ = L.attention_apply(cfg, p, x, window=window, theta=theta,
-                             train=mode == "train")
+    x, kv = L.attention_apply(cfg, p, x, window=window, theta=theta,
+                              train=mode == "train")
     if mode == "prefill":
-        emitted.append(_prefill_kv(cfg, p, x_in, window, theta, cache_len,
-                                   last_pos))
+        emitted.append(_emit_kv(cfg, kv, window, cache_len, last_pos))
     return x
 
 

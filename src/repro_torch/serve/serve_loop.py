@@ -1,5 +1,9 @@
 """Serving steps (port of ``serve/serve_loop.py``).
 
+* ``make_serve_steps`` — the raw-logits prefill and dense decode the
+  dry-run counts for the ``prefill_*`` / ``decode_*`` / ``long_*``
+  cells, with the dense slot cache as abstract tensors (one device:
+  the mesh waits for the tensor-parallel port).
 * ``make_sampling_serve_steps`` — prefill/decode over dense slot caches
   that sample on the device (argmax at temperature 0, else a categorical
   of ``logits / T``) and return int32 token ids; ``greedy_generate``
@@ -30,7 +34,38 @@ import torch
 from ..configs.base import ModelConfig
 from ..models import registry
 from ..models.cache_layouts import get_layout
-from ..models.params import params_from_numpy, tree_leaves
+from ..models.params import abstract_params, params_from_numpy, tree_leaves
+
+
+def make_serve_steps(cfg: ModelConfig, batch: int, max_seq: int,
+                     mesh=None, fake_mode=None):
+    """(prefill, decode, abstract cache, None), as the reference's
+    ``make_serve_steps`` returns them with no mesh:
+
+    * ``prefill(params, batch_in)`` -> (last-position logits, cache)
+    * ``decode(params, cache, tokens, pos)`` -> (logits, cache), the
+      cache written in place
+
+    The abstract cache is ``cache_decls(cfg, batch, max_seq)`` without
+    storage (fake tensors made in ``fake_mode``, else ``meta``).  A mesh
+    raises: sharded serving steps come with the tensor-parallel port
+    (A13a in ROADMAP.md)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_serve_steps on a mesh: sharded serving steps come with "
+            "the tensor-parallel port (A13a)")
+    ab_cache = abstract_params(registry.cache_decls(cfg, batch, max_seq),
+                               fake_mode)
+
+    def prefill(params, batch_in):
+        return registry.forward(cfg, params, batch_in, mode="prefill",
+                                cache_len=max_seq)
+
+    def decode(params, cache, tokens, pos):
+        return registry.forward(cfg, params, dict(tokens), mode="decode",
+                                cache=cache, pos=pos)
+
+    return prefill, decode, ab_cache, None
 
 
 def _sample_last(logits_last: torch.Tensor,

@@ -10,13 +10,14 @@ no ``.grad`` is left on them.  The forward runs in ``mode="train"``:
 attention through ``layers.attention_blocked``, every layer under
 ``cfg.remat``.
 
-Not ported yet: the mesh (sharded parameters, the data-parallel
-all-reduce and ZeRO-1) waits for the tensor-parallel port, and
-``abstract_opt_state`` for the dry-run port.
+``abstract_opt_state`` gives the dry-run the optimizer state without
+storage.  Not ported yet: the mesh (sharded parameters, the
+data-parallel all-reduce and ZeRO-1) waits for the tensor-parallel port.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Tuple
 
@@ -24,7 +25,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..models import registry
-from ..models.params import tree_leaves, tree_map
+from ..models.params import abstract_tensor, tree_leaves, tree_map
 from . import optimizer as opt
 
 F32 = torch.float32
@@ -36,6 +37,19 @@ class TrainCfg:
     grad_accum: int = 1             # microbatches per step
     compress_grads: bool = True     # round the gradients through bf16
     zero1: bool = False             # shard the moments (needs a mesh)
+
+
+def abstract_opt_state(ab_params, fake_mode=None) -> opt.OptState:
+    """The optimizer state of ``ab_params`` without storage: fp32 moments
+    like each leaf (fake tensors made in ``fake_mode``, else ``meta``)
+    and the host step count 0, made in ``fake_mode`` too, where the step
+    reads it back as a constant."""
+    def moment(_, a):
+        return abstract_tensor(a.shape, F32, fake_mode)
+    with fake_mode or contextlib.nullcontext():
+        step = torch.tensor(0, dtype=torch.int32)
+    return opt.OptState(step=step, m=tree_map(moment, ab_params),
+                        v=tree_map(moment, ab_params))
 
 
 def cross_entropy(cfg: ModelConfig, logits: torch.Tensor,

@@ -75,15 +75,16 @@ def test_buffer_access_modes():
 
 def test_kernel_introspection():
     """The bound kernel keeps its name and arguments and computes the
-    product (the reference reads XLA's HLO here; the port's counterpart
-    of that introspection comes with the roofline slice)."""
+    product; its introspection (the reference reads XLA's HLO here) comes
+    from the roofline counter: the dispatched aten ops, 2·64³ FLOPs."""
     ctx = Context("cpu")
     prog = ctx.MakeProgram({"mm": lambda a, b: a @ b})
     a = ctx.MakeBuffer(torch.float32, Access.read, MemoryBank.bank0,
                        np.ones((64, 64), np.float32))
     k = prog.MakeKernel("mm", a, a)
     assert k.name == "mm" and k.args == (a, a)
-    assert not hasattr(k, "hlo_text")
+    assert "aten.mm" in k.hlo_text()
+    assert k.cost_analysis()["flops"] == 2 * 64 ** 3
     out = k.ExecuteTask()
     np.testing.assert_allclose(out.numpy(), 64.0)
 

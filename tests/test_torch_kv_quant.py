@@ -219,6 +219,46 @@ def test_int8_prefill_and_decode_match_jax(model):
         assert np.all(sdiff <= 2.0 ** -8 * np.abs(_np(tc[leaf + "_scale"])))
 
 
+def test_int8_decode_from_one_prefill_cache_matches_jax(model):
+    """int8 decode steps of both frameworks from the same cache (the
+    port's int8 prefill cache, carried to JAX bit for bit): logits to
+    LOGIT_TOL at every step, and the caches the steps write equal but for
+    one int8 step at near-ties, scales to one bf16 ulp.  Beside the
+    prefill-to-decode chain above, which a near-tie of the two prefills
+    can move by about one int8 step, this holds the decode step alone
+    over several prompts."""
+    jcfg, tcfg, jp, tp = model
+    max_seq, plen = 24, 11
+    for seed in range(3):
+        tok = np.random.default_rng(10 + seed).integers(
+            0, 512, (2, plen)).astype(np.int32)
+        _, tc = tregistry.forward(tcfg, tp,
+                                  {"tokens": torch.from_numpy(tok).long()},
+                                  mode="prefill", cache_len=max_seq)
+        jc = {n: jnp.asarray(_np(t)).astype(
+            jnp.int8 if t.dtype == torch.int8 else jnp.bfloat16)
+            for n, t in tc.items()}
+        for i, step in enumerate(np.random.default_rng(20 + seed).integers(
+                0, 512, (3, 2))):
+            jl, jc = jregistry.forward(
+                jcfg, jp, {"tokens": jnp.asarray(step[:, None])},
+                mode="decode", cache=jc, pos=jnp.int32(plen + i))
+            tl, tc = tregistry.forward(
+                tcfg, tp, {"tokens": torch.from_numpy(step[:, None]).long()},
+                mode="decode", cache=tc,
+                pos=torch.full((2,), plen + i, dtype=torch.int32))
+            assert float(np.abs(tl.numpy() - np.asarray(jl)).max()) \
+                <= LOGIT_TOL, f"prompt {seed}, decode step {i}"
+        for leaf in ("k", "v"):
+            diff = np.abs(tc[leaf].numpy().astype(int)
+                          - np.asarray(jc[leaf]))
+            assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
+            sdiff = np.abs(_np(tc[leaf + "_scale"])
+                           - np.asarray(jc[leaf + "_scale"], np.float32))
+            assert np.all(sdiff <= 2.0 ** -8
+                          * np.abs(_np(tc[leaf + "_scale"])))
+
+
 def test_int8_pool_spill_restore_bit_identical(model):
     """Preemption parks int8 pages AND their scale pages on the host and
     restores them bit for bit, dtypes kept."""

@@ -79,6 +79,21 @@ def test_training_modules_exist_and_stand_alone():
         assert not {m.split(".")[0] for m in mods} & {"jax", "repro"}, rel
 
 
+ROOFLINE = ("roofline/hw.py", "roofline/count.py", "roofline/analysis.py",
+            "launch/dryrun.py", "launch/sweep_optimized.py")
+
+
+def test_roofline_modules_exist_and_stand_alone():
+    """The roofline and dry-run modules are in the package, so the two
+    import tests above cover them too: no import of ``jax`` or ``repro``
+    in their source."""
+    files = set(PKG.rglob("*.py"))
+    for rel in ROOFLINE:
+        assert PKG / rel in files, rel
+        mods = set(_imported_modules(PKG / rel))
+        assert not {m.split(".")[0] for m in mods} & {"jax", "repro"}, rel
+
+
 def _serve(*extra, arch="minitron-4b", prompt_len=10):
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
