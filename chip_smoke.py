@@ -176,15 +176,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    layers and B2 exactly, the trace giving back the batcher's counters;
    the ``cuda`` generator's samples fixed by the seed and T 1e-6 equal to
    greedy; reserve-at-admission admitting 2 slots where lazy growth
-   admits 8 at one pool, with the same tokens.  At full width,
+   admits 8 at one pool, with the same tokens.  At full width (16 of
+   its 32 layers since the sharded-training phase was added),
    minitron-4b's shared-prompt traffic paged with the prefix cache and
    ``speculate_k`` 4, served with telemetry off, then on (tokens/s
    of each; on: a live ``/metrics`` scrape that validates, with
    ``serve_steps_total`` equal to the steps, the trace giving back the
    counters, the decode-step histogram's p50 in the bucket of the
    host-timed median step), then a ``torch.profiler`` window in which
-   each ``serve.*`` range counts its calls, B1 runs 32 times under each
-   ``serve.decode_step`` and ``serve.verify`` range, and each kind's
+   each ``serve.*`` range counts its calls, B1 runs once a layer under
+   each ``serve.decode_step`` and ``serve.verify`` range, and each kind's
    device ms per range is printed;
 10. training — at smoke width (minitron-4b, fp32): the card's losses
    and gradient norms over 5 steps equal the port's CPU run to the CPU
@@ -214,7 +215,20 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    decode step at 8 slots (each counted in one extra call on the card's
    real inputs, as their row masks depend on the data, B1 and B3 by
    their formula), each with its measured ms, the share and the card's
-   name and power limit.
+   name and power limit;
+12. sharded training (budget 75 s) — one rank: a world-size-1 NCCL
+   group from a ``HashStore`` (no port opened) and a (1, 1) ("data",
+   "model") ``DeviceMesh("cuda")``; the port's tree and ring all-reduce
+   and ``ppermute`` (no hop on one rank) and NCCL's all-reduce,
+   all-gather and reduce-scatter give their input back bit for bit; then
+   minitron-4b at phase 10's width and depth, from its seed and batches,
+   3 steps through ``make_train_step(mesh=..., zero1=True)`` (parameters
+   and ZeRO-1 moments as DTensors, the batch sharded over "data"), each
+   step's loss and gradient norm and every parameter bit after the first
+   (a per-leaf digest) equal to phase 10's unsharded steps; the sharded
+   steps' wall ms and a profiled step's device busy ms beside the
+   unsharded step's, with the card's name and power limit.  Multi-rank
+   behaviour is held by the gloo tests on the CPU.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -3692,6 +3706,16 @@ def phase_train_full_width(seed, measured):
 
         def timed(p, o, b):
             calls[0] += 1
+            if calls[0] == 1:
+                # the first step's parameters, for phase 12 to hold its
+                # sharded step against; the digest's time is taken off
+                # this step's wall below.
+                out = step(p, o, b)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                first["digest"] = param_digest(out[0])
+                first["digest_s"] = time.perf_counter() - t0
+                return out
             if calls[0] < TRAIN_STEPS:
                 return step(p, o, b)
             layers.BlockedAttention.forward = staticmethod(
@@ -3712,6 +3736,7 @@ def phase_train_full_width(seed, measured):
             return out
         return timed
 
+    first = {}
     TL.make_train_step = make_step
     LT.get_arch = lambda name: run_cfg
     torch.cuda.reset_peak_memory_stats()
@@ -3728,6 +3753,7 @@ def phase_train_full_width(seed, measured):
     check(not any(launched.values()),
           f"the train path launched kernels of the port: {launched}")
     steps = out["steps"]
+    steps[0]["seconds"] -= first["digest_s"]
     check(len(steps) == TRAIN_STEPS and all(
         np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
         for s in steps), f"full-width training: non-finite {steps}")
@@ -3791,6 +3817,179 @@ def phase_train_full_width(seed, measured):
         "cfg": run_cfg, "shape": ("train", TRAIN_SEQ, TRAIN_BATCH),
         "ms": steady * 1e3, "device_busy_ms": busy if busy else None}
     print(f"full-width training phase: {time.perf_counter() - t_phase:.1f}s")
+    return {"cfg": run_cfg, "steps": steps, "digest": first["digest"],
+            "busy_ms": busy if busy else None}
+
+
+def param_digest(tree) -> dict:
+    """{leaf path: (sum of its bits, sum of its bits weighted by their
+    position)} as int64 reckoned on the card, chunk by chunk — two trees
+    of equal bits give equal digests (a DTensor leaf by its local shard,
+    the whole array on a mesh of one device)."""
+    from repro_torch.distributed.sharding import local
+    from repro_torch.models.params import tree_map
+    out = {}
+    chunk = 1 << 24
+
+    def one(path, t):
+        flat = local(t).detach().reshape(-1)
+        bits = flat.view({2: torch.int16, 4: torch.int32}[flat.element_size()])
+        s1 = torch.zeros((), dtype=torch.int64, device=flat.device)
+        s2 = torch.zeros((), dtype=torch.int64, device=flat.device)
+        for i in range(0, bits.numel(), chunk):
+            b = bits[i:i + chunk].to(torch.int64)
+            w = torch.arange(i, i + b.numel(), device=b.device) % 1000003 + 1
+            s1 += b.sum()
+            s2 += (b * w).sum()
+        out["/".join(path)] = (int(s1), int(s2))
+    tree_map(one, tree)
+    return out
+
+
+# --- phase 12: sharded training (A13a) ----------------------------------------------
+
+# at most this long, stated before its first call on the card; the whole
+# script stays under 1200 s.
+SHARDED_BUDGET_S = 75
+SHARDED_STEPS = 3
+
+
+def phase_sharded_train(seed, unsharded, card_line):
+    """The mesh path of the train step on the card: one rank, a
+    world-size-1 NCCL group from a ``HashStore`` (no port opened), a
+    (1, 1) ("data", "model") ``DeviceMesh("cuda")``.  The port's
+    collectives and the collectives the step calls run through NCCL;
+    then minitron-4b at phase 10's width and depth, from its seed and
+    batches, takes ``SHARDED_STEPS`` steps through
+    ``make_train_step(mesh=..., zero1=True)``: parameters as DTensors by
+    ``param_specs``, moments by ``opt_specs`` (ZeRO-1), the batch sharded
+    over "data".  Each step's loss and gradient norm, and a digest of
+    every parameter bit after the first step, are held equal to phase
+    10's unsharded steps.  Prints the sharded steps' wall ms and a
+    profiled step's device busy ms beside the unsharded ones, and the
+    card."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import collectives as C
+    from repro_torch.distributed.sharding import is_dtensor, place_tree
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.models.transformer import torch_dtype
+    from repro_torch.train import data as D
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_loop as TL
+    print(f"sharded training phase: budget {SHARDED_BUDGET_S} s (the whole "
+          "script within 1200 s)")
+    t_phase = time.perf_counter()
+    counts = kernel_counts()
+    check(dist.is_nccl_available(), "sharded training: no NCCL backend")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device(DEVICE, 0))
+    try:
+        mesh = make_host_mesh((1, 1), ("data", "model"), device_type=DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        x = torch.randn(1 << 20, generator=gen, device=DEVICE)
+        coll = {"tree_all_reduce": C.tree_all_reduce(x, mesh.get_group(
+                    "data")),
+                "ring_all_reduce": C.ring_all_reduce(x, mesh.get_group(
+                    "model")),
+                "ppermute": C.ppermute(x, None, [(0, 0)])}
+        y = x.clone()
+        dist.all_reduce(y)
+        coll["dist.all_reduce"] = y
+        z = torch.empty_like(x)
+        dist.all_gather_into_tensor(z, x)
+        coll["dist.all_gather_into_tensor"] = z
+        w = torch.empty_like(x)
+        dist.reduce_scatter_tensor(w, x)
+        coll["dist.reduce_scatter_tensor"] = w
+        torch.cuda.synchronize()
+        for name, got in coll.items():
+            check(torch.equal(got, x), f"NCCL, one rank: {name} changed "
+                  "its input")
+        print("sharded training: NCCL world of 1, (1, 1) mesh; "
+              + ", ".join(coll) + " give their input back bit for bit "
+              "(one rank: no hop of the tree or ring schedules; their hops "
+              "are held on 8 gloo ranks in the CPU tests)")
+
+        cfg = unsharded["cfg"]
+        tcfg = TL.TrainCfg(opt=OPT.OptCfg(
+            lr=1e-3, warmup_steps=max(TRAIN_STEPS // 10, 1),
+            total_steps=TRAIN_STEPS), zero1=True)
+        step_fn, (psh, osh), _ = TL.make_train_step(cfg, tcfg, mesh)
+        plain = registry.init(cfg, seed, device=DEVICE,
+                              dtype=torch_dtype(cfg.dtype))
+        params = place_tree(plain, psh)
+        del plain
+        opt_state = OPT.init(params, osh.m)
+        dcfg = D.DataCfg(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                         seed=seed)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counts)
+        walls, metrics, prof = [], [], None
+        for k in range(SHARDED_STEPS):
+            batch = {n: torch.from_numpy(v).to(DEVICE)
+                     for n, v in D.make_batch(cfg, dcfg, k).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if k == SHARDED_STEPS - 1:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    params, opt_state, m = step_fn(params, opt_state, batch)
+                    torch.cuda.synchronize()
+            else:
+                params, opt_state, m = step_fn(params, opt_state, batch)
+                torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            if k == 0:
+                digest = param_digest(params)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launched = read_counts(counts)
+        check(not any(launched.values()),
+              f"the sharded train path launched kernels of the port: "
+              f"{launched}")
+        check(all(is_dtensor(p) for p in OPT.sorted_leaves(params))
+              and all(is_dtensor(t) for t in OPT.sorted_leaves(
+                  (opt_state.m, opt_state.v))),
+              "sharded training: a leaf left the mesh")
+        zero_dims = sorted({str(t.placements)
+                            for t in OPT.sorted_leaves(opt_state.m)})
+        del params, opt_state
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    want = [(s["loss"], s["grad_norm"]) for s in unsharded["steps"]]
+    for k, (got, ref) in enumerate(zip(metrics, want)):
+        check(got == ref, f"sharded step {k + 1}: (loss, grad norm) {got} "
+              f"!= unsharded {ref}")
+    diff = [p for p in unsharded["digest"]
+            if digest.get(p) != unsharded["digest"][p]]
+    check(not diff and len(digest) == len(unsharded["digest"]),
+          f"sharded step 1: parameters differ from the unsharded step's in "
+          f"{diff}")
+    busy = sum(k.duration for ev in prof.events()
+               for k in (getattr(ev, "kernels", None) or [])) / 1e3
+    report = {
+        "mesh": {"data": 1, "model": 1}, "backend": "nccl",
+        "layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "zero1_moment_placements": zero_dims,
+        "loss_grad_norm": metrics, "equal_to_unsharded": True,
+        "parameter_leaves_equal": len(digest),
+        "sharded_wall_ms": walls,
+        "unsharded_wall_ms": [s["seconds"] * 1e3
+                              for s in unsharded["steps"]][:SHARDED_STEPS],
+        "sharded_profiled_busy_ms": busy if busy else "not measured",
+        "unsharded_profiled_busy_ms": unsharded["busy_ms"] or "not measured",
+        "peak_memory_gb": peak}
+    print("sharded training [minitron-4b, (1, 1) mesh, zero1]: "
+          + json.dumps(report) + f"; {card_line}")
+    spent = time.perf_counter() - t_phase
+    print(f"sharded training phase: {spent:.1f}s (budget "
+          f"{SHARDED_BUDGET_S} s)")
 
 
 # --- tiered KV memory and resilient serving (A10a, A10b) ------------------------------------
@@ -4573,7 +4772,7 @@ def profile_serve_window(cfg, params, prompts, counts):
     and closed at the first step or chunk after it holds at least 12
     decode steps, a verify step and a chunk (or 64 calls): each kind of
     ``serve.*`` range counts the calls of its kind in the window, B1's
-    wrapper counts 32 launches inside each ``serve.decode_step`` and
+    wrapper counts a launch a layer inside each ``serve.decode_step`` and
     ``serve.verify`` range and none inside a ``serve.prefill_chunk``
     range (counted as each range opens and closes), and the profile holds
     that many B1 kernels.
@@ -4691,12 +4890,18 @@ def profile_serve_window(cfg, params, prompts, counts):
             "device_ms_per_range": device_ms}
 
 
+# Depth cut to TEL_LAYERS of 32 (widths and vocab whole) to keep the
+# script inside its time limit beside the sharded-training phase.
+TEL_LAYERS = 16
+
+
 def telemetry_full_width(seed):
-    """Full-width minitron-4b, bf16, paged through B1 (page 16, chunk
-    128, 8 slots, max_seq 1024) with the prefix cache, ``prefill_exact``
-    and ``speculate_k`` 4 on the shared-prompt traffic: served with
-    telemetry off, then on (on: tracing, profiler ranges and a live
-    ``/metrics`` scrape), B1 launched (decode + verify steps) x 32 in
+    """Full-width minitron-4b at ``TEL_LAYERS`` layers, bf16, paged through
+    B1 (page 16, chunk 128, 8 slots, max_seq 1024) with the prefix cache,
+    ``prefill_exact`` and ``speculate_k`` 4 on the shared-prompt traffic:
+    served with telemetry off, then on (on: tracing, profiler ranges and
+    a live ``/metrics`` scrape), B1 launched (decode + verify steps) x
+    layers in
     each, the trace giving back the counters, the decode-step
     histogram's p50 in the bucket of the host-timed median decode step;
     then a profiler window over the same serve.  Returns {path:
@@ -4706,10 +4911,12 @@ def telemetry_full_width(seed):
     from repro_torch.serve.telemetry import ServeTelemetry
     t_phase = time.perf_counter()
     cfg = dataclasses.replace(
-        get("minitron-4b"), decode_flash=True, kv_page_size=PAGE,
-        prefill_chunk=CHUNK, prefix_cache=True, prefill_exact=True,
-        speculate_k=SPEC_K, speculate_ngram=1)
+        get("minitron-4b"), n_layers=TEL_LAYERS, decode_flash=True,
+        kv_page_size=PAGE, prefill_chunk=CHUNK, prefix_cache=True,
+        prefill_exact=True, speculate_k=SPEC_K, speculate_ngram=1)
     params = registry.init(cfg, seed, device=DEVICE, dtype=torch.bfloat16)
+    print(f"full width: minitron-4b, {cfg.n_layers} of 32 layers "
+          "(widths and vocab whole)")
     counts = kernel_counts()
     prompts = shared_prompt_traffic(cfg.vocab_size,
                                     np.random.default_rng(seed + 19))
@@ -4938,8 +5145,9 @@ def main():
     moe_paths = phase_moe_full_width(args.seed)
     va_paths = phase_vlm_audio_full_width(args.seed)
     tel_paths = phase_telemetry_sampling(args.seed)
-    phase_train_full_width(args.seed, measured)
+    unsharded = phase_train_full_width(args.seed, measured)
     phase_roofline(card_line, measured)
+    phase_sharded_train(args.seed, unsharded, card_line)
 
     # each kernel's row: its launches on the full-width path that runs it,
     # its numbers at that path's shapes (B2: the store at the decode rows

@@ -8,9 +8,11 @@ F6 shiftreg.py   shift registers with parallel taps
 F7 treereduce.py explicit balanced tree reduction
 health.py        liveness and straggler detection for supervisors
 
+collectives.py   tree/ring schedules over a process group (F7 at mesh
+                 level)
+
 The reference's TPU VMEM sizing helpers (``block_shape_2d``,
-``fits_vmem``) and its mesh-level ``collectives`` have no counterpart
-here.
+``fits_vmem``) have no counterpart here.
 """
 
 from .stream import Stream, UnboundedStream, StreamClosed, stream_all

@@ -9,9 +9,12 @@ bank placement), so hlslib wraps both behind one API::
             -> MakeBuffer(MemoryBank::bank0, ...) -> CopyToHost
 
 PyTorch port: the "vendor" is a torch device — ``cuda`` unless the caller
-passes ``device="cpu"``.  ``Context`` hides
+passes ``device="cpu"`` — or a ``DeviceMesh`` of several.  ``Context``
+hides
 
-* the device (``MakeBuffer`` places tensors on it),
+* the device or the mesh (``MakeBuffer`` places tensors there: with a
+  mesh, ``MemoryBank.sharded(*axes)`` makes a DTensor split along those
+  mesh axes, a bank of one device a replicated DTensor),
 * buffer access modes (a read-only buffer refuses a host rewrite),
 * synchronous vs asynchronous execution: ``ExecuteTask`` synchronises the
   device before it returns (the paper's Listing 2 semantics),
@@ -26,8 +29,6 @@ launched): ``cost_analysis()`` gives ``{"flops", "bytes accessed"}``
 under the reference's byte model, ``memory_analysis()`` the argument,
 output and largest-temporary bytes, and ``hlo_text()`` the aten ops the
 callable dispatched (``aten.mm`` for a product) in place of XLA's HLO.
-Placement across several devices (``MemoryBank.sharded``) comes with
-tensor-parallel serving.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..distributed.sharding import P, Sharding, is_dtensor
+
 
 class Access(enum.Enum):
     """Buffer access mode (paper: ``Access::read`` / ``Access::write``)."""
@@ -49,21 +52,23 @@ class Access(enum.Enum):
 
 @dataclasses.dataclass(frozen=True)
 class MemoryBank:
-    """FPGA DDR banks -> placements.  On one device every bank is the
-    context's device: ``bank0`` and ``bank1`` name the paper's two banks
-    for API parity with its Listing 2."""
+    """FPGA DDR banks -> placements.  ``bank0`` and ``bank1`` name the
+    paper's two banks for API parity with its Listing 2: replicated
+    placements (the whole buffer on the context's device, or on every
+    device of its mesh).  ``MemoryBank.sharded(*axes)`` splits a buffer's
+    dims along those mesh axes, one entry per dim (``None``: not split);
+    on a context of one device it is that device, as a mesh of one device
+    would hold it."""
     name: str = "bank0"
+    spec: Tuple = ()
 
     @classmethod
     def sharded(cls, *axes) -> "MemoryBank":
-        raise NotImplementedError(
-            f"MemoryBank.sharded{axes}: placement over several devices "
-            "comes with tensor-parallel serving (A13 in ROADMAP.md)")
+        return cls("sharded", tuple(axes))
 
     @classmethod
     def replicated(cls) -> "MemoryBank":
-        """The one-device bank: on one device a replicated placement is
-        the context's device, as ``bank0`` is."""
+        """A replicated placement, as ``bank0`` is."""
         return cls("bank0")
 
 
@@ -75,13 +80,16 @@ class Buffer:
     """A tensor on the context's device plus its access mode (≈ cl::Buffer
     + bank)."""
 
-    def __init__(self, ctx: "Context", tensor: torch.Tensor, access: Access):
+    def __init__(self, ctx: "Context", tensor: torch.Tensor, access: Access,
+                 bank: MemoryBank = MemoryBank()):
         self.ctx = ctx
         self.tensor = tensor
         self.access = access
+        self.bank = bank
 
     def CopyToHost(self, out: Optional[np.ndarray] = None) -> np.ndarray:
-        host = self.tensor.cpu().numpy()
+        t = self.tensor
+        host = (t.full_tensor() if is_dtensor(t) else t).cpu().numpy()
         if out is not None:
             np.copyto(out, host)
             return out
@@ -92,10 +100,11 @@ class Buffer:
             raise PermissionError("buffer is read-only for the device; "
                                   "host rewrite not allowed")
         # rebind, as the reference's ``device_put`` does: the buffer takes
-        # the host data's shape and dtype (no broadcast, no cast).  Bound
-        # kernels read ``tensor`` at execute time, so they see the new one.
-        self.tensor = torch.as_tensor(np.asarray(src)).to(
-            self.tensor.device, copy=True)
+        # the host data's shape and dtype (no broadcast, no cast) and keeps
+        # its placement.  Bound kernels read ``tensor`` at execute time, so
+        # they see the new one.
+        self.tensor = self.ctx._place(torch.as_tensor(np.asarray(src)),
+                                      self.bank)
         return self
 
     @property
@@ -193,10 +202,22 @@ class Program:
 
 class Context:
     """Sets up the runtime (paper: "Sets up the vendor OpenCL runtime") on
-    one torch device, ``cuda`` unless ``device`` says otherwise."""
+    one torch device, ``cuda`` unless ``device`` says otherwise, or on a
+    ``DeviceMesh`` (``mesh``; its device type), whose buffers are
+    DTensors."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, mesh=None):
+        if mesh is not None:
+            device = mesh.device_type
+        self.mesh = mesh
         self.device = torch.device("cuda" if device is None else device)
+
+    def _place(self, data: torch.Tensor, bank: MemoryBank) -> torch.Tensor:
+        """``data`` (on any device) placed as ``bank`` says."""
+        if self.mesh is None:
+            return data.to(self.device, copy=True)
+        spec = bank.spec + (None,) * (data.dim() - len(bank.spec))
+        return Sharding(self.mesh, P(*spec)).place(data)
 
     def synchronize(self) -> None:
         if self.device.type == "cuda":
@@ -212,20 +233,19 @@ class Context:
     def MakeBuffer(self, dtype: torch.dtype, access: Access, bank: MemoryBank,
                    *shape_or_data) -> Buffer:
         """``MakeBuffer<float, Access::read>(bank, begin, end)`` or
-        ``MakeBuffer<float, Access::write>(bank, N[, M, ...])``.  Every
-        bank is the context's device."""
+        ``MakeBuffer<float, Access::write>(bank, N[, M, ...])``, placed
+        as ``bank`` says."""
         if len(shape_or_data) == 1 and isinstance(shape_or_data[0],
                                                   torch.Tensor):
-            data = shape_or_data[0].to(self.device, dtype, copy=True)
+            data = shape_or_data[0].to(dtype)
         elif len(shape_or_data) == 1 and isinstance(
                 shape_or_data[0], (np.ndarray, list)):
-            data = torch.as_tensor(np.asarray(shape_or_data[0]), dtype=dtype,
-                                   device=self.device)
+            data = torch.as_tensor(np.asarray(shape_or_data[0]), dtype=dtype)
         elif shape_or_data and all(isinstance(s, (int, np.integer))
                                    for s in shape_or_data):
             data = torch.zeros(tuple(int(s) for s in shape_or_data),
-                               dtype=dtype, device=self.device)
+                               dtype=dtype)
         else:
             raise TypeError(f"MakeBuffer: pass data or a shape, got "
                             f"{shape_or_data}")
-        return Buffer(self, data, access)
+        return Buffer(self, self._place(data, bank), access, bank)

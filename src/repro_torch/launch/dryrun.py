@@ -10,9 +10,9 @@ Counting needs no device: on either machine it runs on the CPU and
 launches no kernel (each kernel's plain twin does the counted work, as
 the kernel must).  The reference lowers each cell on a 16x16 (or
 2x16x16) TPU mesh; this port's one-device dry-run reports the mesh as
-``"1"`` with ``n_chips`` 1.  ``--multi-pod`` needs the production mesh
-and its sharding rules, which come with the tensor-parallel port (A13a
-in ROADMAP.md): it exits non-zero.
+``"1"`` with ``n_chips`` 1.  ``--multi-pod`` lowers the serve steps on
+the production mesh, which come with sharded serving (A13b in
+ROADMAP.md): it exits non-zero.
 
 Usage::
 
@@ -67,8 +67,8 @@ def lower_cell(cfg, shape, mesh=None, extra_cfg=None, tcfg=None,
     loss as a float, metrics) happen outside the counted call."""
     if mesh is not None:
         raise NotImplementedError(
-            "dry-run on a mesh: sharded steps come with the tensor-parallel "
-            "port (A13a)")
+            "dry-run on a mesh: the sharded serve steps come with sharded "
+            "serving (A13b)")
     if extra_cfg:
         cfg = dataclasses.replace(cfg, **extra_cfg)
     t0 = time.time()
@@ -107,8 +107,8 @@ def run_cell(cfg, shape, multi_pod: bool = False, extra_cfg=None,
     time)."""
     if multi_pod:
         raise NotImplementedError(
-            "--multi-pod: the 2x16x16 production mesh comes with the "
-            "tensor-parallel port (A13a in ROADMAP.md)")
+            "--multi-pod: lowering on the 2x16x16 production mesh comes "
+            "after sharded serving (A13b in ROADMAP.md)")
     if extra_cfg:
         cfg = dataclasses.replace(cfg, **extra_cfg)
     costs, dt = lower_cell(cfg, shape, scopes=scopes)
@@ -142,9 +142,9 @@ def main(argv=None):
     if not args.all and not args.arch:
         ap.error("pass --arch <id> or --all")
     if args.multi_pod:
-        print("--multi-pod: the 2x16x16 production mesh, its sharding "
-              "rules and the collective term come with the tensor-parallel "
-              "port (A13a in ROADMAP.md); this dry-run counts one H100",
+        print("--multi-pod: lowering the cells on the 2x16x16 production "
+              "mesh and the collective term come after sharded serving "
+              "(A13b in ROADMAP.md); this dry-run counts one H100",
               file=sys.stderr)
         return 2
     arch = get_arch(args.arch).name if args.arch else None

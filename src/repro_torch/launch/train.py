@@ -11,7 +11,8 @@ pipeline over a bounded Stream (depth-2 ping-pong), the step from
 ``train.train_loop.make_train_step``; ``--ckpt-dir`` saves every
 ``--ckpt-every`` steps and ``--resume`` continues from ``LATEST``.
 ``--zero1`` is accepted and, on one device, changes nothing (the
-reference's without a mesh neither).
+reference's without a mesh neither): ZeRO-1 shards the moments over the
+"data" axis of a mesh (``make_train_step(mesh=...)``).
 
 ``main`` returns ``{"params", "opt_state", "steps"}``, ``steps`` holding
 per step its ``loss`` and ``grad_norm`` (floats), ``lr`` and ``seconds``

@@ -36,6 +36,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import constrain, is_dtensor, local_region, \
+    spec_for
 from ..kernels.kv_quant import (kv_dequantize, kv_quantize,
                                 kv_quantize_store, kv_store_rows)
 from ..roofline import count as _count
@@ -502,20 +504,32 @@ def attention_apply(cfg, p, x, *, window: Optional[int] = None,
     theta = theta if theta is not None else cfg.rope_theta
     b, s, d = x.shape
     h = rmsnorm(x, p["norm"])
+    h = constrain(h, "batch", None, "embed")
     q, k, v = _qkv(cfg, p, h)
     if cache is None:
-        cs = _rope_angles(torch.arange(s, device=x.device), cfg.head_dim,
-                          theta, x.device)
-        q, k = _rotate(q, *cs), _rotate(k, *cs)
-        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
         tiles = dict(window=window, block_q=cfg.attn_block_q,
                      block_k=cfg.attn_block_k,
                      block_skip=cfg.attn_block_skip, p_bf16=cfg.attn_p_bf16)
-        if train:
-            o = attention_blocked(q, k, v, causal=True, **tiles)
-        else:
-            o = attention_prefill(q, k, v, **tiles)
-        new_cache = {"k": k, "v": v}
+
+        def core(q, k, v):
+            # (b, s, h, d) in and out: rope, then the tiled attention.
+            cs = _rope_angles(torch.arange(s, device=q.device),
+                              cfg.head_dim, theta, q.device)
+            q, k = _rotate(q, *cs), _rotate(k, *cs)
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+            if train:
+                o = attention_blocked(q, k, v, causal=True, **tiles)
+            else:
+                o = attention_prefill(q, k, v, **tiles)
+            return o.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+        qa, ka = head_axes(cfg, q)
+        o, k, v = local_region(
+            core, (q, k, v), (("batch", None, qa, None),
+                              ("batch", None, ka, None),
+                              ("batch", None, ka, None)), (0, 1, 2))
+        new_cache = {"k": k.transpose(1, 2), "v": v.transpose(1, 2)}
+        o = o.transpose(1, 2)
     else:
         pos = decode_pos(pos, b, x.device)
         cs = _rope_angles(pos[:, None, None], cfg.head_dim, theta, x.device)
@@ -553,7 +567,26 @@ def attention_apply(cfg, p, x, *, window: Optional[int] = None,
             o = attention_decode(q, full["k"], full["v"], valid)
         new_cache = cache
     y = o.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
+    y = constrain(y, "batch", None, "embed")
     return x + y, new_cache
+
+
+def head_axes(cfg, q) -> Tuple[Optional[str], Optional[str]]:
+    """The logical axes of the query and the K/V heads for attention on
+    local shards: each shard's query heads must meet their own K/V heads,
+    so the heads shard only where both counts divide the mesh axes (or
+    one K/V head is replicated to every shard); otherwise neither does.
+    ``q`` is a DTensor on a mesh (else any answer serves)."""
+    if not is_dtensor(q):
+        return "heads", "kv_heads"
+    mesh = q.device_mesh
+    sq = spec_for(("heads",), mesh, (cfg.n_heads,))[0]
+    skv = spec_for(("kv_heads",), mesh, (cfg.n_kv_heads,))[0]
+    if sq == skv:
+        return "heads", "kv_heads"
+    if skv is None and cfg.n_kv_heads == 1:
+        return "heads", None
+    return None, None
 
 
 def cross_attention_apply(cfg, p, x, cond):
@@ -569,9 +602,13 @@ def cross_attention_apply(cfg, p, x, cond):
     q = (h @ p["wq"]).reshape(b, s, hq, hd).transpose(1, 2)
     k = (cond @ p["wk"]).reshape(b, lc, hq, hd).transpose(1, 2)
     v = (cond @ p["wv"]).reshape(b, lc, hq, hd).transpose(1, 2)
-    o = attention_decode(q, k, v, torch.ones(lc, dtype=torch.bool,
-                                             device=x.device))
-    return x + o.transpose(1, 2).reshape(b, s, hq * hd) @ p["wo"]
+    heads = ("batch", "heads", None, None)
+    o = local_region(
+        lambda q, k, v: attention_decode(
+            q, k, v, torch.ones(lc, dtype=torch.bool, device=q.device)),
+        (q, k, v), (heads, heads, heads), (0,))
+    y = o.transpose(1, 2).reshape(b, s, hq * hd) @ p["wo"]
+    return x + constrain(y, "batch", None, "embed")
 
 
 def decode_pos(pos, b: int, device) -> torch.Tensor:
@@ -806,7 +843,7 @@ def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
             k_scale_pages=pages.get("k_scale"),
             v_scale_pages=pages.get("v_scale"))
     y = o.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
-    return x + y, pages
+    return x + constrain(y, "batch", None, "embed"), pages
 
 
 def _kv_leaves(cfg, shp, ax) -> Dict[str, Decl]:
@@ -948,24 +985,34 @@ def mla_apply(cfg, p, x, *, cache: Optional[Dict[str, torch.Tensor]] = None,
                         cfg.v_head_dim)
     q, c_kv, k_rope_raw = mla_latent(cfg, p, x)
     if cache is None:
-        positions = torch.arange(s, device=x.device)
-        q_nope, q_rope = q[..., :nope], rope(q[..., nope:], positions,
-                                             cfg.rope_theta)
-        k_rope = rope(k_rope_raw, positions, cfg.rope_theta)
         k_nope = (c_kv @ p["w_uk"]).reshape(b, s, hq, nope)
         vv = (c_kv @ p["w_uv"]).reshape(b, s, hq, vd)
-        qq = torch.cat([q_nope, q_rope], -1).transpose(1, 2)
-        kk = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, hq, rp)],
-                       -1).transpose(1, 2)
         tiles = dict(scale=1.0 / np.sqrt(nope + rp),
                      block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
                      block_skip=cfg.attn_block_skip)
-        if train:
-            o = attention_blocked(qq, kk, vv.transpose(1, 2), causal=True,
-                                  **tiles)
-        else:
-            o = attention_prefill(qq, kk, vv.transpose(1, 2), **tiles)
-        o = o.transpose(1, 2).reshape(b, s, -1)
+
+        def core(q, k_rope_raw, k_nope, vv):
+            # rope, the shared rope head beside each head's K, attention;
+            # (b, s, h, .) in and out, on a mesh each shard's rows and heads.
+            positions = torch.arange(s, device=q.device)
+            q_nope, q_rope = q[..., :nope], rope(q[..., nope:], positions,
+                                                 cfg.rope_theta)
+            k_rope = rope(k_rope_raw, positions, cfg.rope_theta)
+            qq = torch.cat([q_nope, q_rope], -1).transpose(1, 2)
+            kk = torch.cat([k_nope, k_rope[:, :, None].expand(
+                *k_nope.shape[:3], rp)], -1).transpose(1, 2)
+            if train:
+                o = attention_blocked(qq, kk, vv.transpose(1, 2),
+                                      causal=True, **tiles)
+            else:
+                o = attention_prefill(qq, kk, vv.transpose(1, 2), **tiles)
+            return o.transpose(1, 2), k_rope
+
+        heads = ("batch", None, "heads", None)
+        o, k_rope = local_region(core, (q, k_rope_raw, k_nope, vv),
+                                 (heads, ("batch", None, None), heads, heads),
+                                 (0, 1))
+        o = o.reshape(b, s, -1)
         new_cache = {"c_kv": c_kv, "k_rope": k_rope}
     else:
         pos = decode_pos(pos, b, x.device)
@@ -983,7 +1030,7 @@ def mla_apply(cfg, p, x, *, cache: Optional[Dict[str, torch.Tensor]] = None,
         o = _mla_absorbed(cfg, p, q_nope, q_rope, cc.to(F32), cr.to(F32),
                           valid, x.dtype)
         new_cache = cache
-    return x + o @ p["wo"], new_cache
+    return x + constrain(o @ p["wo"], "batch", None, "embed"), new_cache
 
 
 def mla_emit_latent(latent, cache_len: Optional[int] = None):
@@ -1062,7 +1109,7 @@ def mla_apply_paged(cfg, p, x, *, pages: Dict[str, torch.Tensor],
     rows_b, rows_s, wp, wo = write_idx
     cp[wp, wo] = c_kv[rows_b, rows_s].to(cp.dtype)
     rpool[wp, wo] = k_rope[rows_b, rows_s].to(rpool.dtype)
-    return x + o @ p["wo"], pages
+    return x + constrain(o @ p["wo"], "batch", None, "embed"), pages
 
 
 def mla_paged_cache_decl(cfg, n_pages: int, page_size: int
@@ -1109,11 +1156,13 @@ def mlp_decls(cfg, stack: Tuple[int, ...] = (), d_ff: Optional[int] = None
 
 def mlp_apply(cfg, p, x):
     h = rmsnorm(x, p["norm"])
+    h = constrain(h, "batch", None, "embed")
     if "w_gate" in p:
         hh = swiglu(h @ p["w_gate"], h @ p["w_up"])
     else:   # jax.nn.gelu's default is the tanh approximation
         hh = F.gelu((h @ p["w_up"]).to(F32), approximate="tanh").to(h.dtype)
-    return x + hh @ p["w_down"]
+    hh = constrain(hh, "batch", None, "ff")
+    return x + constrain(hh @ p["w_down"], "batch", None, "embed")
 
 
 def moe_decls(cfg, stack: Tuple[int, ...] = ()) -> Dict[str, Decl]:
@@ -1216,11 +1265,46 @@ def moe_apply(cfg, p, x, row_capacity: bool = False):
     capacity.  Returns x + y."""
     b, s, d = x.shape
     h = rmsnorm(x, p["norm"])
+    h = constrain(h, "batch", None, "embed")
     G = moe_groups(cfg, b, s, row_capacity)
-    disp, meta = _moe_dispatch(cfg, p, h.reshape(G, b * s // G, d), x.dtype)
+    # on a mesh each rank dispatches its own groups when the groups split
+    # over the rows' shards; otherwise every rank dispatches all tokens
+    # (the capacity is per group), as the reference's global dispatch.
+    grouped = _groups_follow_rows(h, G)
+    hg = (h if grouped else constrain(h, None, None, "embed")).reshape(
+        G, b * s // G, d)
+    rows = "moe_groups" if grouped else None
+
+    def dispatch(xg, router):
+        disp, meta = _moe_dispatch(cfg, {"router": router}, xg, x.dtype)
+        return (disp,) + meta
+
+    g_only = (0, (0, None, None))          # sharded over the groups only
+    disp, *meta = local_region(
+        dispatch, (hg, p["router"]), ((rows, None, "embed"), (None, None)),
+        ((0, (1, None, 2)), g_only, g_only, g_only, g_only))
+    disp = constrain(disp, "experts", rows, "embed")
     hh = swiglu(torch.bmm(disp, p["w_gate"]), torch.bmm(disp, p["w_up"]))
+    hh = constrain(hh, "experts", rows, "ff")
     out_e = torch.bmm(hh, p["w_down"])                       # (E, G·cap, d)
-    y = _moe_combine(out_e, meta, x.dtype).reshape(b, s, d)
+    out_e = constrain(out_e, "experts", rows, "embed")
+    y = local_region(
+        lambda oe, fe, sp, kp, gt, _: _moe_combine(oe, (fe, sp, kp, gt),
+                                                   x.dtype),
+        (out_e, *meta, hg), ((None, rows, "embed"),) + (None,) * 5, (5,))
+    y = constrain(y.reshape(b, s, d), "batch", None, "embed")
     if cfg.n_shared_experts:
         y = y + (swiglu(h @ p["sh_gate"], h @ p["sh_up"]) @ p["sh_down"])
-    return x + y
+    return x + constrain(y, "batch", None, "embed")
+
+
+def _groups_follow_rows(h, G: int) -> bool:
+    """Whether each shard of the rows of ``h`` (b, s, d) holds whole token
+    groups of the G (the groups shard over the same mesh axes as the
+    rows); True for a plain tensor."""
+    if not is_dtensor(h):
+        return True
+    mesh = h.device_mesh
+    g = spec_for(("moe_groups",), mesh, (G,))[0]
+    return g is not None and g == spec_for(("batch",), mesh,
+                                           (h.shape[0],))[0]

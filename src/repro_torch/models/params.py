@@ -5,6 +5,9 @@ Model code declares each tensor once as a ``Decl`` (shape + logical axes
 plain nested dicts, as in the JAX package, so a parameter tree of either
 package has the same paths and the same shapes.
 
+``param_specs`` turns the same tree into sharding specs through the
+logical-axis rules (``distributed/sharding.py``).
+
 ``params_from_numpy`` carries weights across: it takes the JAX package's
 parameters as nested dicts of numpy arrays (``np.asarray`` of each leaf)
 and returns the port's tensors, bit for bit; ``opt_state_from_numpy``
@@ -45,6 +48,13 @@ def tree_map(fn, tree, path: Tuple[str, ...] = ()):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, path + (str(k),)) for k, v in tree.items()}
     return fn(path, tree)
+
+
+def tree_at(tree, path: Tuple[str, ...]):
+    """The node of a nested dict at ``path`` (as ``tree_map`` gives it)."""
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def tree_leaves(tree):
@@ -115,6 +125,17 @@ def abstract_params(decls, fake_mode=None,
             else d.dtype
         return abstract_tensor(d.shape, dt, fake_mode)
     return tree_map(leaf, decls)
+
+
+def param_specs(decls, mesh=None):
+    """Specs from logical axes with shape-aware assignment
+    (``distributed.sharding.spec_for``): a mesh axis that does not divide
+    its dimension is skipped without being consumed (40 kv heads can't
+    take 'model', which then falls through to a later dim).  ``mesh`` is
+    a ``DeviceMesh`` or a mesh shape ({axis: size}); no mesh gives specs
+    of ``None`` entries only."""
+    from ..distributed.sharding import spec_for
+    return tree_map(lambda _, d: spec_for(d.axes, mesh, d.shape), decls)
 
 
 def param_count(decls) -> int:

@@ -5,7 +5,7 @@ the same ``default_rng(seed)`` draws, so both packages get the same
 inputs bit for bit.  The dry-run helpers: ``abstract`` (the parameter
 tree without storage), ``input_specs`` (a cell's batch without storage)
 and ``num_active_params`` (the 6·N_active·D convention).  ``specs``
-(sharding specs of the parameters) waits for the tensor-parallel port.
+gives the parameters' sharding specs on a mesh.
 """
 
 from __future__ import annotations
@@ -35,6 +35,12 @@ def abstract(cfg: ModelConfig, fake_mode=None):
     """The parameter tree as fake tensors (made in ``fake_mode``) or
     ``meta`` tensors: ``params.abstract_params`` of the decls."""
     return P.abstract_params(decls(cfg), fake_mode)
+
+
+def specs(cfg: ModelConfig, mesh=None):
+    """The parameters' sharding specs on ``mesh`` (a ``DeviceMesh`` or a
+    mesh shape): ``params.param_specs`` of the decls."""
+    return P.param_specs(decls(cfg), mesh)
 
 
 def num_params(cfg: ModelConfig) -> int:

@@ -22,6 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import constrain, local_region
 from ..kernels import ops, ref
 from .layers import rmsnorm
 from .params import Decl
@@ -89,7 +90,7 @@ def _out(cfg, p, x, y, x_ssm, z):
     y = y + p["D"].to(F32)[None, None, :, None] * x_ssm.to(F32)
     y = y.reshape(b, s, cfg.d_inner).to(x.dtype)
     y = rmsnorm(y * F.silu(z.to(F32)).to(x.dtype), p["gate_norm"])
-    return x + y @ p["w_out"]
+    return x + constrain(y @ p["w_out"], "batch", None, "embed")
 
 
 def mamba2_apply(cfg, p, x, *, cache: Optional[Dict] = None,
@@ -103,7 +104,8 @@ def mamba2_apply(cfg, p, x, *, cache: Optional[Dict] = None,
     through the chunked reference (the kernel returns no final state), as
     the reference's prefill does.  Returns (out, cache)."""
     xn = rmsnorm(x, p["norm"])
-    z, xbc, dt_raw = _split_in(cfg, xn @ p["w_in"])
+    zxbcdt = constrain(xn @ p["w_in"], "batch", None, "d_inner")
+    z, xbc, dt_raw = _split_in(cfg, zxbcdt)
     if cache is None:
         s, K = x.shape[1], cfg.ssm_conv
         if emit_cache and s < K - 1:
@@ -113,13 +115,22 @@ def mamba2_apply(cfg, p, x, *, cache: Optional[Dict] = None,
                 "holds (the reference's prefill emits a short conv state "
                 "there, which its decode cannot consume)")
         conv_state = xbc[:, s - (K - 1):].to(F32) if emit_cache else None
-        xbc = _conv_train(xbc, p["conv_w"], p["conv_b"])
+        # on a mesh: the conv with every channel on each shard (its
+        # weights gathered), the scan over each shard's heads.
+        xbc = local_region(_conv_train, (xbc, p["conv_w"], p["conv_b"]),
+                           (("batch", None, None), (None, None), (None,)),
+                           (0,))
         x_ssm, B, C, dt, A = _scan_inputs(cfg, p, xbc, dt_raw)
+        x_ssm = constrain(x_ssm, "batch", None, "ssm_heads", None)
         args = (x_ssm.to(F32).contiguous(), dt.contiguous(), A,
                 B.to(F32).contiguous(), C.to(F32).contiguous())
         if not emit_cache:
-            y = ops.ssd(*args, chunk=cfg.ssm_chunk,
-                        use_pallas=cfg.use_pallas)
+            y = local_region(
+                lambda *a: ops.ssd(*a, chunk=cfg.ssm_chunk,
+                                   use_pallas=cfg.use_pallas), args,
+                (("batch", None, "ssm_heads", None),
+                 ("batch", None, "ssm_heads"), ("ssm_heads",),
+                 ("batch", None, None), ("batch", None, None)), (0,))
             return _out(cfg, p, x, y, x_ssm, z), None
         y, ssd_state = ref.ssd_chunked_batch(*args, chunk=cfg.ssm_chunk)
         return _out(cfg, p, x, y, x_ssm, z), {"conv": conv_state,

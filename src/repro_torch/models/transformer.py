@@ -61,6 +61,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..distributed.sharding import constrain
 from . import layers as L
 from . import ssm as S
 from .params import Decl, stack_decls, tree_leaves, tree_map
@@ -224,7 +225,10 @@ def _embed_input(cfg, params, batch) -> torch.Tensor:
         for c in range(1, cfg.n_codebooks):
             x = x + emb[c][tok[..., c]]
         return x.to(dtype)
-    x = params["embed"][tok]
+    # on a mesh the table is gathered over its vocab shards first:
+    # DTensor's vocab-sharded lookup (a masked partial sum) has no
+    # backward.
+    x = constrain(params["embed"], None, "embed")[tok]
     if cfg.local_global_pattern or cfg.family == "vlm":
         # gemma scaling: the reference multiplies by an np.float32 scalar,
         # which promotes to float32, and rounds to the model dtype after.
@@ -302,6 +306,7 @@ def forward(cfg, params, batch, mode: str = "train",
         lambda _, p: p.to(dtype) if p.dtype.is_floating_point
         and p.dtype != dtype else p, params)
     x = _embed_input(cfg, params, batch)
+    x = constrain(x, "batch", None, "embed")
     b, s, _ = x.shape
 
     block_tab = pools = None
@@ -367,6 +372,7 @@ def forward(cfg, params, batch, mode: str = "train",
         logits = torch.einsum("bsd,kdv->bskv", x, params["unembed"])
     else:
         logits = x @ params["unembed"]
+    logits = constrain(logits, "batch", None, "vocab")
     if mode == "train":
         return logits
     if mode == "prefill":

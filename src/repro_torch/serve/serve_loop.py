@@ -48,12 +48,12 @@ def make_serve_steps(cfg: ModelConfig, batch: int, max_seq: int,
 
     The abstract cache is ``cache_decls(cfg, batch, max_seq)`` without
     storage (fake tensors made in ``fake_mode``, else ``meta``).  A mesh
-    raises: sharded serving steps come with the tensor-parallel port
-    (A13a in ROADMAP.md)."""
+    raises: sharded serving steps come with sharded serving (A13b in
+    ROADMAP.md)."""
     if mesh is not None:
         raise NotImplementedError(
             "make_serve_steps on a mesh: sharded serving steps come with "
-            "the tensor-parallel port (A13a)")
+            "sharded serving (A13b)")
     ab_cache = abstract_params(registry.cache_decls(cfg, batch, max_seq),
                                fake_mode)
 

@@ -16,6 +16,13 @@ numpy has no bfloat16 without ``ml_dtypes``, so a bf16 leaf is stored as
 its uint16 bits with ``"dtype": "bfloat16"`` in the manifest; ``restore``
 gives every leaf back bit for bit, on the device of the matching leaf of
 ``like``.
+
+On a mesh a leaf is a DTensor.  ``save`` is called by every rank: each
+leaf is gathered to its full logical array, and rank 0 alone writes it,
+once; the ranks leave ``save`` together.  A checkpoint therefore does
+not depend on the mesh that wrote it: ``restore(..., shardings=)``
+places each leaf straight onto any mesh, a resized one too (an elastic
+restart), each rank keeping its own shard of the array it read.
 """
 
 from __future__ import annotations
@@ -29,6 +36,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..distributed.sharding import is_dtensor
 
 _BF16 = "bfloat16"
 
@@ -58,6 +68,12 @@ def _map_with_path(fn, tree, path=()):
         return fn(path, tree)
     return _rebuild(tree, [_map_with_path(fn, v, path + (k,))
                            for k, v in kids])
+
+
+def _leaves(tree) -> list:
+    out = []
+    _map_with_path(lambda _, x: out.append(x), tree)
+    return out
 
 
 def _leaf_name(path) -> str:
@@ -90,13 +106,21 @@ def _fsync_write(path: str, text: str) -> None:
 def save(ckpt_dir: str, step: int, state: Any,
          extra: Optional[Dict] = None) -> str:
     """Write ``state`` as step ``step`` and point ``LATEST`` at it;
-    returns the step directory."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    returns the step directory.  With DTensor leaves every rank of their
+    mesh calls it; rank 0 writes."""
+    multi = any(is_dtensor(x) for x in _leaves(state))
+    writer = not multi or dist.get_rank() == 0
     final = os.path.join(ckpt_dir, f"step_{step:09d}")
-    tmp = tempfile.mkdtemp(prefix=".tmp-", dir=ckpt_dir)
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = tempfile.mkdtemp(prefix=".tmp-", dir=ckpt_dir)
     leaves = {}
 
     def write(path, leaf):
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()       # every rank takes part
+        if not writer:
+            return
         name = _leaf_name(path)
         arr, dtype = _to_numpy(leaf)
         fn = os.path.join(tmp, name.replace("/", "__") + ".npy")
@@ -108,14 +132,18 @@ def save(ckpt_dir: str, step: int, state: Any,
                         "shape": list(arr.shape), "dtype": dtype}
 
     _map_with_path(write, state)
-    _fsync_write(os.path.join(tmp, "MANIFEST.json"), json.dumps(
-        {"step": step, "leaves": leaves, "extra": extra or {}}, indent=1))
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
-    ptr = os.path.join(ckpt_dir, "LATEST")
-    _fsync_write(ptr + ".tmp", os.path.basename(final))
-    os.rename(ptr + ".tmp", ptr)
+    if writer:
+        _fsync_write(os.path.join(tmp, "MANIFEST.json"), json.dumps(
+            {"step": step, "leaves": leaves, "extra": extra or {}},
+            indent=1))
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        ptr = os.path.join(ckpt_dir, "LATEST")
+        _fsync_write(ptr + ".tmp", os.path.basename(final))
+        os.rename(ptr + ".tmp", ptr)
+    if multi:
+        dist.barrier()
     return final
 
 
@@ -130,12 +158,14 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return int(name.split("_")[-1])
 
 
-def restore(ckpt_dir: str, like: Any, step: Optional[int] = None
-            ) -> Tuple[Any, int, Dict]:
+def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
+            shardings: Any = None) -> Tuple[Any, int, Dict]:
     """(state in the structure of ``like``, its step, the ``extra`` dict
     saved with it).  Each leaf comes back bit for bit on the device of
     the matching leaf of ``like``; a shape differing from it raises
-    ``ValueError``.  ``step`` defaults to ``LATEST``."""
+    ``ValueError``.  ``step`` defaults to ``LATEST``.  ``shardings``: a
+    tree like ``like`` of ``Sharding`` (or None) leaves; a leaf with one
+    is placed straight onto its mesh as a DTensor."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -144,6 +174,11 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None
     with open(os.path.join(d, "MANIFEST.json")) as f:
         manifest = json.load(f)
 
+    flat_sh = {}
+    if shardings is not None:
+        _map_with_path(lambda p, s: flat_sh.__setitem__(_leaf_name(p), s),
+                       shardings)
+
     def read(path, leaf_like):
         name = _leaf_name(path)
         meta = manifest["leaves"][name]
@@ -151,6 +186,8 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None
         if tuple(arr.shape) != tuple(leaf_like.shape):
             raise ValueError(f"{name}: checkpoint shape {arr.shape} != "
                              f"expected {tuple(leaf_like.shape)}")
+        if flat_sh.get(name) is not None:
+            return flat_sh[name].place(_from_numpy(arr, meta["dtype"], "cpu"))
         return _from_numpy(arr, meta["dtype"], leaf_like.device)
 
     state = _map_with_path(read, like)

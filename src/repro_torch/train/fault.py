@@ -2,29 +2,60 @@
 
 * ``Heartbeat``, ``StragglerDetector`` — liveness and slow-step
   detection, from the port's ``core.health``.
+* ``elastic_mesh`` — rebuild a smaller (or larger) mesh after failures;
+  ``reshard_state`` re-places a checkpointed state onto it (checkpoints
+  hold full logical arrays, not raw shards, so any mesh can take them).
 * ``TrainSupervisor`` — checkpoint-restart loop: run steps, save every
   N, on a (simulated) failure restore the latest checkpoint and go on;
   the resumed run ends in the uninterrupted run's state bit for bit.
-
-``elastic_mesh`` and ``reshard_state`` (re-meshing after a lost device)
-wait for the tensor-parallel port.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, List, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
 
 from ..core.health import Heartbeat, StragglerDetector
+from ..distributed.sharding import Sharding, place_tree
+from ..models.params import tree_map
 from . import checkpoint as ckpt
 
-__all__ = ["Heartbeat", "StragglerDetector", "SupervisorReport",
-           "TrainSupervisor"]
+__all__ = ["Heartbeat", "StragglerDetector", "elastic_mesh",
+           "reshard_state", "SupervisorReport", "TrainSupervisor"]
 
 # A failure after this many restarts is raised: a fault that recurs on
 # every attempt ends the run instead of looping.
 MAX_RESTARTS = 10
+
+
+def elastic_mesh(axis_names: Tuple[str, ...], model_axis: int,
+                 ranks: Optional[Sequence[int]] = None, *,
+                 device_type: str = "cuda"):
+    """Rebuild a mesh after failures: keep the model axis whole (a
+    tensor-parallel group must stay complete) and shrink the data axis to
+    the ranks that survive — the standard elastic-DP policy.  ``ranks``
+    are the surviving ranks of the default process group (default: all
+    of them); every rank of the group calls this (building a mesh is
+    collective)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    ranks = list(ranks if ranks is not None
+                 else range(dist.get_world_size()))
+    n = (len(ranks) // model_axis) * model_axis
+    if n == 0:
+        raise RuntimeError("not enough devices for one model-parallel group")
+    mesh = torch.tensor(ranks[:n]).reshape(n // model_axis, model_axis)
+    return DeviceMesh(device_type, mesh, mesh_dim_names=tuple(axis_names))
+
+
+def reshard_state(state, specs, mesh):
+    """Re-place a (restored) state tree of nested dicts onto ``mesh``:
+    each leaf by its spec in ``specs`` (a tree like ``state``)."""
+    return place_tree(state, tree_map(lambda _, s: Sharding(mesh, s),
+                                      specs))
 
 
 @dataclasses.dataclass

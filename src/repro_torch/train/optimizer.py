@@ -11,8 +11,15 @@ the size of the model (no second fp32 copy of it).
 The step count lives on the host (a 0-d int32 CPU tensor): the schedule
 and the bias corrections are host scalars computed in float32 as the
 reference computes them, so a step reads nothing back from the device.
-The clip factor stays on the device.  ``opt_specs`` (ZeRO-1 sharding of
-the moments) waits for the tensor-parallel port.
+The clip factor stays on the device.
+
+On a mesh the leaves are DTensors and ``update`` works on their local
+shards.  Gradients come in with their parameters' placements.  The
+global norm sums each leaf's local squares and all-reduces them over the
+mesh dims the leaf is sharded on, so a replicated shard counts once.
+``opt_specs`` gives the moments' specs; with ZeRO-1 a moment is also
+sharded over ``data`` (``zero_shard_spec``), each data rank updates its
+slice of the parameter, and the slices are all-gathered over ``data``.
 """
 
 from __future__ import annotations
@@ -22,9 +29,11 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.treereduce import Add, tree_reduce_fn
-from ..models.params import tree_map
+from ..distributed.sharding import is_dtensor, local, zero_shard_spec
+from ..models.params import tree_at, tree_map
 
 F32 = torch.float32
 # elements of one slice of a leaf in ``update`` and ``global_norm`` (fp32
@@ -62,8 +71,13 @@ def sorted_leaves(tree):
     return [tree]
 
 
-def init(params) -> OptState:
-    def zeros(_, p):
+def init(params, shardings=None) -> OptState:
+    """Zero moments like ``params``; ``shardings`` (a tree of
+    ``Sharding`` like ``params``, ``opt_specs`` placed on a mesh) makes
+    each moment a DTensor of its placements, shard by shard."""
+    def zeros(path, p):
+        if shardings is not None:
+            return tree_at(shardings, path).zeros(p.shape, F32)
         return torch.zeros(p.shape, dtype=F32, device=p.device)
     return OptState(step=torch.zeros((), dtype=torch.int32),
                     m=tree_map(zeros, params), v=tree_map(zeros, params))
@@ -94,14 +108,35 @@ def _slices(t: torch.Tensor):
         or [flat]
 
 
+def _sharded_dims(t):
+    """The mesh dims a DTensor is sharded on (a partial placement is
+    refused: reduce the gradients to their parameters' placements
+    first)."""
+    from torch.distributed.tensor import Replicate, Shard
+    dims = []
+    for n, pl in enumerate(t.placements):
+        if isinstance(pl, Shard):
+            dims.append(n)
+        elif not isinstance(pl, Replicate):
+            raise ValueError(f"optimizer leaf with placement {pl}: reduce "
+                             "the gradients to their parameters' placements")
+    return dims
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares (fp32) of every leaf: one sum per leaf,
-    leaves combined by ``tree_reduce_fn`` in the reference's order."""
+    leaves combined by ``tree_reduce_fn`` in the reference's order.  A
+    DTensor leaf sums its local shard and all-reduces over the mesh dims
+    it is sharded on: a shard replicated over a dim counts once."""
     sq = []
     for g in sorted_leaves(tree):
         parts = [torch.sum(torch.square(c.to(F32)))
-                 for c in _slices(g.contiguous())]
-        sq.append(parts[0] if len(parts) == 1 else torch.stack(parts).sum())
+                 for c in _slices(local(g).contiguous())]
+        s = parts[0] if len(parts) == 1 else torch.stack(parts).sum()
+        if is_dtensor(g):
+            for n in _sharded_dims(g):
+                dist.all_reduce(s, group=g.device_mesh.get_group(n))
+        sq.append(s)
     return torch.sqrt(tree_reduce_fn(sq, Add))
 
 
@@ -133,17 +168,77 @@ def update(cfg: OptCfg, grads, state: OptState, params
     bc1, bc2 = float(f(1) - f(b1) ** f(n)), float(f(1) - f(b2) ** f(n))
     leaves = zip(sorted_leaves(params), sorted_leaves(grads),
                  sorted_leaves(state.m), sorted_leaves(state.v))
+
+    def adamw(p, g, m, v):
+        for ps, gs, ms, vs in zip(*map(_slices, (p, g.contiguous(), m, v))):
+            gf = gs.to(F32) * scale
+            ms.mul_(b1).add_(gf * (1 - b1))
+            vs.mul_(b2).add_(torch.square(gf) * (1 - b2))
+            upd = (ms / bc1) / (torch.sqrt(vs / bc2) + cfg.eps)
+            pf = ps.to(F32)
+            upd.add_(pf * cfg.weight_decay)
+            ps.copy_(pf - lr * upd)
+
     with torch.no_grad():
         for p, g, m, v in leaves:
-            for ps, gs, ms, vs in zip(*map(_slices, (p, g.contiguous(), m,
-                                                     v))):
-                gf = gs.to(F32) * scale
-                ms.mul_(b1).add_(gf * (1 - b1))
-                vs.mul_(b2).add_(torch.square(gf) * (1 - b2))
-                upd = (ms / bc1) / (torch.sqrt(vs / bc2) + cfg.eps)
-                pf = ps.to(F32)
-                upd.add_(pf * cfg.weight_decay)
-                ps.copy_(pf - lr * upd)
+            if not is_dtensor(p):
+                adamw(p, g, m, v)
+                continue
+            if list(g.placements) != list(p.placements):
+                raise ValueError("gradient placements differ from their "
+                                 "parameter's")
+            zero = _zero_dim(p, m)
+            if zero is None:
+                adamw(*map(local, (p, g, m, v)))
+            else:
+                _zero1_update(adamw, p, g, m, v, *zero)
     step = torch.tensor(n, dtype=torch.int32)
     return params, OptState(step, state.m, state.v), {"grad_norm": gnorm,
                                                       "lr": lr}
+
+
+def _zero_dim(p, m):
+    """(mesh dim, tensor dim) along which the moment ``m`` is sharded and
+    its parameter is not (ZeRO-1), or None."""
+    from torch.distributed.tensor import Shard
+    extra = [(n, pl.dim) for n, (pl, pp) in enumerate(zip(m.placements,
+                                                          p.placements))
+             if isinstance(pl, Shard) and pl != pp]
+    if len(extra) > 1:
+        raise ValueError(f"moment placements {m.placements} against "
+                         f"{p.placements}: one ZeRO-1 dim at most")
+    return extra[0] if extra else None
+
+
+def _zero1_update(adamw, p, g, m, v, mesh_dim: int, dim: int):
+    """ZeRO-1: this data rank updates its slice (along ``dim``) of the
+    parameter with its moment shards, then the slices are all-gathered
+    over ``mesh_dim`` into every rank's parameter."""
+    mesh = p.device_mesh
+    n, r = mesh.size(mesh_dim), mesh.get_local_rank(mesh_dim)
+    pl, gl = local(p), local(g)
+    ps = pl.chunk(n, dim)[r].contiguous()
+    adamw(ps, gl.chunk(n, dim)[r], local(m), local(v))
+    group = mesh.get_group(mesh_dim)
+    if dim == 0 and pl.is_contiguous():
+        # ps is then a view of this rank's own segment of pl, updated in
+        # place: the gather fills the other segments.
+        dist.all_gather_into_tensor(pl, ps, group=group)
+        return
+    buf = torch.empty((n * ps.shape[0],) + tuple(ps.shape[1:]),
+                      dtype=ps.dtype, device=ps.device)
+    dist.all_gather_into_tensor(buf, ps, group=group)
+    pl.copy_(torch.cat(buf.chunk(n), dim=dim))
+
+
+def opt_specs(param_spec_tree, abstract_params, mesh, zero1: bool = False):
+    """Specs of ``OptState`` (``step`` stays on the host: None).  With
+    ``zero1`` each moment also shards its first still-replicated dim
+    over 'data' (ZeRO-1).  ``abstract_params`` gives each leaf's shape
+    (tensors or ``Decl``s)."""
+    def mom_spec(path, spec):
+        return zero_shard_spec(spec, tree_at(abstract_params, path).shape,
+                               mesh) if zero1 else spec
+
+    m_specs = tree_map(mom_spec, param_spec_tree)
+    return OptState(step=None, m=m_specs, v=m_specs)

@@ -109,11 +109,19 @@ def test_async_execution():
 
 
 def test_context_defaults_to_the_card_and_sharding_waits():
+    """The context defaults to the card; ``MemoryBank.sharded`` names its
+    mesh axes and, on a context of one device, places the whole buffer
+    there (placement over a mesh: ``tests/test_torch_collectives.py``)."""
     assert Context().device.type == "cuda"
     assert Context("cpu").device.type == "cpu"
     assert MemoryBank.bank0 != MemoryBank.bank1
-    with pytest.raises(NotImplementedError, match="A13"):
-        MemoryBank.sharded("data")
+    bank = MemoryBank.sharded("data", None)
+    assert bank.spec == ("data", None) and bank != MemoryBank.bank0
+    data = np.arange(12, dtype=np.float32).reshape(4, 3)
+    buf = Context("cpu").MakeBuffer(torch.float32, Access.read_write, bank,
+                                    data)
+    assert type(buf.tensor) is torch.Tensor
+    np.testing.assert_array_equal(buf.CopyToHost(), data)
     with pytest.raises(TypeError):
         Context("cpu").MakeBuffer(torch.float32, Access.read,
                                   MemoryBank.bank0, "x")

@@ -217,4 +217,4 @@ def test_cli_counts_a_full_size_cell():
     assert "PASS minitron-4b × decode_32k × 1" in r.stdout
     assert "1 passed, 0 failed" in r.stdout
     r = _cli("--all", "--multi-pod")
-    assert r.returncode != 0 and "A13a" in r.stderr
+    assert r.returncode != 0 and "A13b" in r.stderr

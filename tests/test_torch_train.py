@@ -352,9 +352,10 @@ def test_unknown_remat_is_refused(cfg):
 
 
 def test_mesh_is_refused(cfg):
-    """Sharded training waits for the tensor-parallel port (``use_pallas``
+    """A mesh that is no ``DeviceMesh`` is refused (sharded training on a
+    ``DeviceMesh``: ``tests/test_torch_sharded_train.py``; ``use_pallas``
     on the recurrent families: ``tests/test_torch_train_recurrent.py``)."""
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TL.make_train_step(cfg, mesh=object())
 
 
