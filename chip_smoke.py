@@ -103,13 +103,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    drafts and prefix hits required, prefix, speculation and TTFT
    counters printed), one verify span held against sequential decode
    steps from copies of the same pools, and a verify step's time split
-   beside a decode step's; then the tiered serve: three rounds (families
+   beside a decode step's; then the tiered serve (minitron-4b at 16 of
+   its 32 layers, the time limit): three rounds (families
    A, B, A) of 16 requests, 4 distinct 512-token system prompts shared by
    4 requests each, with a 1 GiB host tier on a pool of the live pages
    at peak plus 96 (fewer than a family's cached blocks), so round B
    demotes A's blocks and round 3 promotes them; the same rounds with
    ``host_tier_bytes=0`` (round 3 recomputes) and A twice on a pool that
-   keeps it on the card; B1 launched (decode + verify steps) x 32 in
+   keeps it on the card; B1 launched (decode + verify steps) x layers in
    every round, demotions and rehits required, no tier fault, round 3
    through T1 bit-identical to round 3 from device-resident hits;
    tokens/s, TTFTs, the tier counters, the staged engine's GB/s beside a
@@ -160,7 +161,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    kernel / matmul / MoE dispatch and combine / MLA glue / other), and
    phi3.5's step logits through the kernels vs the plain path (reported:
    top-k routing amplifies a one-ulp change); then the vlm and audio
-   families at full width and depth through ``greedy_generate`` (the
+   families at full width (paligemma-3b at full depth, musicgen-medium
+   at 24 of 48 layers, the time limit) through ``greedy_generate`` (the
    batcher refuses them, as the reference's does), bf16,
    ``decode_flash``: paligemma-3b two batches of 8 (256 bf16 patches of
    1152 + 64 / 128 text tokens, 64 new) and musicgen-medium one of 8
@@ -228,7 +230,30 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (a per-leaf digest) equal to phase 10's unsharded steps; the sharded
    steps' wall ms and a profiled step's device busy ms beside the
    unsharded step's, with the card's name and power limit.  Multi-rank
-   behaviour is held by the gloo tests on the CPU.
+   behaviour is held by the gloo tests on the CPU;
+13. sharded serving (budget 100 s) — (a) phase 4's paged serve of
+   minitron-4b again on a (1, 1) serving mesh over a world-of-one NCCL
+   group: streams equal to phase 4's bit for bit, B1 launched steps x
+   layers, its median step beside phase 4's, and one decode step
+   unsharded and on (1, 1) in six turns (the spread of one side's turns
+   is the A/B's noise floor); (b) two ranks on the one
+   card (rank 1 a child process; NCCL refuses two ranks on one device,
+   so both join a gloo group from a ``FileStore``, their tensors on the
+   card): a (1, 2) mesh at smoke width in fp32 with bf16 and int8 pages
+   (B1 at 2 of 4 kv heads, B2's store), streams equal to an unsharded
+   serve in the same call; then minitron-4b at full width and 16 of 32
+   layers, 8 requests of 256-512 prompt tokens plus 32 new (rank 1
+   draws only its tiles of the weights, ``init_tiles``): both ranks'
+   streams identical, each rank's pool half the total and its weight
+   bytes equal to the other's, the logits of a
+   first decode step fed the same tokens within
+   ``TOL_SHARDED_LOGITS_REL`` of the unsharded step's; per rank
+   tokens/s, the median step and the host ms a step spends in
+   collectives, beside the unsharded serve in the same call, with the
+   card's name and power limit; the share of streams equal to the
+   unsharded serve is reported, not held.  Phase 2 also holds B1 at one
+   rank's shape (12 / 4 heads of 128, bf16 and int8) and B2's store at 4
+   kv heads.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -604,6 +629,12 @@ def phase_kernel(gen, card, flush):
         "main phi3.5 verify (8 seqs, sq=5, hq 32 / hkv 8, d 128, pos <= 1k, "
         "bf16)": dict(main, hq=32, sq=5),
         "phi3.5 decode, int8 + bf16 scales": dict(main, hq=32, quant=True),
+        # one rank's shapes of minitron-4b served on a (1, 2) mesh: 12 / 4
+        # heads of 128 (the GQA group of 3 unchanged), bf16 and int8.
+        "main per-shard tp 2 (8 seqs, hq 12 / hkv 4, d 128, pos <= 1k, "
+        "bf16)": dict(main, hq=12, hkv=4),
+        "main per-shard tp 2 (8 seqs, hq 12 / hkv 4, d 128, pos <= 1k, "
+        "int8 + bf16 scales)": dict(main, hq=12, hkv=4, quant=True),
         "window=256": dict(main, window=256),
         "ring page_base, window=100": dict(
             main, n_blocks=-(-100 // 16) + 1, window=100, ring=True),
@@ -892,16 +923,17 @@ def store_bound_ms(n: int, kept: int, d: int, in_bytes: int, card: str):
 
 
 def make_store_case(gen, layout, *, d=128, dtype=torch.bfloat16,
-                    ties=False):
+                    ties=False, hkv=8):
     """One layer's K/V rows and the cache leaves they land in, at the
     full-width path's shapes: 8 slots x 8 kv heads into a dense slot
     cache of 1024 positions (slots in range, on a ring, clamped to S - 1)
     or a pool of 8 x 64 pages of 16 (a decode step with one slot
     inactive, or one slot's prefill chunk of 128 with a padded tail).
+    ``hkv`` kv heads (8; 4 is one rank's share on a (1, 2) mesh).
     Returns (k, v, leaves, dst_row, the separate route's cache write)."""
     from repro_torch.models import layers
     from repro_torch.kernels.kv_quant import kv_store_rows
-    dev, b, hkv = DEVICE, 8, 8
+    dev, b = DEVICE, 8
     if layout.startswith("paged"):
         page, nb = 16, 64
         n_pages = b * nb
@@ -975,6 +1007,10 @@ def phase_store_kernel(gen, card, flush):
         "paged decode rows, one slot inactive (bf16)": dict(layout="paged"),
         "paged prefill chunk (1 x 128 tokens x 8 kv heads, padded tail, "
         "bf16)": dict(layout="paged chunk"),
+        # one rank's int8 pages on a (1, 2) mesh: 4 of minitron's 8 kv
+        # heads.
+        "paged decode rows per shard tp 2 (8 slots x 4 kv heads, K and V, "
+        "d 128, bf16)": dict(layout="paged", hkv=4),
         "dense decode rows d 64 (f32)": dict(layout="dense", d=64,
                                             dtype=torch.float32),
         "dense decode rows d 256 (bf16)": dict(layout="dense", d=256),
@@ -2070,6 +2106,11 @@ def count_step(measured, label, fn, cfg, shape, prof):
                        "costs": c.costs}
 
 
+# phase 4's paged bf16 serve (its config, streams and summary), which the
+# sharded serving phase repeats on a (1, 1) mesh.
+PAGED_SERVE = {}
+
+
 def phase_full_width(seed, measured):
     """Full-width serves: paged through B1, then dense slots through B3
     with a bf16 and an int8 (B2) cache.  Returns {path: launches}; the
@@ -2095,7 +2136,9 @@ def phase_full_width(seed, measured):
     # --- paged, bf16, through B1 ---
     n_slots, max_seq, page, chunk = N_SLOTS, MAX_SEQ, PAGE, CHUNK
     cfg = dataclasses.replace(base, kv_page_size=page, prefill_chunk=chunk)
-    summary, launches, bat, _ = serve_full_width(cfg, params, seed, counts)
+    summary, launches, bat, outs = serve_full_width(cfg, params, seed,
+                                                    counts)
+    PAGED_SERVE.update(cfg=cfg, outs=outs, summary=summary)
     check(launches["flash_attention_decode_paged"]
           == bat.steps * cfg.n_layers,
           f"B1 launches {launches} != steps {bat.steps} x layers "
@@ -3413,9 +3456,15 @@ VLM_TEXT, VLM_NEW = (64, 128), 64
 AUDIO_PROMPT, AUDIO_NEW = 8, 256
 
 
+# musicgen-medium's depth cut to 24 of its 48 layers (widths, codebooks
+# and frames whole) to keep the script inside its time limit once the
+# sharded serving phase came; paligemma-3b keeps all 18.
+VA_LAYERS = {"musicgen-medium": 24}
+
+
 def phase_vlm_audio_full_width(seed):
-    """paligemma-3b and musicgen-medium at full width and full depth
-    (nothing cut), random bf16 weights from the seed, ``decode_flash``,
+    """paligemma-3b (full depth) and musicgen-medium (``VA_LAYERS``) at
+    full width, random bf16 weights from the seed, ``decode_flash``,
     generated through ``greedy_generate`` (the batcher refuses both, as
     the reference's does): paligemma two batches of 8 (256 N(0, 1) bf16
     patches of 1152 + 64 and + 128 text tokens, 64 new), musicgen one of
@@ -3434,6 +3483,8 @@ def phase_vlm_audio_full_width(seed):
     for arch in ("paligemma-3b", "musicgen-medium"):
         torch.cuda.empty_cache()
         cfg = dataclasses.replace(get(arch), decode_flash=True)
+        if arch in VA_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=VA_LAYERS[arch])
         t = time.perf_counter()
         params = registry.init(cfg, seed, device=DEVICE,
                                dtype=torch.bfloat16)
@@ -3992,6 +4043,411 @@ def phase_sharded_train(seed, unsharded, card_line):
           f"{SHARDED_BUDGET_S} s)")
 
 
+# --- phase 13: sharded serving (A13b) -------------------------------------------------
+
+SERVE_SHARDED_BUDGET_S = 100
+SHARDED_SERVE_LAYERS = 16      # of minitron-4b's 32, at full width
+SHARDED_SERVE_NEW = 32
+# the first decode step's logits on a (1, 2) mesh against the unsharded
+# step at the same depth (bf16, 16 layers, random weights), relative to
+# the largest |logit|: each split output projection rounds its two
+# partial sums to bf16 before the fp32 add, where one process rounds
+# once, so the difference is that of a summation order (C3), held to
+# the kernel-vs-plain tolerance of phase 4.
+TOL_SHARDED_LOGITS_REL = TOL_LOGITS_REL
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """Within the block, the port's one collective entry
+    (``sharding._collect``) adds its host seconds (the card synchronised
+    after it) and its calls to the yielded dict."""
+    from repro_torch.distributed import sharding as SH
+    acc = {"s": 0.0, "n": 0}
+    inner = SH._collect
+
+    def timed(x, group):
+        t0 = time.perf_counter()
+        out = inner(x, group)
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        acc["s"] += time.perf_counter() - t0
+        acc["n"] += 1
+        return out
+
+    SH._collect = timed
+    try:
+        yield acc
+    finally:
+        SH._collect = inner
+
+
+def first_step_logits(bat, tokens):
+    """The logits of a first decode step of a batcher whose slots all
+    decode, fed ``tokens`` (one per slot; the same on every serve
+    compared, since the tokens the prefills pick may differ at near-ties)
+    at the slots' positions, on a copy of its pools (under its model
+    group on a mesh): full vocab, fp32 on the host."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import params as PP
+    from repro_torch.models import registry
+    from repro_torch.serve.serve_loop import shard_local_cfg
+    pools = PP.tree_map(lambda _, a: a.clone(), bat.pools)
+    bt = {n: torch.where(bat.active[:, None], t, bat.n_pages[n])
+          for n, t in bat.block_tab.items()}
+    with SH.manual_axis(bat._group):
+        logits, _ = registry.forward(
+            shard_local_cfg(bat.cfg), bat.params,
+            {"tokens": tokens[:, None].to(DEVICE)}, mode="decode",
+            cache={"pages": pools, "block_tab": bt}, pos=bat.pos)
+    out = logits[:, -1].float().cpu()
+    del pools
+    return out
+
+
+def drive_serve(cfg, params, prompts, max_new, counts, n_slots=N_SLOTS,
+                max_seq=MAX_SEQ, logits=False):
+    """Serve ``prompts`` (``max_new`` tokens each) through one batcher:
+    every request admitted and prefilled first, then (with ``logits``)
+    the logits of a first decode step fed each prompt's last token,
+    taken on a copy of the pools, then
+    ``run`` to the end with each decode step and the collectives inside
+    it timed.  Kernel counts are set to 0 just before ``run`` and read
+    just after.  Returns a report."""
+    from repro_torch.serve.batching import ContinuousBatcher, Request, drain
+    bat = ContinuousBatcher(cfg, params, n_slots=n_slots, max_seq=max_seq,
+                            device=DEVICE)
+    reqs = [Request(rid=i, prompt=p, max_new=max_new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        bat.requests.Push(r)
+    steps, step_coll = [], []
+    inner = bat.step
+    with timed_collectives() as coll:
+        def timed_step():
+            c0 = coll["s"], coll["n"]
+            t = time.perf_counter()
+            n = inner()
+            steps.append(time.perf_counter() - t)
+            step_coll.append((coll["s"] - c0[0], coll["n"] - c0[1]))
+            return n
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bat.admit()
+        while bat._admitting:
+            bat._prefill_step()
+        check(all(r is not None
+                  for r in bat._slot_req[:min(len(reqs), n_slots)]),
+              "sharded serving: a slot is not decoding after prefill")
+        first = first_step_logits(bat, torch.as_tensor(
+            [int(p[-1]) for p in prompts])) if logits else None
+        tok0 = bat.last_tok.tolist()
+        bat.step = timed_step
+        chunks0 = bat.prefill_chunks
+        reset_counts(counts)
+        bat.run(len(reqs))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(counts)
+    outs = [drain(r) for r in reqs]
+    tokens = sum(len(o) for o in outs)
+    rep = {"outs": outs, "tokens": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall, "decode_steps": bat.steps,
+           "prefill_chunks": bat.prefill_chunks,
+           "run_chunks": bat.prefill_chunks - chunks0,
+           "median_step_ms": statistics.median(steps) * 1e3,
+           "collective_ms_per_step": statistics.median(
+               c for c, _ in step_coll) * 1e3,
+           "collectives_per_step": max(n for _, n in step_coll),
+           "launches": launches, "used_pages": bat.total_used_pages(),
+           "logits": first, "first_tokens": tok0}
+    if bat.mesh is not None:
+        rep["mesh"] = bat.stats()["mesh"]
+    del bat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep
+
+
+def wrapper_overhead(cfg, mesh_cfg, params, seed, reps=5):
+    """The sharded step's cost at tp 1: one paged decode step of ``cfg``
+    and of ``mesh_cfg`` (the same model on a (1, 1) mesh, whose tiles are
+    the whole parameters) on one set of prefilled pools, in turns
+    (plain, mesh, mesh, plain, plain, mesh; ``reps`` synchronised steps
+    a turn, the same positions rewritten).  Returns each one's median ms
+    over all its steps and the median of each of its turns: the spread
+    of one side's turns is the A/B's noise floor."""
+    from repro_torch.serve.serve_loop import make_paged_decode_step
+    pools, bt, state, _, _ = prefill_pools(cfg, params,
+                                           np.random.default_rng(seed))
+    last_tok, pos, rem = state[0], state[1], state[2] + 1000
+    active = torch.ones(N_SLOTS, dtype=torch.bool, device=DEVICE)
+    steps = {"unsharded": make_paged_decode_step(cfg, MAX_SEQ, PAGE),
+             "(1, 1)": make_paged_decode_step(mesh_cfg, MAX_SEQ, PAGE)}
+    times = {k: [] for k in steps}
+    turns = {k: [] for k in steps}
+    for k in ("unsharded", "(1, 1)", "(1, 1)", "unsharded", "unsharded",
+              "(1, 1)"):
+        turn = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = steps[k](params, pools, bt, last_tok, pos, rem, active)[-1]
+            out.cpu()
+            turn.append((time.perf_counter() - t) * 1e3)
+        times[k] += turn
+        turns[k].append(statistics.median(turn))
+    del pools
+    return {"median_ms": {k: statistics.median(v) for k, v in times.items()},
+            "turn_medians_ms": turns}
+
+
+def sharded_smoke_prompts(vocab, rng):
+    return [rng.integers(0, vocab, int(n)).astype(np.int32)
+            for n in rng.integers(10, 40, 4)]
+
+
+def sharded_serve_rank(rank, tmp, seed):
+    """One rank of phase 13b: a 2-rank gloo group from a ``FileStore`` in
+    ``tmp``, tensors on cuda:0.  Smoke width in fp32 (bf16 and int8
+    pages through B1, B2's store at 2 of 4 kv heads): the (1, 2) streams
+    equal the unsharded serve's.  Then minitron-4b at full width and
+    SHARDED_SERVE_LAYERS layers: rank 0 serves unsharded first, both
+    ranks serve on (1, 2).  Returns this rank's report (rank 0's with
+    the unsharded one beside it)."""
+    import torch.distributed as dist
+    from datetime import timedelta
+    from repro_torch.configs import get
+    from repro_torch.configs.base import smoke_variant
+    from repro_torch.models import registry
+    from repro_torch.serve.serve_loop import init_tiles
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "store"), 2),
+        rank=rank, world_size=2, timeout=timedelta(seconds=300))
+    try:
+        report = {"rank": rank}
+        counts = kernel_counts()
+        for kv in ("bfloat16", "int8"):
+            cfg = dataclasses.replace(
+                smoke_variant(get("minitron-4b")), kv_page_size=8,
+                prefill_chunk=8, decode_flash=True, kv_cache_dtype=kv)
+            params = registry.init(cfg, seed, device=DEVICE)
+            prompts = sharded_smoke_prompts(cfg.vocab_size,
+                                            np.random.default_rng(seed))
+            want = drive_serve(cfg, params, prompts, 12, counts,
+                                 n_slots=2, max_seq=64)
+            got = drive_serve(dataclasses.replace(cfg, mesh_shape=(1, 2)),
+                                params, prompts, 12, counts, n_slots=2,
+                                max_seq=64)
+            check(got["outs"] == want["outs"],
+                  f"sharded serving [smoke, fp32, {kv} pages, rank {rank}]: "
+                  f"(1, 2) streams {got['outs']} != unsharded "
+                  f"{want['outs']}")
+            L, n = cfg.n_layers, got["launches"]
+            check(n["flash_attention_decode_paged"]
+                  == got["decode_steps"] * L,
+                  f"sharded smoke [{kv}]: B1 launches {n} != steps "
+                  f"{got['decode_steps']} x {L}")
+            if kv == "int8":
+                check(n["kv_quantize_store"]
+                      == (got["decode_steps"] + got["run_chunks"]) * L,
+                      f"sharded smoke [int8]: B2 store launches {n}")
+            report[f"smoke {kv}"] = {
+                "streams_equal_unsharded": True,
+                "launches": {k: v for k, v in n.items() if v},
+                "pool_bytes": [got["mesh"]["pool_bytes_per_shard"],
+                               got["mesh"]["pool_bytes_total"]]}
+        base = dataclasses.replace(
+            get("minitron-4b"), n_layers=SHARDED_SERVE_LAYERS,
+            decode_flash=True, kv_page_size=PAGE, prefill_chunk=CHUNK)
+        rng = np.random.default_rng(seed + 13)
+        prompts = [rng.integers(0, base.vocab_size, int(rng.integers(
+            256, 513))).astype(np.int32) for _ in range(N_SLOTS)]
+        sharded = dataclasses.replace(base, mesh_shape=(1, 2))
+        # rank 0 draws the whole weights for its unsharded serve (the
+        # batcher cuts its tiles); rank 1 draws only its tiles, as the
+        # CLI's ranks do.
+        params = (registry.init(base, seed, device=DEVICE,
+                                dtype=torch.bfloat16) if rank == 0
+                  else init_tiles(sharded, seed, device=DEVICE,
+                                  dtype=torch.bfloat16))
+        if rank == 0:
+            report["unsharded"] = drive_serve(
+                base, params, prompts, SHARDED_SERVE_NEW, counts,
+                logits=True)
+        dist.barrier()
+        report["sharded"] = drive_serve(
+            sharded, params, prompts, SHARDED_SERVE_NEW, counts,
+            logits=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        mine = {k: v for k, v in report["sharded"].items() if k != "logits"}
+        both = [None, None]
+        dist.all_gather_object(both, mine)
+        report["ranks"] = both
+        return report
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_serve_child():
+    """Rank 1 of phase 13b, in a process of its own."""
+    tmp = os.environ["SHARDED_SERVE_DIR"]
+    sharded_serve_rank(1, tmp, int(os.environ["SHARDED_SERVE_SEED"]))
+
+
+def phase_sharded_serving(seed, card_line):
+    """Sharded serving (A13b) on the card, budget SERVE_SHARDED_BUDGET_S.
+
+    (a) A world of one over NCCL (``HashStore``, no port opened) and a
+    (1, 1) serving mesh: phase 4's paged serve of minitron-4b (full
+    width, 32 layers, B1) again through ``ContinuousBatcher`` with
+    ``mesh_shape=(1, 1)``: its streams equal phase 4's bit for bit; its
+    wall ms per step beside phase 4's, and one decode step unsharded and
+    on the (1, 1) mesh in turns on the same pools (``wrapper_overhead``),
+    the wrapper's cost at tp 1.
+
+    (b) Two ranks on the one card: NCCL refuses two ranks on one device,
+    so rank 1 is a child process and both join a gloo group from a
+    ``FileStore``, their tensors on cuda:0 (gloo moves CUDA tensors
+    through the host itself).  A (1, 2) mesh at smoke
+    width in fp32 (streams equal to an unsharded serve in the same
+    call, bf16 and int8 pages) and minitron-4b at full width and 16 of
+    32 layers (8 requests of 256-512 prompt tokens plus 32 new, paged,
+    B1): both ranks' streams identical, each rank's pool half the
+    total, the first decode step's logits within
+    TOL_SHARDED_LOGITS_REL of the unsharded step's; the share of streams
+    equal to the unsharded serve is reported, not held (C3).  Returns
+    {path: launches} of rank 0's serves."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.models import registry
+    print(f"sharded serving phase: budget {SERVE_SHARDED_BUDGET_S} s (the "
+          "whole script within 1200 s)")
+    t_phase = time.perf_counter()
+    counts = kernel_counts()
+    paths = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- (a) a world of one, NCCL, (1, 1) ---
+    four = PAGED_SERVE
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device(DEVICE, 0))
+    try:
+        cfg = dataclasses.replace(four["cfg"], mesh_shape=(1, 1))
+        params = registry.init(cfg, seed, device=DEVICE,
+                               dtype=torch.bfloat16)
+        summary, launches, bat, outs = serve_full_width(cfg, params, seed,
+                                                        counts)
+        m = bat.stats()["mesh"]
+        check(m["tp"] == 1 and m["axes"] == ("data", "model"),
+              f"sharded serving (1, 1): mesh stats {m}")
+        check(outs == four["outs"], "sharded serving (1, 1) over NCCL: "
+              "streams differ from phase 4's unsharded serve")
+        check(launches["flash_attention_decode_paged"]
+              == bat.steps * cfg.n_layers,
+              f"sharded serving (1, 1): B1 launches {launches} != steps "
+              f"{bat.steps} x {cfg.n_layers}")
+        del bat
+        overhead = wrapper_overhead(four["cfg"], cfg, params, seed)
+        del params
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["(1, 1) NCCL"] = launches
+    print("sharded serving [(1, 1), NCCL world of 1, minitron-4b 32 "
+          "layers]: streams equal to phase 4's bit for bit; " + json.dumps({
+              "median_step_ms": summary["median_step_ms"],
+              "phase4_median_step_ms": four["summary"]["median_step_ms"],
+              "tokens_per_s": summary["tokens_per_s"],
+              "phase4_tokens_per_s": four["summary"]["tokens_per_s"],
+              "decode_steps": summary["decode_steps"],
+              "launches": {k: v for k, v in launches.items() if v},
+              "decode_step_ab_ms": overhead})
+          + f"; {card_line}")
+
+    # --- (b) two ranks on one card, gloo ---
+    tmp = tempfile.mkdtemp(prefix="sharded-serve-")
+    log = open(os.path.join(tmp, "rank1.log"), "w+")
+    env = dict(os.environ, SHARDED_SERVE_DIR=tmp,
+               SHARDED_SERVE_SEED=str(seed),
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT, os.path.join(ROOT, "src"),
+                    os.environ.get("PYTHONPATH", "")]))
+    child = subprocess.Popen(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.sharded_serve_child()"],
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        try:
+            rep = sharded_serve_rank(0, tmp, seed)
+            rc = child.wait(timeout=120)
+        except BaseException:
+            log.seek(0)
+            print("sharded serving: rank 1's output:\n" + log.read()[-6000:])
+            raise
+        log.seek(0)
+        check(rc == 0, f"sharded serving: rank 1 exited {rc}:\n"
+              + log.read()[-6000:])
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0, r1 = rep["ranks"]
+    check(r0["outs"] == r1["outs"], "sharded serving (1, 2): the ranks' "
+          "streams differ")
+    m = r0["mesh"]
+    check(m["pool_bytes_per_shard"] * 2 == m["pool_bytes_total"],
+          f"sharded serving (1, 2): pool bytes {m}")
+    check(m["param_bytes_per_shard"] == r1["mesh"]["param_bytes_per_shard"],
+          f"sharded serving (1, 2): rank 0 cut {m['param_bytes_per_shard']}"
+          f" B of weights, rank 1 drew {r1['mesh']['param_bytes_per_shard']}")
+    ref, got = rep["unsharded"], rep["sharded"]
+    err = (got["logits"] - ref["logits"]).abs().max().item()
+    rel = err / ref["logits"].abs().max().item()
+    check(rel <= TOL_SHARDED_LOGITS_REL,
+          f"sharded serving (1, 2): first decode step's logits {rel:.4g} "
+          f"of the largest from the unsharded step's (> "
+          f"{TOL_SHARDED_LOGITS_REL})")
+    same = sum(a == b for a, b in zip(got["outs"], ref["outs"]))
+    same0 = sum(a == b for a, b in zip(got["first_tokens"],
+                                       ref["first_tokens"]))
+    paths["(1, 2) gloo, rank 0"] = got["launches"]
+    print(f"sharded serving [(1, 2), gloo on one card, smoke fp32]: streams "
+          f"equal to the unsharded serve's, bf16 and int8 pages (gloo "
+          f"all-gathers the CUDA tensors itself); " + json.dumps({k: rep[k] for k in ("smoke bfloat16", "smoke int8")}))
+    keys = ("tokens_per_s", "median_step_ms", "collective_ms_per_step",
+            "collectives_per_step", "decode_steps", "prefill_chunks",
+            "wall_s", "tokens")
+    for r, rr in enumerate((r0, r1)):
+        print(f"sharded serving [(1, 2), minitron-4b {SHARDED_SERVE_LAYERS} "
+              f"layers, rank {r}]: " + json.dumps(
+                  {**{k: rr[k] for k in keys},
+                   "launches": {k: v for k, v in rr["launches"].items()
+                                if v}}) + f"; {card_line}")
+    print(f"sharded serving [unsharded, minitron-4b {SHARDED_SERVE_LAYERS} "
+          f"layers, same call]: " + json.dumps({k: ref[k] for k in keys})
+          + f"; {card_line}")
+    print("sharded serving (1, 2): " + json.dumps({
+        "ranks_identical": True, "mesh": m,
+        "first_step_logits_max_abs_err": err,
+        "first_step_logits_rel": rel, "tol": TOL_SHARDED_LOGITS_REL,
+        "streams_equal_unsharded": f"{same}/{len(ref['outs'])}",
+        "prefill_tokens_equal_unsharded":
+            f"{same0}/{len(ref['first_tokens'])}"}))
+    spent = time.perf_counter() - t_phase
+    print(f"sharded serving phase: {spent:.1f}s (budget "
+          f"{SERVE_SHARDED_BUDGET_S} s)")
+    return paths
+
+
 # --- tiered KV memory and resilient serving (A10a, A10b) ------------------------------------
 
 
@@ -4284,16 +4740,22 @@ def time_sync(fn, reps=5):
     return statistics.median(out)
 
 
+# Depth cut to TIER_LAYERS of 32 (widths, vocab and traffic whole) to keep
+# the script inside its time limit once the sharded serving phase came.
+TIER_LAYERS = 16
+
+
 def phase_tiered_full_width(seed):
-    """Full-width minitron-4b, bf16, page 16, chunk 128, ``decode_flash``,
+    """Full-width minitron-4b at ``TIER_LAYERS`` layers, bf16, page 16,
+    chunk 128, ``decode_flash``,
     8 slots, max_seq 1024, prefix cache on, a 1 GiB host tier: rounds A,
     B, A of the family traffic on a pool of the live pages at peak plus
     fewer pages than one family's cached blocks, so round B demotes A's
     blocks to T1 and round 3 promotes them; the same rounds with
     ``host_tier_bytes=0`` (round 3 recomputes) and A twice on a pool that
     keeps A on the card (device-resident hits).  Asserts demotions,
-    rehits, no tier fault, B1 launched (decode + verify steps) x 32 in
-    every round, and round 3 through T1 bit-identical to round 3 from
+    rehits, no tier fault, B1 launched (decode + verify steps) x layers
+    in every round, and round 3 through T1 bit-identical to round 3 from
     device-resident hits; reports tokens/s, TTFTs, the tier counters, the
     staged engine's GB/s beside a pinned ``copy_`` of the same bytes, and
     the restore-vs-recompute crossover.  Returns {path: launches}."""
@@ -4303,9 +4765,10 @@ def phase_tiered_full_width(seed):
     from repro_torch.serve.kv_tiers import StagedTransferEngine
     from repro_torch.serve.serve_loop import make_chunk_prefill_step
     t_phase = time.perf_counter()
-    cfg = dataclasses.replace(get("minitron-4b"), decode_flash=True,
-                              kv_page_size=PAGE, prefill_chunk=CHUNK,
-                              prefix_cache=True, kv_host_tier_bytes=T1_BYTES)
+    cfg = dataclasses.replace(get("minitron-4b"), n_layers=TIER_LAYERS,
+                              decode_flash=True, kv_page_size=PAGE,
+                              prefill_chunk=CHUNK, prefix_cache=True,
+                              kv_host_tier_bytes=T1_BYTES)
     params = registry.init(cfg, seed, device=DEVICE, dtype=torch.bfloat16)
     counts = kernel_counts()
     rng = np.random.default_rng(seed + 43)
@@ -4396,7 +4859,8 @@ def phase_tiered_full_width(seed):
              "staged_h2d_GBps": nbytes / h2d / 1e9,
              "pinned_copy_h2d_GBps": nbytes / plain_h2d / 1e9}
     print("staged engine vs a pinned copy_ of the same bytes (128 pages of "
-          "K and V, 32 layers stacked in each leaf): " + json.dumps(rates))
+          f"K and V, {cfg.n_layers} layers stacked in each leaf): "
+          + json.dumps(rates))
     del dev, host, payload
 
     # restore (T1 promote of n tokens) against recompute (a chunk prefill
@@ -5148,6 +5612,7 @@ def main():
     unsharded = phase_train_full_width(args.seed, measured)
     phase_roofline(card_line, measured)
     phase_sharded_train(args.seed, unsharded, card_line)
+    sharded_paths = phase_sharded_serving(args.seed, card_line)
 
     # each kernel's row: its launches on the full-width path that runs it,
     # its numbers at that path's shapes (B2: the store at the decode rows
@@ -5165,6 +5630,8 @@ def main():
     b3_paths = [paths["dense bfloat16"], g3_paths["gemma3-12b dense"],
                 moe_paths["phi3p5-moe-42b dense"]] + list(va_paths.values())
     b1_paths.append(moe_paths["phi3p5-moe-42b paged"])
+    # and the sharded serves: (1, 1) over NCCL, rank 0's of (1, 2).
+    b1_paths.extend(sharded_paths.values())
     b1_paths.append(g3_paths["gemma3-12b paged, speculate_k 4, 2 scratch "
                              "pages per slot"])
     rows = {

@@ -1,6 +1,5 @@
-"""Logical-axis sharding rules (port of ``distributed/sharding.py``, its
-training half): the F1 "configuration over source edits" principle
-applied to distribution.
+"""Logical-axis sharding rules (port of ``distributed/sharding.py``): the
+F1 "configuration over source edits" principle applied to distribution.
 
 Model code names *logical* axes ("batch", "heads", "ff", ...); a rule
 table maps each to mesh axes.  The same model code then runs on one
@@ -15,6 +14,10 @@ specs from a mesh *shape* — axis names and sizes, as a dict, or a
 ``DeviceMesh`` — so specs for a 16×16 mesh come out in one process
 without a process group.  ``placements`` turns a spec into the DTensor
 placements of a mesh.
+
+Sharded serving takes the other route: plain tensors of each rank's
+tiles and explicit collectives (``manual_axis``, ``psum_parts``,
+``gather_parts``), below.
 """
 
 from __future__ import annotations
@@ -290,3 +293,133 @@ def is_dtensor(x) -> bool:
 def local(x: torch.Tensor) -> torch.Tensor:
     """The local shard of a DTensor; a plain tensor as it is."""
     return x.to_local() if is_dtensor(x) else x
+
+
+# -- manual collectives (the serving steps' tensor parallelism) -----------------------
+#
+# Sharded serving is SPMD: every rank runs the per-shard model on plain
+# tensors of its own tiles (no DTensor), so ``constrain`` has nothing to
+# act on.  The paged step bodies enter ``manual_axis(group)`` (the model
+# axis's process group) around the model call instead, and the model
+# puts explicit collectives through the helpers below at its row-sharded
+# outputs and column-sharded reads.  Without a manual axis every helper
+# is the identity, so the one-process path does not change by one bit.
+
+_manual_var: contextvars.ContextVar = contextvars.ContextVar(
+    "manual_axis", default=None)
+
+
+@contextlib.contextmanager
+def manual_axis(group):
+    """Mark ``group`` (a process group, e.g. ``mesh.get_group("model")``)
+    as the manually sharded axis of the enclosed code: ``psum_parts`` and
+    ``gather_parts`` become collectives over it.  ``None`` keeps them the
+    identity."""
+    token = _manual_var.set(group)
+    try:
+        yield group
+    finally:
+        _manual_var.reset(token)
+
+
+def active_manual_axis():
+    """The process group of the enclosing ``manual_axis``, or None."""
+    return _manual_var.get()
+
+
+def _collect(x: torch.Tensor, group) -> list:
+    """[``x`` of every rank of ``group``], in group-rank order (one
+    ``all_gather``; a group of one gives ``[x]`` without a call).  NCCL
+    takes CUDA tensors, gloo CPU tensors and CUDA ones (through the
+    host, by itself)."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    if n == 1:
+        return [x]
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    return parts
+
+
+def psum_parts(x: torch.Tensor) -> torch.Tensor:
+    """Sum the per-shard partial results over the manual axis (the reduce
+    at a row-sharded output projection); identity when inactive.  The
+    partials are all-gathered and added in group-rank order, in fp32,
+    on every rank, so every rank holds the same bits (an all-reduce
+    promises no such thing, and ranks whose replicated values differ
+    would pick different tokens and drift apart)."""
+    group = _manual_var.get()
+    if group is None:
+        return x
+    parts = _collect(x, group)
+    if len(parts) == 1:
+        return x
+    acc = parts[0].float()
+    for p in parts[1:]:
+        acc = acc + p.float()
+    return acc.to(x.dtype)
+
+
+def gather_parts(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Concatenate the per-shard tiles along ``axis`` in group-rank order
+    (the all-gather at a column-sharded boundary: MLA's latent read, the
+    logits); identity when inactive.  No arithmetic: bit-exact."""
+    group = _manual_var.get()
+    if group is None:
+        return x
+    parts = _collect(x, group)
+    return x if len(parts) == 1 else torch.cat(parts, dim=axis % x.ndim)
+
+
+def part_index() -> int:
+    """This rank's index on the manual axis (0 when inactive): the offset
+    of its tile in a full-width tensor."""
+    group = _manual_var.get()
+    if group is None:
+        return 0
+    import torch.distributed as dist
+    return dist.get_rank(group)
+
+
+def part_count() -> int:
+    """Ranks on the manual axis (1 when inactive)."""
+    group = _manual_var.get()
+    if group is None:
+        return 1
+    import torch.distributed as dist
+    return dist.get_world_size(group)
+
+
+def validate_shardable(cfg, tp: int) -> None:
+    """Reject configs the serving tensor-parallel path cannot shard,
+    before any process group or step is built: each error names the
+    offending model dim and the knob that fixes it.  ``tp`` is the
+    model-axis extent (``cfg.mesh_shape[-1]``)."""
+    if tp <= 1:
+        return
+
+    def _req(value: int, what: str, knob: str):
+        if value % tp != 0:
+            raise ValueError(
+                f"{cfg.name}: {what} = {value} does not divide the "
+                f"model axis ({knob} must be a multiple of "
+                f"mesh_shape[-1] = {tp}); pick a smaller model axis or "
+                f"adjust {knob}")
+
+    _req(cfg.n_heads, "n_heads (query heads)", "n_heads")
+    if cfg.mla:
+        _req(cfg.kv_lora_rank, "kv_lora_rank (MLA latent dim)",
+             "kv_lora_rank")
+    else:
+        # No MQA replication fallback: the KV pools shard over kv_heads.
+        _req(cfg.n_kv_heads, "n_kv_heads (KV head groups)", "n_kv_heads")
+    _req(cfg.d_ff, "d_ff (MLP hidden dim)", "d_ff")
+    if cfg.moe_d_ff:
+        _req(cfg.moe_d_ff, "moe_d_ff (expert hidden dim)", "moe_d_ff")
+    if cfg.fuse_qkv:
+        raise ValueError(
+            f"{cfg.name}: fuse_qkv is incompatible with tensor-parallel "
+            f"serving (sharding the concatenated qkv output dim would "
+            f"split across the q|k|v boundary); set fuse_qkv=False or "
+            f"mesh_shape[-1] = 1")

@@ -18,6 +18,15 @@ raises; on CPU tensors it runs its ``*_plain`` twin, the same function in
 plain PyTorch, which the CPU tests hold against the JAX kernel and
 ``chip_smoke.py`` holds the CUDA kernel against on the card.
 
+Tensor-parallel serving (``cfg.mesh_shape``) runs these kernels
+unchanged on each rank: attention is parallel over heads, so each shard
+calls them at ``n_heads/tp`` query heads and ``n_kv_heads/tp`` kv heads
+(its tiles of the page pools, split over the head axis; block tables
+replicated).  The GQA group ``hq // hkv`` is unchanged, since query and
+kv heads split by the same factor (``sharding.validate_shardable``
+refuses any other split).  No collective comes until after the kernel,
+at the ``wo`` projection.
+
 The two decode kernels are bound by bytes: the live K/V they must read
 once over the card's HBM bandwidth.  The forward kernel is bound by
 operations at long sequences.  Each source says how its design meets its

@@ -11,8 +11,8 @@ launches no kernel (each kernel's plain twin does the counted work, as
 the kernel must).  The reference lowers each cell on a 16x16 (or
 2x16x16) TPU mesh; this port's one-device dry-run reports the mesh as
 ``"1"`` with ``n_chips`` 1.  ``--multi-pod`` lowers the serve steps on
-the production mesh, which come with sharded serving (A13b in
-ROADMAP.md): it exits non-zero.
+the production mesh, which is A13c in ROADMAP.md (built on sharded
+serving, A13b): it exits non-zero.
 
 Usage::
 
@@ -67,8 +67,8 @@ def lower_cell(cfg, shape, mesh=None, extra_cfg=None, tcfg=None,
     loss as a float, metrics) happen outside the counted call."""
     if mesh is not None:
         raise NotImplementedError(
-            "dry-run on a mesh: the sharded serve steps come with sharded "
-            "serving (A13b)")
+            "dry-run on a mesh: the production meshes are A13c, built on "
+            "sharded serving (A13b)")
     if extra_cfg:
         cfg = dataclasses.replace(cfg, **extra_cfg)
     t0 = time.time()
@@ -107,8 +107,8 @@ def run_cell(cfg, shape, multi_pod: bool = False, extra_cfg=None,
     time)."""
     if multi_pod:
         raise NotImplementedError(
-            "--multi-pod: lowering on the 2x16x16 production mesh comes "
-            "after sharded serving (A13b in ROADMAP.md)")
+            "--multi-pod: lowering on the 2x16x16 production mesh is A13c "
+            "in ROADMAP.md, built on sharded serving (A13b)")
     if extra_cfg:
         cfg = dataclasses.replace(cfg, **extra_cfg)
     costs, dt = lower_cell(cfg, shape, scopes=scopes)
@@ -143,8 +143,8 @@ def main(argv=None):
         ap.error("pass --arch <id> or --all")
     if args.multi_pod:
         print("--multi-pod: lowering the cells on the 2x16x16 production "
-              "mesh and the collective term come after sharded serving "
-              "(A13b in ROADMAP.md); this dry-run counts one H100",
+              "mesh and the collective term are A13c in ROADMAP.md, built "
+              "on sharded serving (A13b); this dry-run counts one H100",
               file=sys.stderr)
         return 2
     arch = get_arch(args.arch).name if args.arch else None

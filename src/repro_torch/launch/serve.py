@@ -71,10 +71,24 @@ inter-token p50 / p99 from the histograms):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b \
         --smoke --device cpu --page-size 8 --metrics-port 0 \
         --trace-out trace.json
+
+Sharded serving: ``--mesh INTxINT...`` (e.g. ``1x2``: data x model, the
+last axis tensor-parallel; paged only, so it needs ``--page-size``)
+serves with one process per device, each holding its tiles of the
+weights and KV pools.  The shape, ``--page-size`` and the model's
+shardability are checked before any process group starts.  Under a
+launcher the CLI reads ``RANK``, ``WORLD_SIZE`` (and ``LOCAL_RANK``),
+starts NCCL for ``--device cuda`` (each rank on its own card) or gloo
+for ``--device cpu``, and refuses a world size other than the mesh's
+device count; rank 0 prints, starting with the mesh banner:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch minitron-4b --page-size 16 --mesh 1x2
 """
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -82,10 +96,13 @@ import numpy as np
 from ..configs import get as get_arch
 from ..configs.base import smoke_variant
 from ..core.dataflow import DataflowContext
+from ..distributed.sharding import validate_shardable
 from ..models import registry
+from ..models.cache_layouts import get_layout
 from ..models.transformer import torch_dtype
 from ..serve.batching import ContinuousBatcher, Request, RequestFailed, drain
 from ..serve.resilience import ServeSupervisor
+from ..serve.serve_loop import init_tiles
 from ..serve.telemetry import MetricsServer, ServeTelemetry
 
 
@@ -179,6 +196,13 @@ def main(argv=None):
                     help="wrap the serve steps in torch.profiler "
                          "record_function ranges so device profiles line "
                          "up with the host trace spans")
+    ap.add_argument("--mesh", default="",
+                    help="device mesh shape, e.g. '2' (2-way tensor "
+                         "parallel) or '1x2' (data x model); the last "
+                         "axis is the model/TP axis: KV page pools split "
+                         "over kv heads (MLA: the latent dim), one "
+                         "process per device (torchrun --nproc-per-node "
+                         "N; see the module docstring)")
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch)
@@ -209,13 +233,81 @@ def main(argv=None):
     if args.tier_restore_min >= 0:
         kw["tier_restore_min_tokens"] = args.tier_restore_min
     cfg = dataclasses.replace(cfg, **kw)
+    owned_group = False
+    if args.mesh:
+        try:
+            shape = tuple(int(d) for d in args.mesh.lower().split("x"))
+        except ValueError:
+            ap.error(f"--mesh {args.mesh!r}: expected INTxINT... "
+                     f"(e.g. '2' or '1x2')")
+        if not page:
+            ap.error("--mesh needs the paged batcher (page pools shard "
+                     "over heads/latent): pass --page-size as well")
+        # a config whose heads / latent dim / ff dim does not divide the
+        # model axis fails here, with the dim and knob named.
+        try:
+            validate_shardable(cfg, shape[-1])
+        except ValueError as e:
+            ap.error(str(e))
+        cfg = dataclasses.replace(cfg, mesh_shape=shape)
+        args.device, owned_group = _join_group(ap, shape, args.device)
+    try:
+        _serve(args, cfg)
+    finally:
+        if owned_group:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _join_group(ap, shape, device):
+    """Join (or start) the process group of a ``shape`` mesh: the
+    launcher's ``RANK`` / ``WORLD_SIZE`` (one process: a group of one from
+    an in-process store), NCCL on ``cuda:LOCAL_RANK`` or gloo on the
+    CPU.  Refuses a world size other than the mesh's device count.
+    Returns (this rank's device, whether the group was started here)."""
+    import torch
+    import torch.distributed as dist
+    need = int(np.prod(shape))
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if world != need:
+        ap.error(f"--mesh {'x'.join(map(str, shape))} needs {need} ranks, "
+                 f"one per device, but the launcher gave {world}; run "
+                 f"torchrun --nproc-per-node {need}")
+    cuda = torch.device(device).type == "cuda"
+    if dist.is_initialized():
+        return device, False
+    rank = int(os.environ.get("RANK", "0"))
+    kw = {}
+    if cuda:
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        torch.cuda.set_device(local)
+        device = f"cuda:{local}"
+        kw["device_id"] = torch.device(device)
+    if "MASTER_ADDR" not in os.environ:      # one process, no launcher
+        kw["store"] = dist.HashStore()
+    dist.init_process_group("nccl" if cuda else "gloo", rank=rank,
+                            world_size=world, **kw)
+    return device, True
+
+
+def _serve(args, cfg):
+    import torch.distributed as dist
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    # every rank serves; rank 0 alone prints, exports and scrapes.
+    say = print if rank0 else (lambda *a, **k: None)
     # bf16 weights are drawn in bf16 directly; forward casts to cfg.dtype.
-    params = registry.init(cfg, args.seed, device=args.device,
-                           dtype=torch_dtype(cfg.dtype))
+    # On a mesh each card draws its tiles only (the paged families; the
+    # others serve unsharded on every rank, as the batcher does).
+    init = (init_tiles if cfg.mesh_shape
+            and get_layout(cfg, cfg.kv_page_size) is not None
+            else registry.init)
+    params = init(cfg, args.seed, device=args.device,
+                  dtype=torch_dtype(cfg.dtype))
     rng = np.random.default_rng(args.seed)
     telemetry = None
     metrics_server = None
-    if args.metrics_port >= 0 or args.trace_out or args.profile:
+    if rank0 and (args.metrics_port >= 0 or args.trace_out or args.profile):
         telemetry = ServeTelemetry(trace=bool(args.trace_out),
                                    profile=args.profile)
     batcher = ContinuousBatcher(cfg, params, n_slots=args.slots,
@@ -227,11 +319,20 @@ def main(argv=None):
                                 faults=args.faults or None,
                                 telemetry=telemetry,
                                 device=args.device)
-    if args.metrics_port >= 0:
+    if telemetry is not None and args.metrics_port >= 0:
         metrics_server = MetricsServer(telemetry,
                                        port=args.metrics_port).start()
-        print(f"metrics: {metrics_server.url}")
+        say(f"metrics: {metrics_server.url}")
     supervisor = ServeSupervisor(batcher) if args.supervise else None
+    if batcher.mesh is not None:
+        m = batcher.stats()["mesh"]
+        co = m["collectives_per_decode_step"]
+        say(f"mesh: {'x'.join(map(str, m['shape']))} over axes "
+            f"({','.join(m['axes'])}), tp={m['tp']}, kv pool "
+            f"{m['pool_bytes_per_shard']}B/shard of "
+            f"{m['pool_bytes_total']}B total, "
+            f"{co['psum']} psum + {co['all_gather']} all_gather "
+            f"per decode step")
     sysp = rng.integers(0, cfg.vocab_size,
                         min(args.shared_prefix,
                             args.prompt_len)).astype(np.int32)
@@ -273,11 +374,11 @@ def main(argv=None):
             out = drain(r)
         except RequestFailed as e:
             failed += 1
-            print(f"req {r.rid}: {type(e).__name__}: {e.reason} "
-                  f"({len(e.tokens)} token(s) streamed)")
+            say(f"req {r.rid}: {type(e).__name__}: {e.reason} "
+                f"({len(e.tokens)} token(s) streamed)")
             continue
         total_tokens += len(out)
-        print(f"req {r.rid}: {out[:12]}{'...' if len(out) > 12 else ''}")
+        say(f"req {r.rid}: {out[:12]}{'...' if len(out) > 12 else ''}")
     if batcher.paged:
         st = batcher.stats()
         pool = ",".join(f"{k}:{v}"
@@ -286,42 +387,42 @@ def main(argv=None):
                 f"chunks={batcher.prefill_chunks},"
                 f"preempt={batcher.preemptions})")
         if batcher.prefix_cache:
-            print(f"prefix-cache: hit-rate {st['prefix_hit_rate']:.2f} "
-                  f"({st['prefix_hits']}/{st['prefix_lookups']} lookups, "
-                  f"{st['prefix_hit_tokens']} tokens skipped), "
-                  f"shared pages {st['shared_pages']}, "
-                  f"cow copies {st['cow_copies']}, "
-                  f"evicted prefixes {st['prefix_evictions']}, "
-                  f"cached {st['cached_prefixes']} prefixes / "
-                  f"{st['cached_prefix_pages']} pages, "
-                  f"pools {st['pools']}")
+            say(f"prefix-cache: hit-rate {st['prefix_hit_rate']:.2f} "
+                f"({st['prefix_hits']}/{st['prefix_lookups']} lookups, "
+                f"{st['prefix_hit_tokens']} tokens skipped), "
+                f"shared pages {st['shared_pages']}, "
+                f"cow copies {st['cow_copies']}, "
+                f"evicted prefixes {st['prefix_evictions']}, "
+                f"cached {st['cached_prefixes']} prefixes / "
+                f"{st['cached_prefix_pages']} pages, "
+                f"pools {st['pools']}")
         else:
-            print(f"pages: shared {st['shared_pages']}, "
-                  f"cow copies {st['cow_copies']}, pools {st['pools']}")
+            say(f"pages: shared {st['shared_pages']}, "
+                f"cow copies {st['cow_copies']}, pools {st['pools']}")
         sp = st["speculation"]
         if sp["k"]:
-            print(f"speculation: k={sp['k']}, drafted {sp['drafted']}, "
-                  f"accepted {sp['accepted']} "
-                  f"(rate {sp['acceptance_rate']:.2f}), "
-                  f"rolled back {sp['rolled_back']}, "
-                  f"verify steps {sp['verify_steps']}, "
-                  f"decode steps saved {sp['decode_steps_saved']}")
+            say(f"speculation: k={sp['k']}, drafted {sp['drafted']}, "
+                f"accepted {sp['accepted']} "
+                f"(rate {sp['acceptance_rate']:.2f}), "
+                f"rolled back {sp['rolled_back']}, "
+                f"verify steps {sp['verify_steps']}, "
+                f"decode steps saved {sp['decode_steps_saved']}")
         if "tiers" in st:
             t = st["tiers"]
-            print(f"kv tiers: T1 {t['t1_entries']} entries / "
-                  f"{t['t1_bytes']}B of {t['t1_budget_bytes']}B "
-                  f"({t['t1_evictions']} evicted), "
-                  f"demotions {t['demotions']} "
-                  f"(+{t['demote_skips']} cached), "
-                  f"rehits {t['rehits']} ({t['rehit_tokens']} tokens "
-                  f"restored), recomputes {t['recomputes']}, "
-                  f"recompute-resumes {t['recompute_resumes']}, "
-                  f"transfers {t['staged_gathers']}G/"
-                  f"{t['staged_scatters']}S "
-                  f"({t['d2h_bytes']}B down, {t['h2d_bytes']}B up)")
+            say(f"kv tiers: T1 {t['t1_entries']} entries / "
+                f"{t['t1_bytes']}B of {t['t1_budget_bytes']}B "
+                f"({t['t1_evictions']} evicted), "
+                f"demotions {t['demotions']} "
+                f"(+{t['demote_skips']} cached), "
+                f"rehits {t['rehits']} ({t['rehit_tokens']} tokens "
+                f"restored), recomputes {t['recomputes']}, "
+                f"recompute-resumes {t['recompute_resumes']}, "
+                f"transfers {t['staged_gathers']}G/"
+                f"{t['staged_scatters']}S "
+                f"({t['d2h_bytes']}B down, {t['h2d_bytes']}B up)")
         if batcher._tiers is not None and batcher.tier_snapshot:
             n = batcher.save_tier_snapshot()
-            print(f"kv tiers: snapshot saved to {n}")
+            say(f"kv tiers: snapshot saved to {n}")
     else:
         mode = "dense"
     st = batcher.stats()
@@ -336,23 +437,23 @@ def main(argv=None):
             extra = (f", supervisor restarts {rep.restarts} "
                      f"(recovered {rep.recovered_requests} requests, "
                      f"{rep.stalls} stalls)")
-        print(f"resilience: rejections [{rej}], expired {st['expired']}, "
-              f"errored {st['errored']}, cancelled {st['cancelled']}, "
-              f"tier faults {st.get('tier_faults', 0)}"
-              f"{' (tier DISABLED)' if st.get('tier_disabled') else ''}"
-              f"{extra}")
-    print(f"{len(reqs)} requests, {total_tokens} tokens in {dt:.2f}s "
-          f"({total_tokens/dt:.1f} tok/s, {batcher.steps} decode steps, "
-          f"{mode}, "
-          f"slot-util {total_tokens/max(batcher.steps,1)/args.slots:.2f})")
+        say(f"resilience: rejections [{rej}], expired {st['expired']}, "
+            f"errored {st['errored']}, cancelled {st['cancelled']}, "
+            f"tier faults {st.get('tier_faults', 0)}"
+            f"{' (tier DISABLED)' if st.get('tier_disabled') else ''}"
+            f"{extra}")
+    say(f"{len(reqs)} requests, {total_tokens} tokens in {dt:.2f}s "
+        f"({total_tokens/dt:.1f} tok/s, {batcher.steps} decode steps, "
+        f"{mode}, "
+        f"slot-util {total_tokens/max(batcher.steps,1)/args.slots:.2f})")
     if telemetry is not None:
         lat = telemetry.latency_summary()
         ttft, gap = lat["ttft"], lat["inter_token"]
         if ttft["count"]:
-            print(f"latency: ttft p50 {ttft['p50']*1e3:.1f}ms / "
-                  f"p99 {ttft['p99']*1e3:.1f}ms, inter-token p50 "
-                  f"{gap['p50']*1e3:.1f}ms / p99 {gap['p99']*1e3:.1f}ms "
-                  f"(bucket-derived, n={int(ttft['count'])})")
+            say(f"latency: ttft p50 {ttft['p50']*1e3:.1f}ms / "
+                f"p99 {ttft['p99']*1e3:.1f}ms, inter-token p50 "
+                f"{gap['p50']*1e3:.1f}ms / p99 {gap['p99']*1e3:.1f}ms "
+                f"(bucket-derived, n={int(ttft['count'])})")
         if args.trace_out:
             if args.trace_out.endswith(".json"):
                 n = telemetry.tracer.write_chrome(args.trace_out)
@@ -360,8 +461,8 @@ def main(argv=None):
             else:
                 n = telemetry.tracer.write_jsonl(args.trace_out)
                 kind = "JSONL trace"
-            print(f"trace: {n} events -> {args.trace_out} ({kind}; "
-                  f"{telemetry.tracer.dropped} dropped)")
+            say(f"trace: {n} events -> {args.trace_out} ({kind}; "
+                f"{telemetry.tracer.dropped} dropped)")
 
 
 if __name__ == "__main__":

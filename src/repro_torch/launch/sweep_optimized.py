@@ -7,8 +7,8 @@ at one H100 by the dry-run:
 
 The reference also shards decode's KV over the sequence
 (``decode_seq_shard``); on one device there is no mesh axis to shard
-over, so that lever is left out here (it comes after sharded serving,
-A13b in ROADMAP.md).
+over, so that lever is left out here (it comes with the production
+meshes, A13c in ROADMAP.md).
 
 Writes results_dryrun_optimized.json (or the path given) with the same
 schema as the dry-run, so the before/after table is a straight join::

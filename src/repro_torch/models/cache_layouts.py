@@ -27,17 +27,32 @@ fixed positional span; ring groups are not, since a ring page's content
 depends on how far the ring has wrapped.  ``copy_pages`` is the
 copy-on-write primitive: a shared page is duplicated into a private one
 on the card before the first write that would diverge from it.
+
+Sharded serving (``cfg.mesh_shape``): every rank holds its tile of each
+pool leaf (``pool_specs``: kv heads, or MLA's latent dim, over the model
+axis) and pages keep their ids across ranks.  Host payloads stay full
+width whatever the mesh: ``gather_pages`` and ``spill`` gather the tiles
+over the model axis (``full_tile``), ``restore_pages`` cuts a full
+payload down to this rank's tile (``local_tile``), so a payload spilled
+on one mesh restores on another.  Both run under the
+``sharding.manual_axis`` of the model group and are the identity
+without one.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..distributed.sharding import (P, gather_parts, mesh_shape,
+                                    part_count, part_index, spec_axes,
+                                    use_rules)
 from . import layers as L
-from .params import stack_decls as _stack_decls, tree_leaves, tree_map
+from .params import (param_specs, stack_decls as _stack_decls, tree_at,
+                     tree_leaves, tree_map)
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -133,31 +148,94 @@ class CacheLayout:
         """Index of the page axis in every pool leaf of the group."""
         return 1
 
+    # -- tensor-parallel tiles (sharded serving) -------------------------------------
+
+    @functools.cached_property
+    def _page_decls(self):
+        """Every group's pool decls at one page, full width."""
+        return self.pool_decls({g.name: 1 for g in self.groups})
+
+    @functools.cached_property
+    def tp_dims(self):
+        """{group: tree of the dim each pool leaf splits on over the model
+        axis, or None}: the rules' table with ``lora -> "model"``, so MLA's
+        latent pages split over the compressed dim, GQA and int8 pools
+        over kv heads, and k_rope pages stay whole.  The one place the
+        pools' tiling is decided: ``pool_specs`` puts it on a mesh,
+        ``full_tile`` / ``local_tile`` apply it over the active model
+        axis."""
+        with use_rules(lora=("model",)):
+            specs = param_specs(self._page_decls, {"model": 1})
+        return tree_map(lambda _, spec: next(
+            (d for d, part in enumerate(spec) if "model" in spec_axes(part)),
+            None), specs)
+
+    def pool_specs(self, mesh):
+        """Specs of every group's pool leaves on ``mesh`` (a ``DeviceMesh``
+        or {axis: size}): "model" on the leaf's ``tp_dims`` dim where the
+        mesh has that axis, every other dim whole."""
+        on = "model" in mesh_shape(mesh)
+        return tree_map(lambda path, d: P(*(
+            "model" if on and i == tree_at(self.tp_dims, path) else None
+            for i in range(len(d.shape)))), self._page_decls)
+
+    def full_tile(self, name: str, path, t: torch.Tensor) -> torch.Tensor:
+        """A group's pool-leaf slice ``t`` (at ``path`` within the group)
+        at full width: the tiles gathered over the active model axis."""
+        dim = tree_at(self.tp_dims[name], path)
+        return t if dim is None else gather_parts(t, dim)
+
+    def local_tile(self, name: str, path, t: torch.Tensor,
+                   width: Optional[int] = None) -> torch.Tensor:
+        """This rank's tile of a full-width payload leaf ``t`` (``width``:
+        the tile's extent, else the full one over the active model
+        axis's size); ``t`` itself when it is a tile already."""
+        dim = tree_at(self.tp_dims[name], path)
+        if dim is None:
+            return t
+        full = t.shape[dim]
+        width = width or full // part_count()
+        if width == full:
+            return t
+        if width * part_count() != full:
+            raise ValueError(
+                f"{name}/{'/'.join(path)}: a payload of width {full} is "
+                f"not {part_count()} tiles of {width}")
+        return t.narrow(dim, part_index() * width, width)
+
+    def page_nbytes(self, name: str) -> int:
+        """Bytes of one page of a group at full width, every leaf."""
+        return sum(math.prod(d.shape) * d.dtype.itemsize
+                   for d in tree_leaves(self._page_decls[name]))
+
     # -- spill / restore (slot preemption) ----------------------------------------------
 
     def gather_pages(self, pools, name: str, pages: Sequence[int]):
         """Device-side gather of the given physical pages (every layer,
-        every leaf), one ``index_select`` per pool leaf."""
+        every leaf), one ``index_select`` per pool leaf, at full width
+        (``full_tile``)."""
         ax = self.page_axis(name)
 
-        def take(_, a):
+        def take(path, a):
             idx = torch.as_tensor(list(pages), dtype=torch.int64,
                                   device=a.device)
-            return a.index_select(ax, idx)
+            return self.full_tile(name, path, a.index_select(ax, idx))
 
         return tree_map(take, pools[name])
 
     def restore_pages(self, pools, name: str, data, pages: Sequence[int]):
         """Scatter page payloads into (possibly different) physical pages,
-        in place; returns the pools dict.  Payload dtypes must match the
-        pool exactly: a silent cast would corrupt the pages, so a
-        mismatch raises."""
+        in place; returns the pools dict.  A full-width payload is cut
+        to this rank's tile first (``local_tile``).  Payload dtypes must
+        match the pool exactly: a silent cast would corrupt the pages, so
+        a mismatch raises."""
         ax = self.page_axis(name)
 
         def put(path, a):
-            d = data
-            for key in path:
-                d = d[key]
+            d = tree_at(data, path)
+            dim = tree_at(self.tp_dims[name], path)
+            if dim is not None:
+                d = self.local_tile(name, path, d, a.shape[dim])
             if d.dtype != a.dtype:
                 raise TypeError(
                     f"restore_pages({name!r}): payload dtype {d.dtype} != "

@@ -26,6 +26,12 @@ verify on latent pages.  MoE: ``moe_apply``, top-k routing with
 capacity-bounded dispatch; ``row_capacity`` gives each batch row its own
 capacity (the dense-slot steps, where the reference vmaps one row).
 Neither has a hand-written kernel, in the reference or here.
+
+Sharded serving runs the paged and MLP/MoE blocks per shard on a
+shard-local config, with ``sharding.psum_parts`` after each row-split
+output projection (attention and MLA ``wo``, ``w_down``, once per MoE
+block) and ``gather_parts`` at MLA's latent read: the identity outside
+``sharding.manual_axis``.
 """
 
 from __future__ import annotations
@@ -36,8 +42,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import constrain, is_dtensor, local_region, \
-    spec_for
+from ..distributed.sharding import (constrain, gather_parts, is_dtensor,
+                                    local_region, part_index, psum_parts,
+                                    spec_for)
 from ..kernels.kv_quant import (kv_dequantize, kv_quantize,
                                 kv_quantize_store, kv_store_rows)
 from ..roofline import count as _count
@@ -842,7 +849,9 @@ def attention_apply_paged(cfg, p, x, *, window: Optional[int] = None,
             if ring else None,
             k_scale_pages=pages.get("k_scale"),
             v_scale_pages=pages.get("v_scale"))
-    y = o.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
+    # sharded serving: heads column-split, wo row-split, so each rank
+    # holds a partial sum over its heads.
+    y = psum_parts(o.transpose(1, 2).reshape(b, s, -1) @ p["wo"])
     return x + constrain(y, "batch", None, "embed"), pages
 
 
@@ -1065,8 +1074,11 @@ def mla_apply_paged(cfg, p, x, *, pages: Dict[str, torch.Tensor],
     so spec == plain and paged == dense hold bit for bit.  The append
     writes only the kept rows (``paged_write_index``; ``write_idx`` is
     its result when the caller computed it once per forward) where the
-    reference scatters every row with ``mode="drop"``.  The latent pool
-    is never sharded here (``lora_local == lora``).  Returns (y, pages).
+    reference scatters every row with ``mode="drop"``.  Sharded serving
+    splits the latent pool over its last dim (seen from the pool's
+    width): the write keeps this rank's slice of the full ``c_kv`` (its
+    ``w_dkv`` is replicated), the read gathers the tiles back to the
+    full rank.  Returns (y, pages).
     """
     b, s, _ = x.shape
     nope = cfg.qk_nope_dim
@@ -1078,7 +1090,7 @@ def mla_apply_paged(cfg, p, x, *, pages: Dict[str, torch.Tensor],
     q_rope = rope(q[..., nope:], positions[:, :, None], cfg.rope_theta)
 
     cp, rpool = pages["c_kv"], pages["k_rope"]
-    n_pages, page, lora = cp.shape
+    n_pages, page, lora_local = cp.shape
     n_blocks = block_tab.shape[1]
     if write_idx is None:
         write_idx = paged_write_index(block_tab, pos, s, page, n_pages,
@@ -1087,7 +1099,7 @@ def mla_apply_paged(cfg, p, x, *, pages: Dict[str, torch.Tensor],
     # read: pre-write pool gather + own-chunk overlay.
     bt = block_tab.to(torch.int64).clamp(0, n_pages - 1)
     S = n_blocks * page
-    cc = cp[bt].reshape(b, S, lora).to(F32)
+    cc = gather_parts(cp[bt].reshape(b, S, lora_local), -1).to(F32)
     cr = rpool[bt].reshape(b, S, -1).to(F32)
     if s == 1 or verify:                             # pool-rounded own rows
         cl = c_kv.to(cp.dtype).to(F32)
@@ -1105,11 +1117,15 @@ def mla_apply_paged(cfg, p, x, *, pages: Dict[str, torch.Tensor],
         & pre_ok[:, None, :]                         # (b, s, S + s)
     o = _mla_absorbed(cfg, p, q_nope, q_rope, CC, CR, valid, x.dtype)
 
-    # append: the kept latent rows into the pools.
+    # append: the kept latent rows (this rank's slice of them) into the
+    # pools.
     rows_b, rows_s, wp, wo = write_idx
-    cp[wp, wo] = c_kv[rows_b, rows_s].to(cp.dtype)
+    c_loc = c_kv.narrow(-1, part_index() * lora_local, lora_local)
+    cp[wp, wo] = c_loc[rows_b, rows_s].to(cp.dtype)
     rpool[wp, wo] = k_rope[rows_b, rows_s].to(rpool.dtype)
-    return x + constrain(o @ p["wo"], "batch", None, "embed"), pages
+    # sharded serving: query heads column-split, wo row-split.
+    return x + constrain(psum_parts(o @ p["wo"]), "batch", None,
+                         "embed"), pages
 
 
 def mla_paged_cache_decl(cfg, n_pages: int, page_size: int
@@ -1162,7 +1178,9 @@ def mlp_apply(cfg, p, x):
     else:   # jax.nn.gelu's default is the tanh approximation
         hh = F.gelu((h @ p["w_up"]).to(F32), approximate="tanh").to(h.dtype)
     hh = constrain(hh, "batch", None, "ff")
-    return x + constrain(hh @ p["w_down"], "batch", None, "embed")
+    # sharded serving: w_up / w_gate column-split over ff, w_down row-split.
+    return x + constrain(psum_parts(hh @ p["w_down"]), "batch", None,
+                         "embed")
 
 
 def moe_decls(cfg, stack: Tuple[int, ...] = ()) -> Dict[str, Decl]:
@@ -1295,7 +1313,10 @@ def moe_apply(cfg, p, x, row_capacity: bool = False):
     y = constrain(y.reshape(b, s, d), "batch", None, "embed")
     if cfg.n_shared_experts:
         y = y + (swiglu(h @ p["sh_gate"], h @ p["sh_up"]) @ p["sh_down"])
-    return x + constrain(y, "batch", None, "embed")
+    # sharded serving: every rank routes alike (the router is replicated)
+    # and holds every expert with its ff dim split, so the expert and
+    # shared-expert outputs are partial sums: one reduce covers both.
+    return x + constrain(psum_parts(y), "batch", None, "embed")
 
 
 def _groups_follow_rows(h, G: int) -> bool:

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,12 +74,15 @@ def _fan_in(shape: Tuple[int, ...]) -> int:
 
 
 def init_params(decls, seed: int = 0, *, device="cuda",
-                dtype: Optional[torch.dtype] = None):
+                dtype: Optional[torch.dtype] = None,
+                cut: Optional[Callable] = None):
     """Deterministic init: every leaf's generator is seeded from its tree
     path (the reference's sha256 rule), so adding or removing parameters
     never reshuffles the others.  Values are drawn directly on ``device``
     in the leaf's dtype — or in ``dtype``, which overrides every floating
     leaf (full-width bf16 weights never pass through an fp32 copy).
+    ``cut(path, leaf)``, when given, replaces each leaf as soon as it is
+    drawn (a rank's tile of it), so the whole tree never exists at once.
 
     The draws are torch's, not JAX's: the two packages give different
     weights from one seed; tests carry JAX weights over with
@@ -101,7 +104,9 @@ def init_params(decls, seed: int = 0, *, device="cuda",
         x = torch.randn(d.shape, generator=gen, dtype=dt, device=device)
         return x.mul_(std)
 
-    return tree_map(leaf, decls)
+    if cut is None:
+        return tree_map(leaf, decls)
+    return tree_map(lambda path, d: cut(path, leaf(path, d)), decls)
 
 
 def abstract_tensor(shape, dtype: torch.dtype, fake_mode=None):

@@ -61,7 +61,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..distributed.sharding import constrain
+from ..distributed.sharding import constrain, gather_parts
 from . import layers as L
 from . import ssm as S
 from .params import Decl, stack_decls, tree_leaves, tree_map
@@ -372,6 +372,11 @@ def forward(cfg, params, batch, mode: str = "train",
         logits = torch.einsum("bsd,kdv->bskv", x, params["unembed"])
     else:
         logits = x @ params["unembed"]
+    if logits.shape[-1] != cfg.padded_vocab:
+        # sharded serving: the unembed is vocab-column-split (the
+        # contraction dim whole, so each tile is exact) and the greedy
+        # argmax needs the whole row.
+        logits = gather_parts(logits, -1)
     logits = constrain(logits, "batch", None, "vocab")
     if mode == "train":
         return logits

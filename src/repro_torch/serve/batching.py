@@ -102,8 +102,20 @@ is taken once the host holds the step's tokens, so on the card it
 covers the device's work, not only the launches.
 
 Dense-slot mode switches the prefix cache, the tiers and speculation off,
-as the reference does.  Mesh sharding comes with a later slice; the
-constructor raises if asked for it.
+as the reference does.
+
+Sharded serving (paged, ``cfg.mesh_shape``): one batcher per rank of a
+process group of ``prod(mesh_shape)`` ranks, all fed the same requests.
+Each holds its tiles of the parameters and pools
+(``serve_loop.paged_sharding_specs`` / ``cut_tiles``: the model axis is
+the last), replicated block tables and slot state, and runs the paged
+steps under ``serve_loop._shard_wrap``; the allocator, prefix index,
+tiers and drafter run on every rank alike, their host payloads full
+width.  Rank 0 takes the host decisions that depend on time or on what
+a stream happens to hold (``serve.lockstep``), so every rank emits the
+same streams and events.  As in the reference, the mesh is for the paged
+path only: a config with no page layout (dense slots, ssm, hybrid)
+serves unsharded on each rank.
 """
 
 from __future__ import annotations
@@ -125,13 +137,16 @@ from ..models import params as PP
 from ..models import registry
 from ..models.cache_layouts import get_layout
 from .kv_tiers import KVTierManager, SnapshotCorruptError, StagedTransferEngine
+from .lockstep import Lockstep, LockstepError
 from .prefix_cache import PageAllocator, PrefixIndex
 from .resilience import (BatcherFault, FaultPlan, InjectedFault,
                          StallFault, TerminalEvent, class_rank)
 # re-exported: ``drain``'s callers catch ``RequestFailed`` from here.
 from .resilience import RequestFailed  # noqa: F401
-from .serve_loop import (advance_slots, make_chunk_prefill_step,
-                         make_paged_decode_step, make_spec_verify_step)
+from .serve_loop import (advance_slots, cut_tiles, local_decls,
+                         make_chunk_prefill_step, make_paged_decode_step,
+                         make_spec_verify_step, mesh_coords,
+                         paged_sharding_specs, serving_mesh_for)
 from .telemetry import ServeTelemetry, _NULLCTX
 
 _MIN_BUCKET = 8            # smallest prefill bucket (pad-to-power-of-two)
@@ -328,9 +343,6 @@ class ContinuousBatcher:
         # does (its requests carry no image or conditioning).
         if cfg.family in ("vlm", "audio"):
             raise NotImplementedError("batcher demo covers LM families")
-        if cfg.mesh_shape:
-            raise NotImplementedError(
-                "mesh-sharded serving comes with a later port slice")
         psz = int(page_size or cfg.kv_page_size)
         self.layout = get_layout(cfg, psz) if psz else None
         self.paged = self.layout is not None
@@ -338,6 +350,11 @@ class ContinuousBatcher:
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.device = torch.device(device)
+        # sharded serving (paged only): the serving mesh, its model
+        # group and the lockstep of host decisions; None on one process.
+        self.mesh = None
+        self._group = None
+        self._lock: Optional[Lockstep] = None
         # resilience: deterministic fault plan, SLA scheduling knobs,
         # explicit bounded-queue overload policy, one time base.
         self._fault: FaultPlan = FaultPlan.resolve(faults, cfg.fault_plan)
@@ -448,6 +465,8 @@ class ContinuousBatcher:
             self._admit_fn = _make_admit_fn(cfg, max_seq)
             return
         self.page_size = psz
+        if cfg.mesh_shape:
+            self._shard(params)
         self.reserve_decode = bool(
             cfg.kv_reserve_decode if reserve_decode is None
             else reserve_decode)
@@ -498,7 +517,8 @@ class ContinuousBatcher:
         # prefix index's token paths).
         self._xfer = StagedTransferEngine(self.layout, faults=self._fault,
                                           clock=self._clock,
-                                          telemetry=telemetry)
+                                          telemetry=telemetry,
+                                          group=self._group)
         self.tier_restore_min = int(
             cfg.tier_restore_min_tokens if tier_restore_min is None
             else tier_restore_min)
@@ -523,9 +543,7 @@ class ContinuousBatcher:
                 warnings.warn(f"kv tier snapshot unusable, serving "
                               f"from cold start: {e}")
                 self.snapshot_cold_start = True
-        self.pools = PP.init_params(
-            registry.paged_cache_decls(cfg, self.n_pages, self.page_size),
-            device=self.device)
+        self.pools = self._new_pools()
         # invalid page id == n_pages[group]: reads clamp (and are masked),
         # writes are masked out.
         self.block_tab = {
@@ -561,16 +579,89 @@ class ContinuousBatcher:
             self._verify = make_spec_verify_step(
                 cfg, self.speculate_k + 1, max_seq, self.page_size)
 
+    # -- sharded serving -------------------------------------------------------------
+
+    def _shard(self, params) -> None:
+        """Join the serving mesh of ``cfg.mesh_shape`` over the default
+        process group: keep this rank's tiles of ``params`` (the whole
+        weights, cut here, or the tiles ``serve_loop.init_tiles`` made,
+        kept as they are), remember the pools' specs, and follow rank 0's
+        host decisions when there is more than one rank."""
+        import torch.distributed as dist
+        self.mesh, axis = serving_mesh_for(self.cfg)
+        self._group = self.mesh.get_group(axis)
+        self._sizes, coords = mesh_coords(self.mesh)
+        p_specs, self._pool_specs = paged_sharding_specs(
+            self.cfg, self.page_size, self._sizes)
+        tiles = local_decls(registry.decls(self.cfg), p_specs, self._sizes)
+        if not all(PP.tree_leaves(PP.tree_map(
+                lambda path, d: tuple(PP.tree_at(params, path).shape)
+                == tuple(d.shape), tiles))):
+            params = cut_tiles(params, p_specs, self._sizes, coords)
+        self.params = params
+        if dist.get_world_size() > 1:
+            if self.overload == "reject":
+                raise ValueError(
+                    "overload='reject' sheds by each rank's own queue "
+                    "depth, which the ranks of a sharded serve cannot "
+                    "agree on; use overload='block' with mesh_shape")
+            self._lock = Lockstep()
+
+    def _new_pools(self):
+        """Zeroed page pools: this rank's tiles of them on a mesh."""
+        decls = registry.paged_cache_decls(self.cfg, self.n_pages,
+                                           self.page_size)
+        if self.mesh is not None:
+            decls = local_decls(decls, self._pool_specs, self._sizes)
+        return PP.init_params(decls, device=self.device)
+
+    def _try_pop(self) -> Optional[Request]:
+        """The request stream's ``TryPop``: rank 0's on a sharded serve."""
+        if self._lock is not None:
+            return self._follow(self._lock.try_pop)
+        return self.requests.TryPop()
+
+    def _follow(self, pop, *args) -> Optional[Request]:
+        """``pop(self.requests, *args)`` of the lockstep.  A request this
+        rank popped but could not follow rank 0 with is queued again, so
+        ``fail_inflight`` gives it its outcome."""
+        try:
+            return pop(self.requests, *args)
+        except LockstepError as e:
+            if e.request is not None:
+                self._pending.appendleft(e.request)
+            raise
+
+    def _now(self) -> float:
+        """The clock reading host decisions use (deadlines, submit
+        stamps): rank 0's, taken once per loop iteration, on a sharded
+        serve."""
+        if self._lock is None:
+            return self._clock()
+        if self._lock.now is None:
+            self._tick()
+        return self._lock.now
+
+    def _tick(self) -> bool:
+        """One iteration's shared inputs: the clock reading, the smoothed
+        step time and the watchdog's stall flag, rank 0's on a sharded
+        serve.  Returns the stall flag."""
+        if self._lock is None:
+            return self._stalled
+        _, self._ewma_step_s, stalled = self._lock.tick(
+            self._clock(), self._ewma_step_s, self._stalled)
+        return stalled
+
     # -- shared helpers -------------------------------------------------------------
 
     def _next_request(self) -> Optional[Request]:
         if self._pending:
             r = self._pending.popleft()
         else:
-            r = self.requests.TryPop()
+            r = self._try_pop()
         if r is not None:
             if r.submitted_at == 0.0:      # direct Push (bypassed submit)
-                r.submitted_at = self._clock()
+                r.submitted_at = self._now()
                 if self._telemetry:
                     self._telemetry.note_submit(r)
             if r.deadline_ms is not None:
@@ -609,7 +700,7 @@ class ContinuousBatcher:
         """Milliseconds of deadline budget left (+inf when none)."""
         if r.deadline_ms is None:
             return float("inf")
-        return r.deadline_ms - (self._clock() - r.submitted_at) * 1e3
+        return r.deadline_ms - (self._now() - r.submitted_at) * 1e3
 
     def total_used_pages(self) -> int:
         return sum(a.used_pages for a in self._alloc.values())
@@ -641,6 +732,8 @@ class ContinuousBatcher:
         s["restarts"] = self.restarts
         s["snapshot_cold_start"] = self.snapshot_cold_start
         s["transfers"] = self._xfer.stats()
+        if self.mesh is not None:
+            s["mesh"] = self._mesh_stats()
         s["pools"] = {name: {"free": a.free_pages, "used": a.used_pages,
                              "shared": a.shared_pages}
                       for name, a in self._alloc.items()}
@@ -679,6 +772,35 @@ class ContinuousBatcher:
             s["cached_prefixes"] = self._prefix.n_nodes
             s["cached_prefix_pages"] = self._prefix.n_pages
         return s
+
+    def _mesh_stats(self) -> Dict[str, Any]:
+        """The mesh, this rank's and the whole pool's bytes (the tp-fold
+        drop of KV memory per device), this rank's weight bytes, and the
+        collectives of a decode
+        step counted from the model's shape: one sum per attention and
+        one per MLP or MoE block, and, at tp > 1, the logits' gather and
+        MLA's latent gather per layer."""
+        cfg = self.cfg
+        tp = int(cfg.mesh_shape[-1])
+        full = registry.paged_cache_decls(cfg, self.n_pages, self.page_size)
+        return {
+            "shape": tuple(cfg.mesh_shape),
+            "axes": tuple(self.mesh.mesh_dim_names),
+            "tp": tp,
+            "pool_bytes_per_shard": sum(
+                t.numel() * t.element_size()
+                for t in PP.tree_leaves(self.pools)),
+            "pool_bytes_total": sum(
+                int(np.prod(d.shape)) * d.dtype.itemsize
+                for d in PP.tree_leaves(full)),
+            "param_bytes_per_shard": sum(
+                t.numel() * t.element_size()
+                for t in PP.tree_leaves(self.params)),
+            "collectives_per_decode_step": {
+                "psum": 2 * cfg.n_layers,
+                "all_gather": 0 if tp <= 1 else
+                1 + (cfg.n_layers if cfg.mla else 0)},
+        }
 
     def _sync_telemetry(self) -> None:
         """Collector: mirror the plain-attribute lifetime counters into
@@ -1466,7 +1588,10 @@ class ContinuousBatcher:
         active slots, mid-admission, parked, queued — with typed events
         (Errored for work in flight, Cancelled for work never admitted)
         so no consumer waits out a drain timeout.  Touches no device
-        state.  Returns the number of requests terminated."""
+        state and enters no collective: on a sharded serve it drains this
+        rank's own queue and stream, since a rank that fails on its own
+        has peers that will not join one.  Returns the number of
+        requests terminated."""
         n = 0
         for i, r in enumerate(self._slot_req):
             if r is not None:
@@ -1510,9 +1635,7 @@ class ContinuousBatcher:
         if self._prefix is not None:
             self._prefix = PrefixIndex([g.name for g in self.layout.groups],
                                        self.page_size, self.prefix_block)
-        self.pools = PP.init_params(
-            registry.paged_cache_decls(self.cfg, self.n_pages,
-                                       self.page_size), device=dev)
+        self.pools = self._new_pools()
         self.block_tab = {
             name: torch.full((n_slots, self.n_blocks[name]),
                              self.n_pages[name], dtype=i32, device=dev)
@@ -1603,7 +1726,12 @@ class ContinuousBatcher:
         if not p:
             raise ValueError("no snapshot path: pass one or set "
                              "cfg.kv_tier_snapshot / tier_snapshot=")
-        self._tiers.save(p, index=self._prefix, pools=self.pools)
+        lead = self._lock is None or self._lock.leader
+        self._tiers.save(p, index=self._prefix, pools=self.pools,
+                         write=lead)
+        if self._lock is not None:           # the file is whole for all
+            import torch.distributed as dist
+            dist.barrier()
         return p
 
     # -- producer / scheduler ------------------------------------------------------------
@@ -1659,11 +1787,11 @@ class ContinuousBatcher:
         latency-class arrival overtakes queued batch work; equal-SLA
         requests still serve FIFO."""
         while True:
-            r = self.requests.TryPop()
+            r = self._try_pop()
             if r is None:
                 break
             if r.submitted_at == 0.0:
-                r.submitted_at = self._clock()
+                r.submitted_at = self._now()
                 if self._telemetry:
                     self._telemetry.note_submit(r)
             if r.deadline_ms is not None:
@@ -2197,7 +2325,7 @@ class ContinuousBatcher:
             while self.retired < total_requests:
                 if self._heartbeat is not None:
                     self._heartbeat.beat("batcher")
-                if self._stalled:
+                if self._tick():
                     raise BatcherFault(StallFault(
                         "batcher run loop missed its heartbeat window"))
                 self.admit()
@@ -2216,11 +2344,15 @@ class ContinuousBatcher:
                 if self._pending or self._preempted:
                     continue       # waiting on pages; admit() retries
                 try:
-                    r = self.requests.Pop(timeout=poll_timeout)
+                    r = (self._follow(self._lock.pop, poll_timeout)
+                         if self._lock is not None
+                         else self.requests.Pop(timeout=poll_timeout))
                 except TimeoutError:
                     continue
                 except StreamClosed:
                     return
+                if r is None:
+                    continue
                 self._pending.appendleft(r)
         except BatcherFault as e:
             if not self._supervised:

@@ -39,6 +39,14 @@ allow-list of torch and builtin globals, and such a file fails with
 ``ValueError`` (a signature that names other dtypes) — never loads
 garbage.
 
+Sharded serving keeps every host payload full width: the engine
+gathers each rank's tiles over the model group before the host copy and
+cuts a full payload down to the rank's tile before the device copy
+(``CacheLayout.full_tile`` / ``local_tile``), so T1 entries, their byte
+counts and T2 snapshots are the same on every rank and on every mesh,
+and a snapshot one mesh wrote restores on another.  Only ``save``'s
+``write`` caller writes the file.
+
 The recompute-vs-restore policy (``tier_restore_min_tokens``) lives in
 the batcher.
 """
@@ -55,6 +63,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..distributed.sharding import manual_axis
 from ..models.params import Decl, tree_leaves, tree_map
 from .resilience import FaultPlan
 
@@ -134,13 +143,16 @@ class StagedTransferEngine:
     ``clock`` is the batcher's injectable time base; every staged call
     is timed with it into ``gather_seconds`` / ``scatter_seconds`` and,
     when a ``ServeTelemetry`` is attached, observed into the
-    ``serve_transfer_{gather,scatter}_seconds`` histograms.
+    ``serve_transfer_{gather,scatter}_seconds`` histograms.  ``group``
+    is the model axis's process group of a sharded batcher: payloads
+    are gathered over it to full width and cut back to the tile.
     """
 
     def __init__(self, layout, faults: Optional[FaultPlan] = None,
                  clock: Optional[Callable[[], float]] = None,
-                 telemetry=None):
+                 telemetry=None, group=None):
         self.layout = layout
+        self.group = group
         self.faults = faults or FaultPlan()
         self._clock = clock or time.monotonic
         self._telemetry = telemetry
@@ -167,10 +179,15 @@ class StagedTransferEngine:
         with no pages are omitted).  On the card: one ``index_select``
         per pool leaf on the current stream, each followed by an event
         the copy stream waits on before it copies that leaf into a
-        pinned buffer; the host waits once, for the last copy."""
+        pinned buffer; the host waits once, for the last copy.  Leaves are
+        full width (the tiles gathered over ``group``)."""
         if not any(pages_by_group.values()):
             return {}                   # nothing to move: not a transfer
         self.faults.check("t1_d2h")
+        with manual_axis(self.group):
+            return self._gather_host(pools, pages_by_group)
+
+    def _gather_host(self, pools, pages_by_group):
         t0 = self._clock()
         out: Dict[str, Any] = {}
         done = None
@@ -181,15 +198,16 @@ class StagedTransferEngine:
             leaves = pools[name]
             dev = next(iter(tree_leaves(leaves))).device
             idx = torch.as_tensor(list(pages), dtype=torch.int64, device=dev)
+            full = self.layout.full_tile
             if dev.type != "cuda":
-                out[name] = tree_map(lambda _, a: a.index_select(ax, idx),
-                                     leaves)
+                out[name] = tree_map(lambda path, a: full(
+                    name, path, a.index_select(ax, idx)), leaves)
                 continue
             cur = torch.cuda.current_stream(dev)
             side = self._stream(dev)
 
-            def stage(_, a):
-                g = a.index_select(ax, idx)
+            def stage(path, a):
+                g = full(name, path, a.index_select(ax, idx))
                 ev = torch.cuda.Event()
                 ev.record(cur)
                 host = torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
@@ -218,10 +236,16 @@ class StagedTransferEngine:
         card every payload leaf is staged onto the device on the copy
         stream (async H2D from pinned memory), the current stream waits
         on the copies' event, then one ``index_copy_`` per pool leaf runs
-        in stream order.  Returns the pools dict (updated in place)."""
+        in stream order.  A full-width payload is cut to this rank's tile
+        on the host, before its copy.  Returns the pools dict (updated in
+        place)."""
         if not any(pages_by_group.get(name) for name in data_by_group):
             return pools                # nothing to move: not a transfer
         self.faults.check("t1_h2d")
+        with manual_axis(self.group):
+            return self._scatter_device(pools, data_by_group, pages_by_group)
+
+    def _scatter_device(self, pools, data_by_group, pages_by_group):
         t0 = self._clock()
         names = [n for n in data_by_group if pages_by_group.get(n)]
         dev = next(iter(tree_leaves(pools[names[0]]))).device
@@ -246,7 +270,10 @@ class StagedTransferEngine:
                 return d
 
             for name in names:
-                staged[name] = tree_map(stage, data_by_group[name])
+                staged[name] = tree_map(
+                    lambda path, h, name=name: stage(
+                        path, self.layout.local_tile(name, path, h)),
+                    data_by_group[name])
             copied = torch.cuda.Event()
             copied.record(side)
             cur.wait_event(copied)
@@ -385,18 +412,13 @@ class KVTierManager:
         still live on the device (the caller frees them after).  A
         content hit skips the copy (indexed page bits are immutable while
         shared); a payload the budget can never hold is refused before
-        the gather (sizes from the pool leaf shapes)."""
+        the gather (full-width sizes, ``CacheLayout.page_nbytes``)."""
         key = _content_key(path_tokens)
         if self.store.touch(key):
             self.demote_skips += 1
             return
-        nbytes = 0
-        for name, pages in pages_by_group.items():
-            if not pages:
-                continue
-            ax = self.layout.page_axis(name)
-            nbytes += sum(_nbytes(a) // a.shape[ax] * len(pages)
-                          for a in tree_leaves(pools[name]))
+        nbytes = sum(self.layout.page_nbytes(name) * len(pages)
+                     for name, pages in pages_by_group.items() if pages)
         if nbytes > self.store.budget:
             self.store.rejected += 1
             return
@@ -454,16 +476,24 @@ class KVTierManager:
                              if isinstance(d, Decl))
                 for name, tree in decls.items()}
 
-    def save(self, path: str, index=None, pools=None) -> int:
+    def save(self, path: str, index=None, pools=None, write: bool = True
+             ) -> int:
         """Persist the T1 store to ``path``.  With the live ``index`` (and
         ``pools``) every device-resident cached prefix is flushed through
         ``demote`` first.  The write is atomic (tmp + rename) and the
-        payload is wrapped with its SHA-256.  Returns entries written."""
+        payload is wrapped with its SHA-256.  ``write=False`` (a sharded
+        batcher's ranks but one) does all of it but the file: the demotes
+        are collectives, and the snapshot fault sites still count.
+        Returns entries written."""
         if index is not None and pools is not None:
             for path_tokens, pages in index.walk():
                 self.demote(path_tokens, pages, pools)
         entries = [(key, e.data, e.stamp)
                    for key, e in self.store.items_lru_order()]
+        if not write:
+            self.faults.fire("snapshot_corrupt")
+            self.faults.fire("snapshot_truncate")
+            return len(entries)
         payload = {
             "page": self.page,
             "block": self.block,

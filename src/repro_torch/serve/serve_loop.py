@@ -17,6 +17,14 @@
   scratch page copies, the block-table swap, the span forward, greedy
   agreement and the commit, in one call.
 
+Sharded serving (``cfg.mesh_shape``, every paged family): each rank is
+one process with its own batcher, holding plain tensors of its tiles of
+the parameters and pools (``paged_sharding_specs``, ``cut_tiles``), and
+the three paged steps run the per-shard model under a shard-local config
+inside ``sharding.manual_axis`` of the model group (``_shard_wrap``), so
+the model's ``psum_parts`` / ``gather_parts`` are collectives there and
+the identity everywhere else.
+
 The JAX steps are jitted with their pools donated; here they run eagerly
 and update the pools and slot-state tensors in place.  Pools and block
 tables are dicts keyed by the layout's page groups ({"kv"}, gemma3's
@@ -26,15 +34,20 @@ reference's do.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed import sharding
+from ..models import params as PP
 from ..models import registry
 from ..models.cache_layouts import get_layout
-from ..models.params import abstract_params, params_from_numpy, tree_leaves
+from ..models.params import (Decl, abstract_params, param_specs,
+                             params_from_numpy, tree_at, tree_leaves,
+                             tree_map)
 
 
 def make_serve_steps(cfg: ModelConfig, batch: int, max_seq: int,
@@ -48,12 +61,12 @@ def make_serve_steps(cfg: ModelConfig, batch: int, max_seq: int,
 
     The abstract cache is ``cache_decls(cfg, batch, max_seq)`` without
     storage (fake tensors made in ``fake_mode``, else ``meta``).  A mesh
-    raises: sharded serving steps come with sharded serving (A13b in
-    ROADMAP.md)."""
+    raises: the dense cache's steps on the production meshes are A13c
+    in ROADMAP.md, built on sharded serving (A13b)."""
     if mesh is not None:
         raise NotImplementedError(
-            "make_serve_steps on a mesh: sharded serving steps come with "
-            "sharded serving (A13b)")
+            "make_serve_steps on a mesh: the dense-cache steps on the "
+            "production meshes are A13c, built on sharded serving (A13b)")
     ab_cache = abstract_params(registry.cache_decls(cfg, batch, max_seq),
                                fake_mode)
 
@@ -118,6 +131,204 @@ def make_sampling_serve_steps(cfg: ModelConfig, max_seq: int,
     return prefill, decode
 
 
+# --- mesh-sharded paged serving (tensor parallelism over a process group) ------------
+#
+# The reference puts the paged step bodies under ``jax.shard_map``; here
+# every rank is a process of its own (SPMD), holding plain tensors of its
+# tiles.  Parameters and KV page pools split over the LAST mesh axis
+# (cfg.tp_axis) by the rules' table, block tables and slot state are
+# replicated, and the step body runs the per-shard model on a shard-local
+# config with explicit collectives at the attention / FF output
+# projections, MLA's latent read and the logits.  The sharded matmuls
+# split output columns only (contraction dims are never split), partial
+# sums add in group-rank order on every rank, and gathers are concats.
+
+_MESHES: Dict[tuple, tuple] = {}
+
+
+def serving_mesh_for(cfg: ModelConfig):
+    """(mesh, tp_axis) of the sharded paged path over the default process
+    group, made once per (shape, axis, process group); (None, None) when
+    ``cfg.mesh_shape`` is empty (one process).  The mesh's device type
+    follows the group's backend: cuda over NCCL, cpu over gloo (serving
+    uses only the mesh's process groups, and gloo's collectives take the
+    tensors where they lie)."""
+    if not cfg.mesh_shape:
+        return None, None
+    sharding.validate_shardable(cfg, int(cfg.mesh_shape[-1]))
+    import torch.distributed as dist
+    from ..launch.mesh import serving_mesh
+    world = dist.group.WORLD if dist.is_initialized() else None
+    device_type = ("cuda" if world is not None
+                   and dist.get_backend() == "nccl" else "cpu")
+    key = (tuple(cfg.mesh_shape), cfg.tp_axis)
+    hit = _MESHES.get(key)
+    if hit is None or hit[0] is not world:
+        _MESHES[key] = (world, serving_mesh(cfg.mesh_shape, cfg.tp_axis,
+                                            device_type))
+    return _MESHES[key][1], cfg.tp_axis
+
+
+def serving_sizes(cfg: ModelConfig) -> Dict[str, int]:
+    """{axis: size} of ``cfg.mesh_shape``'s serving mesh ({} without
+    one); specs reckoned from it need no process group."""
+    if not cfg.mesh_shape:
+        return {}
+    from ..launch.mesh import serving_axes
+    return dict(zip(serving_axes(cfg.mesh_shape, cfg.tp_axis),
+                    (int(s) for s in cfg.mesh_shape)))
+
+
+def shard_local_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The per-shard view of the model the step bodies run: the column-
+    sharded dims (query and kv heads, ff, expert ff) divided by the tp
+    extent, so every reshape in ``models.layers`` is shard-local.  MLA
+    keeps the FULL kv_lora_rank (w_dkv and kv_norm stay replicated; only
+    the latent pool splits, sliced at the cache write) and vocab_size
+    stays full (the logits tile is gathered against padded_vocab).
+    mesh_shape is cleared, so the local config never shards again."""
+    t = int(cfg.mesh_shape[-1]) if cfg.mesh_shape else 1
+    kw: Dict[str, Any] = {"mesh_shape": ()}
+    if t > 1:
+        kw["n_heads"] = cfg.n_heads // t
+        kw["d_ff"] = cfg.d_ff // t
+        if cfg.moe_d_ff:
+            kw["moe_d_ff"] = cfg.moe_d_ff // t
+        if not cfg.mla:
+            kw["n_kv_heads"] = cfg.n_kv_heads // t
+    return dataclasses.replace(cfg, **kw)
+
+
+def paged_sharding_specs(cfg: ModelConfig, page_size: int, mesh=None):
+    """(param_specs, pool_specs) of the sharded paged path, both from the
+    rules' table with the serving overrides: parameters with ``experts
+    -> None`` (the expert ff dims split over "model" instead, as the
+    dense MLP's) and the token embedding replicated (a lookup by token id
+    cannot read a vocab-split table; the unembed stays vocab-split);
+    pools with ``lora -> "model"`` (``CacheLayout.pool_specs``).
+    ``mesh``: a ``DeviceMesh`` or {axis: size}; None reckons the specs
+    from ``cfg.mesh_shape``."""
+    if mesh is None:
+        mesh = serving_sizes(cfg)
+    return (_param_tile_specs(cfg, mesh),
+            get_layout(cfg, page_size).pool_specs(mesh))
+
+
+def _param_tile_specs(cfg: ModelConfig, mesh):
+    with sharding.use_rules(experts=None):
+        p_specs = param_specs(registry.decls(cfg), mesh)
+    if "embed" in p_specs:
+        p_specs["embed"] = sharding.P()
+    return p_specs
+
+
+def mesh_coords(mesh) -> tuple:
+    """({axis: size}, {axis: this rank's index}) of a ``DeviceMesh``."""
+    sizes = dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
+    return sizes, {a: mesh.get_local_rank(a) for a in sizes}
+
+
+def _tile_index(part, sizes: Dict[str, int], coords: Dict[str, int]):
+    """(index, count) of a rank's tile along one dim whose spec entry is
+    ``part``: row-major over the entry's mesh axes."""
+    idx, n = 0, 1
+    for a in sharding.spec_axes(part):
+        idx = idx * sizes[a] + coords[a]
+        n *= sizes[a]
+    return idx, n
+
+
+def _cut(t: torch.Tensor, spec, sizes: Dict[str, int],
+         coords: Dict[str, int]) -> torch.Tensor:
+    for d, part in enumerate(spec):
+        idx, n = _tile_index(part, sizes, coords)
+        if n > 1:
+            w = t.shape[d] // n
+            t = t.narrow(d, idx * w, w)
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def cut_tiles(tree, specs, sizes: Dict[str, int], coords: Dict[str, int]):
+    """This rank's tiles of a tree of full tensors: every leaf cut along
+    each dim its spec names, at the rank's mesh ``coords`` ({axis:
+    index}), as contiguous copies (the full tensor can be freed)."""
+    return tree_map(lambda path, t: _cut(t, tree_at(specs, path), sizes,
+                                         coords), tree)
+
+
+def init_tiles(cfg: ModelConfig, seed: int = 0, *, device="cuda",
+               dtype: Optional[torch.dtype] = None):
+    """This rank's tiles of ``registry.init(cfg, seed, device=, dtype=)``
+    on the serving mesh of ``cfg.mesh_shape`` (the default process group
+    must be up): each leaf is drawn whole on ``device``, cut at once and
+    the whole one dropped, so a card holds its tiles and at most one
+    whole leaf, never the whole model.  Bit-equal to ``cut_tiles`` of
+    the whole init; the batcher takes them as they are."""
+    mesh, _ = serving_mesh_for(cfg)
+    sizes, coords = mesh_coords(mesh)
+    specs = _param_tile_specs(cfg, sizes)
+    return PP.init_params(
+        registry.decls(cfg), seed, device=device, dtype=dtype,
+        cut=lambda path, t: _cut(t, tree_at(specs, path), sizes, coords))
+
+
+def glue_tiles(tiles: List[Any], specs, sizes: Dict[str, int]):
+    """The inverse of ``cut_tiles``: the full tensors from the tiles of
+    every rank of the mesh (``tiles[r]``, ranks row-major over the axes
+    of ``sizes``, in its order)."""
+    axes = list(sizes)
+
+    def coords(r):
+        c = {}
+        for a in reversed(axes):
+            r, c[a] = divmod(r, sizes[a])
+        return c
+
+    def one(path, _):
+        spec = tree_at(specs, path)
+        parts = [tree_at(t, path) for t in tiles]
+        shape = list(parts[0].shape)
+        for d, part in enumerate(spec):
+            shape[d] *= _tile_index(part, sizes, coords(0))[1]
+        full = parts[0].new_empty(shape)
+        for r, t in enumerate(parts):
+            region = []
+            for d, part in enumerate(spec):
+                idx, _ = _tile_index(part, sizes, coords(r))
+                region.append(slice(idx * t.shape[d],
+                                    (idx + 1) * t.shape[d]))
+            full[tuple(region)] = t
+        return full
+    return tree_map(one, tiles[0])
+
+
+def local_decls(decls, specs, sizes: Dict[str, int]):
+    """``decls`` at the shapes of one rank's tiles."""
+    def one(path, d: Decl):
+        shape = list(d.shape)
+        for i, part in enumerate(tree_at(specs, path)):
+            shape[i] //= _tile_index(part, sizes, {a: 0 for a in sizes})[1]
+        return dataclasses.replace(d, shape=tuple(shape))
+    return tree_map(one, decls)
+
+
+def _shard_wrap(cfg: ModelConfig, fn):
+    """A paged step body as the batcher calls it: under ``manual_axis`` of
+    the model group when ``cfg.mesh_shape`` names a serving mesh (the
+    body runs the shard-local config on this rank's tiles; block tables,
+    slot vectors and token payloads are replicated), else ``fn``
+    itself."""
+    mesh, axis = serving_mesh_for(cfg)
+    if mesh is None:
+        return fn
+    group = mesh.get_group(axis)
+
+    def body(*args):
+        with sharding.manual_axis(group):
+            return fn(*args)
+    return body
+
+
 def advance_slots(logits, last_tok, pos, remaining, active, max_seq: int):
     """The decode step's slot-state update, shared by both batcher modes:
     greedy next token for active slots, positions and budgets advanced,
@@ -135,7 +346,8 @@ def advance_slots(logits, last_tok, pos, remaining, active, max_seq: int):
 
 
 def make_paged_decode_step(cfg: ModelConfig, max_seq: int, page_size: int):
-    """Batched decode over paged KV: advances all slots at once.
+    """Batched decode over paged KV: advances all slots at once (under
+    ``_shard_wrap``).
 
     ``step(params, pools, block_tab, last_tok, pos, remaining, active)``
     returns ``(pools, last_tok, pos, remaining, active, out)`` with
@@ -144,6 +356,7 @@ def make_paged_decode_step(cfg: ModelConfig, max_seq: int, page_size: int):
     writes are masked out and cannot touch pages that were freed and
     handed to another request."""
     layout = get_layout(cfg, page_size)
+    fcfg = shard_local_cfg(cfg)
 
     def step(params, pools, block_tab, last_tok, pos, remaining, active):
         bt = {}
@@ -154,12 +367,12 @@ def make_paged_decode_step(cfg: ModelConfig, max_seq: int, page_size: int):
                                      n_pages)
         cache = {"pages": pools, "block_tab": bt}
         logits, pools = registry.forward(
-            cfg, params, {"tokens": last_tok[:, None].long()}, mode="decode",
-            cache=cache, pos=pos)
+            fcfg, params, {"tokens": last_tok[:, None].long()},
+            mode="decode", cache=cache, pos=pos)
         return (pools,) + advance_slots(logits, last_tok, pos, remaining,
                                         active, max_seq)
 
-    return step
+    return _shard_wrap(cfg, step)
 
 
 def _kept(idx: np.ndarray, bound: int, *others: np.ndarray):
@@ -199,6 +412,7 @@ def make_spec_verify_step(cfg: ModelConfig, k: int, max_seq: int,
     out)`` with ``out`` the (k + 2, n) int32 block the host reads: k
     prediction rows, the per-slot commit count and the finished flags."""
     layout = get_layout(cfg, page_size)
+    fcfg = shard_local_cfg(cfg)
 
     def fn(params, pools, block_tab, tokens, n_draft, pos, remaining,
            active, copy_src, copy_dst, swap_rows, swap_cols, swap_vals):
@@ -220,7 +434,7 @@ def make_spec_verify_step(cfg: ModelConfig, k: int, max_seq: int,
             bt[g.name] = torch.where(active[:, None], tab, n_pages)
         cache = {"pages": pools, "block_tab": bt}
         logits, pools = registry.forward(
-            cfg, params, {"tokens": tokens.long()}, mode="verify",
+            fcfg, params, {"tokens": tokens.long()}, mode="verify",
             cache=cache, pos=pos)
         preds = torch.argmax(logits, -1).to(torch.int32)       # (n, k)
         # drafts agree while they match the model's own greedy argmax.
@@ -242,7 +456,7 @@ def make_spec_verify_step(cfg: ModelConfig, k: int, max_seq: int,
                          finished.to(torch.int32)[None, :]])
         return pools, last_tok, pos, remaining, active, out
 
-    return fn
+    return _shard_wrap(cfg, fn)
 
 
 def make_chunk_prefill_step(cfg: ModelConfig, chunk: int, max_seq: int,
@@ -258,6 +472,7 @@ def make_chunk_prefill_step(cfg: ModelConfig, chunk: int, max_seq: int,
     slot's decode state (the reference scatters every chunk and drops
     the non-final ones through the invalid slot id)."""
     layout = get_layout(cfg, page_size)
+    fcfg = shard_local_cfg(cfg)
 
     def fn(params, pools, block_tab, last_tok, pos, remaining, active,
            tokens, pos0, last_in_chunk, slot_idx, is_final, plen, max_new,
@@ -268,7 +483,7 @@ def make_chunk_prefill_step(cfg: ModelConfig, chunk: int, max_seq: int,
         off = torch.full((1,), int(cache_offset), dtype=torch.int32,
                          device=tokens.device)
         logits, pools = registry.forward(
-            cfg, params, {"tokens": tokens.long()}, mode="chunk",
+            fcfg, params, {"tokens": tokens.long()}, mode="chunk",
             cache=cache, pos=pos0, last_pos=last_in_chunk, cache_offset=off)
         tok0 = torch.argmax(logits[0, -1], -1).to(torch.int32)
         if is_final:
@@ -278,7 +493,7 @@ def make_chunk_prefill_step(cfg: ModelConfig, chunk: int, max_seq: int,
             active[slot_idx] = bool(max_new > 1 and plen < max_seq - 1)
         return pools, last_tok, pos, remaining, active, tok0
 
-    return fn
+    return _shard_wrap(cfg, fn)
 
 
 def greedy_generate(cfg: ModelConfig, params, prompt_batch: Dict,

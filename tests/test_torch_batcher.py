@@ -259,9 +259,9 @@ def test_submit_rejects_degenerate_requests(model):
     {"cfg": {"serve_overload": "reject"}},
 ])
 def test_later_slice_options_raise(model, kw):
-    """Options of slices still to come (mesh sharding) raise; the tiers',
-    resilience's, telemetry's and reserve-at-admission's are accepted and
-    reach the batcher."""
+    """A mesh without the process group of its ranks raises, naming the
+    launcher that gives them; the tiers', resilience's, telemetry's and
+    reserve-at-admission's options are accepted and reach the batcher."""
     cfg, tp, _, _ = model
     kw = dict(kw)
     cf = kw.pop("cfg", {})
@@ -269,7 +269,7 @@ def test_later_slice_options_raise(model, kw):
         kw["telemetry"] = kw["telemetry"]()
     c = dataclasses.replace(_paged(cfg), **cf)
     if "mesh_shape" in cf:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
             ContinuousBatcher(c, tp, n_slots=2, max_seq=32, device="cpu",
                               **kw)
         return
