@@ -149,10 +149,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    plain decode and token identity to the paged run printed; one decode
    step's logits through the kernels vs the plain path and its time
    split, paged and dense;
-8. the moe family at full width — deepseek-v2-lite-16b (14 of its 27
+8. the moe family at full width — deepseek-v2-lite-16b (8 of its 27
    layers, MLA on latent pages, 64 experts top-6 plus 2 shared) and
-   phi3.5-moe (full widths, 16 of its 32 layers: the whole model does
-   not fit beside a KV pool), random bf16 weights from the seed, phase
+   phi3.5-moe (full widths, 8 of its 32 layers: the whole model does not
+   fit beside a KV pool), random bf16 weights from the seed, phase
    4's traffic served paged (phi3.5: B1 at a GQA group of 4) and from
    dense slots (phi3.5: B3), launches steps x 16 exactly; tokens/s,
    step and TTFT times, peak memory and pages, paged-vs-dense token
@@ -178,8 +178,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    layers and B2 exactly, the trace giving back the batcher's counters;
    the ``cuda`` generator's samples fixed by the seed and T 1e-6 equal to
    greedy; reserve-at-admission admitting 2 slots where lazy growth
-   admits 8 at one pool, with the same tokens.  At full width (16 of
-   its 32 layers since the sharded-training phase was added),
+   admits 8 at one pool, with the same tokens.  At full width (8 of
+   its 32 layers, the time limit),
    minitron-4b's shared-prompt traffic paged with the prefix cache and
    ``speculate_k`` 4, served with telemetry off, then on (tokens/s
    of each; on: a live ``/metrics`` scrape that validates, with
@@ -253,7 +253,29 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    card's name and power limit; the share of streams equal to the
    unsharded serve is reported, not held.  Phase 2 also holds B1 at one
    rank's shape (12 / 4 heads of 128, bf16 and int8) and B2's store at 4
-   kv heads.
+   kv heads;
+14. the dense-cache steps on a mesh (budget 90 s) — (a) minitron-4b at
+   full width and depth through ``make_serve_steps(mesh)`` on a (1, 1)
+   mesh over a world-of-one NCCL group, 8 prompts of 512 and 16 decode
+   steps, bf16 (B3) and int8 with ``decode_seq_shard`` (B3 and B2's
+   store): tokens and every step's logits equal the meshless steps' bit
+   for bit, B3 (and B2) launched steps x layers, one decode step of each
+   side in turns, wall and device busy ms; (b) three gloo ranks on the
+   one card (DTensor's functional collectives over gloo's synchronous
+   ones) on a (1, 3) mesh, qwen1p5-32b's widths at 6 of 64 layers, int8
+   caches that ``spec_for`` splits over the sequence (each rank 512 of
+   1536 slots), 8 prompts of 1100 and 16 steps through B3's partials:
+   every rank the same tokens and logits, each rank's cache spec
+   printed, the first step's largest logit difference from the
+   meshless steps' held within ``TOL_SHARDED_LOGITS_REL`` and the share
+   of equal tokens reported; (c) qwen1p5-32b
+   ``decode_32k`` with ``decode_seq_shard`` counted on the 16x16 mesh of
+   256 ``fake`` ranks (FLOPs, bytes and collective bytes per device,
+   bound, bottleneck).  Phase 2 also holds B3's sequence-split mode
+   (key offset, unnormalised partials) against its twin, three shards
+   combined against the whole cache, and times it at rank 1's shard of
+   (b) beside its bound and SDPA's memory-efficient kernel with the
+   log-sum-exp.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -3149,11 +3171,12 @@ def count_moe_drops():
         layers._moe_dispatch = inner
 
 
-# phi3.5-moe at full widths: 16 of its 32 layers (41.88 B parameters in
+# phi3.5-moe at full widths: 8 of its 32 layers (41.88 B parameters in
 # all, 83.8 GB in bf16, leave no room for a KV pool on one 80 GB card).
-# deepseek-v2-lite at full widths: 14 of its 27 layers (its dense first
-# layer and 13 MoE layers), to keep the whole run in time.
-PHI_LAYERS, DS_LAYERS = 16, 14
+# deepseek-v2-lite at full widths: 8 of its 27 layers (its dense first
+# layer and 7 MoE layers).  Both cut in depth to keep the whole run in
+# time beside the sharded phases.
+PHI_LAYERS, DS_LAYERS = 8, 8
 
 
 def phase_moe_full_width(seed):
@@ -5355,8 +5378,8 @@ def profile_serve_window(cfg, params, prompts, counts):
 
 
 # Depth cut to TEL_LAYERS of 32 (widths and vocab whole) to keep the
-# script inside its time limit beside the sharded-training phase.
-TEL_LAYERS = 16
+# script inside its time limit beside the sharded phases.
+TEL_LAYERS = 8
 
 
 def telemetry_full_width(seed):
@@ -5540,6 +5563,569 @@ def phase_roofline(card_line, measured):
           f"({len(cells)} cells, {workers} workers)")
 
 
+# --- phase 14: dense-cache serve steps on a mesh, the seq-sharded read (A13c) -------
+
+
+DENSE_MESH_BUDGET_S = 90
+# (b): qwen1p5-32b's widths cut in depth to fit the budget (the whole
+# script within 1200 s); three ranks on the one card, 8 slots.
+SEQ_SHARD_LAYERS = 6               # of qwen1p5-32b's 64
+SEQ_SHARD_MAX_SEQ = 1536           # 512 slots a rank on (1, 3)
+SEQ_SHARD_PROMPT = 1100            # rank 2's shard holds the last keys
+SEQ_SHARD_STEPS = 16
+DENSE_MESH_PROMPT, DENSE_MESH_STEPS = 512, 16
+
+
+def seq_shard_case(gen, rank=1):
+    """B3's inputs at one rank's sequence shard of phase 14b: 8 slots,
+    qwen1p5-32b's 40 / 40 heads of 128 (bf16, the int8 shard dequantized
+    first, as the layer does), slots [512 * rank, 512 * (rank + 1)) of
+    1536, the decode positions of its first step."""
+    w = SEQ_SHARD_MAX_SEQ // 3
+    c = make_dense_case(gen, b=8, hq=40, hkv=40, d=128, S=w,
+                        pos=[SEQ_SHARD_PROMPT] * 8)
+    return dict(c, key_offset=rank * w, partials=True)
+
+
+def phase_seq_shard_kernel(gen, card, flush):
+    """B3's sequence-split mode (key offset, unnormalised partials)
+    against its plain twin: each of three shards (acc and the row max
+    within TOL_F32, the row sum within TOL_F32 relative: fp32 scores
+    summed in another order; an empty shard's m = NEG_INF and l = 0
+    exactly) and the three combined in shard order against whole-
+    cache B3 under its own row's rule (TOL_BF16_ULPS), at phase 14b's
+    widths, at the shard edges, a band in fp32 and a long MQA cache.
+    Then B3 timed at rank 1's shard of phase 14b, beside its twin, its
+    bound from the shard's live keys and SDPA's memory-efficient kernel
+    returning the log-sum-exp on the same K/V (the same function: the
+    normalised shard output and its row statistics)."""
+    from repro_torch.kernels import flash_attention as fa
+    cases = {
+        "qwen widths (8 slots, 40 / 40 heads of 128, 3 x 512, pos 1100, "
+        "bf16)": dict(b=8, hq=40, hkv=40, d=128, S=SEQ_SHARD_MAX_SEQ,
+                      pos=[SEQ_SHARD_PROMPT + i for i in range(8)]),
+        "shard edges (hq 24 / hkv 8, 3 x 512)": dict(
+            S=1536, pos=[0, 511, 512, 513, 1023, 1024, 1535, 3000]),
+        "band window=300, f32 q (3 x 512)": dict(
+            b=4, hq=8, hkv=2, S=1536, window=300, q_dtype=torch.float32,
+            pos=[100, 600, 1100, 1535]),
+        "long MQA (2 slots, 8 / 1 heads of 64, 3 x 4096)": dict(
+            b=2, hq=8, hkv=1, d=64, S=3 * 4096, pos=[4095, 12287]),
+    }
+    out = {}
+    for tag, kw in cases.items():
+        c = make_dense_case(gen, **kw)
+        w = c["k"].shape[2] // 3
+        accs, mls, worst = [], [], 0.0
+        for i in range(3):
+            part = dict(c, k=c["k"][:, :, i * w:(i + 1) * w].contiguous(),
+                        v=c["v"][:, :, i * w:(i + 1) * w].contiguous(),
+                        key_offset=i * w, partials=True)
+            acc, ml = fa.flash_attention_decode(**part)
+            want_acc, want_ml = fa.flash_attention_decode_plain(**part)
+            torch.cuda.synchronize()
+            empty = want_ml[..., 1] == 0
+            check(bool(((ml[..., 1] == 0) == empty).all()
+                       and (ml[..., 0][empty] == fa.NEG_INF).all()
+                       and (acc[empty] == 0).all()),
+                  f"B3 partials [{tag}, shard {i}]: an empty row is not "
+                  "(m = NEG_INF, l = 0, acc = 0)")
+            err = (acc - want_acc).abs().max().item()
+            live = ~empty
+            m_err = (ml[..., 0] - want_ml[..., 0])[live].abs().max().item() \
+                if live.any() else 0.0
+            l_rel = ((ml[..., 1] - want_ml[..., 1]) / want_ml[..., 1].clamp(
+                min=1e-30))[live].abs().max().item() if live.any() else 0.0
+            check(err <= TOL_F32 and m_err <= TOL_F32 and l_rel <= TOL_F32,
+                  f"B3 partials [{tag}, shard {i}]: acc err {err:.3g}, m "
+                  f"err {m_err:.3g}, l rel {l_rel:.3g}")
+            worst = max(worst, err)
+            accs.append(acc)
+            mls.append(ml)
+        got = fa.combine_decode_partials(torch.stack(accs), torch.stack(mls))
+        whole = fa.flash_attention_decode(**c)
+        got = got.to(whole.dtype)[:, :, None]
+        diff = (got.float() - whole.float()).abs()
+        if whole.dtype == torch.float32:
+            ok = diff.max().item() <= TOL_F32
+        else:
+            ok = bool((diff <= TOL_BF16_ULPS * bf16_ulp(whole)
+                       + TOL_BF16_FLOOR).all())
+        check(ok, f"B3 [{tag}]: three shards combined differ from the whole "
+              f"cache by {diff.max().item():.3g}")
+        out[tag] = {"partials_max_abs_err": worst,
+                    "combined_vs_whole_max_abs_err": diff.max().item()}
+    c = seq_shard_case(gen)
+    S_l, off = c["k"].shape[2], c["key_offset"]
+    live = int(((torch.arange(S_l, device=DEVICE)[None, :] + off)
+                <= c["pos"].long()[:, None]).sum())
+    b, hq, _, d = c["q"].shape
+    hkv = c["k"].shape[1]
+    nbytes = (live * hkv * d * c["k"].element_size() * 2
+              + c["q"].numel() * c["q"].element_size()
+              + b * hq * (d + 2) * 4 + b * 4)
+    t_bytes = nbytes / hbm_rate(card) * 1e3
+    t_ops = 4.0 * (hq // hkv) * d * live * hkv / PEAK_BF16 * 1e3
+    acc, ml = fa.flash_attention_decode(**c)
+    want_acc, _ = fa.flash_attention_decode_plain(**c)
+    valid = ((torch.arange(S_l, device=DEVICE)[None, :] + off)
+             <= c["pos"].long()[:, None])
+    bias = torch.zeros((b, hq, 1, S_l), device=DEVICE, dtype=c["q"].dtype)
+    bias.masked_fill_(~valid[:, None, None], float("-inf"))
+    lib = torch.ops.aten._scaled_dot_product_efficient_attention
+    row = {
+        "max_abs_err": (acc - want_acc).abs().max().item(),
+        "ms": time_ms(lambda: fa.flash_attention_decode(**c), flush),
+        "plain_ms": time_ms(lambda: fa.flash_attention_decode_plain(**c),
+                            flush),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": time_ms(lambda: lib(c["q"], c["k"], c["v"], bias,
+                                          True), flush),
+        "library": "aten._scaled_dot_product_efficient_attention(..., "
+                   "compute_log_sumexp=True) on the shard's K/V",
+        "live_keys": live, "shard": f"[{off}, {off + S_l}) of "
+                                    f"{SEQ_SHARD_MAX_SEQ}",
+        "n_split": fa.dense_splits(
+            b, hkv, S_l,
+            torch.cuda.get_device_properties(0).multi_processor_count)}
+    out["rank 1's shard of phase 14b"] = row
+    print("B3 sequence-split mode: " + json.dumps(out))
+    return row
+
+
+def _gloo_cuda_collectives():
+    """Let DTensor's functional collectives run on CUDA tensors over gloo
+    (three ranks on one card, where NCCL refuses a second rank on a
+    device): the ``_c10d_functional`` ops get CUDA kernels that call
+    gloo's synchronous collectives, which take CUDA tensors (through the
+    host), and ``wait_tensor`` returns at once.  The functional ops'
+    own CUDA path over gloo ends the process (a segfault in
+    ``wait_tensor``).  Only this script's rank processes install it."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    ops = {"sum": dist.ReduceOp.SUM, "avg": dist.ReduceOp.AVG,
+           "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+
+    def all_gather(x, group_size, group_name):
+        out = x.new_empty((x.shape[0] * group_size,) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(),
+                                    group=_resolve_process_group(group_name))
+        return out
+
+    def all_reduce(x, op, group_name):
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, ops[op.lower()],
+                        group=_resolve_process_group(group_name))
+        return out
+
+    def reduce_scatter(x, op, group_size, group_name):
+        out = x.new_empty((x.shape[0] // group_size,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x.contiguous(), ops[op.lower()],
+                                   group=_resolve_process_group(group_name))
+        return out
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", all_gather, "CUDA")
+    lib.impl("all_reduce", all_reduce, "CUDA")
+    lib.impl("reduce_scatter_tensor", reduce_scatter, "CUDA")
+    lib.impl("wait_tensor", lambda t: t, "CUDA")
+    _gloo_cuda_collectives.lib = lib      # registrations live with it
+
+
+def place_once(params, shardings):
+    """``params`` (plain, whole) as DTensors of ``shardings``, leaf by
+    leaf in place of the dict's entries: a replicated leaf is wrapped as
+    it is, a split one cut to this rank's tile, so the card never holds
+    a second copy of the weights."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    def place(t, sh):
+        local = t
+        for m, pl in enumerate(sh.placements):
+            if isinstance(pl, Shard):
+                n = sh.mesh.size(m)
+                w = local.shape[pl.dim] // n
+                local = local.narrow(pl.dim, sh.mesh.get_local_rank(m) * w, w)
+        if local is not t:
+            local = local.contiguous()
+        return DTensor.from_local(local, sh.mesh, sh.placements,
+                                  run_check=False)
+
+    for k, v in params.items():
+        if isinstance(v, dict):
+            place_once(v, shardings[k])
+        else:
+            params[k] = place(v, shardings[k])
+    return params
+
+
+def mesh_steps_run(cfg, params, tok, steps, max_seq, mesh=None, prof=None):
+    """Greedy tokens of ``make_serve_steps`` at one shared position:
+    prefill ``tok``, then ``steps`` decode steps.  Returns (tokens (b,
+    steps), every step's last-position logits (steps + 1, b, V) whole,
+    the cache, the decode step as a closure at the last position, the
+    step wall ms)."""
+    from repro_torch.distributed.sharding import is_dtensor
+    from repro_torch.serve.serve_loop import make_serve_steps
+    b, s = tok.shape
+    pre, dec, _, _ = make_serve_steps(cfg, b, max_seq, mesh)
+
+    def whole(t):
+        return t.full_tensor() if is_dtensor(t) else t
+    with torch.no_grad():
+        lg, cache = pre(params, {"tokens": tok})
+        seen, toks, walls = [whole(lg)[:, -1]], [], []
+        for pos in range(s, s + steps):
+            nxt = torch.argmax(seen[-1], -1)[:, None]
+            toks.append(nxt)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lg, cache = dec(params, cache, {"tokens": nxt}, pos)
+            seen.append(whole(lg)[:, -1])
+            seen[-1].float().sum().item()
+            walls.append((time.perf_counter() - t) * 1e3)
+
+    def step():
+        with torch.no_grad():
+            return whole(dec(params, cache, {"tokens": toks[-1]},
+                             s + steps - 1)[0]).float().sum().item()
+    return (torch.cat(toks, 1), torch.stack(seen), cache, step,
+            statistics.median(walls))
+
+
+def dense_mesh_rank(rank, tmp, seed):
+    """One rank of phase 14b: a 3-rank gloo group from a ``FileStore`` in
+    ``tmp``, tensors on cuda:0, a (1, 3) ("data", "model") mesh.
+    qwen1p5-32b's widths at SEQ_SHARD_LAYERS layers, int8 caches with
+    ``decode_seq_shard``, ``decode_flash``: 40 kv heads do not divide 3,
+    so ``spec_for`` gives the cache's sequence dim to "model" (each rank
+    512 of 1536 slots).  Rank 0 first runs the meshless steps on the same
+    weights.  Returns this rank's report."""
+    import torch.distributed as dist
+    from datetime import timedelta
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.models.params import param_specs
+    from repro_torch.serve.serve_loop import make_serve_steps
+    torch.cuda.set_device(0)
+    _gloo_cuda_collectives()
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "store"), 3),
+        rank=rank, world_size=3, timeout=timedelta(seconds=300))
+    try:
+        cfg = dataclasses.replace(
+            get("qwen1p5-32b"), n_layers=SEQ_SHARD_LAYERS,
+            kv_cache_dtype="int8", decode_seq_shard=True, decode_flash=True)
+        mesh = make_host_mesh((1, 3), ("data", "model"), device_type="cuda")
+        rng = np.random.default_rng(seed + 14)
+        tok = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (N_SLOTS, SEQ_SHARD_PROMPT))).to(DEVICE)
+        params = registry.init(cfg, seed, device=DEVICE, dtype=torch.bfloat16)
+        report = {"rank": rank}
+        counts = kernel_counts()
+        if rank == 0:
+            toks, logits, cache, _, wall = mesh_steps_run(
+                cfg, params, tok, SEQ_SHARD_STEPS, SEQ_SHARD_MAX_SEQ)
+            report["meshless"] = {"tokens": toks.cpu(),
+                                  "first": logits[1].float().cpu(),
+                                  "median_step_ms": wall}
+            del cache, logits
+        dist.barrier()
+        _, _, _, sh = make_serve_steps(cfg, N_SLOTS, SEQ_SHARD_MAX_SEQ, mesh)
+        place_once(params, sh[0])
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts(counts)
+        toks, logits, cache, _, wall = mesh_steps_run(
+            cfg, params, tok, SEQ_SHARD_STEPS, SEQ_SHARD_MAX_SEQ, mesh)
+        launches = read_counts(counts)
+        specs = param_specs(registry.cache_decls(cfg, N_SLOTS,
+                                                 SEQ_SHARD_MAX_SEQ), mesh)
+        k = cache["k"]
+        report.update({
+            "tokens": toks.cpu(), "first": logits[1].float().cpu(),
+            "cache_spec": tuple(specs["k"]),
+            "cache_placements": [str(p) for p in k.placements],
+            "cache_local_shape": tuple(k.to_local().shape),
+            "median_step_ms": wall, "launches": launches,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        del params, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+        return report
+    finally:
+        dist.destroy_process_group()
+
+
+def dense_mesh_count():
+    """Phase 14c in a process of its own (started at the phase's start,
+    so its count on the host overlaps the card's work): qwen1p5-32b
+    ``decode_32k`` with ``decode_seq_shard`` on the 16x16 mesh of 256
+    ``fake`` ranks; writes the record to the file named in
+    DENSE_MESH_COUNT."""
+    from repro_torch.configs import SHAPES, get
+    from repro_torch.launch import dryrun
+    t = time.perf_counter()
+    with dryrun.fake_world(256):
+        rec = dryrun.run_cell(get("qwen1p5-32b"), SHAPES["decode_32k"],
+                              {"decode_seq_shard": True}, verbose=False,
+                              mesh=dryrun.production_mesh(False))
+    rec["seconds"] = time.perf_counter() - t
+    with open(os.environ["DENSE_MESH_COUNT"], "w") as f:
+        json.dump(rec, f)
+
+
+def dense_mesh_child():
+    """Ranks 1 and 2 of phase 14b, each in a process of its own; each
+    hands its report to rank 0 through a file."""
+    import pickle
+    tmp, rank = os.environ["DENSE_MESH_DIR"], int(os.environ["DENSE_MESH_RANK"])
+    rep = dense_mesh_rank(rank, tmp, int(os.environ["DENSE_MESH_SEED"]))
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(rep, f)
+
+
+def phase_dense_mesh(seed, card_line):
+    """The dense-cache serve steps on a mesh (A13c) on the card, budget
+    DENSE_MESH_BUDGET_S.
+
+    (a) A world of one over NCCL (``HashStore``) and a (1, 1) ("data",
+    "model") ``DeviceMesh``: minitron-4b at full width and depth through
+    ``make_serve_steps(mesh)``, 8 prompts of 512 then 16 decode steps, in
+    bf16 (B3) and in int8 with ``decode_seq_shard`` (B3 and B2's store):
+    tokens and every step's logits equal the meshless steps' in the same
+    call bit for bit (on a mesh of one device every axis has size 1 and
+    replicates, so no op changes); then one decode step of each side in
+    turns (meshless, mesh, mesh, meshless), wall and device busy ms.
+
+    (b) Three ranks on the one card (ranks 1 and 2 child processes; a
+    gloo group from a ``FileStore``, DTensor's functional collectives
+    over gloo's synchronous ones, ``_gloo_cuda_collectives``), a (1, 3)
+    mesh: qwen1p5-32b's widths at SEQ_SHARD_LAYERS layers, int8 caches
+    split over the sequence (``spec_for``'s own choice: 40 kv heads do
+    not divide 3), 8 prompts of SEQ_SHARD_PROMPT and SEQ_SHARD_STEPS
+    decode steps through B3's partials: every rank's tokens and logits
+    the same bits; against the meshless steps on the same weights the
+    first step's largest logit difference held within
+    TOL_SHARDED_LOGITS_REL, and the share of equal tokens reported, not
+    held (C3: summation order at full width).
+
+    (c) One count on the 16x16 production mesh (256 ranks of the
+    ``fake`` backend, fake tensors, nothing on the card): qwen1p5-32b
+    ``decode_32k`` with ``decode_seq_shard``, in a process of its own
+    that runs beside (a) and (b) (``dense_mesh_count``).
+
+    Returns {path: launches} of the mesh runs of (a) and rank 0's of
+    (b)."""
+    import pickle
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve.serve_loop import make_serve_steps
+    print(f"dense mesh phase: budget {DENSE_MESH_BUDGET_S} s (the whole "
+          "script within 1200 s)")
+    t_phase = time.perf_counter()
+    counts = kernel_counts()
+    paths = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    count_dir = tempfile.mkdtemp(prefix="dense-count-")
+    count_out = os.path.join(count_dir, "count.json")
+    counter = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; "
+         "chip_smoke.dense_mesh_count()"], cwd=ROOT,
+        env=dict(os.environ, DENSE_MESH_COUNT=count_out,
+                 CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.pathsep.join(
+                     [ROOT, os.path.join(ROOT, "src"),
+                      os.environ.get("PYTHONPATH", "")])),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    # --- (a) a world of one, NCCL, (1, 1), minitron-4b at full width ---
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device(DEVICE, 0))
+    try:
+        mesh = make_host_mesh((1, 1), ("data", "model"), device_type=DEVICE)
+        rng = np.random.default_rng(seed + 15)
+        base = dataclasses.replace(get("minitron-4b"), decode_flash=True)
+        params = registry.init(base, seed, device=DEVICE,
+                               dtype=torch.bfloat16)
+        tok = torch.from_numpy(rng.integers(
+            0, base.vocab_size, (N_SLOTS, DENSE_MESH_PROMPT))).to(DEVICE)
+        max_seq = DENSE_MESH_PROMPT + DENSE_MESH_STEPS
+        _, _, _, sh = make_serve_steps(base, N_SLOTS, max_seq, mesh)
+        # the same weights as DTensors (a tree of its own, the leaves
+        # shared: every one replicates on (1, 1)).
+        mparams = place_once(tree_map(lambda _, t: t, params), sh[0])
+        for kv in ("bfloat16", "int8"):
+            cfg = dataclasses.replace(base, kv_cache_dtype=kv,
+                                      decode_seq_shard=kv == "int8")
+            t0, l0, c0, step0, w0 = mesh_steps_run(
+                cfg, params, tok, DENSE_MESH_STEPS, max_seq)
+            reset_counts(counts)
+            t1, l1, c1, step1, w1 = mesh_steps_run(
+                cfg, mparams, tok, DENSE_MESH_STEPS, max_seq, mesh)
+            launches = read_counts(counts)
+            check(torch.equal(t0, t1) and torch.equal(l0, l1),
+                  f"dense mesh (1, 1) [{kv}]: tokens or logits differ from "
+                  "the meshless steps")
+            L = cfg.n_layers
+            check(launches["flash_attention_decode"] == DENSE_MESH_STEPS * L,
+                  f"dense mesh (1, 1) [{kv}]: B3 launches {launches} != "
+                  f"{DENSE_MESH_STEPS} x {L}")
+            if kv == "int8":
+                check(launches["kv_quantize_store"] == DENSE_MESH_STEPS * L,
+                      f"dense mesh (1, 1) [int8]: B2 store launches "
+                      f"{launches}")
+            paths[f"(1, 1) NCCL {kv}"] = launches
+            # one decode step of each side: wall ms in turns, then one
+            # profiled window each for the device's busy ms.
+            turns = {"meshless": [], "(1, 1)": []}
+            for side in ("meshless", "(1, 1)", "(1, 1)", "meshless"):
+                fn = step0 if side == "meshless" else step1
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(3):
+                    fn()
+                turns[side].append((time.perf_counter() - t) / 3 * 1e3)
+            busy = {side: profile_window(fn, 2)["device_busy_ms"]
+                    for side, fn in (("meshless", step0), ("(1, 1)", step1))}
+            del c0, c1
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"dense mesh [(1, 1), NCCL world of 1, minitron-4b 32 "
+                  f"layers, {kv}"
+                  + (", decode_seq_shard" if kv == "int8" else "")
+                  + "]: tokens and logits equal to the meshless steps' bit "
+                  "for bit; " + json.dumps({
+                      "prefill": f"{N_SLOTS} x {DENSE_MESH_PROMPT}",
+                      "decode_steps": DENSE_MESH_STEPS,
+                      "median_step_ms": {"meshless": w0, "(1, 1)": w1},
+                      "step_wall_ms_turns": turns,
+                      "step_device_busy_ms": busy,
+                      "launches": {k: v for k, v in launches.items() if v}})
+                  + f"; {card_line}")
+        del params, mparams
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"dense mesh (a): {time.perf_counter() - t_phase:.1f}s")
+
+    # --- (b) three ranks on one card, gloo, (1, 3), the seq-sharded read ---
+    t = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dense-mesh-")
+    logs, kids = [], []
+    for r in (1, 2):
+        log = open(os.path.join(tmp, f"rank{r}.log"), "w+")
+        env = dict(os.environ, DENSE_MESH_DIR=tmp, DENSE_MESH_RANK=str(r),
+                   DENSE_MESH_SEED=str(seed), PYTHONPATH=os.pathsep.join(
+                       [ROOT, os.path.join(ROOT, "src"),
+                        os.environ.get("PYTHONPATH", "")]))
+        kids.append(subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; "
+             "chip_smoke.dense_mesh_child()"], cwd=ROOT, env=env,
+            stdout=log, stderr=subprocess.STDOUT))
+        logs.append(log)
+    try:
+        try:
+            rep = dense_mesh_rank(0, tmp, seed)
+            rcs = [k.wait(timeout=120) for k in kids]
+        except BaseException:
+            for r, log in zip((1, 2), logs):
+                log.seek(0)
+                print(f"dense mesh: rank {r}'s output:\n"
+                      + log.read()[-4000:])
+            raise
+        for r, (rc, log) in zip((1, 2), zip(rcs, logs)):
+            log.seek(0)
+            check(rc == 0, f"dense mesh: rank {r} exited {rc}:\n"
+                  + log.read()[-4000:])
+        reps = [rep]
+        for r in (1, 2):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                reps.append(pickle.load(f))
+    finally:
+        for k in kids:
+            if k.poll() is None:
+                k.kill()
+                k.wait()
+        for log in logs:
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in reps:
+        print(f"dense mesh (1, 3) rank {r['rank']}: cache spec "
+              f"{r['cache_spec']}, placements {r['cache_placements']}, local "
+              f"shard {r['cache_local_shape']}")
+        check(r["cache_spec"][3] == "model" and r["cache_spec"][2] is None,
+              f"dense mesh (1, 3): the cache's sequence dim does not hold "
+              f"'model': {r['cache_spec']}")
+        check(torch.equal(r["tokens"], reps[0]["tokens"])
+              and torch.equal(r["first"], reps[0]["first"]),
+              f"dense mesh (1, 3): rank {r['rank']}'s tokens or logits "
+              "differ from rank 0's")
+    got, ref = rep, rep["meshless"]
+    launches = rep["launches"]
+    check(launches["flash_attention_decode"]
+          == SEQ_SHARD_STEPS * SEQ_SHARD_LAYERS,
+          f"dense mesh (1, 3): B3 launches {launches} != "
+          f"{SEQ_SHARD_STEPS} x {SEQ_SHARD_LAYERS}")
+    paths["(1, 3) gloo, rank 0"] = launches
+    err = (got["first"] - ref["first"]).abs().max().item()
+    rel = err / ref["first"].abs().max().item()
+    same = float((got["tokens"] == ref["tokens"]).float().mean())
+    same_rows = int((got["tokens"] == ref["tokens"]).all(1).sum())
+    print(f"dense mesh [(1, 3), gloo on one card, qwen1p5-32b widths, "
+          f"{SEQ_SHARD_LAYERS} of 64 layers, int8, decode_seq_shard]: ranks "
+          "identical; " + json.dumps({
+              "prompt": f"{N_SLOTS} x {SEQ_SHARD_PROMPT}",
+              "max_seq": SEQ_SHARD_MAX_SEQ, "decode_steps": SEQ_SHARD_STEPS,
+              "tokens_equal_meshless_share": same,
+              "streams_equal_meshless": f"{same_rows}/{N_SLOTS}",
+              "first_step_logits_max_abs_err": err,
+              "first_step_logits_rel": rel,
+              "median_step_ms": {"meshless": ref["median_step_ms"],
+                                 **{f"rank {r['rank']}": r["median_step_ms"]
+                                    for r in reps}},
+              "peak_gb": [r["peak_gb"] for r in reps],
+              "launches": {k: v for k, v in launches.items() if v}})
+          + f"; {card_line}")
+    check(rel <= TOL_SHARDED_LOGITS_REL,
+          f"dense mesh (1, 3): first decode step's logits {rel:.4g} of the "
+          f"largest from the meshless step's (> {TOL_SHARDED_LOGITS_REL})")
+    print(f"dense mesh (b): {time.perf_counter() - t:.1f}s")
+
+    # --- (c) one count on the 16x16 production mesh (fake ranks) ---
+    try:
+        out, _ = counter.communicate(timeout=120)
+    finally:
+        if counter.poll() is None:
+            counter.kill()
+            counter.wait()
+    check(counter.returncode == 0, f"dense mesh (16x16): the count "
+          f"exited {counter.returncode}:\n{out[-4000:]}")
+    with open(count_out) as f:
+        rec = json.load(f)
+    shutil.rmtree(count_dir, ignore_errors=True)
+    check(rec["collective_bytes_per_device"] > 0,
+          "dense mesh (16x16): no collective counted")
+    print("dense mesh [qwen1p5-32b x decode_32k x 16x16, decode_seq_shard, "
+          "fake tensors at an H100's peaks]: " + json.dumps({
+              k: rec[k] for k in (
+                  "flops_per_device", "bytes_per_device",
+                  "collective_bytes_per_device", "collectives",
+                  "t_compute_s", "t_memory_s", "t_collective_s",
+                  "t_bound_s", "bottleneck")})
+          + f"; counted in {rec['seconds']:.1f}s beside (a) and (b)")
+    spent = time.perf_counter() - t_phase
+    print(f"dense mesh phase: {spent:.1f}s (budget {DENSE_MESH_BUDGET_S} s)")
+    return paths
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5585,6 +6171,7 @@ def main():
     b1 = phase_kernel(gen, card, flush)["main (8 seqs, pos <= 1k, bf16)"]
     b3 = phase_dense_kernel(gen, card, flush)[
         "main (8 slots x 1024, pos 128-1023, bf16)"]
+    phase_seq_shard_kernel(gen, card, flush)
     b2 = phase_quant_kernel(gen, card, flush)
     b2s = phase_store_kernel(gen, card, flush)
     hl = phase_hlslib_kernels(gen, card, flush)
@@ -5613,6 +6200,7 @@ def main():
     phase_roofline(card_line, measured)
     phase_sharded_train(args.seed, unsharded, card_line)
     sharded_paths = phase_sharded_serving(args.seed, card_line)
+    dense_mesh_paths = phase_dense_mesh(args.seed, card_line)
 
     # each kernel's row: its launches on the full-width path that runs it,
     # its numbers at that path's shapes (B2: the store at the decode rows
@@ -5634,6 +6222,9 @@ def main():
     b1_paths.extend(sharded_paths.values())
     b1_paths.append(g3_paths["gemma3-12b paged, speculate_k 4, 2 scratch "
                              "pages per slot"])
+    # and the dense-cache steps on a mesh: (1, 1) over NCCL, rank 0's
+    # sequence-split read on (1, 3).
+    b3_paths.extend(dense_mesh_paths.values())
     rows = {
         "flash_attention_decode_paged": ({
             "flash_attention_decode_paged": sum(

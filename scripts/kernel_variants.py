@@ -313,7 +313,7 @@ def run_b3(gen, flush, stream):
                               c["v"].data_ptr(), c["pos"].data_ptr(),
                               out.data_ptr(), pa.data_ptr(), pm.data_ptr(),
                               b, hq, hkv, S, d, ns, 0, 0, float(d ** -0.5),
-                              1, stream)
+                              1, stream, 0, None, None)
                 assert call() == 0
                 torch.cuda.synchronize()
                 print(f"B3 {case} round {rnd} n_split {ns}: ms "

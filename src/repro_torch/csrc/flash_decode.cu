@@ -41,7 +41,20 @@
 // NEG_INF, l = 0 and weight 0; a row empty in every split writes 0).
 // With n_split == 1 the CTA writes the output itself.  Where two stages of
 // 64-key fp32 tiles would exceed a block's shared memory (fp32 at d =
-// 256), the C call halves the tile.  Not done yet (later work): reading an
+// 256), the C call halves the tile.
+//
+// A cache split over the sequence on a mesh (each rank holds S slots of
+// it) is one more split of the same split-KV scheme.  key_offset is the
+// global position of the shard's first slot: each CTA compares its keys
+// with pos - key_offset, so the mask stays global and a shard that lies
+// wholly past pos visits no tile.  In partials mode (out_acc / out_ml
+// given) nothing is normalised: the shard's own (acc, m, l) per query row
+// are written in fp32, by the CTA itself at n_split == 1 or by the
+// combine kernel, which then takes M = max m_s, l = sum e^(m_s - M) l_s and
+// acc = sum e^(m_s - M) acc_s over the splits.  A row with no valid key in
+// the shard gives m = NEG_INF, l = 0 and acc = 0.  The caller gathers every
+// shard's partials and combines them in a fixed order
+// (kernels/flash_attention.py :: combine_decode_partials).  Not done yet (later work): reading an
 // int8 cache with its scales directly (the caller dequantizes the whole
 // cache first today), TMA copies on an mbarrier.
 
@@ -147,8 +160,10 @@ __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ pos_arr,
                     T* __restrict__ out, float* __restrict__ part_acc,
-                    float* __restrict__ part_ml, int hq, int hkv, int S, int d,
-                    int tile, int window, int ring, float scale) {
+                    float* __restrict__ part_ml, float* __restrict__ out_acc,
+                    float* __restrict__ out_ml, int hq, int hkv, int S, int d,
+                    int tile, int window, int ring, int key_offset,
+                    float scale) {
   extern __shared__ uint4 smem_u4[];
   char* base = reinterpret_cast<char*>(smem_u4);
   const int split = blockIdx.x, n_split = gridDim.x;
@@ -169,7 +184,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarp = kThreads >> 5;
-  const int pos = pos_arr[bi];
+  // the position relative to this shard's first slot (key_offset 0 for a
+  // whole cache; a ring is never split).
+  const int pos = pos_arr[bi] - key_offset;
   const bool is_ring = ring != 0;
 
   // this split's even share of the tiles that can hold a live key.
@@ -321,6 +338,15 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     return;
   }
+  if (out_acc != nullptr) {    // the shard's partials, not normalised
+    const size_t ob = (static_cast<size_t>(bi) * hq + kh * rows);
+    for (int i = tid; i < rows * d; i += kThreads) out_acc[ob * d + i] = acc_s[i];
+    for (int r = tid; r < rows; r += kThreads) {
+      out_ml[(ob + r) * 2] = m_s[r];
+      out_ml[(ob + r) * 2 + 1] = l_s[r];
+    }
+    return;
+  }
   for (int i = tid; i < rows * d; i += kThreads) {
     const int g = i / d, e = i - (i / d) * d;
     float l = l_s[g];
@@ -330,11 +356,13 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // o = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s over the splits of one
-// (sequence, kv head); a row with l = 0 in every split writes 0.
+// (sequence, kv head); a row with l = 0 in every split writes 0.  With
+// out_acc, the sums and M are written unnormalised instead (partials mode).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_combine(const float* __restrict__ part_acc,
                      const float* __restrict__ part_ml, T* __restrict__ out,
+                     float* __restrict__ out_acc, float* __restrict__ out_ml,
                      int hq, int hkv, int d, int n_split) {
   const int kh = blockIdx.x, bi = blockIdx.y;
   const int rows = hq / hkv;
@@ -351,6 +379,15 @@ flash_decode_combine(const float* __restrict__ part_acc,
       den += w * part_ml[r * 2 + 1];
       num += w * part_acc[r * d + e];
     }
+    if (out_acc != nullptr) {
+      const size_t o = static_cast<size_t>(bi) * hq + kh * rows + rr;
+      out_acc[o * d + e] = num;
+      if (e == 0) {
+        out_ml[o * 2] = M;
+        out_ml[o * 2 + 1] = den;
+      }
+      continue;
+    }
     if (den == 0.f) den = 1.f;
     store_f(num / den, &out[(static_cast<size_t>(bi) * hq + kh * rows + rr) * d + e]);
   }
@@ -358,8 +395,9 @@ flash_decode_combine(const float* __restrict__ part_acc,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* pos,
-           void* out, float* part_acc, float* part_ml, int b, int hq, int hkv,
-           int S, int d, int n_split, int window, int ring, float scale,
+           void* out, float* part_acc, float* part_ml, float* out_acc,
+           float* out_ml, int b, int hq, int hkv, int S, int d, int n_split,
+           int window, int ring, int key_offset, float scale,
            cudaStream_t stream) {
   const int rows = hq / hkv;
   int tile = kTileKeys;
@@ -377,12 +415,13 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), pos, static_cast<T*>(out),
-      parts ? part_acc : nullptr, parts ? part_ml : nullptr, hq, hkv, S, d,
-      tile, window, ring, scale);
+      parts ? part_acc : nullptr, parts ? part_ml : nullptr, out_acc, out_ml,
+      hq, hkv, S, d, tile, window, ring, key_offset, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !parts) return static_cast<int>(err);
   flash_decode_combine<T><<<dim3(hkv, b), kThreads, 0, stream>>>(
-      part_acc, part_ml, static_cast<T*>(out), hq, hkv, d, n_split);
+      part_acc, part_ml, static_cast<T*>(out), out_acc, out_ml, hq, hkv, d,
+      n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -393,22 +432,30 @@ extern "C" {
 // Launches on `stream` (with n_split > 1, the split kernel and then the
 // combine kernel); returns cudaGetLastError() after the launches.  bf16:
 // q, k, v and out are bf16 (else fp32).  window <= 0 means no window;
-// ring != 0 needs window > 0 and S == window.  part_acc (b, hkv, n_split,
-// hq / hkv, d) and part_ml (the same rows, 2) are fp32 scratch, unused
-// when n_split == 1.
+// ring != 0 needs window > 0, S == window and key_offset 0.  part_acc
+// (b, hkv, n_split, hq / hkv, d) and part_ml (the same rows, 2) are fp32
+// scratch, unused when n_split == 1.  key_offset: the global position of
+// the cache's first slot.  out_acc (b, hq, d) and out_ml (b, hq, 2), fp32,
+// given together, select partials mode (out unused).
 int flash_decode(const void* q, const void* k, const void* v, const int* pos,
                  void* out, void* part_acc, void* part_ml, int b, int hq,
                  int hkv, int S, int d, int n_split, int window, int ring,
-                 float scale, int bf16, void* stream) {
+                 float scale, int bf16, void* stream, int key_offset,
+                 void* out_acc, void* out_ml) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_split < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_split < 1 || (out_acc == nullptr) != (out_ml == nullptr) ||
+      (ring != 0 && key_offset != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
+  float* oa = static_cast<float*>(out_acc);
+  float* om = static_cast<float*>(out_ml);
   if (bf16)
-    return launch<__nv_bfloat16>(q, k, v, pos, out, pa, pm, b, hq, hkv, S, d,
-                                 n_split, window, ring, scale, s);
-  return launch<float>(q, k, v, pos, out, pa, pm, b, hq, hkv, S, d, n_split,
-                       window, ring, scale, s);
+    return launch<__nv_bfloat16>(q, k, v, pos, out, pa, pm, oa, om, b, hq,
+                                 hkv, S, d, n_split, window, ring, key_offset,
+                                 scale, s);
+  return launch<float>(q, k, v, pos, out, pa, pm, oa, om, b, hq, hkv, S, d,
+                       n_split, window, ring, key_offset, scale, s);
 }
 
 }  // extern "C"

@@ -161,15 +161,46 @@ def placements(spec: Sequence, mesh) -> list:
 def constrain(x, *axes: Optional[str]):
     """Pin ``x`` to the placements of its logical ``axes``: a no-op on a
     plain tensor; a DTensor is redistributed to ``spec_for(axes, its
-    mesh, its shape)`` (shape-aware, so no shard is uneven)."""
+    mesh, its shape)`` (shape-aware, so no shard is uneven).  Its
+    gradient is pinned to them too, as the transpose of the reference's
+    ``with_sharding_constraint`` constrains the cotangent: a gradient
+    left a partial sum over a mesh axis (the residual stream's, from
+    the column-split projections that read it) is reduced there, where
+    DTensor would otherwise carry the partial sum into the next product
+    and gather a weight to compute it whole."""
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
     want = placements(spec_for(axes, x.device_mesh, tuple(x.shape)),
                       x.device_mesh)
-    if list(x.placements) == want:
-        return x
-    return x.redistribute(x.device_mesh, want)
+    if list(x.placements) != want:
+        x = x.redistribute(x.device_mesh, want)
+    return pin_grad(x)
+
+
+def pin_grad(x):
+    """``x`` whose gradient is redistributed to ``x``'s placements (the
+    identity on a plain tensor, or where autograd does not record)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor) and torch.is_grad_enabled() and x.requires_grad:
+        return _PinGrad.apply(x)
+    return x
+
+
+class _PinGrad(torch.autograd.Function):
+    """Identity on a DTensor whose gradient is redistributed to the
+    forward's placements (a partial sum reduced)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = list(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if list(g.placements) == ctx.placements:
+            return g
+        return g.redistribute(g.device_mesh, ctx.placements)
 
 
 def zero_shard_spec(spec: Sequence, shape: Tuple[int, ...], mesh,
@@ -202,7 +233,8 @@ def local_region(fn, args: Sequence, in_axes: Sequence, out_like: Sequence):
     through if it is no tensor; a plain tensor is taken as replicated).
     ``fn`` returns a tensor or a tuple; output ``j`` is a DTensor sharded
     as input ``out_like[j]`` is, or, for an entry ``(i, dims)``, with
-    input ``i``'s dim ``k`` sharding moved to output dim ``dims[k]``.
+    input ``i``'s dim ``k`` sharding moved to output dim ``dims[k]``, or,
+    for a list, with those placements.
     ``fn`` must compute each output's local shard from the local shards
     alone.  The gradient of an input replicated over a mesh dim along
     which an output is sharded is a partial sum there."""
@@ -214,6 +246,8 @@ def local_region(fn, args: Sequence, in_axes: Sequence, out_like: Sequence):
               else a for a, ax in zip(args, in_axes)]
 
     def like(entry):
+        if isinstance(entry, list):
+            return entry
         i, dims = entry if isinstance(entry, tuple) else (entry, None)
         pls = list(placed[i].placements)
         if dims is None:
@@ -263,6 +297,19 @@ class Sharding:
         return distribute_tensor(
             t.detach().to(self.mesh.device_type, copy=True), self.mesh,
             self.placements, src_data_rank=None)
+
+    def abstract(self, shape, dtype: torch.dtype, fake_mode):
+        """A DTensor of logical ``shape`` whose local shard is a tensor
+        without storage made in ``fake_mode`` (the dry-run's)."""
+        from torch.distributed.tensor import DTensor, Shard
+        shape = list(shape)
+        for n, part in enumerate(self.placements):
+            if isinstance(part, Shard):
+                shape[part.dim] //= self.mesh.size(n)
+        with fake_mode:
+            local_t = torch.empty(shape, dtype=dtype)
+        return DTensor.from_local(local_t, self.mesh, self.placements,
+                                  run_check=False)
 
     def zeros(self, shape, dtype: torch.dtype):
         """A DTensor of zeros of logical ``shape``, made shard by shard."""

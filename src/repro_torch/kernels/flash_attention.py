@@ -50,16 +50,44 @@ NEG_INF = -1e30
 F32 = torch.float32
 
 
-def _masked_probs(s, valid):
+def _masked_partials(s, valid):
     """The plain versions' softmax rule, as the kernels apply it: masked
     scores NEG_INF, masked probabilities exactly 0.  Returns the
-    unnormalized probabilities and their row sums, 1 for a row with no
-    valid key (which so outputs 0)."""
+    unnormalized probabilities, their row maxima (NEG_INF for a row with
+    no valid key) and their row sums (0 there)."""
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
-    l = p.sum(dim=-1, keepdim=True)
+    return p, m, p.sum(dim=-1, keepdim=True)
+
+
+def _masked_probs(s, valid):
+    """``_masked_partials``' probabilities and row sums, a row sum of 1
+    for a row with no valid key (which so outputs 0)."""
+    p, _, l = _masked_partials(s, valid)
     return p, torch.where(l == 0, torch.ones_like(l), l)
+
+
+def combine_decode_partials(acc, ml):
+    """Combine the split-KV partials of decode attention, in the order of
+    their first dim: acc (n, ..., d) unnormalised fp32 sums of p·V and ml
+    (n, ..., 2) their (row max, row sum) -> (..., d) fp32, o = sum_i
+    e^(m_i - M) acc_i / sum_i e^(m_i - M) l_i, as B3's combine kernel
+    takes it over its splits.  A part with no valid key (m = NEG_INF,
+    l = 0) weighs nothing; a row empty in every part is 0.  The same
+    inputs give the same bits on every rank."""
+    m, l = ml[..., 0], ml[..., 1]
+    M = m[0]
+    for i in range(1, m.shape[0]):
+        M = torch.maximum(M, m[i])
+    num = den = None
+    for i in range(m.shape[0]):
+        w = torch.exp(m[i] - M)
+        num = w[..., None] * acc[i] if num is None \
+            else num + w[..., None] * acc[i]
+        den = w * l[i] if den is None else den + w * l[i]
+    den = torch.where(den == 0, torch.ones_like(den), den)
+    return num / den[..., None]
 
 
 def _active_pages(pos, sq, n_blocks, page, window, page_base):
@@ -305,13 +333,21 @@ def _check_decode(q, k, window, ring) -> None:
 
 def flash_attention_decode_plain(q, k, v, pos, window: Optional[int] = None,
                                  ring: bool = False,
-                                 scale: Optional[float] = None):
+                                 scale: Optional[float] = None, *,
+                                 key_offset: int = 0, partials: bool = False):
     """Plain PyTorch version of the kernel: same validity rule (ring: all
     slots once pos >= window; else keys <= pos, inside the optional band),
     NEG_INF masking, empty-row (0) and output-dtype rules, computed in
     fp32 as one masked softmax per row instead of the kernel's tile-by-
-    tile online softmax."""
+    tile online softmax.
+
+    ``key_offset``: the global position of the cache's first slot (a
+    shard of a sequence-split cache; the mask stays global).
+    ``partials``: return the shard's (acc (b, hq, d), ml (b, hq, 2)) fp32
+    partials, unnormalised, for ``combine_decode_partials``."""
     _check_decode(q, k, window, ring)
+    if ring and key_offset:
+        raise ValueError("a ring cache is not split over the sequence")
     b, hq, _, d = q.shape
     pos = torch.as_tensor(pos, device=q.device).to(torch.int64).reshape(
         -1).expand(b)
@@ -320,7 +356,7 @@ def flash_attention_decode_plain(q, k, v, pos, window: Optional[int] = None,
     scale = scale if scale is not None else 1.0 / np.sqrt(d)
     qg = q.reshape(b, hkv, group, d).to(F32) * scale
     s = torch.einsum("bhgd,bhkd->bhgk", qg, k.to(F32))   # (b, hkv, g, S)
-    kpos = torch.arange(S, device=q.device)[None, :]
+    kpos = torch.arange(S, device=q.device)[None, :] + int(key_offset)
     p = pos[:, None]
     if ring:
         valid = (kpos <= p) | (p >= window)
@@ -328,6 +364,10 @@ def flash_attention_decode_plain(q, k, v, pos, window: Optional[int] = None,
         valid = kpos <= p
         if window is not None:
             valid &= kpos > p - window
+    if partials:
+        e, m, l = _masked_partials(s, valid[:, None, None, :])
+        acc = torch.einsum("bhgk,bhkd->bhgd", e, v.to(F32))
+        return acc.reshape(b, hq, d), torch.cat([m, l], -1).reshape(b, hq, 2)
     e, l = _masked_probs(s, valid[:, None, None, :])      # (b, 1, 1, S)
     o = torch.einsum("bhgk,bhkd->bhgd", e, v.to(F32)) / l
     return o.reshape(b, hq, 1, d).to(q.dtype)
@@ -337,7 +377,8 @@ def flash_attention_decode_plain(q, k, v, pos, window: Optional[int] = None,
 def _dense_kernel():
     fn = library("flash_decode").flash_decode
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -354,29 +395,35 @@ def dense_splits(b: int, hkv: int, S: int, n_sm: int) -> int:
     return max(1, min(n_tiles, -(-2 * n_sm // (b * hkv))))
 
 
-def _dense_work(q, k, v, pos, window=None, ring=False, scale=None):
+def _dense_work(q, k, v, pos, window=None, ring=False, scale=None,
+                key_offset=0, partials=False):
     """B3's work for the roofline counter: each row's live keys (keys <=
-    pos, inside the band; the whole ring once pos >= window; every slot
-    on fake tensors, whose positions are unknown), K and V of every kv
-    head read once per live key."""
+    pos, inside the band; the whole ring once pos >= window; of a
+    sequence shard, those at its ``key_offset`` and after; every slot on
+    fake tensors, whose positions are unknown), K and V of every kv head
+    read once per live key."""
     b = q.shape[0]
     _, hkv, S, d = k.shape
     if not torch.is_tensor(pos):
         pos = torch.full((b,), int(pos), dtype=torch.int64)
     if _count.is_fake(pos):
         keys = b * S
-    else:
+    elif ring:
         live = (pos.to(torch.int64).reshape(-1).expand(b) + 1).clamp(max=S)
-        if window is not None:
-            live = live.clamp(max=int(window))
-        keys = int(live.sum())
+        keys = int(live.clamp(max=int(window)).sum())
+    else:       # keys in [pos - window + 1, pos] of this cache's slots
+        local = pos.to(torch.int64).reshape(-1).expand(b) - int(key_offset)
+        lo = (local - int(window) + 1).clamp(min=0) if window is not None \
+            else torch.zeros_like(local)
+        keys = int((local.clamp(max=S - 1) - lo + 1).clamp(min=0).sum())
     row = hkv * d * (k.element_size() + v.element_size())
     return _count.decode_attention_work(q, keys, row)
 
 
 @_count.by_formula(_dense_work)
 def flash_attention_decode(q, k, v, pos, window: Optional[int] = None,
-                           ring: bool = False, scale: Optional[float] = None):
+                           ring: bool = False, scale: Optional[float] = None,
+                           *, key_offset: int = 0, partials: bool = False):
     """Single-step (sq == 1) decode attention over dense slot caches.
 
     q: (b, hq, 1, d); k, v: (b, hkv, S, d); pos: (b,) int32, the position
@@ -386,15 +433,26 @@ def flash_attention_decode(q, k, v, pos, window: Optional[int] = None,
     ``window`` applies the (pos - window, pos] band.  Returns (b, hq, 1, d)
     in q's dtype.
 
+    A shard of a cache split over the sequence (a mesh's ``kv_seq`` or
+    ``seq_sharded`` axis) passes ``key_offset``, the global position of
+    its first slot, so the mask stays global; with ``partials`` the call
+    returns the shard's unnormalised (acc (b, hq, d), ml (b, hq, 2))
+    fp32 partials instead, which ``combine_decode_partials`` joins with
+    the other shards' (a shard with no valid key gives m = NEG_INF, l =
+    0).
+
     CPU tensors run the plain version.  CUDA tensors launch the kernel (q,
     k, v all float32 or all bfloat16, contiguous; pos (b,) int32) on the
     current stream, or raise: ``dense_splits`` CTAs share each (slot, kv
-    head), and a second kernel combines their partials.  Each call adds
-    one to ``flash_attention_decode.launches``."""
+    head), and a second kernel combines their partials (into the shard's
+    partials with ``partials``).  Each call adds one to
+    ``flash_attention_decode.launches``."""
     tensors = [q, k, v] + ([pos] if torch.is_tensor(pos) else [])
     if on_cpu("flash_attention_decode", *tensors):
         return flash_attention_decode_plain(q, k, v, pos, window=window,
-                                            ring=ring, scale=scale)
+                                            ring=ring, scale=scale,
+                                            key_offset=key_offset,
+                                            partials=partials)
     req = functools.partial(require, "flash_attention_decode")
     req(q.dim() == 4, f"q must be (b, hq, 1, d), got {tuple(q.shape)}")
     _check_decode(q, k, window, ring)
@@ -410,6 +468,8 @@ def flash_attention_decode(q, k, v, pos, window: Optional[int] = None,
         and tuple(pos.shape) == (b,) and pos.is_contiguous(),
         "pos must be a contiguous (b,) int32 tensor")
     req(window is None or int(window) > 0, "window must be positive")
+    req(not (ring and key_offset), "a ring cache is not split over the "
+        "sequence (key_offset must be 0)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         req(t.is_contiguous() and t.data_ptr() % 16 == 0,
             f"{name} must be contiguous and 16-byte aligned")
@@ -418,7 +478,12 @@ def flash_attention_decode(q, k, v, pos, window: Optional[int] = None,
 
     fn = _dense_kernel()
     scale = scale if scale is not None else 1.0 / np.sqrt(d)
-    out = torch.empty_like(q)
+    out = out_acc = out_ml = None
+    if partials:
+        out_acc = torch.empty((b, hq, d), dtype=F32, device=q.device)
+        out_ml = torch.empty((b, hq, 2), dtype=F32, device=q.device)
+    else:
+        out = torch.empty_like(q)
     n_split = dense_splits(b, hkv, S, _sm_count(q.device.index))
     part_acc = part_ml = None
     if n_split > 1:     # per-split (acc) and (m, l), combined on the card
@@ -428,16 +493,16 @@ def flash_attention_decode(q, k, v, pos, window: Optional[int] = None,
         part_ml = torch.empty((b, hkv, n_split, group, 2), dtype=F32,
                               device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-             out.data_ptr(),
-             part_acc.data_ptr() if part_acc is not None else None,
-             part_ml.data_ptr() if part_ml is not None else None,
-             b, hq, hkv, S, d, n_split,
-             int(window) if window is not None else 0, int(ring),
-             float(scale), int(q.dtype == torch.bfloat16), stream)
+             ptr(out), ptr(part_acc), ptr(part_ml), b, hq, hkv, S, d,
+             n_split, int(window) if window is not None else 0, int(ring),
+             float(scale), int(q.dtype == torch.bfloat16), stream,
+             int(key_offset), ptr(out_acc), ptr(out_ml))
     check_launch("flash_attention_decode", err)
     flash_attention_decode.launches += 1
-    return out
+    return (out_acc, out_ml) if partials else out
 
 
 flash_attention_decode.launches = 0

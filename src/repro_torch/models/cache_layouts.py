@@ -30,13 +30,14 @@ on the card before the first write that would diverge from it.
 
 Sharded serving (``cfg.mesh_shape``): every rank holds its tile of each
 pool leaf (``pool_specs``: kv heads, or MLA's latent dim, over the model
-axis) and pages keep their ids across ranks.  Host payloads stay full
-width whatever the mesh: ``gather_pages`` and ``spill`` gather the tiles
-over the model axis (``full_tile``), ``restore_pages`` cuts a full
-payload down to this rank's tile (``local_tile``), so a payload spilled
-on one mesh restores on another.  Both run under the
-``sharding.manual_axis`` of the model group and are the identity
-without one.
+axis) and pages keep their ids across ranks.  ``gather_pages`` and
+``spill`` give full-width payloads (the tiles gathered over the model
+axis, ``full_tile``), and ``restore_pages`` takes a full payload or this
+rank's tile (``local_tile`` cuts the former), so a payload spilled on
+one mesh restores on another; the serving host tier keeps each rank's
+tile and gathers only for a snapshot (``serve.kv_tiers``).  Both run
+under the ``sharding.manual_axis`` of the model group and are the
+identity without one.
 """
 
 from __future__ import annotations

@@ -43,8 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed.sharding import (constrain, gather_parts, is_dtensor,
-                                    local_region, part_index, psum_parts,
-                                    spec_for)
+                                    local_region, part_index, pin_grad,
+                                    psum_parts, spec_for)
 from ..kernels.kv_quant import (kv_dequantize, kv_quantize,
                                 kv_quantize_store, kv_store_rows)
 from ..roofline import count as _count
@@ -59,8 +59,26 @@ F32 = torch.float32
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
             ) -> torch.Tensor:
     xf = x.to(F32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if is_dtensor(xf) and _split_last(xf):
+        # over a split last dim: the sum of squares reduced to every rank
+        # (left to itself DTensor may scatter the partial mean over the
+        # sequence, and the backward then meets layouts it cannot
+        # propagate).
+        from torch.distributed.tensor import Partial, Replicate
+        var = torch.sum(xf * xf, dim=-1, keepdim=True)
+        var = var.redistribute(var.device_mesh, [
+            Replicate() if isinstance(pl, Partial) else pl
+            for pl in var.placements]) / xf.shape[-1]
+    else:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return ((xf * torch.rsqrt(var + eps)) * (1.0 + w.to(F32))).to(x.dtype)
+
+
+def _split_last(t) -> bool:
+    """Whether a mesh dim splits DTensor ``t``'s last dim."""
+    from torch.distributed.tensor import Shard
+    return any(isinstance(pl, Shard) and pl.dim == t.dim() - 1
+               for pl in t.placements)
 
 
 def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
@@ -395,11 +413,16 @@ def attention_prefill(q, k, v, *, window=None, scale=None,
     return out
 
 
-def attention_decode(q, k, v, kv_valid, scale: Optional[float] = None):
+def attention_decode(q, k, v, kv_valid, scale: Optional[float] = None,
+                     partials: bool = False):
     """Single-step decode attention over a cache.
 
     q: (b, hq, 1, d); k: (b, hkv, S, d); v: (b, hkv, S, dv);
     kv_valid: (b, S) bool or (S,) — which cache slots hold real keys.
+    ``partials`` (one shard of a cache split over the sequence): the
+    unnormalised (acc (b, hq, dv), ml (b, hq, 2)) fp32 partials under the
+    kernels' rule (a shard with no valid key: m = NEG_INF, l = 0), for
+    ``kernels.flash_attention.combine_decode_partials``.
     """
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
@@ -411,6 +434,12 @@ def attention_decode(q, k, v, kv_valid, scale: Optional[float] = None):
         mask = kv_valid[None, None, None, None, :]
     else:
         mask = kv_valid[:, None, None, None, :]
+    if partials:
+        from ..kernels.flash_attention import _masked_partials
+        p, m, l = _masked_partials(s, mask)
+        acc = torch.einsum("bhgqc,bhcv->bhgqv", p, v.to(F32))
+        return (acc.reshape(b, hq, -1),
+                torch.cat([m, l], -1).reshape(b, hq, 2))
     s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqc,bhcv->bhgqv", p, v.to(F32))
@@ -465,6 +494,35 @@ def attention_decls(cfg, stack: Tuple[int, ...] = ()) -> Dict[str, Decl]:
     return decls
 
 
+def split_heads(t, *shape):
+    """``t.reshape(*shape)`` where the last dim of ``t`` (heads x head
+    dim) becomes shape[-2:].  On a mesh a mesh axis that splits that dim
+    but not the head count (24 heads over 16 ranks) is gathered first:
+    DTensor cannot split a head between ranks."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh, last, heads = t.device_mesh, t.dim() - 1, shape[-2]
+        pls = list(t.placements)
+        n = 1
+        for m, pl in enumerate(pls):
+            if isinstance(pl, Shard) and pl.dim == last:
+                n *= mesh.size(m)
+        if heads % n:
+            t = t.redistribute(mesh, [
+                Replicate() if isinstance(pl, Shard) and pl.dim == last
+                else pl for pl in pls])
+    return t.reshape(*shape)
+
+
+def merge_heads(t, *shape):
+    """``t.reshape(*shape)`` where the last two dims of ``t`` (heads,
+    head dim) become one.  On a mesh its gradient keeps the merged
+    tensor's layout: the output projection's backward would hand back a
+    gradient split over the merged dim, which DTensor cannot unflatten
+    into heads that do not divide the mesh axis."""
+    return pin_grad(t.reshape(*shape))
+
+
 def _qkv(cfg, p, x):
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -477,9 +535,9 @@ def _qkv(cfg, p, x):
         q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
         if "bq" in p:
             q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, hq, hd)
-    k = k.reshape(b, s, hkv, hd)
-    v = v.reshape(b, s, hkv, hd)
+    q = split_heads(q, b, s, hq, hd)
+    k = split_heads(k, b, s, hkv, hd)
+    v = split_heads(v, b, s, hkv, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
@@ -537,45 +595,170 @@ def attention_apply(cfg, p, x, *, window: Optional[int] = None,
                               ("batch", None, ka, None)), (0, 1, 2))
         new_cache = {"k": k.transpose(1, 2), "v": v.transpose(1, 2)}
         o = o.transpose(1, 2)
-    else:
-        pos = decode_pos(pos, b, x.device)
-        cs = _rope_angles(pos[:, None, None], cfg.head_dim, theta, x.device)
-        q = _rotate(q, *cs).transpose(1, 2)          # (b, hq, 1, hd)
-        k = _rotate(k, *cs).transpose(1, 2)          # (b, hkv, 1, hd)
-        v = v.transpose(1, 2)
-        S = cache["k"].shape[2]
-        ring = window is not None and S == window
-        if cfg.kv_cache_dtype == "int8":
-            # quantize K and V into their slots: one launch of B2.
-            if store_rows is None:
-                store_rows = dense_store_rows(pos, S, k.shape[1], window)
-            kv_quantize_store(
-                k[:, :, 0].contiguous(), v[:, :, 0].contiguous(),
-                cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
-                store_rows)
-        else:
-            slot = decode_slot(pos, S, window)
-            rows = torch.arange(b, device=x.device)
-            for name, t in _to_cache(cfg, {"k": k[:, :, 0], "v": v[:, :, 0]},
-                                     cache["k"].dtype).items():
-                cache[name][rows, :, slot] = t
-        full = _from_cache(cache, q.dtype)            # (b, hkv, S, hd)
-        if cfg.decode_flash:
-            from ..kernels.flash_attention import flash_attention_decode
-            o = flash_attention_decode(
-                q.contiguous(), full["k"], full["v"],
-                pos.to(torch.int32).contiguous(),
-                window=window if ring else None, ring=ring)
-        else:
-            idx = torch.arange(S, device=x.device)[None, :]
-            valid = idx <= pos[:, None]
-            if ring:
-                valid |= (pos >= window)[:, None]
-            o = attention_decode(q, full["k"], full["v"], valid)
+    elif is_dtensor(cache["k"]):
+        o = _decode_on_mesh(cfg, q, k, v, cache, pos, window, theta)
         new_cache = cache
-    y = o.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
+    else:
+        o = _dense_decode(cfg, q, k, v, cache, decode_pos(pos, b, x.device),
+                          window, theta, store_rows)
+        new_cache = cache
+    y = merge_heads(o.transpose(1, 2), b, s, -1) @ p["wo"]
     y = constrain(y, "batch", None, "embed")
     return x + y, new_cache
+
+
+def mesh_rows(t: torch.Tensor, like, dims: Dict[int, int]):
+    """``t`` (a plain tensor, whole on every rank, or a DTensor) as a
+    DTensor on ``like``'s mesh, split as ``like`` is: ``like``'s tensor
+    dim ``k`` sharded over a mesh dim becomes ``t``'s dim ``dims[k]``
+    sharded over it; every other mesh dim replicates.  Splitting a
+    replicated tensor is a local slice, no collective."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = like.device_mesh
+    want = [Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims
+            else Replicate() for p in like.placements]
+    if not is_dtensor(t):
+        t = DTensor.from_local(t.to(mesh.device_type), mesh,
+                               [Replicate()] * mesh.ndim, run_check=False)
+    return t.redistribute(mesh, want)
+
+
+def shard_index(t, dim: int) -> Tuple[int, int]:
+    """(index, count) of this rank's shard of DTensor ``t`` along tensor
+    dim ``dim``: row-major over the mesh dims that split it, in mesh-dim
+    order, as DTensor lays the shards out."""
+    from torch.distributed.tensor import Shard
+    mesh = t.device_mesh
+    idx, n = 0, 1
+    for m, p in enumerate(t.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            idx = idx * mesh.size(m) + mesh.get_local_rank(m)
+            n *= mesh.size(m)
+    return idx, n
+
+
+def _masked_write_work(dst, index, new, keep):
+    """The rows a masked write moves: the old rows read, the new read and
+    written (the whole ``dst`` is not read, as a gather's count would
+    have it)."""
+    return 0.0, 3.0 * new.numel() * new.element_size()
+
+
+@_count.by_formula(_masked_write_work)
+def masked_row_write(dst, index, new, keep):
+    """``dst[index] = new`` where ``keep``, the old value elsewhere: the
+    drop-mode write of a row whose slot lies in another rank's shard (a
+    mask, never an out-of-range index).  In place."""
+    dst[index] = torch.where(keep, new, dst[index])
+
+
+def _dense_decode(cfg, q, k, v, cache, pos, window, theta, store_rows=None,
+                  seq=(0, 1), S=None):
+    """A dense decode step's attention on plain tensors: rope at the (b,)
+    positions ``pos``, the step's K/V written into ``cache`` (b, hkv, S,
+    hd) in place, then the read.  q, k, v: (b, 1, h, hd).  Returns o (b,
+    hq, 1, hd).
+
+    ``seq`` = (index, count): ``cache`` is shard ``index`` of ``count``
+    along the sequence of a cache of ``S`` slots.  The write then goes to
+    this shard only (the slot shifted by the shard's first one, a row
+    whose slot lies elsewhere dropped by a mask, never an out-of-range
+    index: B2's store drops its row), and the read returns the shard's
+    split-KV partials (acc (b, hq, hd), ml (b, hq, 2)) with the global
+    key offset, from B3 or the plain read, for
+    ``kernels.flash_attention.combine_decode_partials``."""
+    b = q.shape[0]
+    S_l = cache["k"].shape[2]
+    S = S or S_l
+    off = seq[0] * S_l
+    ring = window is not None and S == window
+    cs = _rope_angles(pos[:, None, None], cfg.head_dim, theta, q.device)
+    q = _rotate(q, *cs).transpose(1, 2)              # (b, hq, 1, hd)
+    k = _rotate(k, *cs).transpose(1, 2)              # (b, hkv, 1, hd)
+    v = v.transpose(1, 2)
+    slot = decode_slot(pos, S, window) - off
+    keep = None
+    if seq[1] > 1:
+        keep = (slot >= 0) & (slot < S_l)
+        slot = slot.clamp(0, S_l - 1)
+    rows = torch.arange(b, device=q.device)
+    if cfg.kv_cache_dtype == "int8":
+        # quantize K and V into their slots: one launch of B2.
+        if store_rows is None:
+            store_rows = kv_store_rows(rows, slot, k.shape[1], S_l, keep)
+        kv_quantize_store(
+            k[:, :, 0].contiguous(), v[:, :, 0].contiguous(),
+            cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
+            store_rows)
+    else:
+        for name, t in _to_cache(cfg, {"k": k[:, :, 0], "v": v[:, :, 0]},
+                                 cache["k"].dtype).items():
+            if keep is None:
+                cache[name][rows, :, slot] = t
+            else:
+                masked_row_write(cache[name], (rows, slice(None), slot), t,
+                                 keep[:, None, None])
+    full = _from_cache(cache, q.dtype)               # (b, hkv, S_l, hd)
+    if cfg.decode_flash:
+        from ..kernels.flash_attention import flash_attention_decode
+        return flash_attention_decode(
+            q.contiguous(), full["k"], full["v"],
+            pos.to(torch.int32).contiguous(),
+            window=window if ring else None, ring=ring, key_offset=off,
+            partials=seq[1] > 1)
+    kpos = torch.arange(S_l, device=q.device)[None, :] + off
+    valid = kpos <= pos[:, None]
+    if ring:
+        valid |= (pos >= window)[:, None]
+    return attention_decode(q, full["k"], full["v"], valid,
+                            partials=seq[1] > 1)
+
+
+def _decode_on_mesh(cfg, q, k, v, cache, pos, window, theta):
+    """A dense decode step's attention on a ``DeviceMesh``:
+    ``_dense_decode`` on each rank's local shards (``local_region``),
+    with the cache's placements.  q, k, v: (b, 1, h, hd) DTensors, taken
+    to the cache's batch and kv-head splits (q's heads with its kv heads'
+    groups).  Where the cache splits over the sequence (``kv_seq`` or
+    ``seq_sharded``) each rank's shard is one more split of split-KV:
+    ``combine_gathered``.  Returns o (b, hq, 1, hd) as a DTensor."""
+    from ..kernels.flash_attention import combine_decode_partials
+    ck = cache["k"]
+    b, S = ck.shape[0], ck.shape[2]
+    seq = shard_index(ck, 2)
+    names = list(cache)
+    ins = [mesh_rows(t, ck, {0: 0, 1: 2}) for t in (q, k, v)] + [
+        mesh_rows(decode_pos(pos, b, ck.device_mesh.device_type), ck,
+                  {0: 0})] + [cache[n] for n in names]
+    free = [None] * len(ins)
+
+    def local(q, k, v, pos, *leaves):
+        out = _dense_decode(cfg, q, k, v, dict(zip(names, leaves)), pos,
+                            window, theta, seq=seq, S=S)
+        return out if seq[1] == 1 else tuple(t[None] for t in out)
+
+    ik = 4 + names.index("k")
+    if seq[1] == 1:
+        return local_region(local, ins, free, [(ik, {0: 0, 1: 1})])
+    parts = local_region(local, ins, free, [(ik, {2: 0, 0: 1, 1: 2})] * 2)
+    return combine_gathered(
+        lambda acc, ml: combine_decode_partials(acc, ml).to(q.dtype)[
+            :, :, None], parts, (), {1: 0, 2: 1})
+
+
+def combine_gathered(fn, parts, extra, dims):
+    """Split-KV partials of a sequence-split cache, (acc, ml) DTensors
+    split on their leading dim over the sequence's mesh dims, gathered to
+    every rank (an all-gather in group-rank order), then ``fn(acc, ml,
+    *extra)`` on the local shards: it combines them in fp32 in that
+    order (``combine_decode_partials``), so every replica holds the same
+    bits.  The output is sharded as acc is, its dim ``k`` moved to
+    ``dims[k]``."""
+    from torch.distributed.tensor import Replicate, Shard
+    whole = [Replicate() if p == Shard(0) else p for p in parts[0].placements]
+    acc, ml = (t.redistribute(t.device_mesh, whole) for t in parts)
+    args = (acc, ml, *extra)
+    return local_region(fn, args, [None] * len(args), [(0, dims)])
 
 
 def head_axes(cfg, q) -> Tuple[Optional[str], Optional[str]]:
@@ -606,15 +789,15 @@ def cross_attention_apply(cfg, p, x, cond):
     lc = cond.shape[1]
     hq, hd = cfg.n_heads, cfg.head_dim
     h = rmsnorm(x, p["norm"])
-    q = (h @ p["wq"]).reshape(b, s, hq, hd).transpose(1, 2)
-    k = (cond @ p["wk"]).reshape(b, lc, hq, hd).transpose(1, 2)
-    v = (cond @ p["wv"]).reshape(b, lc, hq, hd).transpose(1, 2)
+    q = split_heads(h @ p["wq"], b, s, hq, hd).transpose(1, 2)
+    k = split_heads(cond @ p["wk"], b, lc, hq, hd).transpose(1, 2)
+    v = split_heads(cond @ p["wv"], b, lc, hq, hd).transpose(1, 2)
     heads = ("batch", "heads", None, None)
     o = local_region(
         lambda q, k, v: attention_decode(
             q, k, v, torch.ones(lc, dtype=torch.bool, device=q.device)),
         (q, k, v), (heads, heads, heads), (0,))
-    y = o.transpose(1, 2).reshape(b, s, hq * hd) @ p["wo"]
+    y = merge_heads(o.transpose(1, 2), b, s, hq * hd) @ p["wo"]
     return x + constrain(y, "batch", None, "embed")
 
 
@@ -879,9 +1062,20 @@ def attention_paged_cache_decl(cfg, n_pages: int, page_size: int
 
 def attention_cache_decl(cfg, batch: int, max_seq: int,
                          window: Optional[int] = None) -> Dict[str, Decl]:
+    """One layer's dense slot cache, (batch, hkv, S, hd) per leaf.  On a
+    mesh its sequence dim may split, as the reference's: over "model"
+    (``kv_seq``) with ``cfg.decode_seq_shard``, where the kv heads leave
+    that axis free, or over "data" (``seq_sharded``) at batch 1, the
+    long-context cells; a sliding-window cache never splits."""
     S = min(max_seq, window) if window else max_seq
+    if window is None and cfg.decode_seq_shard:
+        seq_ax = "kv_seq"
+    elif window is None and batch == 1:
+        seq_ax = "seq_sharded"
+    else:
+        seq_ax = None
     return _kv_leaves(cfg, (batch, cfg.n_kv_heads, S, cfg.head_dim),
-                      ("batch", "kv_heads", None, None))
+                      ("batch", "kv_heads", seq_ax, None))
 
 
 def _kv_quantize(t: torch.Tensor):
@@ -945,32 +1139,83 @@ def mla_latent(cfg, p, x):
     b, s, _ = x.shape
     lora = cfg.kv_lora_rank
     h = rmsnorm(x, p["norm"])
-    q = (h @ p["wq"]).reshape(b, s, cfg.n_heads,
-                              cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q = split_heads(h @ p["wq"], b, s, cfg.n_heads,
+                    cfg.qk_nope_dim + cfg.qk_rope_dim)
     dkv = h @ p["w_dkv"]
     return q, rmsnorm(dkv[..., :lora], p["kv_norm"]), dkv[..., lora:]
 
 
-def _mla_absorbed(cfg, p, q_nope, q_rope, CC, CR, valid, dtype):
+def _mla_absorbed(cfg, p, q_nope, q_rope, CC, CR, valid, dtype,
+                  partials: bool = False):
     """Absorbed attention on the latent rows: q_nope (b, s, hq, nope) is
     folded through w_uk into the latent space, scored against CC (b, S,
     lora) fp32 plus q_rope against the shared rope head CR (b, S, rope),
     masked by ``valid`` (b, s, S) and read back through w_uv.  Returns
-    (b, s, hq * vd) in ``dtype``."""
-    hq, nope, lora, vd = (cfg.n_heads, cfg.qk_nope_dim, cfg.kv_lora_rank,
-                          cfg.v_head_dim)
-    b, s = q_nope.shape[:2]
-    w_uk = p["w_uk"].reshape(lora, hq, nope).to(F32)
+    (b, s, hq * vd) in ``dtype``.  With ``partials`` (one decode token,
+    s = 1) the rows are one split of split-KV: returns its unnormalised
+    (acc (b, hq, lora), ml (b, hq, 2)) over the latent rows, for
+    ``combine_decode_partials`` and then ``_mla_read_back``."""
+    nope = cfg.qk_nope_dim
+    hq = q_nope.shape[2]              # this shard's heads on a mesh
+    w_uk = p["w_uk"].reshape(cfg.kv_lora_rank, hq, nope).to(F32)
     q_eff = torch.einsum("bshn,lhn->bshl", q_nope.to(F32), w_uk)
     logits = (torch.einsum("bshl,bSl->bhsS", q_eff, CC)
               + torch.einsum("bshr,bSr->bhsS", q_rope.to(F32), CR)) \
         / float(np.sqrt(nope + cfg.qk_rope_dim))
+    if partials:
+        from ..kernels.flash_attention import _masked_partials
+        pr, m, l = _masked_partials(logits, valid[:, None])
+        acc = torch.einsum("bhsS,bSl->bhsl", pr, CC)[:, :, 0]
+        return acc, torch.cat([m, l], -1)[:, :, 0]
     logits = logits.masked_fill(~valid[:, None], float("-inf"))
     probs = torch.softmax(logits, -1)
     ctx = torch.einsum("bhsS,bSl->bshl", probs, CC)
-    w_uv = p["w_uv"].reshape(lora, hq, vd).to(F32)
+    return _mla_read_back(cfg, p["w_uv"], ctx, dtype)
+
+
+def _mla_read_back(cfg, w_uv, ctx, dtype):
+    """The latent context ctx (b, s, hq, lora) fp32 read back through
+    w_uv: (b, s, hq * vd) in ``dtype``."""
+    b, s, hq, lora = ctx.shape
+    w_uv = w_uv.reshape(lora, hq, cfg.v_head_dim).to(F32)
     o = torch.einsum("bshl,lhv->bshv", ctx, w_uv).to(dtype)
-    return o.reshape(b, s, hq * vd)
+    return o.reshape(b, s, hq * cfg.v_head_dim)
+
+
+def _mla_decode(cfg, p, q, c_kv, k_rope_raw, cache, pos, dtype,
+                seq=(0, 1), S=None):
+    """MLA's absorbed decode step on plain tensors: rope at the (b,)
+    positions ``pos``, the step's latent row (c_kv (b, 1, lora), the
+    un-rotated k_rope (b, 1, rope)) written into ``cache`` {"c_kv",
+    "k_rope"} (b, S, .) in place at ``decode_slot`` (clamped, as the
+    reference's dynamic_update_slice), keys ``<= pos`` valid.  Returns
+    (b, 1, hq * vd).  ``seq`` = (index, count) as ``_dense_decode``
+    takes it: the write goes to this shard only (a masked row, never an
+    out-of-range index) and the read returns the shard's split-KV
+    partials over the latent rows (``_mla_absorbed``)."""
+    nope = cfg.qk_nope_dim
+    cc, cr = cache["c_kv"], cache["k_rope"]
+    b, S_l = cc.shape[:2]
+    S = S or S_l
+    off = seq[0] * S_l
+    q_nope = q[..., :nope]
+    q_rope = rope(q[..., nope:], pos[:, None, None], cfg.rope_theta)
+    k_rope = rope(k_rope_raw, pos[:, None], cfg.rope_theta)  # (b, 1, rp)
+    rows = torch.arange(b, device=cc.device)
+    slot = decode_slot(pos, S) - off
+    if seq[1] == 1:
+        cc[rows, slot] = c_kv[:, 0].to(cc.dtype)
+        cr[rows, slot] = k_rope[:, 0].to(cr.dtype)
+    else:
+        keep = (slot >= 0) & (slot < S_l)
+        slot = slot.clamp(0, S_l - 1)
+        for dst, new in ((cc, c_kv[:, 0]), (cr, k_rope[:, 0])):
+            masked_row_write(dst, (rows, slot), new.to(dst.dtype),
+                             keep[:, None])
+    valid = ((torch.arange(S_l, device=cc.device)[None, :] + off)
+             <= pos[:, None])[:, None, :]                   # (b, 1, S_l)
+    return _mla_absorbed(cfg, p, q_nope, q_rope, cc.to(F32), cr.to(F32),
+                         valid, dtype, partials=seq[1] > 1)
 
 
 def mla_apply(cfg, p, x, *, cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -980,12 +1225,11 @@ def mla_apply(cfg, p, x, *, cache: Optional[Dict[str, torch.Tensor]] = None,
     the config's tiles and ``attn_block_skip``: ``train`` through
     ``attention_blocked``, prefill through ``attention_prefill``; fp32
     probabilities, as the reference's MLA never sets ``attn_p_bf16``);
-    else absorbed single-token decode on the compressed cache: ``cache``
-    holds c_kv (b, S, lora) and k_rope (b, S, rope), bf16, written in
-    place at ``decode_slot`` (clamped, as the reference's
-    dynamic_update_slice), and ``pos`` is a (b,) tensor or a host int —
-    each row decodes at its own position, keys ``<= pos`` valid, as the
-    reference's vmap over slots does.  Returns (y, cache); without a
+    else absorbed single-token decode on the compressed cache
+    (``_mla_decode``): ``cache`` holds c_kv (b, S, lora) and k_rope (b,
+    S, rope), bf16, written in place, and ``pos`` is a (b,) tensor or a
+    host int — each row decodes at its own position, as the reference's
+    vmap over slots does.  Returns (y, cache); without a
     cache, the second item is the latent rows a prefill emits, {"c_kv"
     (b, s, lora), "k_rope" (b, s, rope) rotated}, for
     ``mla_emit_latent``."""
@@ -994,8 +1238,8 @@ def mla_apply(cfg, p, x, *, cache: Optional[Dict[str, torch.Tensor]] = None,
                         cfg.v_head_dim)
     q, c_kv, k_rope_raw = mla_latent(cfg, p, x)
     if cache is None:
-        k_nope = (c_kv @ p["w_uk"]).reshape(b, s, hq, nope)
-        vv = (c_kv @ p["w_uv"]).reshape(b, s, hq, vd)
+        k_nope = split_heads(c_kv @ p["w_uk"], b, s, hq, nope)
+        vv = split_heads(c_kv @ p["w_uv"], b, s, hq, vd)
         tiles = dict(scale=1.0 / np.sqrt(nope + rp),
                      block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
                      block_skip=cfg.attn_block_skip)
@@ -1021,25 +1265,67 @@ def mla_apply(cfg, p, x, *, cache: Optional[Dict[str, torch.Tensor]] = None,
         o, k_rope = local_region(core, (q, k_rope_raw, k_nope, vv),
                                  (heads, ("batch", None, None), heads, heads),
                                  (0, 1))
-        o = o.reshape(b, s, -1)
+        o = merge_heads(o, b, s, -1)
         new_cache = {"c_kv": c_kv, "k_rope": k_rope}
+    elif is_dtensor(cache["c_kv"]):
+        o = _mla_decode_on_mesh(cfg, p, q, c_kv, k_rope_raw, cache, pos,
+                                x.dtype)
+        new_cache = cache
     else:
-        pos = decode_pos(pos, b, x.device)
-        q_nope = q[..., :nope]
-        q_rope = rope(q[..., nope:], pos[:, None, None], cfg.rope_theta)
-        k_rope = rope(k_rope_raw, pos[:, None], cfg.rope_theta)  # (b, 1, rp)
-        cc, cr = cache["c_kv"], cache["k_rope"]
-        S = cc.shape[1]
-        rows = torch.arange(b, device=x.device)
-        slot = decode_slot(pos, S)
-        cc[rows, slot] = c_kv[:, 0].to(cc.dtype)
-        cr[rows, slot] = k_rope[:, 0].to(cr.dtype)
-        valid = (torch.arange(S, device=x.device)[None, :]
-                 <= pos[:, None])[:, None, :]              # (b, 1, S)
-        o = _mla_absorbed(cfg, p, q_nope, q_rope, cc.to(F32), cr.to(F32),
-                          valid, x.dtype)
+        o = _mla_decode(cfg, p, q, c_kv, k_rope_raw, cache,
+                        decode_pos(pos, b, x.device), x.dtype)
         new_cache = cache
     return x + constrain(o @ p["wo"], "batch", None, "embed"), new_cache
+
+
+def _mla_decode_on_mesh(cfg, p, q, c_kv, k_rope_raw, cache, pos, dtype):
+    """MLA's absorbed decode step on a ``DeviceMesh``: ``_mla_decode`` on
+    each rank's local shards (``local_region``): the latent cache
+    {"c_kv", "k_rope"} (b, S, .) with its placements (rows over the
+    batch axes, the sequence over "data" at batch 1), q with its heads as
+    they split.  A sequence-split cache's partials over the latent rows
+    go through ``combine_gathered``, then are read back through
+    ``w_uv``.  Returns (b, 1, hq * vd) as a DTensor."""
+    from torch.distributed.tensor import Replicate, Shard
+    from ..kernels.flash_attention import combine_decode_partials
+    cc = cache["c_kv"]
+    mesh = cc.device_mesh
+    b, S = cc.shape[:2]
+    seq = shard_index(cc, 1)
+
+    # q: the cache's row split, else its own head split; the step's
+    # latent rows as q's rows; the weights split as q's heads.
+    q_pl = [Shard(0) if isinstance(pc, Shard) and pc.dim == 0
+            else Replicate() if isinstance(pc, Shard)
+            else pq if isinstance(pq, Shard) and pq.dim == 2
+            else Replicate() for pc, pq in zip(cc.placements, q.placements)]
+    rows_pl = [pq if pq == Shard(0) else Replicate() for pq in q_pl]
+    w_pl = [Shard(1) if pq == Shard(2) else Replicate() for pq in q_pl]
+    ins = [q.redistribute(mesh, q_pl),
+           *(t.redistribute(mesh, rows_pl) for t in (c_kv, k_rope_raw)),
+           mesh_rows(decode_pos(pos, b, mesh.device_type), cc, {0: 0}),
+           *(p[n].redistribute(mesh, w_pl) for n in ("w_uk", "w_uv")),
+           cc, cache["k_rope"]]
+    free = [None] * len(ins)
+
+    def local(q, c_kv, k_rope_raw, pos, w_uk, w_uv, cc, cr):
+        out = _mla_decode(cfg, {"w_uk": w_uk, "w_uv": w_uv}, q, c_kv,
+                          k_rope_raw, {"c_kv": cc, "k_rope": cr}, pos,
+                          dtype, seq=seq, S=S)
+        return out if seq[1] == 1 else tuple(t[None] for t in out)
+
+    if seq[1] == 1:
+        return local_region(local, ins, free, (0,))
+    # the partials: the sequence's mesh dims on a leading dim, q's rows
+    # and heads on the next two.
+    part_pl = [Shard(0) if pc == Shard(1) else Shard(pq.dim // 2 + 1)
+               if isinstance(pq, Shard) else Replicate()
+               for pc, pq in zip(cc.placements, q_pl)]
+    parts = local_region(local, ins, free, [part_pl, part_pl])
+    return combine_gathered(
+        lambda acc, ml, w_uv: _mla_read_back(
+            cfg, w_uv, combine_decode_partials(acc, ml)[:, None], dtype),
+        parts, (ins[5],), {1: 0, 2: 2})
 
 
 def mla_emit_latent(latent, cache_len: Optional[int] = None):

@@ -124,15 +124,19 @@ def mamba2_apply(cfg, p, x, *, cache: Optional[Dict] = None,
         x_ssm = constrain(x_ssm, "batch", None, "ssm_heads", None)
         args = (x_ssm.to(F32).contiguous(), dt.contiguous(), A,
                 B.to(F32).contiguous(), C.to(F32).contiguous())
+        axes = (("batch", None, "ssm_heads", None),
+                ("batch", None, "ssm_heads"), ("ssm_heads",),
+                ("batch", None, None), ("batch", None, None))
         if not emit_cache:
             y = local_region(
                 lambda *a: ops.ssd(*a, chunk=cfg.ssm_chunk,
                                    use_pallas=cfg.use_pallas), args,
-                (("batch", None, "ssm_heads", None),
-                 ("batch", None, "ssm_heads"), ("ssm_heads",),
-                 ("batch", None, None), ("batch", None, None)), (0,))
+                axes, (0,))
             return _out(cfg, p, x, y, x_ssm, z), None
-        y, ssd_state = ref.ssd_chunked_batch(*args, chunk=cfg.ssm_chunk)
+        # the final state (b, h, ds, hd) splits as x's rows and heads.
+        y, ssd_state = local_region(
+            lambda *a: ref.ssd_chunked_batch(*a, chunk=cfg.ssm_chunk), args,
+            axes, (0, (0, (0, 1, 1, 3))))
         return _out(cfg, p, x, y, x_ssm, z), {"conv": conv_state,
                                               "ssd": ssd_state}
     # decode: the conv shift register + the O(1) state update, in fp32.

@@ -61,7 +61,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..distributed.sharding import constrain, gather_parts
+from ..distributed.sharding import (constrain, gather_parts, is_dtensor,
+                                    local_region)
 from . import layers as L
 from . import ssm as S
 from .params import Decl, stack_decls, tree_leaves, tree_map
@@ -225,10 +226,15 @@ def _embed_input(cfg, params, batch) -> torch.Tensor:
         for c in range(1, cfg.n_codebooks):
             x = x + emb[c][tok[..., c]]
         return x.to(dtype)
-    # on a mesh the table is gathered over its vocab shards first:
-    # DTensor's vocab-sharded lookup (a masked partial sum) has no
-    # backward.
-    x = constrain(params["embed"], None, "embed")[tok]
+    # on a mesh a differentiable lookup gathers the table over its vocab
+    # shards first: DTensor's vocab-sharded lookup (a masked partial sum,
+    # reduced over the vocab shards at the next ``constrain``) has no
+    # backward.  Serving takes the latter.
+    emb = params["embed"]
+    if is_dtensor(emb) and not torch.is_grad_enabled():
+        x = torch.nn.functional.embedding(tok, emb)
+    else:
+        x = constrain(emb, None, "embed")[tok]
     if cfg.local_global_pattern or cfg.family == "vlm":
         # gemma scaling: the reference multiplies by an np.float32 scalar,
         # which promotes to float32, and rounds to the model dtype after.
@@ -244,7 +250,20 @@ def _emit_kv(cfg, kv, window, cache_len, last_pos):
     """The K/V a prefill emits into a dense cache from the block's rotated
     {"k", "v"} (b, hkv, s, hd), as ``attention_apply`` returns them
     without a cache: padded to the cache length, or a ring for a
-    sliding-window cache."""
+    sliding-window cache.  On a mesh, on each rank's rows and heads
+    (the leaves split as ``kv["k"]``)."""
+    if is_dtensor(kv["k"]):
+        if last_pos is not None:
+            last_pos = L.mesh_rows(last_pos, kv["k"], {0: 0})
+        names = ("k", "v", "k_scale", "v_scale") \
+            if cfg.kv_cache_dtype == "int8" else ("k", "v")
+        out = local_region(
+            lambda k, v, lp: tuple(_emit_kv(cfg, {"k": k, "v": v}, window,
+                                            cache_len, lp)[n]
+                                   for n in names),
+            (kv["k"], kv["v"], last_pos), (None, None, None),
+            (0,) * len(names))
+        return dict(zip(names, out))
     k, v = kv["k"], kv["v"]
     b, s = k.shape[0], k.shape[2]
     device = k.device
@@ -368,7 +387,12 @@ def forward(cfg, params, batch, mode: str = "train",
             x = torch.gather(x, 1, idx)
         else:
             x = x[:, -1:]
-    if cfg.family == "audio":
+    if cfg.family == "audio" and is_dtensor(x):
+        # a product per codebook: DTensor has no sharding rule for the
+        # einsum's batched product over a vocab-split table.
+        logits = torch.stack([x @ params["unembed"][c]
+                              for c in range(cfg.n_codebooks)], dim=2)
+    elif cfg.family == "audio":
         logits = torch.einsum("bsd,kdv->bskv", x, params["unembed"])
     else:
         logits = x @ params["unembed"]
@@ -499,8 +523,9 @@ def _write_index(cfg, block_tab, pools, page_axis, s, ring, span):
 def _dense_store_rows(cfg, mode, cache, pos, b, window, device):
     """An int8 dense decode step's store rows (the same in every layer of
     one cache leaf shape), or None."""
-    if mode != "decode" or cfg.kv_cache_dtype != "int8":
-        return None
+    if mode != "decode" or cfg.kv_cache_dtype != "int8" \
+            or is_dtensor(cache["k"]):
+        return None                   # a mesh's ranks take their own
     hkv, S = cache["k"].shape[-3:-1]
     return L.dense_store_rows(L.decode_pos(pos, b, device), S, hkv, window)
 

@@ -1,17 +1,18 @@
 """Roofline terms of a counted step (port of ``roofline/analysis.py``)
-for one H100.
+at H100 rates.
 
     compute    = FLOPs (per device) / PEAK_BF16_FLOPS
     memory     = bytes (per device) / HBM_BW
     collective = collective bytes (per device) / NVLINK_BW
 
-FLOPs and bytes come from ``count.Counter`` (the port's counterpart of
-the reference's HLO walker), which sees one device's work, so no
-division by chips.  The reference's ``collective_bytes`` parses XLA's
-HLO text for collectives; eager PyTorch has no such text, and one card
-runs no collective, so it has no counterpart here and the collective
-term is 0.  MODEL_FLOPS uses 6·N·D (train) or 2·N·D (inference), N =
-active parameters.
+FLOPs, bytes and collective bytes come from ``count.Counter`` (the
+port's counterpart of the reference's HLO walker), which counts one
+device's work -- on a mesh, the local shards' ops and the collectives
+the step issues, by kind -- so nothing is divided by chips.  At one
+device no collective runs and that term is 0.  The counts are of fake
+tensors at the card's published rates: bounds, not measured times.
+MODEL_FLOPS uses 6·N·D (train) or 2·N·D (inference), N = active
+parameters.
 """
 
 from __future__ import annotations
@@ -113,7 +114,7 @@ def analyze(counts, cfg, shape, mesh_name: str, n_chips: int,
     single temporary (the counter has no liveness analysis, so this is
     a floor of the peak, not XLA's buffer assignment)."""
     from . import count
-    coll = {k: 0 for k in _COLLECTIVES}
+    coll = {k: int(counts.coll.get(k, 0)) for k in _COLLECTIVES}
     coll["total"] = int(counts.coll.get("total", 0))
     roof = Roofline(
         arch=cfg.name, shape=shape.name, mesh=mesh_name,

@@ -28,7 +28,18 @@ The byte model describes a *fused* implementation -- the traffic of a
 program whose elementwise chains live in registers between products and
 reductions, as XLA's fusions and the reference's walker assume -- not
 the eager port's real traffic, in which every elementwise op reads and
-writes memory.  ``coll`` stays 0: one device runs no collective.
+writes memory.
+
+On a ``DeviceMesh`` the counter counts one device: an op on DTensors is
+left to DTensor (the mode defers to it), which runs the op on the local
+shards, and those local ops come back through the counter; the global
+shape inference DTensor runs on a cache miss of its sharding propagation
+is not counted.  ``coll`` counts the bytes per device of each collective
+the dispatcher shows, by the reference walker's kinds (``hlo_walk.py``):
+``all-reduce``, ``reduce-scatter`` and ``all-to-all`` their operand,
+``all-gather`` its result, and ``collective-permute`` the operand of
+each point-to-point send (GPipe's ``ppermute``); ``coll["total"]`` sums
+them.  One device runs none, so there every term is 0.
 
 Some functions are counted by formula instead (``by_formula``): loops
 too long to trace op by op (the blocked attention of
@@ -122,6 +133,43 @@ def op_bytes(func, args, kwargs, out) -> float:
     return float(sum(map(_nbytes, ins)) + sum(map(_nbytes, _tensors(out))))
 
 
+# collectives by (namespace, op) -> (the reference's kind, whether the
+# result's bytes count rather than the operand's).
+_COLLECTIVE_OPS = {
+    ("_c10d_functional", "all_reduce"): ("all-reduce", False),
+    ("_c10d_functional", "all_reduce_"): ("all-reduce", False),
+    ("_c10d_functional", "all_gather_into_tensor"): ("all-gather", True),
+    ("_c10d_functional", "reduce_scatter_tensor"): ("reduce-scatter", False),
+    ("_c10d_functional", "all_to_all_single"): ("all-to-all", False),
+    ("c10d", "allreduce_"): ("all-reduce", False),
+    ("c10d", "allgather_"): ("all-gather", True),
+    ("c10d", "_allgather_base_"): ("all-gather", True),
+    ("c10d", "reduce_scatter_"): ("reduce-scatter", False),
+    ("c10d", "_reduce_scatter_base_"): ("reduce-scatter", False),
+    ("c10d", "alltoall_"): ("all-to-all", False),
+    ("c10d", "alltoall_base_"): ("all-to-all", False),
+    ("c10d", "send"): ("collective-permute", False),
+}
+
+
+def collective_bytes(func, args, kwargs, out) -> Optional[Tuple[str, float]]:
+    """(kind, bytes per device) of a collective op, or None: the
+    operand's bytes, or for an all-gather its result's (the reference's
+    ``hlo_walk._coll_bytes``).  c10d's in-place ops write into their
+    first argument (the output tensors) where they have one, and read
+    the next."""
+    hit = _COLLECTIVE_OPS.get((func.namespace, func.overloadpacket.__name__))
+    if hit is None:
+        return None
+    kind, by_result = hit
+    if func.namespace == "c10d":
+        has_out = by_result or kind in ("reduce-scatter", "all-to-all")
+        src = args[0] if by_result or not has_out else args[1]
+    else:
+        src = out if by_result else args[0]
+    return kind, float(sum(map(_nbytes, _tensors(src))))
+
+
 def op_flops(func, args, kwargs, out) -> float:
     f = flop_registry.get(func.overloadpacket)
     return float(f(*args, **kwargs, out_val=out)) if f is not None else 0.0
@@ -182,16 +230,60 @@ class Counter(TorchDispatchMode):
         self.scopes = scopes
         self.by_formula = by_formula
         self._suspended = 0
+        self._propagating = 0
+        self._dtensor = None
+        self._prop_meta = None
 
     def __enter__(self):
         if self.by_formula:
             self._token = _ACTIVE.set(_ACTIVE.get() + (self,))
+        self._watch_propagation(True)
         return super().__enter__()
 
     def __exit__(self, *exc):
         if self.by_formula:
             _ACTIVE.reset(self._token)
+        self._watch_propagation(False)
         return super().__exit__(*exc)
+
+    def _watch_propagation(self, on: bool) -> None:
+        """DTensor infers an op's global output shape by running the op on
+        global fake tensors (its sharding propagator's
+        ``_propagate_tensor_meta_non_cached``, on a cache miss): while
+        counting, that method is wrapped to mark those ops, so only the
+        local ops count.  The method is private to torch and the wrap is
+        on the class, so for the count's duration it marks the DTensor
+        work of every thread of the process; a torch without the method
+        raises here rather than count global shapes as local work
+        (``tests/test_torch_dryrun_mesh.py`` holds a DTensor op to its
+        local FLOPs)."""
+        if not torch.distributed.is_available():
+            return
+        from torch.distributed.tensor import DTensor
+        name = "_propagate_tensor_meta_non_cached"
+        try:
+            from torch.distributed.tensor._sharding_prop import \
+                ShardingPropagator
+            inner = getattr(ShardingPropagator, name)
+        except (ImportError, AttributeError) as e:
+            raise RuntimeError(
+                f"count: torch {torch.__version__} has no "
+                f"ShardingPropagator.{name}, so DTensor's global shape "
+                "inference cannot be told from its local ops") from e
+        self._dtensor = DTensor
+        if not on:
+            setattr(ShardingPropagator, name, self._prop_meta)
+            return
+        self._prop_meta = inner
+        counter = self
+
+        def marked(prop, *args, **kwargs):
+            counter._propagating += 1
+            try:
+                return inner(prop, *args, **kwargs)
+            finally:
+                counter._propagating -= 1
+        setattr(ShardingPropagator, name, marked)
 
     def add(self, flops: float, nbytes: float, name: str) -> None:
         c = self.costs
@@ -204,9 +296,22 @@ class Counter(TorchDispatchMode):
             c.by_scope_bytes[s] += nbytes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if self._dtensor is not None and any(
+                issubclass(t, self._dtensor) for t in types):
+            return NotImplemented        # DTensor runs it on local shards
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if self._suspended or func.namespace != "aten":
+        if self._suspended or self._propagating:
+            return out
+        if func.namespace != "aten":
+            coll = collective_bytes(func, args, kwargs, out)
+            if coll is not None:
+                kind, nbytes = coll
+                c = self.costs.coll
+                c[kind] = c.get(kind, 0.0) + nbytes
+                c["total"] = c.get("total", 0.0) + nbytes
+                c_ops = self.costs.ops
+                c_ops[str(func.overloadpacket)] += 1
             return out                   # prim.device and the like: free
         name = str(func.overloadpacket)
         if not func.is_view:

@@ -13,5 +13,6 @@ HBM_BYTES = 80e9               # device memory
 
 # NVLink 4 (data sheet: 900 GB/s of bidirectional bandwidth per GPU, so
 # 450e9 bytes/s each way): the collective term's denominator.  One card
-# moves nothing over it, so that term reads 0 at one device.
+# moves nothing over it, so that term reads 0 at one device; the
+# production meshes' counts divide by it as if every link were NVLink.
 NVLINK_BW = 450e9

@@ -110,8 +110,8 @@ Each holds its tiles of the parameters and pools
 (``serve_loop.paged_sharding_specs`` / ``cut_tiles``: the model axis is
 the last), replicated block tables and slot state, and runs the paged
 steps under ``serve_loop._shard_wrap``; the allocator, prefix index,
-tiers and drafter run on every rank alike, their host payloads full
-width.  Rank 0 takes the host decisions that depend on time or on what
+tiers and drafter run on every rank alike, each rank's host tier holding
+its own tiles (counted at full width, so every rank evicts alike).  Rank 0 takes the host decisions that depend on time or on what
 a stream happens to hold (``serve.lockstep``), so every rank emits the
 same streams and events.  As in the reference, the mesh is for the paged
 path only: a config with no page layout (dense slots, ssm, hybrid)
@@ -600,12 +600,7 @@ class ContinuousBatcher:
             params = cut_tiles(params, p_specs, self._sizes, coords)
         self.params = params
         if dist.get_world_size() > 1:
-            if self.overload == "reject":
-                raise ValueError(
-                    "overload='reject' sheds by each rank's own queue "
-                    "depth, which the ranks of a sharded serve cannot "
-                    "agree on; use overload='block' with mesh_shape")
-            self._lock = Lockstep()
+            self._lock = Lockstep(shed=self.overload == "reject")
 
     def _new_pools(self):
         """Zeroed page pools: this rank's tiles of them on a mesh."""
@@ -1749,7 +1744,8 @@ class ContinuousBatcher:
         At a full queue, ``overload="block"`` backpressures the producer
         and ``"reject"`` sheds with a typed ``queue_full`` rejection and
         returns False (a shed request does not count toward
-        ``retired``)."""
+        ``retired``).  On a sharded serve the shed is rank 0's
+        (``Lockstep.try_push``): every rank sheds the same requests."""
         reason = None
         conv = self.cfg.ssm_conv - 1
         if len(req.prompt) >= self.max_seq - 1:
@@ -1773,7 +1769,10 @@ class ContinuousBatcher:
         if req.deadline_ms is not None:
             self._deadlines_live = True
         if self.overload == "reject":
-            if not self.requests.TryPush(req):
+            pushed = (self._lock.try_push(self.requests, req)
+                      if self._lock is not None
+                      else self.requests.TryPush(req))
+            if not pushed:
                 self._fail_request(req, TerminalEvent.rejected(
                     req.rid, "queue_full"))
                 return False

@@ -39,13 +39,18 @@ allow-list of torch and builtin globals, and such a file fails with
 ``ValueError`` (a signature that names other dtypes) — never loads
 garbage.
 
-Sharded serving keeps every host payload full width: the engine
-gathers each rank's tiles over the model group before the host copy and
-cuts a full payload down to the rank's tile before the device copy
-(``CacheLayout.full_tile`` / ``local_tile``), so T1 entries, their byte
-counts and T2 snapshots are the same on every rank and on every mesh,
-and a snapshot one mesh wrote restores on another.  Only ``save``'s
-``write`` caller writes the file.
+Sharded serving keeps each rank's own tile on the host: the engine
+copies a rank's tiles of the pages to pinned memory and back, with no
+collective per transfer, so a tp-way serve pins the host tier's budget
+once in all (each rank a tp-th of it), as the reference's one
+controller does.  The store still counts every entry at full width
+(``CacheLayout.page_nbytes``, passed by ``demote``), so its LRU,
+evictions and the restore-or-recompute policy decide the same on every
+rank and on one process.  Only a T2 snapshot is full width: ``save``
+gathers the tiles over the model group (every rank joins; ``save``'s
+``write`` caller writes the file) and ``load`` cuts each payload to the
+rank's tile (``CacheLayout.full_tile`` / ``local_tile``), so a snapshot
+one mesh wrote restores on another and on one process.
 
 The recompute-vs-restore policy (``tier_restore_min_tokens``) lives in
 the batcher.
@@ -145,7 +150,9 @@ class StagedTransferEngine:
     when a ``ServeTelemetry`` is attached, observed into the
     ``serve_transfer_{gather,scatter}_seconds`` histograms.  ``group``
     is the model axis's process group of a sharded batcher: payloads
-    are gathered over it to full width and cut back to the tile.
+    are this rank's tiles, and ``d2h_bytes`` / ``h2d_bytes`` count the
+    bytes this rank copies (a tp-th of the full width).  ``KVTierManager``
+    gathers them over ``group`` only to write a snapshot.
     """
 
     def __init__(self, layout, faults: Optional[FaultPlan] = None,
@@ -180,12 +187,11 @@ class StagedTransferEngine:
         per pool leaf on the current stream, each followed by an event
         the copy stream waits on before it copies that leaf into a
         pinned buffer; the host waits once, for the last copy.  Leaves are
-        full width (the tiles gathered over ``group``)."""
+        this rank's tiles, as the pools hold them."""
         if not any(pages_by_group.values()):
             return {}                   # nothing to move: not a transfer
         self.faults.check("t1_d2h")
-        with manual_axis(self.group):
-            return self._gather_host(pools, pages_by_group)
+        return self._gather_host(pools, pages_by_group)
 
     def _gather_host(self, pools, pages_by_group):
         t0 = self._clock()
@@ -198,16 +204,15 @@ class StagedTransferEngine:
             leaves = pools[name]
             dev = next(iter(tree_leaves(leaves))).device
             idx = torch.as_tensor(list(pages), dtype=torch.int64, device=dev)
-            full = self.layout.full_tile
             if dev.type != "cuda":
-                out[name] = tree_map(lambda path, a: full(
-                    name, path, a.index_select(ax, idx)), leaves)
+                out[name] = tree_map(lambda _, a: a.index_select(ax, idx),
+                                     leaves)
                 continue
             cur = torch.cuda.current_stream(dev)
             side = self._stream(dev)
 
-            def stage(path, a):
-                g = full(name, path, a.index_select(ax, idx))
+            def stage(_, a):
+                g = a.index_select(ax, idx)
                 ev = torch.cuda.Event()
                 ev.record(cur)
                 host = torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
@@ -236,14 +241,13 @@ class StagedTransferEngine:
         card every payload leaf is staged onto the device on the copy
         stream (async H2D from pinned memory), the current stream waits
         on the copies' event, then one ``index_copy_`` per pool leaf runs
-        in stream order.  A full-width payload is cut to this rank's tile
-        on the host, before its copy.  Returns the pools dict (updated in
-        place)."""
+        in stream order.  Payloads are this rank's tiles (``gather_host``'s,
+        or a snapshot's cut by ``KVTierManager.load``).  Returns the pools
+        dict (updated in place)."""
         if not any(pages_by_group.get(name) for name in data_by_group):
             return pools                # nothing to move: not a transfer
         self.faults.check("t1_h2d")
-        with manual_axis(self.group):
-            return self._scatter_device(pools, data_by_group, pages_by_group)
+        return self._scatter_device(pools, data_by_group, pages_by_group)
 
     def _scatter_device(self, pools, data_by_group, pages_by_group):
         t0 = self._clock()
@@ -270,10 +274,7 @@ class StagedTransferEngine:
                 return d
 
             for name in names:
-                staged[name] = tree_map(
-                    lambda path, h, name=name: stage(
-                        path, self.layout.local_tile(name, path, h)),
-                    data_by_group[name])
+                staged[name] = tree_map(stage, data_by_group[name])
             copied = torch.cuda.Event()
             copied.record(side)
             cur.wait_event(copied)
@@ -318,6 +319,8 @@ class HostPageStore:
     so identical prefixes demoted by different batchers — or reloaded
     from a snapshot — unify.  ``put`` LRU-evicts until the new entry fits
     its byte budget; an entry larger than the whole budget is refused.
+    An entry's size is its caller's full-width count, whatever share of
+    it this rank holds, so every rank of a mesh evicts alike.
     Entries are host tensors only (no device page ids), so nothing here
     can strand a refcounted device page.
     """
@@ -353,8 +356,13 @@ class HostPageStore:
         e.stamp = self._tick()
         return e.data
 
-    def put(self, key, data: Dict[str, Any]) -> bool:
-        nbytes = sum(_tree_nbytes(t) for t in data.values())
+    def put(self, key, data: Dict[str, Any],
+            nbytes: Optional[int] = None) -> bool:
+        """Store ``data`` under ``key`` as an entry of ``nbytes`` (the
+        tier's callers pass the full-width count; None: the payload's own
+        bytes)."""
+        nbytes = int(sum(_tree_nbytes(t) for t in data.values())
+                     if nbytes is None else nbytes)
         if nbytes > self.budget:
             self.rejected += 1
             return False
@@ -423,7 +431,7 @@ class KVTierManager:
             self.store.rejected += 1
             return
         data = self.engine.gather_host(pools, pages_by_group)
-        if self.store.put(key, data):
+        if self.store.put(key, data, nbytes):
             self.demotions += 1
 
     # -- T1 -> T0 (promote on rehit) ------------------------------------------------
@@ -481,15 +489,17 @@ class KVTierManager:
         """Persist the T1 store to ``path``.  With the live ``index`` (and
         ``pools``) every device-resident cached prefix is flushed through
         ``demote`` first.  The write is atomic (tmp + rename) and the
-        payload is wrapped with its SHA-256.  ``write=False`` (a sharded
-        batcher's ranks but one) does all of it but the file: the demotes
-        are collectives, and the snapshot fault sites still count.
-        Returns entries written."""
+        payload is wrapped with its SHA-256.  Entries are written at full
+        width: on a mesh every rank gathers its tiles over the model group
+        (``write=False``, a sharded batcher's ranks but one, does all of it
+        but the file, and the snapshot fault sites still count).  Returns
+        entries written."""
         if index is not None and pools is not None:
             for path_tokens, pages in index.walk():
                 self.demote(path_tokens, pages, pools)
-        entries = [(key, e.data, e.stamp)
-                   for key, e in self.store.items_lru_order()]
+        with manual_axis(self.engine.group):
+            entries = [(key, self._full_width(e.data), e.stamp)
+                       for key, e in self.store.items_lru_order()]
         if not write:
             self.faults.fire("snapshot_corrupt")
             self.faults.fire("snapshot_truncate")
@@ -567,11 +577,47 @@ class KVTierManager:
                 f"snapshot was taken with a different cache dtype or "
                 f"architecture; restoring it would corrupt the pools")
         n = 0
-        for key, data, _stamp in payload["entries"]:
-            if self.store.put(key, data):
-                n += 1
+        with manual_axis(self.engine.group):
+            for key, data, _stamp in payload["entries"]:
+                nbytes = sum(_tree_nbytes(t) for t in data.values())
+                if self.store.put(key, self._tile(data), nbytes):
+                    n += 1
         self.snapshot_loaded += n
         return n
+
+    def _full_width(self, data: Dict[str, Any]) -> Dict[str, Any]:
+        """A T1 payload of this rank's tiles at full width, on the host:
+        the tiles gathered over the active model axis (through the card
+        when the group is NCCL's, which takes CUDA tensors only); the
+        payload itself without a model group."""
+        group = self.engine.group
+        if group is None:
+            return data
+        import torch.distributed as dist
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if dist.get_backend(group) == "nccl" else None)
+
+        def full(name, path, t):
+            if dev is None:
+                return self.layout.full_tile(name, path, t)
+            return self.layout.full_tile(name, path, t.to(dev)).cpu()
+        return {name: tree_map(lambda path, t, name=name: full(name, path, t),
+                               tree)
+                for name, tree in data.items()}
+
+    def _tile(self, data: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's tiles of a full-width payload (cut over the active
+        model axis, as copies: the full payload is not kept); the payload
+        itself without a model group."""
+        if self.engine.group is None:
+            return data
+
+        def cut(name, path, t):
+            tile = self.layout.local_tile(name, path, t)
+            return t if tile is t else tile.clone()
+        return {name: tree_map(lambda path, t, name=name: cut(name, path, t),
+                               tree)
+                for name, tree in data.items()}
 
     # -- observability ----------------------------------------------------------------
 

@@ -21,8 +21,21 @@ the batcher decides (admission, page allocation, preemption, drafts,
 tier policy, the fault plan's ordinals) is a function of those inputs
 and of the tokens, which the replicated step outputs make equal.
 
-Each decision is one broadcast of a few float64 values over the default
-group's backend: CPU tensors on gloo, CUDA tensors on NCCL.
+With ``overload="reject"`` the shed at a full queue is one more such
+decision (``try_push``): rank 0 tries its own queue and every rank's
+producer follows its outcome, pushing the request or failing it with
+the same ``queue_full`` rejection.  Producers run in threads of their
+own, beside the serving loop, so these decisions go over a process
+group of their own: the two threads' collectives never interleave on
+one group in different orders on different ranks.  That group is gloo
+over CPU tensors whatever the default backend is: a shed decision is
+host data, and two NCCL communicators driven from two threads in an
+order that may differ by rank can deadlock, so NCCL stays out of the
+producers' threads.  It is made only for ``overload="reject"``.
+
+Each decision of the loop is one broadcast of a few float64 values over
+the default group's backend: CPU tensors on gloo, CUDA tensors on
+NCCL.
 
 A rank that cannot follow (its producer is late past
 ``FOLLOW_TIMEOUT_S``, fed it another request, or closed its stream)
@@ -59,21 +72,27 @@ class LockstepError(RuntimeError):
 
 class Lockstep:
     """Rank 0 of the default process group decides, every rank
-    follows."""
+    follows.  ``shed``: the batcher sheds at a full queue
+    (``overload="reject"``), so ``try_push`` gets its gloo group."""
 
-    def __init__(self):
+    def __init__(self, shed: bool = False):
         import torch.distributed as dist
         self.rank = dist.get_rank()
         self.leader = self.rank == 0
         self._device = (torch.device("cuda", torch.cuda.current_device())
                         if dist.get_backend() == "nccl"
                         else torch.device("cpu"))
+        # the producers' group (every rank makes it here, in the same
+        # order, as ``new_group`` requires).
+        self._push_group = dist.new_group(backend="gloo") if shed else None
         self.now: Optional[float] = None
 
-    def _bcast(self, values: List[float]) -> List[float]:
+    def _bcast(self, values: List[float], group=None,
+               device=None) -> List[float]:
         import torch.distributed as dist
-        t = torch.tensor(values, dtype=torch.float64, device=self._device)
-        dist.broadcast(t, src=0)
+        t = torch.tensor(values, dtype=torch.float64,
+                         device=device or self._device)
+        dist.broadcast(t, src=0, group=group)
         return t.tolist()
 
     def tick(self, now: float, step_s: float, stalled: bool
@@ -127,6 +146,29 @@ class Lockstep:
         if got == _NONE:
             return None
         return r if self.leader else self._follow(stream, rid, at)
+
+    def try_push(self, stream, r) -> bool:
+        """Rank 0's ``stream.TryPush(r)``, from a producer's thread:
+        whether the request entered the queue, on every rank.  A rank
+        other than 0 then pushes it too (blocking: its loop takes the
+        same requests as rank 0's, so its queue is never the fuller)
+        or, like rank 0, sheds it.  A rank whose producer submits
+        another request than rank 0's at this point raises
+        ``LockstepError``."""
+        _check_rid(r)
+        if self._push_group is None:
+            raise RuntimeError("lockstep: try_push needs Lockstep(shed=True)")
+        ok = stream.TryPush(r) if self.leader else False
+        got, rid = self._bcast([float(ok), float(r.rid)], self._push_group,
+                               torch.device("cpu"))
+        if rid != r.rid:
+            raise LockstepError(
+                f"lockstep: rank {self.rank} submitted request {r.rid} where "
+                f"rank 0 submitted {int(rid)}; every rank's producer must "
+                "submit the same requests in the same order", request=r)
+        if got and not self.leader:
+            stream.Push(r)
+        return bool(got)
 
     def pop(self, stream, timeout: float):
         """Rank 0's ``stream.Pop(timeout)``: the request, None on a

@@ -2,8 +2,8 @@
 
 * ``make_serve_steps`` — the raw-logits prefill and dense decode the
   dry-run counts for the ``prefill_*`` / ``decode_*`` / ``long_*``
-  cells, with the dense slot cache as abstract tensors (one device:
-  the mesh waits for the tensor-parallel port).
+  cells, with the dense slot cache as abstract tensors, on one device
+  or on a ``DeviceMesh`` (DTensors, as ``train_loop.make_train_step``).
 * ``make_sampling_serve_steps`` — prefill/decode over dense slot caches
   that sample on the device (argmax at temperature 0, else a categorical
   of ``logits / T``) and return int32 token ids; ``greedy_generate``
@@ -52,33 +52,81 @@ from ..models.params import (Decl, abstract_params, param_specs,
 
 def make_serve_steps(cfg: ModelConfig, batch: int, max_seq: int,
                      mesh=None, fake_mode=None):
-    """(prefill, decode, abstract cache, None), as the reference's
-    ``make_serve_steps`` returns them with no mesh:
+    """(prefill, decode, abstract cache, shardings), as the reference's
+    ``make_serve_steps`` returns them:
 
     * ``prefill(params, batch_in)`` -> (last-position logits, cache)
     * ``decode(params, cache, tokens, pos)`` -> (logits, cache), the
       cache written in place
 
     The abstract cache is ``cache_decls(cfg, batch, max_seq)`` without
-    storage (fake tensors made in ``fake_mode``, else ``meta``).  A mesh
-    raises: the dense cache's steps on the production meshes are A13c
-    in ROADMAP.md, built on sharded serving (A13b)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_serve_steps on a mesh: the dense-cache steps on the "
-            "production meshes are A13c, built on sharded serving (A13b)")
-    ab_cache = abstract_params(registry.cache_decls(cfg, batch, max_seq),
-                               fake_mode)
+    storage (fake tensors made in ``fake_mode``, else ``meta``).  With no
+    mesh the shardings are None.  On a ``DeviceMesh`` they are
+    ``(param shardings, cache shardings)``: parameters placed by
+    ``registry.decls``' specs and the dense cache by
+    ``registry.cache_decls``' (the sequence dim split where the decl
+    names ``kv_seq`` or ``seq_sharded`` and the mesh axis divides it);
+    the steps take parameters and cache as DTensors so placed (a plain
+    tensor is placed on the way in) and a batch whose rows split over
+    ("pod", "data") only where they divide, as the reference's
+    ``in_shardings``.  Prefill's cache comes out in the cache's
+    placements and its logits, like decode's, with their rows so split
+    and the vocab whole.  The same code runs on gloo or NCCL ranks and on
+    the ``fake`` backend the dry-run counts on."""
+    cache_d = registry.cache_decls(cfg, batch, max_seq)
+    ab_cache = abstract_params(cache_d, fake_mode)
+    if mesh is None:
+        def prefill(params, batch_in):
+            return registry.forward(cfg, params, batch_in, mode="prefill",
+                                    cache_len=max_seq)
+
+        def decode(params, cache, tokens, pos):
+            return registry.forward(cfg, params, dict(tokens),
+                                    mode="decode", cache=cache, pos=pos)
+
+        return prefill, decode, ab_cache, None
+
+    def shard(_, spec):
+        return sharding.Sharding(mesh, spec)
+    p_sh = tree_map(shard, param_specs(registry.decls(cfg), mesh))
+    c_sh = tree_map(shard, param_specs(cache_d, mesh))
+    bspec = batch_spec(mesh, batch)
+
+    def rows(x):
+        """A batch leaf or logits: rows over the batch axes, the rest
+        whole."""
+        return sharding.Sharding(
+            mesh, sharding.P(*bspec, *([None] * (x.dim() - 1)))).place(x)
 
     def prefill(params, batch_in):
-        return registry.forward(cfg, params, batch_in, mode="prefill",
-                                cache_len=max_seq)
+        logits, cache = registry.forward(
+            cfg, sharding.place_tree(params, p_sh),
+            {k: rows(v) for k, v in batch_in.items()}, mode="prefill",
+            cache_len=max_seq)
+        return rows(logits), sharding.place_tree(cache, c_sh)
 
     def decode(params, cache, tokens, pos):
-        return registry.forward(cfg, params, dict(tokens), mode="decode",
-                                cache=cache, pos=pos)
+        logits, cache = registry.forward(
+            cfg, sharding.place_tree(params, p_sh),
+            {k: rows(v) for k, v in dict(tokens).items()}, mode="decode",
+            cache=sharding.place_tree(cache, c_sh), pos=pos)
+        return rows(logits), cache
 
-    return prefill, decode, ab_cache, None
+    return prefill, decode, ab_cache, (p_sh, c_sh)
+
+
+def batch_spec(mesh, batch: int):
+    """The serve steps' batch spec on ``mesh``: rows over ("pod", "data"),
+    each axis only where the rows still divide (the reference's
+    ``make_serve_steps``), one entry."""
+    axes, n = [], 1
+    for a in ("pod", "data"):
+        size = sharding.mesh_shape(mesh).get(a)
+        if size and batch % (n * size) == 0:
+            axes.append(a)
+            n *= size
+    return sharding.P(tuple(axes) if len(axes) > 1
+                      else (axes[0] if axes else None))
 
 
 def _sample_last(logits_last: torch.Tensor,

@@ -40,6 +40,16 @@ gemma3-12b's bf16 shapes at d 256: the local layers' ring of S == window
 == 1024 (positions before, at and past the wrap) and the global layers'
 flat 2048.
 
+B3's sequence-split mode (``key_offset``, ``partials``): each of three
+shards of a cache against the twin's partials (acc, m and l within 1e-4
+absolute and relative, fp32 sums in another order; a shard with no valid key m = NEG_INF,
+l = 0 exactly), the three combined in shard order against whole-cache
+B3 under its own rule, at qwen1p5-32b's widths (40 / 40 heads of 128),
+a GQA group, a band and fp32.  And the dense-cache serve steps on a
+(1, 1) mesh over a world-of-one NCCL group: the logits of a prefill and
+six decode steps equal the meshless steps' bit for bit, bf16 through B3
+and int8 with ``decode_seq_shard`` through B3 and B2.
+
 B7 (``tree_row_reduce``) bit for bit, both regimes (a warp per row; few
 long rows split over CTAs) and every vector edge: N = 2^k + 1, rows that
 break 16-byte alignment, an unaligned start, -0.0 rows for add, +-inf,
@@ -319,6 +329,84 @@ def test_dense_decode_kernel_matches_twin(card, kw):
     torch.cuda.synchronize()
     assert fa.flash_attention_decode.launches == before + 1
     _assert_attention_close(got, fa.flash_attention_decode_plain(**c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(hq=40, hkv=40, S=1536, pos=[1000 + i for i in range(8)]),
+    dict(S=1536, pos=[0, 511, 512, 513, 1023, 1024, 1535, 3000]),
+    dict(b=4, hq=8, hkv=2, S=1536, window=300, dtype=torch.float32,
+         pos=[100, 600, 1100, 1535]),
+    dict(b=2, hq=8, hkv=1, d=64, S=3 * 4096, pos=[4095, 12287]),
+], ids=["qwen-widths", "shard-edges", "band-f32", "long-mqa"])
+def test_dense_decode_sequence_shards_combine_to_the_whole(card, kw):
+    gen = torch.Generator(device=card).manual_seed(len(kw))
+    c = _dense_case(gen, card, **kw)
+    S, w = c["k"].shape[2], c["k"].shape[2] // 3
+    accs, mls = [], []
+    for i in range(3):
+        part = dict(c, k=c["k"][:, :, i * w:(i + 1) * w].contiguous(),
+                    v=c["v"][:, :, i * w:(i + 1) * w].contiguous(),
+                    key_offset=i * w, partials=True)
+        before = fa.flash_attention_decode.launches
+        acc, ml = fa.flash_attention_decode(**part)
+        torch.cuda.synchronize()
+        assert fa.flash_attention_decode.launches == before + 1
+        want_acc, want_ml = fa.flash_attention_decode_plain(**part)
+        empty = want_ml[..., 1] == 0
+        assert ((ml[..., 1] == 0) == empty).all()
+        assert (ml[..., 0][empty] == fa.NEG_INF).all()
+        assert (acc[empty] == 0).all()
+        torch.testing.assert_close(acc, want_acc, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(ml[~empty], want_ml[~empty], rtol=1e-4,
+                                   atol=1e-4)
+        accs.append(acc)
+        mls.append(ml)
+    got = fa.combine_decode_partials(torch.stack(accs), torch.stack(mls))
+    whole = fa.flash_attention_decode(**c)
+    _assert_attention_close(got.to(whole.dtype)[:, :, None], whole)
+
+
+@pytest.mark.cuda
+def test_serve_steps_on_a_one_device_mesh_equal_the_meshless_steps(card):
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get
+    from repro_torch.configs.base import smoke_variant
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.serve.serve_loop import make_serve_steps
+    if dist.is_initialized():
+        pytest.skip("a process group is up already")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_host_mesh((1, 1), ("data", "model"), device_type="cuda")
+        for kw in ({}, {"kv_cache_dtype": "int8", "decode_seq_shard": True}):
+            cfg = dataclasses.replace(smoke_variant(get("minitron-4b")),
+                                      decode_flash=True, **kw)
+            params = registry.init(cfg, 0, device=card)
+            gen = torch.Generator(device=card).manual_seed(3)
+            tok = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen,
+                                device=card)
+            logits = []
+            for m in (None, mesh):
+                pre, dec, _, _ = make_serve_steps(cfg, 4, 32, m)
+                with torch.no_grad():
+                    lg, cache = pre(params, {"tokens": tok})
+                    seen = [lg]
+                    for pos in range(16, 22):
+                        nxt = torch.argmax(
+                            seen[-1].full_tensor() if m is not None
+                            else seen[-1], -1)[:, -1:]
+                        lg, cache = dec(params, cache, {"tokens": nxt}, pos)
+                        seen.append(lg)
+                logits.append(torch.stack([
+                    t.full_tensor() if m is not None else t for t in seen]))
+            assert torch.equal(logits[0], logits[1]), kw
+    finally:
+        dist.destroy_process_group()
 
 
 def _bits(t):

@@ -14,7 +14,9 @@ copies kept) must lie within 2x too, but for decode, where the copies
 are most of the reference's traffic: there the raw ratio is 0.45 and is
 held above 0.4.  Also: ``num_active_params`` and ``input_specs`` equal to
 the reference's for every arch and shape, the reference's small-mesh
-dry-run test at one device, and the CLI."""
+dry-run test at one device, and the CLI at one device
+(``--one-device``; its production meshes are
+``tests/test_torch_dryrun_mesh.py``'s)."""
 
 import dataclasses
 import os
@@ -212,9 +214,12 @@ def _cli(*args):
 
 
 def test_cli_counts_a_full_size_cell():
-    r = _cli("--arch", "minitron-4b", "--shape", "decode_32k")
+    r = _cli("--arch", "minitron-4b", "--shape", "decode_32k",
+             "--one-device")
     assert r.returncode == 0, r.stdout + r.stderr
     assert "PASS minitron-4b × decode_32k × 1" in r.stdout
     assert "1 passed, 0 failed" in r.stdout
-    r = _cli("--all", "--multi-pod")
-    assert r.returncode != 0 and "A13b" in r.stderr
+    # one device or a production mesh, not both (the meshes' runs are
+    # tests/test_torch_dryrun_mesh.py's).
+    r = _cli("--all", "--multi-pod", "--one-device")
+    assert r.returncode == 2 and "not allowed with" in r.stderr
