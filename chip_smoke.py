@@ -5258,10 +5258,12 @@ def profile_serve_window(cfg, params, prompts, counts):
     ``torch.profiler`` window opened at the 16th decode or verify step
     and closed at the first step or chunk after it holds at least 12
     decode steps, a verify step and a chunk (or 64 calls): each kind of
-    ``serve.*`` range counts the calls of its kind in the window, B1's
-    wrapper counts a launch a layer inside each ``serve.decode_step`` and
-    ``serve.verify`` range and none inside a ``serve.prefill_chunk``
-    range (counted as each range opens and closes), and the profile holds
+    ``serve.*`` range counts the calls of its kind in the window (a
+    ``serve.decode_step`` range per ``step()`` call, a verify round's
+    ``serve.verify`` inside it), B1's wrapper counts a launch a layer
+    inside each ``serve.decode_step`` and ``serve.verify`` range and
+    none inside a ``serve.prefill_chunk`` range (counted as each host
+    span, the range's source, opens and closes), and the profile holds
     that many B1 kernels.
 
     Device ms per range: a kernel counts with the range whose start is
@@ -5273,7 +5275,6 @@ def profile_serve_window(cfg, params, prompts, counts):
     kernels over a long process, so these sums are a split, not a count.
     Returns the window's counts and each kind's device ms per range."""
     import bisect
-    import contextlib
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.batching import ContinuousBatcher, Request, drain
@@ -5290,20 +5291,27 @@ def profile_serve_window(cfg, params, prompts, counts):
     b1 = counts["flash_attention_decode_paged"]
     inside = dict.fromkeys(("serve.decode_step", "serve.verify",
                             "serve.prefill_chunk"), 0)
-    annotate = tel.annotate
+    tr = tel.spans
+    opened, close = {}, tr._close
+    open_ = tr.open
 
-    @contextlib.contextmanager
-    def counted(name, step=None):
-        before = b1.launches
-        with annotate(name, step):
-            yield
-        if win["open"] and not win["done"]:
-            inside[name] += b1.launches - before
+    def counted_open(name, *a, **kw):
+        sp = open_(name, *a, **kw)
+        opened[id(sp)] = b1.launches
+        return sp
 
-    tel.annotate = counted
+    def counted_close(sp, args):
+        t = close(sp, args)
+        before = opened.pop(id(sp), None)
+        if (before is not None and sp.name in inside and win["open"]
+                and not win["done"]):
+            inside[sp.name] += b1.launches - before
+        return t
+
+    tr.open, tr._close = counted_open, counted_close
 
     def taken():
-        return {"serve.decode_step": bat.steps - bat.spec_verify_steps,
+        return {"serve.decode_step": bat.steps,
                 "serve.verify": bat.spec_verify_steps,
                 "serve.prefill_chunk": bat.prefill_chunks}
 
@@ -5318,7 +5326,8 @@ def profile_serve_window(cfg, params, prompts, counts):
         elif win["open"]:
             win["calls"] += 1
             got = {k: v - win["at"][k] for k, v in taken().items()}
-            if win["calls"] >= 64 or (got["serve.decode_step"] >= 12
+            if win["calls"] >= 64 or (got["serve.decode_step"]
+                                      - got["serve.verify"] >= 12
                                       and got["serve.verify"] >= 1
                                       and got["serve.prefill_chunk"] >= 1):
                 torch.cuda.synchronize()
@@ -5338,7 +5347,7 @@ def profile_serve_window(cfg, params, prompts, counts):
     check(win["done"], f"the profiler window never closed: {win}")
     got = win["taken"]
     n_b1 = win["launches"]["flash_attention_decode_paged"]
-    want_b1 = (got["serve.decode_step"] + got["serve.verify"]) * cfg.n_layers
+    want_b1 = got["serve.decode_step"] * cfg.n_layers
     check(n_b1 == want_b1, f"B1 launches in the window {n_b1} != {want_b1}")
     spans = {k: [] for k in got}
     for ev in prof.events():

@@ -7,6 +7,8 @@ F5 datapack.py   typed wide data paths
 F6 shiftreg.py   shift registers with parallel taps
 F7 treereduce.py explicit balanced tree reduction
 health.py        liveness and straggler detection for supervisors
+trace.py         lifecycle events and nested host spans on one clock,
+                 anchored to the profiler's (serving and training)
 
 collectives.py   tree/ring schedules over a process group (F7 at mesh
                  level)

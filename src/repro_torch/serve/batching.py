@@ -96,10 +96,20 @@ takes lifecycle events (submit, admit with its prefix-hit and
 copy-on-write detail, prefill chunks, first token, tokens, speculation
 counts, preempt / spill / restore / resume, retire or the typed
 terminal, the recover journal) and the latency histograms, at the
-reference's sites behind one ``if`` each; with ``profile`` the three
-serving steps run inside ``torch.profiler`` ranges.  Each step's stamp
-is taken once the host holds the step's tokens, so on the card it
-covers the device's work, not only the launches.
+reference's sites behind one ``if`` each.  Its tracer also takes the
+loop's host spans: ``serve.iteration`` (one loop iteration, after the
+heartbeat) holding ``serve.admit``, ``serve.prefill_chunk`` and
+``serve.decode_step`` (the whole ``step()`` call, ``n_live`` its
+counter), which holds ``serve.grow`` (the block tables' growth),
+``serve.decode.launch`` (the host enqueuing the step's kernels),
+``serve.decode.wait`` (the host blocked on the device for the tokens)
+and ``serve.decode.emit`` (the hand-off and bookkeeping), or
+``serve.verify`` for a verify round; with ``profile`` each span is a
+``torch.profiler`` range of its name.  Each step's stamp is taken once
+the host holds the step's tokens, so on the card it covers the device's
+work, not only the launches.  The launch's two stamps also feed the
+step-rate model the SLA schedule projects with (wall time when nothing
+traces).
 
 Dense-slot mode switches the prefix cache, the tiers and speculation off,
 as the reference does.
@@ -147,7 +157,7 @@ from .serve_loop import (advance_slots, cut_tiles, local_decls,
                          make_chunk_prefill_step, make_paged_decode_step,
                          make_spec_verify_step, mesh_coords,
                          paged_sharding_specs, serving_mesh_for)
-from .telemetry import ServeTelemetry, _NULLCTX
+from .telemetry import ServeTelemetry
 
 _MIN_BUCKET = 8            # smallest prefill bucket (pad-to-power-of-two)
 _MIN_CHUNK = 16            # smallest auto-selected prefill chunk
@@ -379,6 +389,9 @@ class ContinuousBatcher:
         else:
             self._clock = time.monotonic
         self._telemetry = telemetry
+        # the host spans' tracer (``ServeTelemetry.spans``): None unless
+        # the telemetry traces or profiles.
+        self._tracer = telemetry.spans if telemetry is not None else None
         if telemetry is not None:
             telemetry.bind_clock(self._clock)
             telemetry.add_collector(self._sync_telemetry)
@@ -398,6 +411,9 @@ class ContinuousBatcher:
         self.tier_fault_limit = int(tier_fault_limit)
         self._ewma_step_s = 0.0      # smoothed decode-step wall time
         self._ewma_step_tok = 0.0    # smoothed tokens retired per step
+        # decode steps since the last prefill chunk (``run``'s
+        # interleave of chunks and steps).
+        self._decodes_since_chunk = 0
         # supervisor wiring (ServeSupervisor sets these).
         self._heartbeat = None
         self._supervised = False
@@ -1215,6 +1231,17 @@ class ContinuousBatcher:
         return True
 
     def _prefill_step(self) -> None:
+        """One chunk of the oldest mid-admission request
+        (``_prefill_chunk``), inside the ``serve.prefill_chunk`` span
+        when tracing."""
+        tr = self._tracer
+        if tr is None:
+            return self._prefill_chunk()
+        with tr.open("serve.prefill_chunk", owner=self._admitting[0].req.rid,
+                     number=self.prefill_chunks):
+            return self._prefill_chunk()
+
+    def _prefill_chunk(self) -> None:
         """Run ONE chunk of the oldest mid-admission request.  Chunks
         cover ``[start + c*chunk, ...)``.  ``prefill_exact`` swaps the
         final chunk for one pow2-bucketed pass over the whole remaining
@@ -1262,18 +1289,15 @@ class ContinuousBatcher:
         tel = self._telemetry
         t0 = tel.clock() if tel else 0.0
         try:
-            with (tel.annotate("serve.prefill_chunk",
-                               step=self.prefill_chunks)
-                  if tel else _NULLCTX):
-                (self.pools, self.last_tok, self.pos, self.remaining,
-                 self.active, tok0) = fn(
-                    self.params, self.pools, self.block_tab, self.last_tok,
-                    self.pos, self.remaining, self.active,
-                    torch.from_numpy(seg).to(dev),
-                    torch.full((1,), base, dtype=torch.int32, device=dev),
-                    torch.full((1,), last_in_chunk, dtype=torch.int32,
-                               device=dev),
-                    a.slot, final, a.plen, a.req.max_new, a.cache_offset)
+            (self.pools, self.last_tok, self.pos, self.remaining,
+             self.active, tok0) = fn(
+                self.params, self.pools, self.block_tab, self.last_tok,
+                self.pos, self.remaining, self.active,
+                torch.from_numpy(seg).to(dev),
+                torch.full((1,), base, dtype=torch.int32, device=dev),
+                torch.full((1,), last_in_chunk, dtype=torch.int32,
+                           device=dev),
+                a.slot, final, a.plen, a.req.max_new, a.cache_offset)
         except Exception as e:
             raise BatcherFault(e) from e
         if tel:
@@ -2120,30 +2144,39 @@ class ContinuousBatcher:
             n_draft[i] = len(d)
         dev = self.device
         tel = self._telemetry
-        tel_t0 = tel.clock() if tel else 0.0
-        t0 = time.monotonic()
+        tr = self._tracer
+        if tr is not None:
+            sp = tr.open("serve.verify")
+            t0 = sp.t0
+        else:
+            t0 = tel.clock() if tel else time.monotonic()
         try:
             # an injected verify fault fires AFTER scratch setup: the
             # unwind below must leave the allocator consistent.
             self._fault.check("verify")
-            with (tel.annotate("serve.verify") if tel else _NULLCTX):
-                (self.pools, self.last_tok, self.pos, self.remaining,
-                 self.active, out) = self._verify(
-                    self.params, self.pools, self.block_tab,
-                    torch.from_numpy(tokens).to(dev),
-                    torch.from_numpy(n_draft).to(dev),
-                    self.pos, self.remaining, self.active, *xfer)
+            (self.pools, self.last_tok, self.pos, self.remaining,
+             self.active, out) = self._verify(
+                self.params, self.pools, self.block_tab,
+                torch.from_numpy(tokens).to(dev),
+                torch.from_numpy(n_draft).to(dev),
+                self.pos, self.remaining, self.active, *xfer)
+            t1 = sp.close() if tr is not None else (
+                tel.clock() if tel else time.monotonic())
         except Exception as e:
             self._spec_unwind(swaps)
             raise BatcherFault(e) from e
-        dt = time.monotonic() - t0
-        out = out.cpu().numpy()                # the ONLY per-step transfer
-        t_round = 0.0
+        if tr is not None:
+            wait = tr.open("serve.decode.wait", at=t1)
+            out = out.cpu().numpy()
+            t_round = wait.close()
+            emit = tr.open("serve.decode.emit", at=t_round)
+        else:
+            out = out.cpu().numpy()            # the ONLY per-step transfer
+            t_round = tel.clock() if tel else 0.0
         if tel:
             # stamped after the host read (the reference stamps before
             # it): the round then ends when its tokens reach the host.
-            t_round = tel.clock()
-            tel.note_verify_round(tel_t0, t_round,
+            tel.note_verify_round(t0, t_round,
                                   n_drafting=int((n_draft > 0).sum()))
         preds, commit, finished = out[:k], out[k], out[k + 1]
         self._spec_resolve(swaps, commit)
@@ -2183,7 +2216,9 @@ class ContinuousBatcher:
         self.spec_verify_steps += 1
         self.steps += 1
         self.retired += done
-        self._note_rate(dt, committed)
+        self._note_rate(t1 - t0, committed)
+        if tr is not None:
+            emit.close()
         return done
 
     def _note_acceptance(self, i: int, nd: int, acc: int) -> None:
@@ -2222,13 +2257,27 @@ class ContinuousBatcher:
         step call is fatal and surfaces as ``BatcherFault``; under a
         ``ServeSupervisor`` the batcher journals, rebuilds and replays
         (``recover``).  Under ``reserve_decode`` every page was reserved
-        at admission, so no table grows."""
+        at admission, so no table grows.  When tracing, the call is the
+        ``serve.decode_step`` span."""
+        tr = self._tracer
+        if tr is None:
+            return self._decode_step(None)
+        with tr.open("serve.decode_step", owner=self.steps,
+                     number=self.steps) as sp:
+            return self._decode_step(sp)
+
+    def _decode_step(self, sp) -> int:
+        """``step``'s body; ``sp`` its span, None when not tracing."""
         if self._deadlines_live:
             self._cancel_expired_slots()
+        tr = self._tracer
         if self.paged and not self.reserve_decode:
+            grow = tr.open("serve.grow") if tr is not None else None
             for slot in range(self.n_slots):
                 if self._slot_req[slot] is not None:
                     self._grow_slot(slot)
+            if grow is not None:
+                grow.close()
         if all(r is None for r in self._slot_req):
             return 0
         if self.speculate_k:
@@ -2239,36 +2288,46 @@ class ContinuousBatcher:
                     return self._spec_step(drafts, swaps, xfer)
         n_live = sum(1 for r in self._slot_req if r is not None)
         tel = self._telemetry
-        tel_t0 = tel.clock() if tel else 0.0
-        t0 = time.monotonic()
+        # one pair of stamps around the launches feeds the span, the
+        # step histogram's start and the rate model.
+        if tr is not None:
+            sp.args = {"n_live": n_live}
+            launch = tr.open("serve.decode.launch")
+            t0 = launch.t0
+        else:
+            t0 = tel.clock() if tel else time.monotonic()
         try:
             self._fault.check("step")
-            with (tel.annotate("serve.decode_step", step=self.steps)
-                  if tel else _NULLCTX):
-                if self.paged:
-                    (self.pools, self.last_tok, self.pos, self.remaining,
-                     self.active, out) = self._step(
-                        self.params, self.pools, self.block_tab,
-                        self.last_tok, self.pos, self.remaining,
-                        self.active)
-                else:
-                    (self.cache, self.last_tok, self.pos, self.remaining,
-                     self.active, out) = self._step(
-                        self.params, self.cache, self.last_tok, self.pos,
-                        self.remaining, self.active)
+            if self.paged:
+                (self.pools, self.last_tok, self.pos, self.remaining,
+                 self.active, out) = self._step(
+                    self.params, self.pools, self.block_tab,
+                    self.last_tok, self.pos, self.remaining, self.active)
+            else:
+                (self.cache, self.last_tok, self.pos, self.remaining,
+                 self.active, out) = self._step(
+                    self.params, self.cache, self.last_tok, self.pos,
+                    self.remaining, self.active)
+            t1 = launch.close() if tr is not None else (
+                tel.clock() if tel else time.monotonic())
         except Exception as e:
             raise BatcherFault(e) from e
-        self._note_rate(time.monotonic() - t0, n_live)
-        out = out.cpu().numpy()                # the ONLY per-step transfer
-        t_step = 0.0
+        self._note_rate(t1 - t0, n_live)
+        if tr is not None:
+            wait = tr.open("serve.decode.wait", at=t1)
+            out = out.cpu().numpy()
+            t_step = wait.close()
+            emit = tr.open("serve.decode.emit", at=t_step)
+        else:
+            out = out.cpu().numpy()            # the ONLY per-step transfer
+            t_step = tel.clock() if tel else 0.0
         if tel:
             # stamped once the host holds the tokens, where the consumer
             # sees them.  The reference stamps right after its
             # asynchronous dispatch, before the read; on the card that
             # would time the launches only and leave the device's tail
             # out of the step histogram and every token stamp.
-            t_step = tel.clock()
-            tel.note_decode_step(tel_t0, t_step, n_live)
+            tel.note_decode_step(t0, t_step, n_live)
         toks, finished = out[0], out[1]
         done = 0
         for i, r in enumerate(self._slot_req):
@@ -2301,6 +2360,8 @@ class ContinuousBatcher:
                     tel.note_retire(r.rid, i)
         self.steps += 1
         self.retired += done
+        if tr is not None:
+            emit.close()
         return done
 
     def run(self, total_requests: int, *, poll_timeout: float = 1.0) -> None:
@@ -2318,41 +2379,21 @@ class ContinuousBatcher:
         request is errored (typed events, no consumer hangs) before it
         propagates; under a ``ServeSupervisor`` a ``BatcherFault``
         propagates as-is and the supervisor drives ``recover`` or
-        ``fail_inflight``."""
-        decodes_since_chunk = 0
+        ``fail_inflight``.  When tracing, each iteration after the
+        heartbeat is the ``serve.iteration`` span."""
+        self._decodes_since_chunk = 0
+        tr = self._tracer
         try:
             while self.retired < total_requests:
                 if self._heartbeat is not None:
                     self._heartbeat.beat("batcher")
-                if self._tick():
-                    raise BatcherFault(StallFault(
-                        "batcher run loop missed its heartbeat window"))
-                self.admit()
-                busy = any(r is not None for r in self._slot_req)
-                if self._admitting:
-                    if busy and decodes_since_chunk < self.prefill_interleave:
-                        self.step()
-                        decodes_since_chunk += 1
-                    else:
-                        self._prefill_step()
-                        decodes_since_chunk = 0
-                    continue
-                if busy:
-                    self.step()
-                    continue
-                if self._pending or self._preempted:
-                    continue       # waiting on pages; admit() retries
-                try:
-                    r = (self._follow(self._lock.pop, poll_timeout)
-                         if self._lock is not None
-                         else self.requests.Pop(timeout=poll_timeout))
-                except TimeoutError:
-                    continue
-                except StreamClosed:
+                if tr is None:
+                    closed = self._iterate(poll_timeout)
+                else:
+                    with tr.open("serve.iteration"):
+                        closed = self._iterate(poll_timeout)
+                if closed:
                     return
-                if r is None:
-                    continue
-                self._pending.appendleft(r)
         except BatcherFault as e:
             if not self._supervised:
                 self.fail_inflight(e.cause)
@@ -2361,6 +2402,46 @@ class ContinuousBatcher:
             if not self._supervised:
                 self.fail_inflight(e)
             raise
+
+    def _iterate(self, poll_timeout: float) -> bool:
+        """One iteration of ``run``'s loop: admit, then one prefill
+        chunk or one decode step, or wait for a request.  Returns True
+        when the request stream is closed."""
+        if self._tick():
+            raise BatcherFault(StallFault(
+                "batcher run loop missed its heartbeat window"))
+        tr = self._tracer
+        if tr is None:
+            self.admit()
+        else:
+            with tr.open("serve.admit"):
+                self.admit()
+        busy = any(r is not None for r in self._slot_req)
+        if self._admitting:
+            if busy and self._decodes_since_chunk < self.prefill_interleave:
+                self.step()
+                self._decodes_since_chunk += 1
+            else:
+                self._prefill_step()
+                self._decodes_since_chunk = 0
+            return False
+        if busy:
+            self.step()
+            return False
+        if self._pending or self._preempted:
+            return False       # waiting on pages; admit() retries
+        try:
+            r = (self._follow(self._lock.pop, poll_timeout)
+                 if self._lock is not None
+                 else self.requests.Pop(timeout=poll_timeout))
+        except TimeoutError:
+            return False
+        except StreamClosed:
+            return True
+        if r is None:
+            return False
+        self._pending.appendleft(r)
+        return False
 
 
 def drain(req: Request, timeout: float = 30.0) -> List[int]:

@@ -16,29 +16,30 @@ did this request's latency go?" with three layers:
   text exposition format 0.0.4; ``MetricsServer`` serves it from a
   stdlib ``http.server`` daemon thread (``/metrics``, ``/healthz``).
 
-* ``Tracer`` + ``ServeTelemetry`` — per-request lifecycle **trace
-  events** (submit -> admit[prefix-hit/CoW detail] -> prefill chunks ->
-  first token -> decode tokens w/ speculation accept counts ->
-  preempt/spill/restore -> retire or typed terminal).  Events are
-  stamped with the batcher's injectable ``self._clock`` — a
-  deterministic fake clock yields an exactly reconstructable trace (the
-  telemetry tests assert TTFT, per-chunk prefill times, inter-token
-  gaps, and speculation acceptance can be recomputed from the JSONL
-  alone).  Export as JSONL (one event per line) or as a Chrome
-  ``chrome://tracing`` / Perfetto-compatible trace (``to_chrome()``).
-  The supervisor/recovery path emits events under the same rid, so a
-  replayed request's trace stitches to its original.
+* ``Tracer`` (``core/trace.py``, re-exported here) + ``ServeTelemetry``
+  — per-request lifecycle **trace events** (submit -> admit[prefix-hit/
+  CoW detail] -> prefill chunks -> first token -> decode tokens w/
+  speculation accept counts -> preempt/spill/restore -> retire or typed
+  terminal) and the batcher's **host spans** (``serve.iteration`` and
+  its children: admit, the decode step's grow / launch / wait / emit,
+  prefill chunks, verify rounds).  Everything is stamped with the
+  batcher's injectable ``self._clock`` — a deterministic fake clock
+  yields an exactly reconstructable trace (the telemetry tests assert
+  TTFT, per-chunk prefill times, inter-token gaps, and speculation
+  acceptance can be recomputed from the JSONL alone).  Export as JSONL
+  (one event per line) or as a Chrome ``chrome://tracing`` /
+  Perfetto-compatible trace (``to_chrome()``).  The supervisor/recovery
+  path emits events under the same rid, so a replayed request's trace
+  stitches to its original.  With ``profile`` each host span is also a
+  ``torch.profiler.record_function`` range of its name
+  (``serve.decode_step#N``, ``serve.prefill_chunk#N``,
+  ``serve.verify``, ...), so a profile's device kernels line up with
+  the spans.
 
-* ``ServeTelemetry.annotate`` — ``torch.profiler.record_function``
-  ranges around the three serving steps (chunk prefill / decode /
-  verify), so a ``torch.profiler`` trace's device kernels line up with
-  the host spans.  Outside an active profiler a range costs one
-  function call.
-
-Everything here is stdlib apart from that profiler range; the hot-path
-contract is that a disabled batcher (``telemetry=None``) pays a single
-``if`` per instrumentation point and an enabled one pays two clock
-reads and a couple of list/dict operations per step.
+The hot-path contract is that a disabled batcher (``telemetry=None``)
+pays a single ``if`` per instrumentation point; an enabled one reads
+the clock once per span boundary and records a decode step's tokens as
+one run.
 
 ``percentile`` / ``percentiles`` are exact linear-interpolation
 percentiles over raw samples, matching numpy's default method.
@@ -47,15 +48,13 @@ percentiles over raw samples, matching numpy's default method.
 from __future__ import annotations
 
 import bisect
-import contextlib
-import json
 import math
 import threading
 import time
 from typing import (Any, Callable, Dict, Iterable, List, Optional,
                     Sequence, Tuple)
 
-from torch.profiler import record_function
+from ..core.trace import ENGINE_RID, Tracer
 
 __all__ = [
     "percentile", "percentiles", "DEFAULT_TIME_BUCKETS",
@@ -64,10 +63,6 @@ __all__ = [
     "render_labels", "validate_exposition", "parse_exposition",
     "ENGINE_RID",
 ]
-
-# Engine-level (not per-request) trace events carry this rid; Chrome
-# export maps it to its own track.
-ENGINE_RID = -1
 
 # Log-spaced latency bucket bounds in SECONDS, 100us..60s.  Wide enough
 # for TTFT under long-prompt admission, fine enough that smoke-scale
@@ -422,109 +417,6 @@ def validate_exposition(text: str) -> Dict[str, float]:
     return {n + (l or ""): v for n, l, v in samples}
 
 
-# --- trace events ----------------------------------------------------------------------
-
-
-class Tracer:
-    """Append-only structured event log, stamped with an injectable
-    clock.  Thread-safe (the producer thread submits while the batcher
-    thread decodes).  Two event phases, Chrome-compatible:
-
-    * ``"i"`` — instant event at ``ts``.
-    * ``"X"`` — complete span: ``ts`` is the start, ``dur`` the length.
-
-    Capped at ``max_events``; overflow drops new events and counts them
-    (``dropped``) instead of growing without bound."""
-
-    def __init__(self, clock: Optional[Callable[[], float]] = None,
-                 max_events: int = 1_000_000):
-        self.clock = clock or time.monotonic
-        self.max_events = int(max_events)
-        self.dropped = 0
-        self._events: List[Dict[str, Any]] = []
-        self._lock = threading.Lock()
-
-    def __len__(self) -> int:
-        return len(self._events)
-
-    def _append(self, e: Dict[str, Any]) -> None:
-        with self._lock:
-            if len(self._events) >= self.max_events:
-                self.dropped += 1
-                return
-            self._events.append(e)
-
-    def event(self, rid: int, name: str, ts: Optional[float] = None,
-              **args: Any) -> None:
-        e: Dict[str, Any] = {"ts": self.clock() if ts is None else ts,
-                             "rid": rid, "name": name, "ph": "i"}
-        if args:
-            e["args"] = args
-        self._append(e)
-
-    def span(self, rid: int, name: str, t0: float, t1: float,
-             **args: Any) -> None:
-        e: Dict[str, Any] = {"ts": t0, "dur": t1 - t0, "rid": rid,
-                             "name": name, "ph": "X"}
-        if args:
-            e["args"] = args
-        self._append(e)
-
-    def events(self, rid: Optional[int] = None) -> List[Dict[str, Any]]:
-        with self._lock:
-            evs = list(self._events)
-        if rid is None:
-            return evs
-        return [e for e in evs if e["rid"] == rid]
-
-    def clear(self) -> None:
-        with self._lock:
-            self._events.clear()
-            self.dropped = 0
-
-    # -- exports ------------------------------------------------------------------
-
-    def to_jsonl(self) -> str:
-        return "\n".join(json.dumps(e, sort_keys=True)
-                         for e in self.events())
-
-    def write_jsonl(self, path: str) -> int:
-        evs = self.events()
-        with open(path, "w") as f:
-            for e in evs:
-                f.write(json.dumps(e, sort_keys=True) + "\n")
-        return len(evs)
-
-    def to_chrome(self) -> Dict[str, Any]:
-        """``chrome://tracing`` / Perfetto trace: one pid for the serve
-        engine, one tid per request (engine-level events on tid 0).
-        Timestamps scale to microseconds as the format demands."""
-        out = []
-        for e in self.events():
-            tid = 0 if e["rid"] == ENGINE_RID else e["rid"] + 1
-            ce: Dict[str, Any] = {
-                "name": e["name"], "ph": e["ph"], "cat": "serve",
-                "ts": e["ts"] * 1e6, "pid": 0, "tid": tid,
-                "args": dict(e.get("args", {})),
-            }
-            ce["args"]["rid"] = e["rid"]
-            if e["ph"] == "X":
-                ce["dur"] = e["dur"] * 1e6
-            else:
-                ce["s"] = "t"              # instant scope: thread
-            out.append(ce)
-        return {"traceEvents": out, "displayTimeUnit": "ms"}
-
-    def write_chrome(self, path: str) -> int:
-        trace = self.to_chrome()
-        with open(path, "w") as f:
-            json.dump(trace, f)
-        return len(trace["traceEvents"])
-
-
-_NULLCTX = contextlib.nullcontext()
-
-
 # --- the serving telemetry facade ------------------------------------------------------
 
 
@@ -537,7 +429,13 @@ class ServeTelemetry:
     injectable clock into it so traces are deterministic under a fake
     clock.  Every ``note_*`` hook is called behind the batcher's
     ``if self._telemetry`` guard — a disabled batcher pays one ``if``
-    per site."""
+    per site.
+
+    ``tracer`` (with ``trace``) takes the lifecycle events and the
+    batcher's host spans; ``spans`` is the tracer the batcher opens its
+    spans on: ``tracer`` itself, or with ``profile`` alone one that
+    keeps no lifecycle, so the profiler's ranges still come from the
+    spans.  ``profile`` opens a ``torch.profiler`` range per span."""
 
     def __init__(self, clock: Optional[Callable[[], float]] = None,
                  trace: bool = True, registry: Optional[MetricsRegistry]
@@ -545,9 +443,10 @@ class ServeTelemetry:
                  profile: bool = False):
         self.clock = clock or time.monotonic
         self.metrics = registry or MetricsRegistry()
-        self.tracer: Optional[Tracer] = (
-            Tracer(self.clock, max_events) if trace else None)
-        self.profile = bool(profile)      # torch.profiler ranges
+        spans = (Tracer(self.clock, max_events, profile=profile)
+                 if trace or profile else None)
+        self.tracer: Optional[Tracer] = spans if trace else None
+        self.spans: Optional[Tracer] = spans
         self._collectors: List[Callable[[], None]] = []
         self._t_submit: Dict[int, float] = {}
         self._t_last_tok: Dict[int, float] = {}
@@ -583,8 +482,8 @@ class ServeTelemetry:
         """Adopt the batcher's injectable clock (the batcher calls this
         at construction so every stamp shares one time base)."""
         self.clock = clock
-        if self.tracer is not None:
-            self.tracer.clock = clock
+        if self.spans is not None:
+            self.spans.bind(clock)
 
     def add_collector(self, fn: Callable[[], None]) -> None:
         """Register a sync callback run before every registry read
@@ -629,17 +528,6 @@ class ServeTelemetry:
              **args: Any) -> None:
         if self.tracer is not None:
             self.tracer.span(rid, name, t0, t1, **args)
-
-    def annotate(self, name: str, step: Optional[int] = None):
-        """``torch.profiler.record_function`` range around a serving
-        step, named ``name`` or, when ``step`` is given, ``name#step``
-        (a profile's rows then line up with the host decode-step spans;
-        a range's arguments do not reach the profiler's events, so the
-        step rides in the name).  The shared null context when profiling
-        is off."""
-        if not self.profile:
-            return _NULLCTX
-        return record_function(name if step is None else f"{name}#{step}")
 
     # -- lifecycle hooks (called by the batcher stack) ------------------------------
 
@@ -686,7 +574,7 @@ class ServeTelemetry:
             if sub is not None:
                 args["ttft_s"] = ts - sub
             self.tracer.event(rid, "first_token", ts=ts, **args)
-            self.tracer.event(rid, "token", ts=ts, slot=slot, pos=pos)
+            self.tracer.token(rid, slot, pos, ts)
 
     def note_token(self, rid: int, slot: int, ts: float,
                    pos: int) -> None:
@@ -695,7 +583,7 @@ class ServeTelemetry:
             self.h_gap.observe(ts - last)
         self._t_last_tok[rid] = ts
         if self.tracer is not None:
-            self.tracer.event(rid, "token", ts=ts, slot=slot, pos=pos)
+            self.tracer.token(rid, slot, pos, ts)
 
     def note_decode_step(self, t0: float, t1: float,
                          n_live: int) -> None:

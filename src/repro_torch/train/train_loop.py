@@ -18,6 +18,14 @@ a DTensor rule runs on local shards (``sharding.local_region``).
 
 ``abstract_opt_state`` gives the dry-run the optimizer state without
 storage.
+
+With a ``core.trace.Tracer`` (``tracer=``) each step is the host span
+``train.step`` holding ``train.forward`` (``loss_fn``),
+``train.backward`` (``torch.autograd.grad``; both once per microbatch)
+and ``train.optimizer`` (``optimizer.update``); with the tracer's
+``profile`` each is a ``torch.profiler`` range.  The step returns
+before the device finishes, so its span ends with the launches; without
+a tracer the step reads no clock.
 """
 
 from __future__ import annotations
@@ -103,14 +111,20 @@ def _split_micro(batch, n: int):
     return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
-def value_and_grad(cfg: ModelConfig, params, batch):
+def value_and_grad(cfg: ModelConfig, params, batch, tracer=None):
     """(loss, gradients as a tree like ``params``, each in its
-    parameter's dtype)."""
+    parameter's dtype); with ``tracer`` the forward and the backward
+    are the spans ``train.forward`` and ``train.backward``."""
     with torch.enable_grad():
         live = tree_map(lambda _, p: p.detach().requires_grad_(), params)
+        fwd = tracer.open("train.forward") if tracer is not None else None
         loss, _ = loss_fn(cfg, live, batch)
         leaves = tree_leaves(live)
+        if tracer is not None:
+            bwd = tracer.open("train.backward", at=fwd.close())
         grads = torch.autograd.grad(loss, leaves)
+        if tracer is not None:
+            bwd.close()
     it = iter(grads)
     return loss.detach(), tree_map(lambda _, __: next(it), live)
 
@@ -122,7 +136,7 @@ def _batch_sharding(mesh, x) -> "SH.Sharding":
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainCfg = TrainCfg(),
-                    mesh=None):
+                    mesh=None, tracer=None):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
     with metrics ``loss``, ``grad_norm`` (0-d device tensors) and ``lr``.
 
@@ -144,7 +158,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainCfg = TrainCfg(),
     gradients are reduced to their parameters' placements — in bf16 with
     ``compress_grads``, so the data-axis reduction moves half the bytes
     — and ``optimizer.update`` updates the local shards.  Metrics are
-    plain tensors."""
+    plain tensors.  ``tracer`` (a ``core.trace.Tracer``) takes each
+    step's host spans, owned by the step's ordinal in this function."""
     if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
         raise TypeError(f"mesh: a torch DeviceMesh, got {type(mesh)}")
     if cfg.use_pallas and cfg.family in ("ssm", "hybrid"):
@@ -169,14 +184,25 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainCfg = TrainCfg(),
                     f"batch axes of the mesh ({n} shards)")
         return {k: _batch_sharding(mesh, v).place(v) for k, v in batch.items()}
 
+    taken = [0]
+
     def step(params, opt_state, batch):
+        if tracer is None:
+            return body(params, opt_state, batch)
+        taken[0] += 1
+        with tracer.open("train.step", owner=taken[0] - 1,
+                         number=taken[0] - 1):
+            return body(params, opt_state, batch)
+
+    def body(params, opt_state, batch):
         if tcfg.grad_accum > 1:
             if mesh is not None:
                 batch = {k: v.full_tensor() if SH.is_dtensor(v) else v
                          for k, v in batch.items()}
             grads, losses = None, []
             for mb in _split_micro(batch, tcfg.grad_accum):
-                loss_i, g = value_and_grad(cfg, params, place_batch(mb))
+                loss_i, g = value_and_grad(cfg, params, place_batch(mb),
+                                           tracer)
                 losses.append(loss_i)
                 if grads is None:
                     grads = tree_map(
@@ -188,7 +214,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainCfg = TrainCfg(),
                 acc.div_(tcfg.grad_accum)
             loss = torch.mean(torch.stack(losses))
         else:
-            loss, grads = value_and_grad(cfg, params, place_batch(batch))
+            loss, grads = value_and_grad(cfg, params, place_batch(batch),
+                                         tracer)
         if tcfg.compress_grads:
             grads = tree_map(lambda _, g: g.to(torch.bfloat16), grads)
         if mesh is not None:
@@ -197,8 +224,11 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainCfg = TrainCfg(),
             grads = tree_map(lambda path, g: g.redistribute(
                 mesh, tree_at(params, path).placements), grads)
             loss = loss.full_tensor()
+        upd = tracer.open("train.optimizer") if tracer is not None else None
         params, opt_state, metrics = opt.update(tcfg.opt, grads, opt_state,
                                                 params)
+        if upd is not None:
+            upd.close()
         metrics["loss"] = loss
         return params, opt_state, metrics
 

@@ -263,18 +263,27 @@ def test_heartbeat_injectable_clock():
 
 
 def test_annotate_is_a_profiler_range_only_when_profiling():
+    """A host span opens the profiler range of its name (``name#N``
+    with a number) only with ``profile``, nested as the spans are;
+    ``profile`` alone keeps spans and no lifecycle."""
     off = ServeTelemetry()
-    assert off.annotate("serve.verify") is off.annotate("serve.decode_step",
-                                                        step=3)
-    on = ServeTelemetry(profile=True)
+    assert off.spans is off.tracer and not off.spans.profile
+    with off.spans.open("serve.decode_step", number=3) as sp:
+        assert sp._range is None
+    assert ServeTelemetry(trace=False).spans is None
+    on = ServeTelemetry(trace=False, profile=True)
+    assert on.tracer is None and on.spans.profile
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        with on.annotate("serve.decode_step", step=3):
-            torch.ones(2).add_(1)
-        with on.annotate("serve.verify"):
+        with on.spans.open("serve.decode_step", number=3):
+            with on.spans.open("serve.decode.launch"):
+                torch.ones(2).add_(1)
+        with on.spans.open("serve.verify"):
             torch.ones(2).add_(1)
     names = [e.name for e in prof.events() if e.name.startswith("serve.")]
-    assert names == ["serve.decode_step#3", "serve.verify"]
+    assert names == ["serve.decode_step#3", "serve.decode.launch",
+                     "serve.verify"]
+    assert [s["parent"] for s in on.spans.spans()] == [-1, 0, -1]
 
 
 # --- the port's batcher ---------------------------------------------------------------
@@ -414,7 +423,8 @@ OFF_ON_CASES = {
 @pytest.mark.parametrize("case", list(OFF_ON_CASES))
 def test_telemetry_off_and_on_bit_identical(model, case):
     """Instrumentation never perturbs decode: a batcher with telemetry
-    (tracing and profiler ranges on) streams the tokens of one without."""
+    (tracing, host spans and profiler ranges on) streams the tokens of
+    one without, and its spans count its steps and chunks."""
     cfg, params = model
     c = dataclasses.replace(cfg, **OFF_ON_CASES[case])
     rng = np.random.default_rng(7)
@@ -437,13 +447,21 @@ def test_telemetry_off_and_on_bit_identical(model, case):
         assert lat["spill"]["count"] == bat_on.preemptions
     if "spec" in case:
         assert bat_on.spec_drafted == bat_off.spec_drafted
+    names = [sp["name"] for sp in tel.spans.spans()]
+    assert names.count("serve.decode_step") == \
+        names.count("serve.decode.wait") == bat_on.steps
+    assert names.count("serve.verify") == bat_on.spec_verify_steps
+    assert names.count("serve.prefill_chunk") == bat_on.prefill_chunks
+    assert names.count("serve.iteration") == names.count("serve.admit") > 0
 
 
 def test_profile_ranges_count_the_steps(model):
     """Under an active profiler every serving step sits in its range:
-    ``serve.decode_step#N`` once per decode step (N its step number),
-    ``serve.verify`` per verify round, ``serve.prefill_chunk#N`` per
-    chunk."""
+    ``serve.decode_step#N`` once per ``step()`` (N its step number),
+    holding ``serve.verify`` on a verify round and
+    ``serve.decode.launch`` on a plain one, ``serve.decode.wait`` on
+    both; ``serve.prefill_chunk#N`` per chunk; an ``serve.admit`` range
+    in every ``serve.iteration``."""
     cfg, params = model
     c = dataclasses.replace(cfg, **OFF_ON_CASES["paged prefix + spec"])
     prompts = [_motif_prompt(11), _motif_prompt(13)]
@@ -465,8 +483,13 @@ def test_profile_ranges_count_the_steps(model):
     assert [drain(r) for r in reqs] == plain
     names = [e.name for e in prof.events() if e.name.startswith("serve.")]
     decode = [n for n in names if n.startswith("serve.decode_step#")]
-    assert len(decode) == bat.steps - bat.spec_verify_steps >= 1
+    assert len(decode) == bat.steps >= 1
     assert names.count("serve.verify") == bat.spec_verify_steps >= 1
+    assert names.count("serve.decode.launch") == \
+        bat.steps - bat.spec_verify_steps >= 1
+    assert names.count("serve.decode.wait") == bat.steps
+    assert names.count("serve.admit") == names.count("serve.iteration") \
+        >= len(decode) + bat.prefill_chunks
     assert sum(n.startswith("serve.prefill_chunk#") for n in names) \
         == bat.prefill_chunks
     steps = sorted(int(n.split("#")[1]) for n in decode)
